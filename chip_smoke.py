@@ -14,11 +14,22 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 PyTorch call computing the same function
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
-                ``ServeEngine.generate``; every kernel's launch count must
-                move during that run
-  5. crosscheck the same model in float32 at B=2, S=32, 4 tokens on the
-                card and on the CPU (plain versions): equal greedy tokens,
-                logits within a stated tolerance
+                ``ServeEngine.generate``; the launch count of every kernel
+                of the static path must move during that run
+  5. continuous the same model serves a 24-request trace through
+                ``ServeEngine.serve`` on a page arena a quarter of full
+                provisioning (16 slots, 12 blocks of 32, 48 pages, prefix
+                sharing, chunks of 128):
+                at least one preemption and one prefix hit, every budget
+                served, the launch counts of the paged path's kernels
+                move, exactly one ``paged_gather_decode`` per layer in
+                every pure-decode iteration; iteration times, page
+                statistics and a profile of one pure-decode iteration
+  6. crosscheck the same model in float32 on the card and on the CPU
+                (plain versions): static B=2, S=32, 4 tokens with equal
+                greedy tokens and logits within a stated tolerance; then
+                4 requests continuously on 2 slots and a 3-page arena,
+                with equal tokens by rid and equal page and engine counters
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -69,25 +80,37 @@ def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int):
-    """Run fn ``iters`` times under torch.profiler (after one warm call);
-    returns (device ms per call summed over every CUDA kernel, kernel
-    launches per call, {kernel name: device ms per call})."""
+def device_profile(fn, iters: int, warm: bool = True, host: bool = False):
+    """Run fn ``iters`` times under torch.profiler (after one warm call,
+    unless ``warm`` is False); returns (device ms per call summed over
+    every CUDA kernel, kernel launches per call, {kernel name: device ms
+    per call}).  With ``host`` the host side is traced too and a fourth
+    item lists the host ops by self time: [(op, ms per call, calls per
+    call)], most expensive first (tracing inflates host times, so read
+    them as shares)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     by_name = {e.key: e.self_device_time_total / iters / 1e3
                for e in kernels}
-    return (sum(by_name.values()), sum(e.count for e in kernels) / iters,
-            by_name)
+    out = (sum(by_name.values()), sum(e.count for e in kernels) / iters,
+           by_name)
+    if not host:
+        return out
+    ops = sorted(((e.key, e.self_cpu_time_total / iters / 1e3,
+                   e.count / iters) for e in events
+                  if e.device_type == DeviceType.CPU), key=lambda t: -t[1])
+    return out + (ops,)
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -258,6 +281,62 @@ def check_rbmm_mxu(rng):
                 library=lambda: torch.matmul(a, wv.T))
 
 
+def check_paged_gather_decode(rng):
+    import torch
+    from repro_torch.kernels.paged_attn import ops, ref
+
+    def inputs(b, h, hkv, dh, page, nblk, pages, ring, lens=None):
+        """Random pages (trash page 0 included), a random table over the
+        arena with trash entries, ragged lengths (0 and >= ring among
+        them unless given)."""
+        dhp = (dh + 31) // 32
+        bt = rng.integers(0, pages + 1, (b, nblk)).astype(np.int32)
+        bt[-1, -1] = 0
+        if lens is None:
+            lens = rng.integers(0, ring + 20, (b,))
+            lens[0], lens[-1] = 0, ring + 5
+        th = rng.integers(-12, 12, (b, h)).astype(np.int32)
+        return (_words(rng, (b, h, dhp), dh),
+                _words(rng, (pages + 1, hkv, page, dhp), dh),
+                _words(rng, (pages + 1, hkv, dh, page // 32), page),
+                torch.from_numpy(bt).cuda(),
+                torch.from_numpy(np.asarray(lens, np.int32)).cuda(), ring,
+                torch.from_numpy(th).cuda())
+
+    f = lambda a, dh: (ops.paged_gather_decode(*a, d_h=dh),
+                       ref.paged_gather_decode_popcount(*a, d_h=dh))
+    for case, shape in {
+            "d_h=48 H=9/3": (3, 9, 3, 48, 32, 3, 6, 96),
+            "page=64 G=3": (3, 3, 1, 64, 64, 2, 4, 128),
+            "G=1 single block": (2, 4, 4, 32, 32, 1, 2, 32),
+            "G=2 page=64": (1, 6, 3, 32, 64, 2, 5, 128),
+            "ring 48 < nblk*page 64": (2, 2, 2, 32, 32, 2, 3, 48)}.items():
+        _same("paged_gather_decode", f"{case}, trash entries, lengths 0 "
+              f"and >= ring", *f(inputs(*shape), shape[3]))
+    # main path: 16 slots, H=9 over 3, d_h=64, 12 blocks of 32 over an
+    # arena of 96 pages, ragged lengths
+    b, h, hkv, dh, page, nblk, ring = 16, 9, 3, 64, 32, 12, 384
+    lens = rng.integers(0, ring, (b,))
+    a = inputs(b, h, hkv, dh, page, nblk, 96, ring, lens)
+    out, want = f(a, dh)
+    err = _same("paged_gather_decode", "main 16 slots H=9/3 d_h=64, 12 "
+                "blocks of 32, 96 pages", out, want)
+    # what this run's data needs: the pages up to each row's last valid
+    # column, once per KV head, and q, table, lengths, thresholds, output
+    last = np.minimum(lens, ring - 1)
+    pages_read = int((last // page + 1).sum()) * hkv
+    dhp, groups = dh // 32, h // hkv
+    page_bytes = 4 * (page * dhp + dh * page // 32)
+    moved = pages_read * page_bytes + nbytes(a[0], a[3], a[4], a[6], out)
+    word_ops = pages_read * (page * groups * dhp * 3 +
+                             groups * dh * (page // 32) * 3)
+    bnd, by = bound(moved, word_ops, SCALAR32_OPS)
+    return dict(err=err, bound_ms=bnd, bound_by=by,
+                kernel=lambda: ops.paged_gather_decode(*a, d_h=dh),
+                plain=lambda: ref.paged_gather_decode_popcount(*a, d_h=dh),
+                library=None)
+
+
 def check_sps_attention(rng):
     import torch
     from repro_torch.kernels.sps_attn import ops, ref
@@ -314,7 +393,14 @@ KERNEL_ROWS = {
     "sps_attention": (check_sps_attention,
                       "src/repro_torch/csrc/sps_attn.cu",
                       "src/repro/kernels/sps_attn/kernel.py:159"),
+    "paged_gather_decode": (check_paged_gather_decode,
+                            "src/repro_torch/csrc/paged_attn.cu",
+                            "src/repro/kernels/paged_attn/kernel.py:124"),
 }
+# the kernels each serving path must launch
+STATIC_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu", "sps_attention")
+PAGED_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu",
+              "paged_gather_decode")
 
 
 def phase_kernels():
@@ -398,10 +484,10 @@ def phase_serve():
             toks.max() >= cfg.vocab_size:
         raise AssertionError(f"serve: bad tokens {toks.shape} "
                              f"[{toks.min()}, {toks.max()}]")
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n in STATIC_PATH if launches[n] == 0]
     if idle:
         raise AssertionError(f"serve: kernels {idle} never launched on the "
-                             f"main path: {launches}")
+                             f"static path: {launches}")
     (t_pre, c_pre), (t_end, c_end) = marks[0], marks[-1]
     steps = SERVE_NEW - 1
     per_step = {n: (c_end[n] - c_pre[n]) / steps for n in launches}
@@ -418,7 +504,7 @@ def phase_serve():
     log(f"[serve] sample tokens {toks[0, :8].tolist()}")
     profile_decode(model, dparams, prompts,
                    1e3 * (t_end - t_pre) / steps)
-    return launches, dparams
+    return launches, model, dparams
 
 
 def profile_decode(model, dparams, prompts, step_ms: float) -> None:
@@ -437,16 +523,176 @@ def profile_decode(model, dparams, prompts, step_ms: float) -> None:
                 dparams, state["token"], state["caches"])
             state["token"] = lg.argmax(-1)
 
-        busy, launches, by_name = device_profile(step, iters=3)
+        busy, launches, by_name, host_ops = device_profile(
+            step, iters=3, host=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"[serve] decode step profile: device busy {busy:.3f} ms of "
         f"{step_ms:.2f} ms wall (idle share {1 - busy / step_ms:.3f}), "
         f"{launches:.0f} CUDA kernels per step")
     for name, ms in top:
         log(f"[serve]   {ms:.4f} ms/step  {name[:90]}")
+    log_host_ops("[serve]", host_ops)
 
 
-# -- phase 5: card vs CPU -----------------------------------------------------
+def log_host_ops(tag: str, host_ops) -> None:
+    """The host side of a profiled step: total self time, op calls and
+    the largest ops."""
+    log(f"{tag} host ops per step (traced): "
+        f"{sum(t for _, t, _ in host_ops):.2f} ms of self time in "
+        f"{sum(n for _, _, n in host_ops):.0f} op calls; the largest:")
+    for name, t, n in host_ops[:10]:
+        log(f"{tag}   {t:.3f} ms  {n:5.0f} calls  {name[:70]}")
+
+
+# -- phase 5: continuous ------------------------------------------------------
+
+CONT_TRACE = dict(n_requests=24, mean_prompt=96, max_prompt=256,
+                  mean_new=32, max_new=64, seed=SEED)
+# 16 slots, 12 blocks of 32 tokens, 48 pages (a quarter of 16 x 12: the
+# trace shares its 64-token system prompt, so half would never preempt),
+# chunks of 128
+CONT_SLOTS, CONT_PAGE, CONT_BLOCKS = 16, 32, 12
+CONT_PAGES, CONT_CHUNK = 48, 128
+
+
+class IterationProbe:
+    """The model, with a stamp at the start of every pooled forward the
+    engine runs: wall time and launch counts.  The engine copies each
+    iteration's sampled tokens to the host before the next one starts, so
+    the span between two stamps is one whole iteration, host work
+    included.  ``profile_after`` pure-decode iterations, one more runs
+    under torch.profiler (and is left out of the timings)."""
+
+    def __init__(self, model, profile_after=None):
+        self.model = model
+        self.stamps = []           # (kind, perf_counter, launch counts)
+        self.profile_after = profile_after
+        self.profile = None        # (busy ms, CUDA kernels, by name)
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _stamp(self, kind):
+        from repro_torch import kernels
+        self.stamps.append((kind, time.perf_counter(),
+                            kernels.launch_counts()))
+
+    def prefill_with_cache(self, *args, **kw):
+        self._stamp("mixed")
+        return self.model.prefill_with_cache(*args, **kw)
+
+    def decode_step(self, *args, **kw):
+        n = sum(1 for k, _, _ in self.stamps if k == "decode")
+        if self.profile is None and self.profile_after is not None and \
+                n >= self.profile_after:
+            self._stamp("profiled")
+            out = {}
+
+            def step():
+                out["r"] = self.model.decode_step(*args, **kw)
+            self.profile = device_profile(step, iters=1, warm=False,
+                                          host=True)
+            return out["r"]
+        self._stamp("decode")
+        return self.model.decode_step(*args, **kw)
+
+    def iterations(self, end_time, end_counts):
+        """[(kind, ms, {kernel: launches})] per iteration."""
+        marks = self.stamps + [("end", end_time, end_counts)]
+        return [(k, 1e3 * (t1 - t0), {n: c1[n] - c0[n] for n in c0})
+                for (k, t0, c0), (_, t1, c1) in zip(marks, marks[1:])]
+
+
+def continuous_requests(cfg):
+    """The trace's requests, every arrival at 0."""
+    from repro_torch.serve import trace
+    reqs = trace.as_requests(trace.generate_trace(trace.TraceConfig(
+        vocab=cfg.vocab_size, tenants=(trace.TenantSpec(
+            "default", system_prompt_len=64),), **CONT_TRACE)))
+    for r in reqs:
+        r.arrival_s = 0.0
+    return reqs
+
+
+def phase_continuous(model, dparams):
+    """Full-width smollm-135m through ``ServeEngine.serve`` on the paged
+    pool; returns the launch counts of the run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
+                                          ServeConfig, ServeEngine)
+    cfg = ServeConfig(num_slots=CONT_SLOTS, cache=CacheConfig(
+        paged=True, page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
+        num_pages=CONT_PAGES, prefix_share=True),
+        policy=PolicyConfig(prefill_chunk=CONT_CHUNK))
+    reqs = continuous_requests(model.cfg)
+    ServeEngine(model, dparams, cfg).serve(reqs[:2])          # warm-up
+    probe = IterationProbe(model, profile_after=8)
+    eng = ServeEngine(probe, dparams, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rep = eng.serve(reqs)
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    its = probe.iterations(t0 + total, launches)
+    short = [r.rid for r in reqs if len(res[r.rid]) != r.max_new_tokens]
+    if short:
+        raise AssertionError(f"continuous: requests {short} did not get "
+                             f"their budget (no EOS is set)")
+    if rep.preemptions < 1 or rep.prefix_hits < 1:
+        raise AssertionError(f"continuous: expected a preemption and a "
+                             f"prefix hit, got {rep.preemptions} and "
+                             f"{rep.prefix_hits}")
+    idle = [n for n in PAGED_PATH if launches[n] == 0]
+    if idle:
+        raise AssertionError(f"continuous: kernels {idle} never launched "
+                             f"on the paged path: {launches}")
+    dec = [(ms, c) for k, ms, c in its if k == "decode"]
+    mix = [(ms, c) for k, ms, c in its if k == "mixed"]
+    per_layer = {c["paged_gather_decode"] for _, c in dec}
+    if per_layer != {model.cfg.num_layers}:
+        raise AssertionError(f"continuous: paged_gather_decode launches "
+                             f"per pure-decode iteration {per_layer}, not "
+                             f"{model.cfg.num_layers}")
+    tokens = sum(len(t) for t in res.values())
+    ms = lambda rows: [m for m, _ in rows]
+    prompt = sum(len(r.tokens) for r in reqs)
+    log(f"[continuous] {len(reqs)} requests ({prompt} prompt tokens, "
+        f"{tokens} generated), {CONT_SLOTS} slots, "
+        f"{CONT_PAGES} pages of {CONT_PAGE} "
+        f"({CONT_PAGES / (CONT_SLOTS * CONT_BLOCKS):.2f} of {CONT_SLOTS} x "
+        f"{CONT_BLOCKS}), chunks of {CONT_CHUNK}: {total:.3f} s, "
+        f"{tokens / total:.1f} tok/s")
+    log(f"[continuous] iterations: {len(dec)} pure-decode, median "
+        f"{np.median(ms(dec)):.2f} ms, mean {np.mean(ms(dec)):.2f} ms; "
+        f"{len(mix)} mixed, median {np.median(ms(mix)):.2f} ms, mean "
+        f"{np.mean(ms(mix)):.2f} ms; 1 profiled (not timed)")
+    mix_mean = {n: float(np.mean([c[n] for _, c in mix])) for n in launches}
+    log(f"[continuous] launches per pure-decode iteration "
+        f"{json.dumps(dec[0][1])}; per mixed iteration (mean) "
+        f"{json.dumps(mix_mean)}")
+    log(f"[continuous] preemptions {rep.preemptions:.0f}, peak page "
+        f"utilization {rep.peak_page_utilization:.3f}, prefix hit rate "
+        f"{rep.prefix_hit_rate:.3f} ({rep.prefix_hits:.0f} of "
+        f"{rep.prefix_lookups:.0f}), COW copies {rep.cow_copies:.0f}, "
+        f"pages freed {rep.pages_freed_retire:.0f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, arena and "
+        f"tables {rep.total_bytes / 2**20:.2f} MiB, peak mapped pages "
+        f"{rep.peak_page_bytes / 2**20:.2f} MiB")
+    busy, n_kernels, by_name, host_ops = probe.profile
+    step_ms = float(np.median(ms(dec)))
+    log(f"[continuous] pure-decode iteration profile: device busy "
+        f"{busy:.3f} ms of {step_ms:.2f} ms wall (idle share "
+        f"{1 - busy / step_ms:.3f}), {n_kernels:.0f} CUDA kernels")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[continuous]   {t:.4f} ms  {name[:90]}")
+    log_host_ops("[continuous]", host_ops)
+    return launches
+
+
+# -- phase 6: card vs CPU -----------------------------------------------------
 
 CROSS_B, CROSS_S, CROSS_NEW = 2, 32, 4
 CROSS_ATOL = 2e-3   # float32 logits; sums differ in order between devices
@@ -502,6 +748,55 @@ def phase_crosscheck(dparams):
     log(f"[crosscheck] float32 B={CROSS_B} S={CROSS_S} {CROSS_NEW} tokens: "
         f"card == CPU tokens {tok_card.tolist()}, max |logit diff| "
         f"{diff:.3g} <= {CROSS_ATOL}")
+    crosscheck_continuous(model, dparams, on_cpu)
+
+
+# continuous card-vs-CPU: two requests share a 32-token page (a prefix
+# hit), two fit one page at admission and both outgrow it on a 3-page
+# arena (a preemption); chunks of 32 split the longer prompts
+CROSS_CONT_NEW = 6
+CROSS_CONT_COUNTERS = ("preemptions", "prefix_hits", "prefix_lookups",
+                       "cow_copies", "pages_freed_retire", "iterations",
+                       "prefill_chunks", "prefill_batches",
+                       "peak_page_utilization")
+
+
+def crosscheck_continuous(model, dparams, on_cpu):
+    import torch
+    from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
+                                          Request, ServeConfig, ServeEngine)
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, model.cfg.vocab_size, 32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, model.cfg.vocab_size, n)]) for n in (2, 8)] + [
+        rng.integers(0, model.cfg.vocab_size, n) for n in (30, 29)]
+    cfg = ServeConfig(num_slots=2, cache=CacheConfig(
+        paged=True, page_size=32, max_blocks=2, num_pages=3),
+        policy=PolicyConfig(prefill_chunk=32))
+    runs = {}
+    for dev, params in (("cuda", dparams), ("cpu", on_cpu)):
+        reqs = [Request(rid=i, tokens=p.astype(np.int32),
+                        max_new_tokens=CROSS_CONT_NEW)
+                for i, p in enumerate(prompts)]
+        with torch.inference_mode():
+            runs[dev] = ServeEngine(model, params, cfg,
+                                    device=dev).serve(reqs)
+    (res_card, rep_card), (res_cpu, rep_cpu) = runs["cuda"], runs["cpu"]
+    bad = [rid for rid in res_cpu
+           if not np.array_equal(res_card[rid], res_cpu[rid])]
+    counters = {k: (rep_card[k], rep_cpu[k]) for k in CROSS_CONT_COUNTERS}
+    if bad or sorted(res_card) != sorted(res_cpu) or \
+            any(a != b for a, b in counters.values()):
+        raise AssertionError(f"crosscheck continuous: tokens differ for "
+                             f"rids {bad}, counters (card, CPU) {counters}")
+    if rep_cpu.preemptions < 1 or rep_cpu.prefix_hits < 1:
+        raise AssertionError(f"crosscheck continuous: expected a "
+                             f"preemption and a prefix hit: {counters}")
+    log(f"[crosscheck] float32 continuous, 4 requests on 2 slots and 3 "
+        f"pages: card == CPU tokens by rid "
+        f"{ {rid: res_cpu[rid].tolist() for rid in sorted(res_cpu)} }; "
+        f"equal counters "
+        f"{json.dumps({k: a for k, (a, _) in counters.items()})}")
 
 
 def main() -> int:
@@ -519,9 +814,10 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernels()
-    launches, dparams = phase_serve()
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    static, model, dparams = phase_serve()
+    paged = phase_continuous(model, dparams)
+    for name in rows:
+        rows[name]["launches"] = static[name] + paged[name]
     phase_crosscheck(dparams)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

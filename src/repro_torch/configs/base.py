@@ -43,6 +43,9 @@ class BinaryConfig:
     attn_mode: str = "sps"
     gather_bits_collectives: bool = False
     moe_dispatch_bits: bool = False
+    # kept for equality with the JAX config; the port does not read it:
+    # its paged decode always runs the paged_gather_decode kernel (the
+    # JAX package's two branches give the same integers)
     paged_kernel: bool = False
     binarize_embeddings: bool = False
     ffn_block_r: int = 0

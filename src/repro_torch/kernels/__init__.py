@@ -9,6 +9,7 @@ Each kernel keeps the JAX package's three-part contract:
   rbmm/      Eq. 7 integer RBMM, xnor and and_dc     (csrc/rbmm.cu)
   rbmm_mxu/  binary values x packed ±1 weights, MMA  (csrc/rbmm_mxu.cu)
   sps_attn/  fused causal SPS attention, GQA-aware   (csrc/sps_attn.cu)
+  paged_attn/ decode attention over the page arena    (csrc/paged_attn.cu)
 
 Dispatch goes by the device of the operands, never by a switch: CUDA
 tensors launch the kernel (or the wrapper raises), CPU tensors take the
@@ -44,6 +45,7 @@ KERNELS = {
     "rbmm_int": ("rbmm", "rbmm_int"),
     "rbmm_mxu": ("rbmm_mxu", "rbmm_mxu"),
     "sps_attention": ("sps_attn", "sps_attention_gqa"),
+    "paged_gather_decode": ("paged_attn", "paged_gather_decode"),
 }
 
 _lib: Optional[ctypes.CDLL] = None

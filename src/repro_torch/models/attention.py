@@ -6,17 +6,26 @@
                   -> fused causal SPS attention (sps_attention kernel) ->
                   context binarization -> output projection; also builds
                   the contiguous binary ring cache.
-  deploy_decode   one token per sequence against the ring: K packed along
-                  d_h, V^T packed along the ring, probabilities packed in
-                  flight; score and context both run on the rbmm_int kernel
-                  (xnor, then and_dc).
+  deploy_decode   one token per sequence.  On a contiguous ring (K packed
+                  along d_h, V^T packed along the ring, probabilities
+                  packed in flight) score and context run on the rbmm_int
+                  kernel (xnor, then and_dc); on a ``PagedKVCache`` the new
+                  bits are written through the block table and the
+                  paged_gather_decode kernel attends over the pages.
+  deploy_prefill_chunk
+                  a chunk of queries continuing sequences whose prefix
+                  already lives in a ring or a page arena: prefix scores on
+                  the rbmm_int kernel, probabilities packed by the pack
+                  kernel, context as the and_dc rbmm_int; the intra-chunk
+                  causal block is an integer-exact float32 matmul; then the
+                  chunk's bits are written.
 
-Decode always reads the cache grouped by KV head (the query heads of one
-group are the rows of one RBMM against their KV head's ring) — the same
-integers as repeating K/V to every head, without the copy.  Supports GQA,
-RoPE and the ``layer`` / ``head`` SPS threshold granularities; ``row``,
-sliding windows, cross-attention, chunked prefill, speculation and paging
-are not ported yet.
+Attention reads caches grouped by KV head (the query heads of one group
+are the rows of one RBMM against their KV head's ring) — the same integers
+as repeating K/V to every head, without the copy.  Caches are updated IN
+PLACE (the JAX package returns new arrays).  Supports GQA, RoPE and the
+``layer`` / ``head`` SPS threshold granularities; ``row``, sliding
+windows, cross-attention and speculation are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import torch
 
 from repro_torch.core import packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
+from repro_torch.kernels.paged_attn import ops as paged_ops
+from repro_torch.kernels.paged_attn import ref as paged_ref
 from repro_torch.kernels.sps_attn import ops as sps_ops
 from repro_torch.models.linear import BinaryDense, act_bits_packed
 
@@ -58,6 +69,85 @@ class KVCache(NamedTuple):
     k_bits: torch.Tensor
     vt_bits: torch.Tensor
     length: torch.Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Paged binary KV cache: a page arena plus per-sequence block tables.
+
+    Token position t occupies logical ring slot s = t % ring_len, which
+    resolves to page ``block_table[b, s // page_size]``, offset
+    ``s % page_size``.  Physical page 0 is the trash page: unmapped table
+    entries are 0, so decode writes of free pool slots land there.
+
+      k_pages:     (P+1, Hkv, page_size, ceil(dh/32)) int32 words
+      vt_pages:    (P+1, Hkv, dh, page_size/32) int32 words
+      block_table: (B, num_blocks) int32 physical page ids (0 = unmapped)
+      length:      (B,) int32 tokens written per sequence
+      ring_len:    logical ring length, a Python int (the JAX package holds
+                   a 0-d array; it is fixed when the cache is built, and a
+                   host int spares a device read on every launch)
+    """
+    k_pages: torch.Tensor
+    vt_pages: torch.Tensor
+    block_table: torch.Tensor
+    length: torch.Tensor
+    ring_len: int
+
+
+def _check_page_size(page_size: int) -> None:
+    """A positive multiple of the 32-bit packing word, so V^T packing never
+    straddles pages."""
+    if page_size <= 0 or page_size % packing.WORD:
+        raise ValueError(
+            f"page_size must be a positive multiple of the packing "
+            f"word ({packing.WORD}), got {page_size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PageSpec:
+    """Sizing of paged caches (validated on construction).
+
+    page_size:  tokens per page, a positive multiple of 32.
+    max_blocks: block-table width; capacity is ``max_blocks * page_size``.
+    num_pages:  usable arena pages of the full-capacity ring group; 0 means
+                fully provisioned (num_slots * max_blocks).
+    """
+    page_size: int = 32
+    max_blocks: int = 1
+    num_pages: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    @property
+    def capacity(self) -> int:
+        return self.max_blocks * self.page_size
+
+    def ring_for(self, window: int) -> int:
+        """Logical ring length of a layer: its window, or the capacity."""
+        return min(window or self.capacity, self.capacity)
+
+    def blocks_for_ring(self, ring_len: int) -> int:
+        return -(-ring_len // self.page_size)
+
+    def arena_pages(self, ring_len: int, num_slots: int) -> int:
+        """Usable pages of a ring group's arena: ``num_pages`` for the
+        full-capacity group, fully provisioned otherwise.  The host-side
+        ``PageArena`` and ``init_paged_cache`` both size from here."""
+        if self.num_pages and ring_len == self.capacity:
+            return self.num_pages
+        return num_slots * self.blocks_for_ring(ring_len)
+
+    def validate(self) -> None:
+        _check_page_size(self.page_size)
+        if self.max_blocks < 1:
+            raise ValueError(f"max_blocks must be >= 1, got "
+                             f"{self.max_blocks}")
+        if self.num_pages and self.num_pages < self.max_blocks:
+            raise ValueError(
+                f"num_pages ({self.num_pages}) < max_blocks "
+                f"({self.max_blocks}): one full-capacity sequence must fit "
+                f"the arena or admission deadlocks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +319,159 @@ class SPSAttention:
         length = torch.full((b,), s, dtype=torch.int32, device=dev)
         return KVCache(kc, packing.pack_bits(v_ring), length)
 
+    # -- chunked prefill (cache continuation) ---------------------------------
+
+    def _grouped(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, H, C, X) -> (B, Hkv, G*C, X): the query rows of a KV group
+        become the rows of one RBMM against that KV head."""
+        b, _, c, x = t.shape
+        return t.reshape(b, self.num_kv_heads, self.groups * c, x)
+
+    def _chunk_attend(self, params: Params, q_bits: torch.Tensor,
+                      k_bits: torch.Tensor, v_bits: torch.Tensor,
+                      kc_old: torch.Tensor, vc_old: torch.Tensor,
+                      start: torch.Tensor, valid: torch.Tensor,
+                      ring: int) -> torch.Tensor:
+        """A chunk of queries (B,H,C,dhp) over the cached prefix plus the
+        chunk's own keys.  kc_old/vc_old is the packed K / V^T ring view
+        holding the first ``start[b]`` tokens (ring slot s holds token
+        ``start-1 - ((start-1-s) mod ring)``); k_bits (B,Hkv,C,dhp) and
+        v_bits (B,Hkv,C,dh) bool are the chunk's own.  SPS has no softmax
+        state, so the two blocks add as integers.  Chunk rows at/after
+        ``valid[b]`` are pad: masked out of every real row."""
+        b, h, c_len, _ = q_bits.shape
+        hkv, g, dh = self.num_kv_heads, self.groups, self.head_dim
+        w = kc_old.shape[2]
+        dev = q_bits.device
+        th = self._theta_int(params).reshape(hkv, g, 1, 1)
+        qg = self._grouped(q_bits)                           # (B,Hkv,G*C,dhp)
+        # cached prefix: which token each ring slot holds
+        s_idx = torch.arange(w, device=dev)[None, :]
+        st = start[:, None]
+        t_old = st - 1 - torch.remainder(st - 1 - s_idx, ring)   # (B, W)
+        m_pre = (t_old >= 0) & (s_idx < ring)
+        c_pre = rbmm.rbmm_int(qg, kc_old, dh, scheme="xnor",
+                              impl=self._score_impl())      # (B,Hkv,G*C,W)
+        th_rows = th.expand(hkv, g, c_len, 1).reshape(hkv, g * c_len, 1)
+        probs_p = (pack_ops.pack_threshold(c_pre, th_rows) &
+                   packing.pack_bits(m_pre)[:, None, None, :])
+        # context = 2*popcount(P & V^T) - nnz(P): the and_dc RBMM with
+        # k = W, whose derived dc = W - nnz cancels the -W
+        ctx = rbmm.rbmm_int(probs_p, vc_old, w, scheme="and_dc",
+                            impl="popcount")                # (B,Hkv,G*C,dh)
+        # intra-chunk causal block
+        c_in = rbmm.rbmm_int(qg, k_bits, dh, scheme="xnor",
+                             impl=self._score_impl())       # (B,Hkv,G*C,C)
+        i_idx = torch.arange(c_len, device=dev)
+        m_in = ((i_idx[:, None] >= i_idx[None, :])[None] &
+                (i_idx[None, None, :] < valid[:, None, None]))  # (B,C,C)
+        probs_in = ((c_in.reshape(b, hkv, g, c_len, c_len) >= th) &
+                    m_in[:, None, None])
+        s_v = torch.where(v_bits, 1.0, -1.0)                 # (B,Hkv,C,dh)
+        # integer-exact: {0,1} x ±1 sums of at most C terms in float32
+        ctx_in = torch.matmul(
+            probs_in.reshape(b, hkv, g * c_len, c_len).to(torch.float32),
+            s_v)
+        ctx = ctx + ctx_in.to(torch.int32)
+        return ctx.reshape(b, h, c_len, dh)
+
+    def _cache_ring_view(self, cache) -> Tuple[torch.Tensor, torch.Tensor,
+                                                int]:
+        """(kc, vc, ring): the contiguous ring tensors themselves, or the
+        block-table gather of a ``PagedKVCache`` (a contiguous copy, as
+        the kernels take it) laid out so logical ring slot s is column
+        s."""
+        if not isinstance(cache, PagedKVCache):
+            return cache.k_bits, cache.vt_bits, cache.k_bits.shape[2]
+        kc, vc = paged_ref.gather_ring_view(cache.k_pages, cache.vt_pages,
+                                            cache.block_table)
+        return kc.contiguous(), vc.contiguous(), cache.ring_len
+
+    def _write_chunk(self, cache, k_bits: torch.Tensor,
+                     v_bits: torch.Tensor, start: torch.Tensor,
+                     valid: torch.Tensor, vc_old: torch.Tensor):
+        """Commit the chunk's K/V bits into the ring, in place (select,
+        last writer wins).  Slot s takes chunk token t_new = the largest
+        t < start+valid with t % ring == s, IF that token is the chunk's
+        (>= start); other slots keep their contents.  Rows with
+        valid == 0 write nothing and keep their length.  ``vc_old`` is
+        the V^T ring view read before any write.  Returns the cache with
+        ``length = start + valid`` where anything was written."""
+        b, hkv, c_len, dhp = k_bits.shape
+        dh = self.head_dim
+        dev = k_bits.device
+        paged = isinstance(cache, PagedKVCache)
+        if paged:
+            page = cache.k_pages.shape[2]
+            ring = cache.ring_len
+            w = cache.block_table.shape[1] * page
+        else:
+            w = ring = cache.k_bits.shape[2]
+        lv = start + valid
+        new_len = torch.where(valid > 0, lv, cache.length.to(lv.dtype)
+                              ).to(torch.int32)
+        s_all = torch.arange(w, device=dev)
+        t_new = lv[:, None] - 1 - torch.remainder(
+            lv[:, None] - 1 - s_all[None, :], ring)            # (B, W)
+        wr = ((t_new >= start[:, None]) & (t_new >= 0) &
+              (s_all[None, :] < ring) & (valid[:, None] > 0))
+        j = (t_new - start[:, None]).clamp(0, c_len - 1)
+        kg = torch.gather(k_bits, 2, j[:, None, :, None].expand(
+            b, hkv, w, dhp))                                   # (B,Hkv,W,dhp)
+        vg = torch.gather(v_bits, 2, j[:, None, :, None].expand(
+            b, hkv, w, dh)).transpose(2, 3)                    # (B,Hkv,dh,W)
+        wr_words = packing.pack_bits(wr)                       # (B, W/32)
+        new_words = pack_ops.pack_threshold(
+            (vg & wr[:, None, None, :]).to(torch.int32),
+            torch.ones((), dtype=torch.int32, device=dev))
+        merged = (vc_old & ~wr_words[:, None, None, :]) | new_words
+        if not paged:
+            cache.k_bits.copy_(torch.where(wr[:, None, :, None], kg,
+                                           cache.k_bits))
+            cache.vt_bits.copy_(merged)
+            return KVCache(cache.k_bits, cache.vt_bits, new_len)
+        # scatter written slots / words through the block table; unwritten
+        # positions route to the trash page 0 (page_size % 32 keeps whole
+        # V^T words inside one page)
+        bt = cache.block_table.long()
+        phys = torch.where(wr, bt[:, s_all // page], 0)        # (B, W)
+        off = (s_all % page).expand(b, w)
+        cache.k_pages[phys, :, off] = kg.transpose(1, 2)
+        j32 = torch.arange(w // packing.WORD, device=dev) * packing.WORD
+        physw = torch.where(wr_words != 0, bt[:, j32 // page], 0)
+        wj = ((j32 % page) // packing.WORD).expand(b, -1)
+        cache.vt_pages[physw, :, :, wj] = merged.permute(0, 3, 1, 2)
+        return cache._replace(length=new_len)
+
+    def deploy_prefill_chunk(self, params: Params, x: torch.Tensor, cache,
+                             *, start: Optional[torch.Tensor] = None,
+                             valid_len: Optional[torch.Tensor] = None):
+        """Cache-resuming chunk prefill: x (B, C, d) continues sequences
+        whose first ``start[b]`` tokens (default: ``cache.length``) live in
+        ``cache``, a ``KVCache`` ring or a ``PagedKVCache`` whose pages
+        covering the chunk are mapped.  ``valid_len`` (B,) marks the real
+        chunk rows; pad rows never write and never leak into real rows.
+        The attend reads the prefix BEFORE the chunk is written (in place).
+        Returns (out (B, C, d), the cache with ``length = start +
+        valid_len``)."""
+        b, c_len, _ = x.shape
+        dev = x.device
+        start = cache.length if start is None else start
+        start = torch.as_tensor(start, device=dev).to(torch.int64).expand(b)
+        valid = (torch.full((b,), c_len, dtype=torch.int64, device=dev)
+                 if valid_len is None else
+                 torch.as_tensor(valid_len, device=dev).to(
+                     torch.int64).expand(b))
+        positions = start[:, None] + torch.arange(c_len, device=dev)[None, :]
+        q_bits, k_bits, v = self._project_qkv_deploy(params, x, positions)
+        v_bits = self._v_bits(params, v).transpose(1, 2)       # (B,Hkv,C,dh)
+        kc_old, vc_old, ring = self._cache_ring_view(cache)
+        ctx = self._chunk_attend(params, q_bits, k_bits, v_bits, kc_old,
+                                 vc_old, start, valid, ring)
+        out = self._output_deploy(params, ctx)
+        return out, self._write_chunk(cache, k_bits, v_bits, start, valid,
+                                      vc_old)
+
     # -- decode ---------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, device) -> KVCache:
@@ -239,6 +482,47 @@ class SPSAttention:
             torch.zeros((batch, hkv, dh, packing.packed_len(max_len)),
                         dtype=torch.int32, device=device),
             torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    def init_paged_cache(self, batch: int, *, ring_len: int,
+                         page_size: int, num_blocks: int, num_pages: int,
+                         device) -> PagedKVCache:
+        """An empty page arena (``num_pages`` usable pages plus the trash
+        page 0) and block tables for this layer; ``num_blocks`` pages of
+        ``page_size`` must cover ``ring_len``."""
+        _check_page_size(page_size)
+        if num_blocks * page_size < ring_len:
+            raise ValueError(f"{num_blocks} blocks of {page_size} cannot "
+                             f"cover ring_len={ring_len}")
+        hkv, dh = self.num_kv_heads, self.head_dim
+        zeros = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        return PagedKVCache(
+            k_pages=zeros(num_pages + 1, hkv, page_size,
+                          packing.packed_len(dh)),
+            vt_pages=zeros(num_pages + 1, hkv, dh,
+                           page_size // packing.WORD),
+            block_table=zeros(batch, num_blocks),
+            length=zeros(batch),
+            ring_len=int(ring_len))
+
+    def _v_bits(self, params: Params, v: torch.Tensor) -> torch.Tensor:
+        """fp V projection (B, S, Hkv, dh) -> its per-head bits, bool."""
+        return v.to(torch.float32) >= params["v_beta"][:, None]
+
+    def _write_token(self, params: Params, k_store: torch.Tensor,
+                     vt_store: torch.Tensor, row: torch.Tensor,
+                     col: torch.Tensor, k_new: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        """Write one decode token per sequence in place: K words at
+        ``k_store[row, :, col]`` and the V^T bit (col % 32) of word
+        (col // 32) in ``vt_store[row, :, :, ...]``.  ``row`` is the
+        sequence of a ring or the physical page of an arena, ``col`` the
+        ring slot or the in-page offset."""
+        k_store[row, :, col] = k_new[:, :, 0]
+        word = col // packing.WORD
+        mask = packing.bit_mask(col % packing.WORD)[:, None, None]
+        v_bit = self._v_bits(params, v[:, 0]).to(torch.int32)  # (B,Hkv,dh)
+        old = vt_store[row, :, :, word]
+        vt_store[row, :, :, word] = (old & ~mask) | (v_bit * mask)
 
     def _attend_cache(self, params: Params, q_bits: torch.Tensor,
                       kc: torch.Tensor, vc: torch.Tensor,
@@ -265,25 +549,46 @@ class SPSAttention:
     def deploy_decode(self, params: Params, x: torch.Tensor,
                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """x: (B, 1, d) one new token per sequence.  Every sequence
-        advances from its own ``cache.length``.  The ring tensors are
-        updated IN PLACE (the JAX package returns new arrays); the
-        returned cache shares them and carries the new lengths."""
+        advances from its own ``cache.length``.  A ``PagedKVCache`` takes
+        the paged path.  The cache tensors are updated IN PLACE (the JAX
+        package returns new arrays); the returned cache shares them and
+        carries the new lengths."""
+        if isinstance(cache, PagedKVCache):
+            return self._deploy_decode_paged(params, x, cache)
         b = x.shape[0]
         w = cache.k_bits.shape[2]
         pos = cache.length.to(torch.int32)
         q_bits, k_new, v = self._project_qkv_deploy(params, x,
                                                     pos[:, None])
-        bar = torch.arange(b, device=x.device)
-        slot = torch.remainder(pos, w).long()
-        cache.k_bits[bar, :, slot] = k_new[:, :, 0]
-        # V^T ring update: set bit (slot % 32) of word (slot // 32)
-        word = slot // packing.WORD
-        mask = packing.bit_mask(slot % packing.WORD)[:, None, None]
-        v_bit = (v[:, 0].to(torch.float32) >=
-                 params["v_beta"][:, None]).to(torch.int32)  # (B,Hkv,dh)
-        old = cache.vt_bits[bar, :, :, word]
-        cache.vt_bits[bar, :, :, word] = (old & ~mask) | (v_bit * mask)
+        self._write_token(params, cache.k_bits, cache.vt_bits,
+                          torch.arange(b, device=x.device),
+                          torch.remainder(pos, w).long(), k_new, v)
         valid = torch.arange(w, device=x.device)[None, :] <= pos[:, None]
         out = self._attend_cache(params, q_bits, cache.k_bits,
                                  cache.vt_bits, valid)
         return out, KVCache(cache.k_bits, cache.vt_bits, pos + 1)
+
+    def _deploy_decode_paged(self, params: Params, x: torch.Tensor,
+                             cache: PagedKVCache
+                             ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """Paged decode step: write the new K/V^T bits through the block
+        table (free pool rows have table rows of 0 and write the trash
+        page), then attend over the pages with the paged_gather_decode
+        kernel; the gathered ring view is never built."""
+        b = x.shape[0]
+        page = cache.k_pages.shape[2]
+        pos = cache.length.to(torch.int32)
+        q_bits, k_new, v = self._project_qkv_deploy(params, x, pos[:, None])
+        # logical ring slot -> (physical page, in-page offset)
+        slot = torch.remainder(pos, cache.ring_len).long()
+        phys = cache.block_table[torch.arange(b, device=x.device),
+                                 slot // page].long()
+        self._write_token(params, cache.k_pages, cache.vt_pages, phys,
+                          slot % page, k_new, v)
+        theta = self._theta_int(params).expand(b, self.num_heads)
+        ctx = paged_ops.paged_gather_decode(
+            q_bits[:, :, 0], cache.k_pages, cache.vt_pages,
+            cache.block_table, pos, cache.ring_len, theta.contiguous(),
+            d_h=self.head_dim)
+        out = self._output_deploy(params, ctx[:, :, None, :])
+        return out, cache._replace(length=pos + 1)

@@ -4,13 +4,13 @@ stream stays fp (BiT convention)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
-from repro_torch.models.attention import SPSAttention
+from repro_torch.models.attention import PageSpec, SPSAttention
 from repro_torch.models.ffn import BinaryFFN
 
 Params = Dict[str, Any]
@@ -77,9 +77,37 @@ class Block:
                                          norm.apply(params["norm2"], x))
         return x, ({"attn": kv} if kv is not None else {})
 
-    def init_cache(self, batch: int, max_len: int,
-                   device) -> Dict[str, Any]:
-        return {"attn": self._attn().init_cache(batch, max_len, device)}
+    def deploy_prefill_chunk(self, params: Params, x: torch.Tensor,
+                             cache: Dict[str, Any], *, start=None,
+                             valid_len=None
+                             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Cache-resuming chunk prefill: x (B, C, d) continues sequences
+        whose first ``start`` tokens already live in ``cache`` (see
+        ``SPSAttention.deploy_prefill_chunk``); rows with ``valid_len == 0``
+        write nothing."""
+        norm = self._norm()
+        h = norm.apply(params["norm1"], x)
+        a_out, kv = self._attn().deploy_prefill_chunk(
+            params["attn"], h, cache["attn"], start=start,
+            valid_len=valid_len)
+        x = x + a_out
+        x = x + self._ffn().apply_deploy(params["ffn"],
+                                         norm.apply(params["norm2"], x))
+        return x, dict(cache, attn=kv)
+
+    def init_cache(self, batch: int, max_len: int, device,
+                   paged: Optional[PageSpec] = None) -> Dict[str, Any]:
+        """Empty decode cache: a contiguous ring of ``max_len``, or with
+        ``paged`` a page arena of ``paged.arena_pages`` pages and block
+        tables covering ``paged.capacity`` (full attention)."""
+        attn = self._attn()
+        if paged is None:
+            return {"attn": attn.init_cache(batch, max_len, device)}
+        ring = paged.ring_for(0)
+        return {"attn": attn.init_paged_cache(
+            batch, ring_len=ring, page_size=paged.page_size,
+            num_blocks=paged.blocks_for_ring(ring),
+            num_pages=paged.arena_pages(ring, batch), device=device)}
 
     def deploy_decode(self, params: Params, x: torch.Tensor,
                       cache: Dict[str, Any]

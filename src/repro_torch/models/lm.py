@@ -1,7 +1,9 @@
 """Decoder-only LM, deploy faces (port of ``repro.models.lm.LMModel``).
 
   prefill_with_cache  whole-prompt deploy forward that builds the
-                      per-layer contiguous binary ring caches
+                      per-layer contiguous binary ring caches, or (with
+                      ``caches=``) one chunk continuing sequences already
+                      in ring or paged caches
   decode_step         one token per sequence against those caches
 
 Blocks are a plain list of per-layer param dicts (the JAX package stacks
@@ -13,12 +15,13 @@ to ``compute_dtype``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
+from repro_torch.models.attention import PageSpec
 from repro_torch.models.blocks import Block, compute_dtype
 
 Params = Dict[str, Any]
@@ -85,31 +88,82 @@ class LMModel:
         return lg[..., :self.cfg.vocab_size]
 
     @staticmethod
-    def _last_real(x: torch.Tensor) -> torch.Tensor:
-        """(B, S, d) -> (B, 1, d) hidden at the last token."""
-        return x[:, -1:]
+    def _last_real(x: torch.Tensor,
+                   sl: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, S, d) -> (B, 1, d) hidden at each sequence's last real token
+        (the padded end when ``sl`` is None)."""
+        if sl is None:
+            return x[:, -1:]
+        idx = (sl.long() - 1).clamp(0, x.shape[1] - 1)
+        return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
 
     # -- deploy faces ---------------------------------------------------------
 
     def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,
-                           max_len: int
+                           max_len: int = 0,
+                           seq_lens: Optional[torch.Tensor] = None,
+                           caches: Optional[List[Dict[str, Any]]] = None,
+                           start: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """tokens (B, S) -> (logits (B, 1, V) at the last token, per-layer
-        caches with rings of ``max_len``)."""
+        caches with rings of ``max_len``).
+
+        Continuation mode (chunked prefill): with ``caches`` the tokens are
+        the next chunk of sequences whose first ``start[b]`` tokens
+        (default: the caches' own lengths) are written; ``seq_lens`` is
+        each row's real chunk width, logits come at each row's last real
+        token, and ``max_len`` is ignored.  The caches update in place.
+        Ragged whole-prompt prefill (``seq_lens`` without ``caches``) is
+        not ported yet."""
+        if caches is not None:
+            return self._prefill_continue(dparams, tokens, caches,
+                                          start=start, seq_lens=seq_lens)
+        if seq_lens is not None:
+            raise NotImplementedError(
+                "ragged whole-prompt prefill (seq_lens without caches=) is "
+                "not ported yet")
         if max_len <= 0:
-            raise ValueError("prefill_with_cache needs max_len > 0")
+            raise ValueError("prefill_with_cache needs max_len > 0 (or "
+                             "caches= for chunk continuation)")
         x = self._embed_tokens(dparams, tokens)
-        caches: List[Dict[str, Any]] = []
+        caches_out: List[Dict[str, Any]] = []
         for bp in dparams["blocks"]:
             x, cache = self._block().deploy_prefill(bp, x,
                                                     cache_size=max_len)
-            caches.append(cache)
-        return self._logits(dparams, self._last_real(x)), caches
+            caches_out.append(cache)
+        return self._logits(dparams, self._last_real(x, None)), caches_out
 
-    def init_caches(self, batch: int, max_len: int,
-                    device) -> List[Dict[str, Any]]:
-        return [self._block().init_cache(batch, max_len, device)
+    def _prefill_continue(self, dparams: Params, tokens: torch.Tensor,
+                          caches: List[Dict[str, Any]], *,
+                          start: Optional[torch.Tensor],
+                          seq_lens: Optional[torch.Tensor]
+                          ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+        """One chunk of a cache-resuming prefill (see prefill_with_cache)."""
+        x = self._embed_tokens(dparams, tokens)
+        new_caches: List[Dict[str, Any]] = []
+        for bp, cache in zip(dparams["blocks"], caches):
+            x, c = self._block().deploy_prefill_chunk(
+                bp, x, cache, start=start, valid_len=seq_lens)
+            new_caches.append(c)
+        return self._logits(dparams, self._last_real(x, seq_lens)), new_caches
+
+    def init_caches(self, batch: int, max_len: int, device,
+                    paged: Optional[PageSpec] = None
+                    ) -> List[Dict[str, Any]]:
+        """Empty per-layer decode caches for a pool of ``batch`` slots;
+        ``paged`` switches them to the page-arena layout (``max_len`` is
+        then superseded by ``paged.capacity``)."""
+        return [self._block().init_cache(batch, max_len, device,
+                                         paged=paged)
                 for _ in range(self.cfg.num_layers)]
+
+    def reset_recurrent_rows(self, caches: List[Dict[str, Any]],
+                             fresh: torch.Tensor) -> List[Dict[str, Any]]:
+        """Reset the recurrent carries of the pool rows marked ``fresh``.
+        Attention rings need no per-row reset (a chunk starting at 0 masks
+        every stale slot), so for the attention-only stacks the port runs
+        this is the identity; recurrent blocks are not ported yet."""
+        return caches
 
     def decode_step(self, dparams: Params, token: torch.Tensor,
                     caches: List[Dict[str, Any]]

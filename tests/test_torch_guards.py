@@ -129,8 +129,10 @@ def test_not_ported_yet_boundaries():
     with pytest.raises(NotImplementedError, match="row"):
         SPSAttention(96, 3, 1, 32, sps_granularity="row")
     model = build_model(base.get_smoke_config("smollm-135m"))
-    eng = engine.ServeEngine(model, {}, engine.ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="continuous batching"):
+    eng = engine.ServeEngine(model, {}, engine.ServeConfig(
+        spec=engine.SpecConfig(k=2)), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="speculative decode .*not ported yet"):
         eng.generate([np.arange(3)], max_new_tokens=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(base.get_smoke_config("smollm-135m").with_(
