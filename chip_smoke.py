@@ -8,7 +8,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   1. device     the card's name and power limit (nvidia-smi)
   2. build      nvcc builds every kernel of ``src/repro_torch/csrc``
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the main-path shapes and at ragged shapes; integer and
+                at the main-path shapes, at every shape the encode phase
+                gives it and at ragged shapes; integer and
                 float32 outputs must be bitwise equal; CUDA-event timings of
                 kernel, plain version and (where one exists) the one
                 PyTorch call computing the same function
@@ -30,6 +31,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 greedy tokens and logits within a stated tolerance; then
                 4 requests continuously on 2 slots and a 3-page arena,
                 with equal tokens by rid and equal page and engine counters
+  7. encode     full-width bert-base-cobra (random weights from a seed,
+                bf16) encodes B=8 x 512 tokens through
+                ``LMModel.prefill_logits``: exactly 48 ``rbmm_binary``, 48
+                ``rbmm_int`` and 12 ``sps_attention`` launches per forward
+                and every kernel of the path launched; ms per forward,
+                tokens/s, device busy share, peak memory and the top
+                kernels; then float32 card vs CPU at B=2, S=64 with equal
+                argmax and logits within a stated tolerance
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -208,6 +217,20 @@ def check_pack(rng):
         "strided V^T view":
             (torch.randn(2, 77, 3, 48, device="cuda").permute(0, 2, 3, 1),
              0.2 * torch.randn(3, 1, 1, device="cuda")),
+        # the encode path's shapes: bert-base, B=8 x 512 tokens
+        "encode x (8, 512, 768) bf16":
+            (torch.randn(8, 512, 768, device="cuda").to(torch.bfloat16),
+             torch.zeros((), device="cuda")),
+        "encode x (8, 512, 768) f32":
+            (torch.randn(8, 512, 768, device="cuda"),
+             torch.zeros((), device="cuda")),
+        "encode per-head q/k (8, 512, 12, 64) bf16":
+            (torch.randn(8, 512, 12, 64, device="cuda").to(torch.bfloat16),
+             0.2 * torch.randn(12, 1, device="cuda")),
+        "encode strided V^T (8, 12, 64, 512) bf16":
+            (torch.randn(8, 512, 12, 64, device="cuda").to(
+                torch.bfloat16).permute(0, 2, 3, 1),
+             0.2 * torch.randn(12, 1, 1, device="cuda")),
     }
     for case, (x, th) in cases.items():
         _same("pack_threshold", case, *f(x, th))
@@ -235,6 +258,10 @@ def check_rbmm_int(rng):
         "ragged K=100 and_dc, dc given": (a, b, 100, "and_dc", dc),
         "batched d_h=48 xnor": (ab, bb, 48, "xnor", None),
         "batched d_h=48 and_dc": (ab, bb, 48, "and_dc", None),
+        "bert F2 (4096x768)x(768x768) and_dc, dc given":
+            (_words(rng, (4096, 24), 768), _words(rng, (768, 24), 768),
+             768, "and_dc", torch.randint(0, 768, (4096,), device="cuda",
+                                          dtype=torch.int32)),
     }
     for case, (x, y, k, scheme, d) in cases.items():
         _same("rbmm_int", case, ops.rbmm_int(x, y, k, scheme=scheme, dc=d),
@@ -254,6 +281,82 @@ def check_rbmm_int(rng):
                 library=lambda: torch.matmul(av, wv.T))
 
 
+def check_rbmm_binary(rng):
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels.rbmm import ops, ref
+
+    def theta(*shape, lo=-20, hi=20):
+        return torch.randint(lo, hi, shape, device="cuda", dtype=torch.int32)
+
+    def both(a, b, k, th, **kw):
+        """The kernel against its plain version, bits and packed words."""
+        want, want_dc = ref.rbmm_binary(a, b, k, th, **kw)
+        for pack in (False, True):
+            got, got_dc = ops.rbmm_binary(a, b, k, th, pack_output=pack,
+                                          **kw)
+            yield (got, packing.pack_bits(want) if pack else want,
+                   "packed" if pack else "bits")
+            yield got_dc, want_dc, ("packed" if pack else "bits") + " dc"
+
+    a, b = _words(rng, (70, 4), 100), _words(rng, (45, 4), 100)
+    dc = torch.randint(0, 100, (70,), device="cuda", dtype=torch.int32)
+    ab, bb = _words(rng, (3, 33, 2), 48), _words(rng, (3, 65, 2), 48)
+    al, bl = _words(rng, (40, 35), 1100), _words(rng, (150, 35), 1100)
+    cases = {
+        "ragged M=70 P=45 K=100 xnor": (a, b, 100, theta(45), {}),
+        "ragged and_dc, dc derived": (a, b, 100, theta(45),
+                                      dict(scheme="and_dc")),
+        "ragged and_dc, dc given": (a, b, 100, theta(45),
+                                    dict(scheme="and_dc", dc=dc)),
+        "causal M=70 > P=45": (a, b, 100, theta(45), dict(causal=True)),
+        "batched M=33 P=65 K=48 and_dc causal": (
+            ab, bb, 48, theta(65), dict(scheme="and_dc", causal=True)),
+        "K=1100 > one staged chunk of 1024": (al, bl, 1100,
+                                             theta(150, lo=-90, hi=90), {}),
+        "(M, P) theta, P=150": (al, bl, 1100, theta(40, 150, lo=-90, hi=90),
+                                {}),
+        "scalar theta, batched": (ab, bb, 48, theta(), {}),
+    }
+    for case, (x, y, k, th, kw) in cases.items():
+        for got, want, store in both(x, y, k, th, **kw):
+            _same("rbmm_binary", f"{case}, {store}", got, want)
+    # main path: bert-base F1, x (B*S = 4096, 768) against one R-chunk of
+    # W1 (768 of the 3072 columns), packed store, zeros per row
+    a, w = _words(rng, (4096, 24), 768), _words(rng, (768, 24), 768)
+    th = theta(768, lo=-40, hi=40)
+    err = 0.0
+    for got, want, store in both(a, w, 768, th):
+        err = max(err, _same("rbmm_binary", f"main F1 (4096x768)x(768x768)"
+                             f" xnor, {store}", got, want))
+    out, dc_out = ops.rbmm_binary(a, w, 768, th, pack_output=True)
+    av = packing.unpack_signs(a, 768, torch.bfloat16)
+    wv = packing.unpack_signs(w, 768, torch.bfloat16)
+    b_ms, by = bound(nbytes(a, w, th, out, dc_out), 3 * 4096 * 768 * 24,
+                     SCALAR32_OPS)
+    # a second floor the table's rate does not see: the SMs issue 16
+    # 32-bit popcounts per clock each (one per word pair here)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+        text=True, check=True).stdout.split()[0])
+    popc = 4096 * 768 * 24
+    log(f"[kernels] rbmm_binary main: {popc} popcounts at 16 per clock per "
+        f"SM, {sms} SMs, {mhz:.0f} MHz max SM clock: floor "
+        f"{popc / (16 * sms * mhz * 1e6) * 1e3:.5f} ms (the table's bound "
+        f"{b_ms:.5f} ms at {SCALAR32_OPS / 1e12:.0f} T/s)")
+
+    def plain():
+        bits, d = ref.rbmm_binary(a, w, 768, th)
+        return packing.pack_bits(bits), d
+
+    return dict(err=err, bound_ms=b_ms, bound_by=by,
+                kernel=lambda: ops.rbmm_binary(a, w, 768, th,
+                                               pack_output=True),
+                plain=plain, library=lambda: torch.matmul(av, wv.T))
+
+
 def check_rbmm_mxu(rng):
     import torch
     from repro_torch.core import packing
@@ -265,6 +368,8 @@ def check_rbmm_mxu(rng):
             (_pm1(rng, (70, 100), unsigned=True), _words(rng, (45, 4), 100)),
         "batched M=33 P=65 K=48":
             (_pm1(rng, (2, 33, 48)), _words(rng, (2, 65, 2), 48)),
+        "encode Q/K/V/O (4096x768)x(768x768)":
+            (_pm1(rng, (4096, 768)), _words(rng, (768, 24), 768)),
     }
     for case, (a, w) in cases.items():
         _same("rbmm_mxu", case, ops.rbmm_mxu(a, w), ref.rbmm_mxu(a, w))
@@ -358,6 +463,11 @@ def check_sps_attention(rng):
             _same("sps_attention", f"{case} causal={causal}",
                   ops.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal),
                   ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal))
+    # the encode path's shape: bert-base, bidirectional, B=8, L=512
+    q, k, vt, th = gqa(8, 12, 12, 512, 64)
+    _same("sps_attention", "encode B=8 L=512 H=12/12 d_h=64 causal=False",
+          ops.sps_attention_gqa(q, k, vt, th, d_h=64, causal=False),
+          ref.sps_attention_gqa(q, k, vt, th, d_h=64, causal=False))
     # the TPU signature, both context paths, one sequence
     q, k, vt, th = gqa(1, 3, 3, 77, 48)
     v = 2 * ((torch.rand(3, 77, 48, device="cuda") > 0.5).float()) - 1
@@ -388,6 +498,8 @@ KERNEL_ROWS = {
                        "src/repro/kernels/pack/kernel.py:62"),
     "rbmm_int": (check_rbmm_int, "src/repro_torch/csrc/rbmm.cu",
                  "src/repro/kernels/rbmm/kernel.py:129"),
+    "rbmm_binary": (check_rbmm_binary, "src/repro_torch/csrc/rbmm.cu",
+                    "src/repro/kernels/rbmm/kernel.py:173"),
     "rbmm_mxu": (check_rbmm_mxu, "src/repro_torch/csrc/rbmm_mxu.cu",
                  "src/repro/kernels/rbmm_mxu/kernel.py:89"),
     "sps_attention": (check_sps_attention,
@@ -401,6 +513,8 @@ KERNEL_ROWS = {
 STATIC_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu", "sps_attention")
 PAGED_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu",
               "paged_gather_decode")
+ENCODE_PATH = ("pack_threshold", "rbmm_int", "rbmm_binary", "rbmm_mxu",
+               "sps_attention")
 
 
 def phase_kernels():
@@ -799,6 +913,107 @@ def crosscheck_continuous(model, dparams, on_cpu):
         f"{json.dumps({k: a for k, (a, _) in counters.items()})}")
 
 
+# -- phase 7: encode ------------------------------------------------------------
+
+ENC_B, ENC_S, ENC_ITERS = 8, 512, 5
+# per forward: R = 4 F1 (rbmm_binary) and 4 F2 (rbmm_int) per layer, one
+# bidirectional sps_attention per layer
+ENC_PER_LAYER = {"rbmm_binary": 4, "rbmm_int": 4, "sps_attention": 1}
+ENC_CROSS_B, ENC_CROSS_S = 2, 64
+ENC_CROSS_ATOL = 2e-3   # float32 logits; LayerNorm and head sums differ in
+#                         order between the devices
+
+
+def phase_encode():
+    """Full-width bert-base-cobra through ``LMModel.prefill_logits``;
+    returns the launch counts of one forward."""
+    import torch
+    from repro_torch import kernels, to_device
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    cfg = get_config("bert-base-cobra")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        dparams = model.convert(model.init(gen))
+    torch.cuda.synchronize()
+    log(f"[encode] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.norm}, {cfg.act} FFN blocked R={cfg.binary.ffn_block_r}, "
+        f"causal={cfg.causal}, {cfg.compute_dtype}; init+convert "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (ENC_B, ENC_S)), device="cuda")
+
+    def forward():
+        return model.prefill_logits(dparams, tokens)
+
+    with torch.inference_mode():
+        forward()                                          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        logits = forward()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {n: c * cfg.num_layers for n, c in ENC_PER_LAYER.items()}
+        got = {n: launches[n] for n in want}
+        idle = [n for n in ENCODE_PATH if launches[n] == 0]
+        if got != want or idle:
+            raise AssertionError(f"encode: launches per forward {launches},"
+                                 f" want {want} and every one of "
+                                 f"{ENCODE_PATH} > 0")
+        if logits.shape != (ENC_B, ENC_S, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"encode: bad logits {tuple(logits.shape)}"
+                                 f" {logits.dtype}")
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(ENC_ITERS):
+            forward()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / ENC_ITERS
+        busy, n_kernels, by_name, host_ops = device_profile(
+            forward, iters=2, host=True)
+    tokens_n = ENC_B * ENC_S
+    log(f"[encode] launches per forward {json.dumps(launches)}")
+    log(f"[encode] B={ENC_B} x {ENC_S} tokens: {wall:.2f} ms per forward "
+        f"(mean of {ENC_ITERS}), {tokens_n / wall * 1e3:.0f} tokens/s; "
+        f"logits {tuple(logits.shape)} {logits.dtype}, finite; peak device "
+        f"memory {peak / 2**20:.0f} MiB")
+    log(f"[encode] forward profile: device busy {busy:.3f} ms of "
+        f"{wall:.2f} ms wall (busy share {busy / wall:.3f}, idle share "
+        f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels per forward")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[encode]   {ms:.4f} ms/forward  {name[:90]}")
+    log_host_ops("[encode]", host_ops)
+    crosscheck_encode(cfg, to_device(dparams, "cpu"), dparams)
+    return launches
+
+
+def crosscheck_encode(cfg, on_cpu, dparams):
+    """The same weights in float32 on the card and on the CPU (plain
+    versions): equal argmax at every position, logits within a tolerance."""
+    import torch
+    from repro_torch.models.lm import build_model
+    model = build_model(cfg.with_(compute_dtype="float32"))
+    toks = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (ENC_CROSS_B, ENC_CROSS_S))
+    with torch.inference_mode():
+        card = model.prefill_logits(
+            dparams, torch.as_tensor(toks, device="cuda")).cpu()
+        cpu = model.prefill_logits(on_cpu, toks, device="cpu")
+    diff = (card - cpu).abs().max().item()
+    same = torch.equal(card.argmax(-1), cpu.argmax(-1))
+    if not same or diff > ENC_CROSS_ATOL or not torch.isfinite(card).all():
+        raise AssertionError(f"encode crosscheck: argmax equal {same}, max "
+                             f"|logit diff| {diff} (tol {ENC_CROSS_ATOL})")
+    log(f"[crosscheck] encode float32 B={ENC_CROSS_B} S={ENC_CROSS_S}: card "
+        f"== CPU argmax at every position, max |logit diff| {diff:.3g} <= "
+        f"{ENC_CROSS_ATOL}")
+
+
 def main() -> int:
     try:
         import torch
@@ -819,6 +1034,10 @@ def main() -> int:
     for name in rows:
         rows[name]["launches"] = static[name] + paged[name]
     phase_crosscheck(dparams)
+    del model, dparams
+    encode = phase_encode()
+    for name in rows:
+        rows[name]["launches"] += encode[name]
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

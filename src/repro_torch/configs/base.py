@@ -121,6 +121,7 @@ ARCH_IDS: Sequence[str] = (
 # archs the port runs; the rest of ARCH_IDS raise "not ported yet"
 _MODULE_FOR: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
+    "bert-base-cobra": "bert_base_cobra",
 }
 
 

@@ -6,9 +6,10 @@ Each kernel keeps the JAX package's three-part contract:
   kernels/<name>/ref.py the plain PyTorch version of the same function
 
   pack/      threshold-binarize + bit-pack           (csrc/pack.cu)
-  rbmm/      Eq. 7 integer RBMM, xnor and and_dc     (csrc/rbmm.cu)
+  rbmm/      Eq. 7 integer RBMM, xnor and and_dc, and (csrc/rbmm.cu)
+             its Eq. 10 threshold-fused variant
   rbmm_mxu/  binary values x packed ±1 weights, MMA  (csrc/rbmm_mxu.cu)
-  sps_attn/  fused causal SPS attention, GQA-aware   (csrc/sps_attn.cu)
+  sps_attn/  fused SPS attention, GQA-aware          (csrc/sps_attn.cu)
   paged_attn/ decode attention over the page arena    (csrc/paged_attn.cu)
 
 Dispatch goes by the device of the operands, never by a switch: CUDA
@@ -43,6 +44,7 @@ LIB_NAME = "libcobra_kernels.so"
 KERNELS = {
     "pack_threshold": ("pack", "pack_threshold"),
     "rbmm_int": ("rbmm", "rbmm_int"),
+    "rbmm_binary": ("rbmm", "rbmm_binary"),
     "rbmm_mxu": ("rbmm_mxu", "rbmm_mxu"),
     "sps_attention": ("sps_attn", "sps_attention_gqa"),
     "paged_gather_decode": ("paged_attn", "paged_gather_decode"),

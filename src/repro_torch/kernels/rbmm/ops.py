@@ -1,4 +1,4 @@
-"""Public wrapper for the integer RBMM kernel (paper Eq. 7).
+"""Public wrappers for the RBMM kernels (paper Eq. 7 and Eq. 10).
 
 Contract: packed operands ``a (..., M, ceil(K/32))`` and
 ``b (..., P, ceil(K/32))`` int32 with equal leading dims give the
@@ -9,13 +9,27 @@ don't-care count ``dc (..., M)`` is derived from ``a`` when not given.
 The leading dims let decode attention score one query group against its
 KV head's whole ring in one launch.
 
+``rbmm_binary`` is the quantization-fused variant (the TPU kernel's
+``rbmm_binary``): the same operands and scores, thresholded in the
+epilogue, ``bit = c >= theta``, with ``theta`` int32 broadcastable to
+``(..., M, P)`` (the TPU kernel's ``(P,)``, a scalar, a per-row or a full
+table), optionally masked causally (``col <= row``), plus the DC RETURN
+``(..., M)`` int32, the zeros of each output row.  ``pack_output=False``
+returns the TPU kernel's ``(..., M, P)`` {0,1} bits (as int32);
+``pack_output=True`` returns them packed, ``(..., M, ceil(P/32))`` int32
+words, straight from the epilogue.
+
+Padding contract (both): operands carry exactly ``ceil(k/32)`` words per
+row, and the wrappers raise otherwise.
+
 Dispatch: CUDA tensors launch ``csrc/rbmm.cu``; CPU tensors take
-``ref.rbmm_int``.  ``rbmm_int.launches`` counts kernel launches.
+``ref.rbmm_int`` / ``ref.rbmm_binary``.  ``rbmm_int.launches`` and
+``rbmm_binary.launches`` count kernel launches.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,21 +40,23 @@ from repro_torch.kernels.rbmm import ref
 SCHEMES = ("xnor", "and_dc")
 _ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 + [kernels.INT,
                                                       kernels.PTR])
+_BINARY_ARGTYPES = ([kernels.PTR] * 4 + [kernels.I64] * 8 +
+                    [kernels.INT] * 3 + [kernels.PTR] * 2)
 
 
-def _check(a, b, k, scheme, dc) -> None:
+def _check(a, b, k, scheme, dc, name="rbmm_int") -> None:
     if scheme not in SCHEMES:
         raise ValueError(f"scheme must be one of {SCHEMES}, got {scheme!r}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError(f"rbmm_int takes int32 words, got {a.dtype} and "
+        raise TypeError(f"{name} takes int32 words, got {a.dtype} and "
                         f"{b.dtype}")
     if a.dim() < 2 or a.shape[:-2] != b.shape[:-2]:
-        raise ValueError(f"rbmm_int needs (..., M, Kp) and (..., P, Kp) "
+        raise ValueError(f"{name} needs (..., M, Kp) and (..., P, Kp) "
                          f"with equal leading dims, got {tuple(a.shape)} "
                          f"and {tuple(b.shape)}")
     kp = packing.packed_len(k)
     if a.shape[-1] != kp or b.shape[-1] != kp:
-        raise ValueError(f"rbmm_int: operands must carry ceil(k/32)={kp} "
+        raise ValueError(f"{name}: operands must carry ceil(k/32)={kp} "
                          f"words for k={k}, got {a.shape[-1]} and "
                          f"{b.shape[-1]}")
     if dc is not None and (dc.dtype != torch.int32 or
@@ -68,3 +84,45 @@ def rbmm_int(a: torch.Tensor, b: torch.Tensor, k: int, *,
 
 
 rbmm_int.launches = 0
+
+
+def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
+                theta: torch.Tensor, *, scheme: str = "xnor",
+                dc: Optional[torch.Tensor] = None, causal: bool = False,
+                pack_output: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(a, b, k, scheme, dc, name="rbmm_binary")
+    if theta.dtype != torch.int32:
+        raise TypeError(f"rbmm_binary: theta must be int32, got "
+                        f"{theta.dtype}")
+    m, p = a.shape[-2], b.shape[-2]
+    shape = a.shape[:-1] + (p,)
+    try:
+        fits = torch.broadcast_shapes(theta.shape, shape) == shape
+    except RuntimeError:
+        fits = False
+    if not fits:
+        raise ValueError(f"rbmm_binary: theta {tuple(theta.shape)} does not "
+                         f"broadcast to the output {tuple(shape)}")
+    if not kernels.use_kernel(a, b, dc, theta):
+        bits, dc_ret = ref.rbmm_binary(a, b, k, theta, scheme=scheme, dc=dc,
+                                       causal=causal)
+        return (packing.pack_bits(bits) if pack_output else bits), dc_ret
+    kernels.require_contiguous("rbmm_binary", a, b, dc)
+    batch = math.prod(a.shape[:-2])
+    # a (batch, M, P) view of theta: stride 0 on broadcast axes
+    th = theta.expand(shape).reshape(batch, m, p)
+    width = packing.packed_len(p) if pack_output else p
+    out = torch.empty(a.shape[:-1] + (width,), dtype=torch.int32,
+                      device=a.device)
+    dc_ret = torch.zeros(a.shape[:-1], dtype=torch.int32, device=a.device)
+    kernels.launch("cobra_rbmm_binary", _BINARY_ARGTYPES, a.device,
+                   a.data_ptr(), b.data_ptr(), kernels.ptr(dc),
+                   th.data_ptr(), *th.stride(), batch, m, p, a.shape[-1],
+                   k, SCHEMES.index(scheme), int(causal), int(pack_output),
+                   out.data_ptr(), dc_ret.data_ptr())
+    rbmm_binary.launches += 1
+    return out, dc_ret
+
+
+rbmm_binary.launches = 0

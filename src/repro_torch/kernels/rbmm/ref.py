@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the RBMM kernel (unblocked Eq. 7)."""
+"""Plain PyTorch versions of the RBMM kernels (unblocked Eq. 7, and the
+Eq. 10 threshold epilogue of ``rbmm_binary``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,3 +23,18 @@ def rbmm_int(a: torch.Tensor, b: torch.Tensor, k: int, *,
         dc = packing.dc_count(a, k)
     pc = packing.popcount_words(aa & bb).sum(-1, dtype=torch.int32)
     return 2 * pc - k + dc.unsqueeze(-1).to(torch.int32)
+
+
+def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
+                theta: torch.Tensor, *, scheme: str = "xnor",
+                dc: Optional[torch.Tensor] = None, causal: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bits = c >= theta (theta broadcast against the (..., M, P) scores),
+    causally masked to col <= row if asked -> ({0,1} bits (..., M, P)
+    int32, zeros per row (..., M) int32)."""
+    c = rbmm_int(a, b, k, scheme=scheme, dc=dc)
+    bits = (c >= theta.to(torch.int32)).to(torch.int32)
+    if causal:
+        bits = torch.tril(bits)
+    dc_ret = bits.shape[-1] - bits.sum(-1, dtype=torch.int32)
+    return bits, dc_ret

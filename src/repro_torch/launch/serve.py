@@ -43,6 +43,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}")
     cfg = base.get_smoke_config(args.arch)
+    if cfg.skip_decode:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode face")
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dparams = model.convert(model.init(gen))

@@ -1,6 +1,8 @@
 """Attention block, deploy faces (port of ``repro.models.blocks.Block`` for
 ``kind="attn"``; the other kinds are not ported yet).  The residual
-stream stays fp (BiT convention)."""
+stream stays fp (BiT convention).  The norm is ``cfg.norm`` (RMSNorm or
+LayerNorm) and the FFN the SiLU GLU or the ReLU FFN (Eq. 11 blocked when
+``cfg.binary.ffn_block_r`` is set)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,18 +24,20 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class Block:
-    """One decoder layer: RMSNorm, SPS attention, RMSNorm, SiLU-GLU FFN."""
+    """One layer: norm, SPS attention, norm, binary FFN."""
     cfg: ModelConfig
 
     def __post_init__(self):
         cfg = self.cfg
+        ffn_ported = (cfg.glu, cfg.act) in ((True, "silu"), (False, "relu"))
         if (cfg.window_size or cfg.local_global_ratio or cfg.moe.num_experts
-                or cfg.ssm is not None or cfg.norm != "rmsnorm"
-                or not cfg.d_ff or not cfg.glu or cfg.act != "silu"):
+                or cfg.ssm is not None
+                or cfg.norm not in ("rmsnorm", "layernorm")
+                or not cfg.d_ff or not ffn_ported):
             raise NotImplementedError(
                 f"{cfg.name}: the port runs full-attention blocks with "
-                f"RMSNorm and a SiLU-GLU FFN only; the rest is not ported "
-                f"yet")
+                f"RMSNorm or LayerNorm and a SiLU-GLU or ReLU FFN only; the "
+                f"rest is not ported yet")
 
     def _attn(self) -> SPSAttention:
         cfg = self.cfg
@@ -48,11 +52,12 @@ class Block:
 
     def _ffn(self) -> BinaryFFN:
         cfg = self.cfg
-        return BinaryFFN(cfg.d_model, cfg.d_ff, dtype=compute_dtype(cfg),
-                         impl=cfg.binary.impl)
+        return BinaryFFN(cfg.d_model, cfg.d_ff, act=cfg.act, glu=cfg.glu,
+                         blocked_r=cfg.binary.ffn_block_r,
+                         dtype=compute_dtype(cfg), impl=cfg.binary.impl)
 
-    def _norm(self) -> nn.RMSNorm:
-        return nn.RMSNorm(self.cfg.d_model)
+    def _norm(self):
+        return nn.make_norm(self.cfg.norm, self.cfg.d_model)
 
     def init(self, gen: torch.Generator, device) -> Params:
         return {"attn": self._attn().init(gen, device),

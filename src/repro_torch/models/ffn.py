@@ -1,9 +1,17 @@
-"""Binary GLU FFN, deploy face (port of ``repro.models.ffn.BinaryFFN``).
+"""Binary FFN, deploy face (port of ``repro.models.ffn.BinaryFFN``).
 
-Gate and up projections are binary RBMMs sharing one input binarization;
-``silu(u) * g`` stays fp, is unsigned-binarized and packed (pack kernel),
-and meets the binary down projection through the and_dc scheme (F2).  The
-ReLU variants, Eq. 11 blocking and ``BinaryMoE`` are not ported yet.
+ReLU FFN (BERT family, the paper's exact target):
+  F1: the first RBMM with the ReLU and the unsigned binarization fused into
+      its threshold (Eq. 10), emitting packed bits and their DC RETURN
+      (the rbmm_binary kernel);
+  F2: those {0,1} bits against W2 through the and_dc scheme (rbmm_int).
+  ``blocked_r`` runs the Eq. 11 blocked form: R chunks of FF, two l x d
+  live buffers.
+
+GLU FFN (llama family): gate and up projections are binary RBMMs sharing
+one input binarization; ``silu(u) * g`` stays fp, is unsigned-binarized
+and packed (pack kernel), and meets the binary down projection through the
+and_dc scheme (F2).  ``BinaryMoE`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import rbmm
+from repro_torch.core import packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.models.linear import BinaryDense, act_bits_packed
 
@@ -24,8 +32,17 @@ Params = Dict[str, Any]
 class BinaryFFN:
     d_model: int
     d_ff: int
+    act: str = "silu"               # silu (GLU) | relu (paper)
+    glu: bool = True
+    blocked_r: int = 0              # Eq. 11 R (relu path only); 0 = unblocked
     dtype: torch.dtype = torch.float32
     impl: str = "auto"
+
+    def __post_init__(self):
+        if (self.act, self.glu) not in (("silu", True), ("relu", False)):
+            raise NotImplementedError(
+                f"BinaryFFN act={self.act!r} glu={self.glu} is not ported "
+                f"yet; the port runs the SiLU GLU and the ReLU FFN")
 
     def _w1(self) -> BinaryDense:
         return BinaryDense(self.d_model, self.d_ff, external_act=True,
@@ -37,8 +54,9 @@ class BinaryFFN:
 
     def init(self, gen: torch.Generator, device) -> Params:
         p: Params = {"w1": self._w1().init(gen, device),
-                     "w2": self._w2().init(gen, device),
-                     "w3": self._w1().init(gen, device)}
+                     "w2": self._w2().init(gen, device)}
+        if self.glu:
+            p["w3"] = self._w1().init(gen, device)
         for k, v in (("act_alpha", 1.0), ("act_beta", 0.0),
                      ("h_alpha", 1.0), ("h_beta", 0.0)):
             p[k] = torch.full((), v, device=device)
@@ -46,15 +64,26 @@ class BinaryFFN:
 
     def convert(self, params: Params) -> Params:
         d: Params = {"w1": self._w1().convert(params["w1"]),
-                     "w2": self._w2().convert(params["w2"]),
-                     "w3": self._w1().convert(params["w3"])}
+                     "w2": self._w2().convert(params["w2"])}
+        if self.glu:
+            d["w3"] = self._w1().convert(params["w3"])
         for k in ("act_alpha", "act_beta", "h_alpha", "h_beta"):
             d[k] = params[k]
         return d
 
-    def apply_deploy(self, params: Params,
-                     x: torch.Tensor) -> torch.Tensor:
-        return self._deploy_glu(params, x)
+    def apply_deploy(self, params: Params, x: Optional[torch.Tensor] = None,
+                     *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Deploy forward, fp in and out; a fully binary matmul chain.
+        Either fp ``x`` (binarized here) or, for the GLU FFN, pre-packed
+        ``bits``; the ReLU FFN binarizes inside its fused F1 and takes
+        ``x`` only, as in the JAX package."""
+        if self.glu:
+            return self._deploy_glu(params, x, bits=bits)
+        if bits is not None:
+            raise ValueError("the ReLU FFN takes fp x, not packed bits")
+        if self.blocked_r:
+            return self._deploy_relu_blocked(params, x)
+        return self._deploy_relu(params, x)
 
     def _mm_int(self, wp: Params, bits: torch.Tensor, k: int,
                 scheme: str = "xnor", dc: Optional[torch.Tensor] = None
@@ -67,8 +96,46 @@ class BinaryFFN:
                           impl=self.impl)
         return c.reshape(shape + (c.shape[-1],)), wp["alpha_w"]
 
-    def _deploy_glu(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _deploy_relu(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Unblocked F1 -> F2 with the fused ReLU+unsigned threshold."""
+        h_bits, dc = self._w1().apply_deploy_fused_unsigned(
+            params["w1"], x, params["h_alpha"], params["h_beta"],
+            relu=self.act == "relu", impl=self.impl,
+            act_alpha=params["act_alpha"], act_beta=params["act_beta"])
+        c2, scale2 = self._mm_int(params["w2"], h_bits, self.d_ff,
+                                  scheme="and_dc", dc=dc)
+        y = c2.to(torch.float32) * scale2 * params["h_alpha"]
+        return y.to(self.dtype)
+
+    def _deploy_relu_blocked(self, params: Params,
+                             x: torch.Tensor) -> torch.Tensor:
+        """Eq. 11: R-chunked F1/F2 with two live l x d buffers."""
+        r = self.blocked_r
         bits = act_bits_packed(x, params["act_beta"])
+        shape = bits.shape[:-1]
+        a2 = bits.reshape(-1, bits.shape[-1])
+        d_blk = self.d_ff // r
+        # theta1 per FF channel (fused ReLU+unsigned), float32
+        scale1 = (params["act_alpha"] * params["w1"]["alpha_w"]
+                  ).clamp_min(1e-12)
+        t = params["h_beta"] + 0.5 * params["h_alpha"]
+        theta1 = torch.where(t > 0, torch.ceil(t / scale1),
+                             float(-(self.d_model + 1)))
+        # W2 (d, FF/32) -> (R, d, d_blk/32): chunk s is z[s], contiguous
+        z = params["w2"]["w_packed"].reshape(
+            self.d_model, r, d_blk // packing.WORD).transpose(0, 1)
+        c2 = rbmm.ffn_blocked(a2, params["w1"]["w_packed"], z.contiguous(),
+                              self.d_model, rbmm.astype_int32(theta1), r,
+                              impl="popcount")
+        c2 = c2.reshape(shape + (self.d_model,))
+        y = (c2.to(torch.float32) * params["w2"]["alpha_w"] *
+             params["h_alpha"])
+        return y.to(self.dtype)
+
+    def _deploy_glu(self, params: Params, x: Optional[torch.Tensor] = None,
+                    *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if bits is None:
+            bits = act_bits_packed(x, params["act_beta"])
         c_u, scale1 = self._mm_int(params["w1"], bits, self.d_model)
         c_g, scale3 = self._mm_int(params["w3"], bits, self.d_model)
         aa = params["act_alpha"]

@@ -4,15 +4,16 @@ Deploy face — packed int32 weights (1 bit per value), Eq. 7 RBMM:
     bits_a = (x >= beta_a)                 (the pack kernel)
     c      = RBMM(bits_a, w_packed)        (rbmm_int or rbmm_mxu kernel)
     y      = alpha_a * alpha_w * c + bias
-``convert()`` maps QAT params to deploy params (pack + keep scales).  The
-quantization-fused faces (``apply_deploy_fused*``) serve only the ReLU FFN
-and are not ported yet.
+or, quantization-fused (Eq. 10), the next layer's packed bits directly
+(the ``rbmm_binary`` kernel):
+    bits_y = (c >= theta),  theta = ceil((next_beta - bias) / (alpha_a alpha_w))
+``convert()`` maps QAT params to deploy params (pack + keep scales).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -88,3 +89,56 @@ class BinaryDense:
         if self.use_bias:
             y = y + params["bias"]
         return y.to(self.dtype)
+
+    def _fused(self, params: Params, bits: torch.Tensor,
+               theta: torch.Tensor, impl: str, return_dc: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(..., Kp) bits -> packed (..., ceil(out/32)) bits of
+        c >= theta, with their zero counts (...,) if asked."""
+        shape = bits.shape[:-1]
+        out_bits, dc_ret = rbmm.rbmm_binary(
+            bits.reshape(-1, bits.shape[-1]), params["w_packed"],
+            self.in_dim, rbmm.astype_int32(theta), scheme="xnor",
+            impl=impl, return_dc=return_dc)
+        out_bits = out_bits.reshape(shape + (out_bits.shape[-1],))
+        return out_bits, (None if dc_ret is None else dc_ret.reshape(shape))
+
+    def apply_deploy_fused(self, params: Params, x: torch.Tensor,
+                           next_beta: torch.Tensor, *, impl: str = "auto",
+                           return_dc: bool = False
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Deploy forward with Eq. 10 fusion: packed signed bits of
+        binarize(y, next_beta) without materializing y (the paper's M1).
+        theta_j = ceil((next_beta - bias_j) / (alpha_a * alpha_w_j)), in
+        float32 as the JAX package computes it."""
+        bits = act_bits_packed(x, params["act_beta"])
+        scale = params["act_alpha"] * params["alpha_w"]
+        shift = params["bias"] if self.use_bias else 0.0
+        theta = torch.ceil((next_beta - shift) / scale.clamp_min(1e-12))
+        return self._fused(params, bits, theta, impl, return_dc)
+
+    def apply_deploy_fused_unsigned(
+            self, params: Params, x: torch.Tensor, h_alpha: torch.Tensor,
+            h_beta: torch.Tensor, *, relu: bool = True, impl: str = "auto",
+            return_dc: bool = True, act_alpha: Optional[torch.Tensor] = None,
+            act_beta: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """F1: fused ReLU + *unsigned* binarization (Eq. 10, second case).
+
+        bit = (relu(y) >= h_beta + h_alpha/2).  When the fp threshold
+        t = h_beta + h_alpha/2 > 0 the ReLU is absorbed (c >= ceil((t-b)/s));
+        otherwise every post-ReLU value passes and theta drops to -(K+1)
+        (always true, since c >= -K)."""
+        if act_alpha is None:
+            act_alpha = params["act_alpha"]
+        if act_beta is None:
+            act_beta = params["act_beta"]
+        bits = act_bits_packed(x, act_beta)
+        scale = (act_alpha * params["alpha_w"]).clamp_min(1e-12)
+        shift = params["bias"] if self.use_bias else 0.0
+        t = h_beta + 0.5 * h_alpha
+        theta = torch.ceil((t - shift) / scale)
+        if relu:
+            theta = torch.where(t > 0, theta, float(-(self.in_dim + 1)))
+        return self._fused(params, bits, theta.expand(self.out_dim), impl,
+                           return_dc)

@@ -1,5 +1,8 @@
-"""Decoder-only LM, deploy faces (port of ``repro.models.lm.LMModel``).
+"""LM wrapper, deploy faces (port of ``repro.models.lm.LMModel``).
 
+  prefill_logits      deploy full-sequence forward, no cache: the encoder
+                      face of bert-base-cobra (bidirectional attention,
+                      untied head), and any decoder's whole-prompt logits
   prefill_with_cache  whole-prompt deploy forward that builds the
                       per-layer contiguous binary ring caches, or (with
                       ``caches=``) one chunk continuing sequences already
@@ -19,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import PageSpec
@@ -38,9 +42,10 @@ class LMModel:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if not self.cfg.tie_embeddings or self.cfg.frontend_tokens:
+        if self.cfg.frontend_tokens:
             raise NotImplementedError(
-                "the port runs tied-embedding token-only decoders only")
+                "frontend stubs are not ported yet; the port runs "
+                "token-only models")
         self._block()   # raises for block kinds not ported yet
 
     def _block(self) -> Block:
@@ -50,18 +55,28 @@ class LMModel:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
                             self.cfg.d_model)
 
-    def _norm(self) -> nn.RMSNorm:
-        return nn.RMSNorm(self.cfg.d_model)
+    def _head(self) -> Optional[nn.Dense]:
+        if self.cfg.tie_embeddings:
+            return None
+        return nn.Dense(self.cfg.d_model, padded_vocab(self.cfg.vocab_size),
+                        use_bias=False)
+
+    def _norm(self):
+        return nn.make_norm(self.cfg.norm, self.cfg.d_model)
 
     # -- params ---------------------------------------------------------------
 
     def init(self, gen: torch.Generator) -> Params:
         """QAT params drawn from ``gen``, on ``gen``'s device."""
         dev = gen.device
-        return {"embed": self._embed().init(gen, dev),
-                "final_norm": self._norm().init(dev),
-                "blocks": [self._block().init(gen, dev)
-                           for _ in range(self.cfg.num_layers)]}
+        p = {"embed": self._embed().init(gen, dev),
+             "final_norm": self._norm().init(dev)}
+        head = self._head()
+        if head is not None:
+            p["head"] = head.init(gen, dev)
+        p["blocks"] = [self._block().init(gen, dev)
+                       for _ in range(self.cfg.num_layers)]
+        return p
 
     def convert(self, params: Params) -> Params:
         out = {k: v for k, v in params.items() if k != "blocks"}
@@ -84,7 +99,11 @@ class LMModel:
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = self._norm().apply(params["final_norm"], x)
-        lg = self._embed().attend(params["embed"], x)
+        head = self._head()
+        if head is None:
+            lg = self._embed().attend(params["embed"], x)
+        else:
+            lg = head.apply(params["head"], x)
         return lg[..., :self.cfg.vocab_size]
 
     @staticmethod
@@ -98,6 +117,24 @@ class LMModel:
         return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
 
     # -- deploy faces ---------------------------------------------------------
+
+    def prefill_logits(self, dparams: Params, tokens, *,
+                       device="cuda") -> torch.Tensor:
+        """Deploy full-sequence forward, no cache: tokens (B, S) -> logits
+        (B, S, V).  Attention is causal or bidirectional as ``cfg.causal``
+        says.  ``dparams`` must already lie on ``device`` (CUDA by default;
+        pass ``device="cpu"`` for the plain versions); ``tokens`` are
+        moved there."""
+        dev = resolve_device(device)
+        on = dparams["embed"]["embedding"].device
+        if on.type != dev.type or dev.index not in (None, on.index):
+            raise ValueError(f"prefill_logits(device={str(device)!r}): the "
+                             f"params lie on {on}; build them there or "
+                             f"move them with repro_torch.to_device")
+        x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev))
+        for bp in dparams["blocks"]:
+            x, _ = self._block().deploy_prefill(bp, x)
+        return self._logits(dparams, x)
 
     def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,
                            max_len: int = 0,
@@ -182,5 +219,5 @@ def build_model(cfg: ModelConfig) -> LMModel:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port builds "
-            f"dense decoders")
+            f"dense models")
     return LMModel(cfg)

@@ -1,4 +1,4 @@
-"""Norms and the embedding (port of ``repro.models.nn``).
+"""Norms, the embedding and the fp dense head (port of ``repro.models.nn``).
 
 Layers are frozen dataclasses holding shapes only; parameters are plain
 dicts of tensors (the JAX package's layout, so ``repro_torch.bridge`` maps
@@ -43,6 +43,28 @@ class RMSNorm:
 
 
 @dataclasses.dataclass(frozen=True)
+class LayerNorm:
+    dim: int
+    eps: float = 1e-6
+
+    def init(self, device) -> Params:
+        return {"scale": torch.ones(self.dim, device=device),
+                "bias": torch.zeros(self.dim, device=device)}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        x = x.to(torch.float32)
+        mu = x.mean(dim=-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + self.eps)
+        return (y * params["scale"] + params["bias"]).to(dt)
+
+
+def make_norm(kind: str, dim: int):
+    return RMSNorm(dim) if kind == "rmsnorm" else LayerNorm(dim)
+
+
+@dataclasses.dataclass(frozen=True)
 class Embedding:
     vocab: int
     dim: int
@@ -60,3 +82,31 @@ class Embedding:
         """Tied-embedding logits (float32, like the JAX einsum of a
         compute-dtype x against the float32 table)."""
         return torch.matmul(x.to(torch.float32), params["embedding"].T)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dense:
+    """fp dense layer (the untied LM head): a plain matmul, which lies
+    outside every kernel of the JAX package too."""
+    in_dim: int
+    out_dim: int
+    use_bias: bool = True
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        p = {"kernel": truncated_normal(gen, (self.in_dim, self.out_dim),
+                                        1.0 / math.sqrt(self.in_dim),
+                                        device)}
+        if self.use_bias:
+            p["bias"] = torch.zeros(self.out_dim, device=device)
+        return p
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """x @ kernel (+ bias) in the promoted dtype of x and the kernel,
+        as the JAX einsum promotes (a bf16 x meets a float32 kernel in
+        float32)."""
+        kernel = params["kernel"]
+        dt = torch.promote_types(x.dtype, kernel.dtype)
+        y = torch.matmul(x.to(dt), kernel.to(dt))
+        if self.use_bias:
+            y = y + params["bias"]
+        return y

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import kernels, to_device
 from repro_torch.configs import base
+from repro_torch.core import packing
 from repro_torch.kernels.pack import ops as pack_ops, ref as pack_ref
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn import ref as paged_ref
@@ -73,6 +74,36 @@ def test_rbmm_int_kernel(cuda, scheme):
     assert torch.equal(got, rbmm_ref.rbmm_int(a, b, 100, scheme=scheme))
 
 
+@pytest.mark.parametrize("scheme", ["xnor", "and_dc"])
+def test_rbmm_binary_kernel(cuda, scheme):
+    """Both stores; ragged M, P and K, K past one staged chunk, causal with
+    M > P, a given dc, batched operands and an (M, P) theta."""
+    gen = torch.Generator().manual_seed(5)
+    th = lambda *s: torch.randint(-30, 30, s, generator=gen,
+                                  dtype=torch.int32).to(cuda)
+    a, b = _words(gen, (70, 4), 100, cuda), _words(gen, (45, 4), 100, cuda)
+    al, bl = _words(gen, (40, 35), 1100, cuda), _words(gen, (150, 35), 1100,
+                                                        cuda)
+    ab, bb = _words(gen, (3, 33, 2), 48, cuda), _words(gen, (3, 65, 2), 48,
+                                                       cuda)
+    dc = torch.randint(0, 100, (70,), generator=gen,
+                       dtype=torch.int32).to(cuda)
+    for x, y, k, theta, kw in (
+            (a, b, 100, th(45), dict(causal=True)),
+            (a, b, 100, th(45), dict(dc=dc if scheme == "and_dc" else None)),
+            (al, bl, 1100, th(40, 150), {}),
+            (ab, bb, 48, th(65), dict(causal=True))):
+        want, want_dc = rbmm_ref.rbmm_binary(x, y, k, theta, scheme=scheme,
+                                             **kw)
+        for pack in (False, True):
+            got, got_dc = _launched(lambda: rbmm_ops.rbmm_binary(
+                x, y, k, theta, scheme=scheme, pack_output=pack, **kw),
+                "rbmm_binary")
+            assert torch.equal(got, packing.pack_bits(want) if pack
+                               else want)
+            assert torch.equal(got_dc, want_dc)
+
+
 def test_rbmm_mxu_kernel(cuda):
     gen = torch.Generator().manual_seed(2)
     a = (2 * torch.randint(0, 2, (70, 100), generator=gen) - 1).to(
@@ -110,6 +141,25 @@ def test_smoke_model_on_card_equals_cpu(cuda):
     counts = kernels.launch_counts()
     assert all(counts[name] > 0 for name in static_path), counts
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def test_smoke_encoder_on_card_equals_cpu(cuda):
+    """bert-base-cobra's smoke config (float32): prefill_logits on the card
+    against the plain versions on the CPU, through every kernel of the
+    encoder path; float sums differ in order, hence the tolerance."""
+    model = build_model(base.get_smoke_config("bert-base-cobra"))
+    dp = model.convert(model.init(torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                              (2, 48)))
+    on_cpu = model.prefill_logits(dp, toks, device="cpu")
+    kernels.reset_launch_counts()
+    on_card = model.prefill_logits(to_device(dp, cuda), toks.to(cuda)).cpu()
+    counts = kernels.launch_counts()
+    assert counts["rbmm_binary"] == counts["rbmm_int"] == 8, counts
+    assert all(counts[name] > 0 for name in (
+        "pack_threshold", "rbmm_mxu", "sps_attention")), counts
+    assert torch.equal(on_card.argmax(-1), on_cpu.argmax(-1))
+    assert (on_card - on_cpu).abs().max().item() <= 1e-3
 
 
 def test_paged_gather_decode_kernel(cuda):

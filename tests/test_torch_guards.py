@@ -52,6 +52,13 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         bridge.from_jax_params({"x": np.zeros(2)})
     with pytest.raises(SystemExit, match="CUDA card"):
         serve_cli.main(["--device", "cuda", "--batch", "1"])
+    encoder = build_model(base.get_smoke_config("bert-base-cobra"))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        encoder.prefill_logits({}, np.zeros((1, 4), np.int32))
+    on_cpu = {"embed": {"embedding": torch.zeros(2)}}
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        encoder.prefill_logits(on_cpu, np.zeros((1, 4), np.int32),
+                               device="meta")
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -79,6 +86,23 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
         assert "Bound on the H100" in src, mod
         assert "__global__" in src and "COBRA_API" in src, mod
     assert len(kernels.source_hash()) == 16
+
+
+def test_encoder_config_kernel_registry_and_cli_exit():
+    """bert-base-cobra at its published widths, six kernels counted, and
+    the serving CLI refusing an encoder as the JAX CLI does."""
+    assert set(kernels.launch_counts()) == {
+        "pack_threshold", "rbmm_int", "rbmm_binary", "rbmm_mxu",
+        "sps_attention", "paged_gather_decode"}
+    cfg = base.get_config("bert-base-cobra")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.norm, cfg.act, cfg.glu,
+            cfg.causal, cfg.rope_theta, cfg.tie_embeddings,
+            cfg.binary.ffn_block_r, cfg.skip_decode) == (
+        12, 768, 12, 12, 3072, 30522, "layernorm", "relu", False, False,
+        0.0, False, 4, True)
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve_cli.main(["--arch", "bert-base-cobra", "--device", "cpu"])
 
 
 def test_samplers_hold_their_invariants():

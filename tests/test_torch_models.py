@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.core import packing as jpacking
 from repro.models.blocks import Block as JBlock
 from repro.models.linear import BinaryDense as JDense
 from repro.models.lm import build_model as jbuild
@@ -150,6 +151,12 @@ def test_ffn_deploy_glu(smoke):
         x = _x(smoke["rng"], rows)
         _close(tffn._deploy_glu(tp["ffn"], torch.from_numpy(x)),
                jax.jit(jffn._deploy_glu)(jp["ffn"], jnp.asarray(x)))
+    # pre-packed bits in place of x, as the JAX face takes them
+    bits = np.array(jpacking.pack_bits(jnp.asarray(
+        (x >= np.asarray(jp["ffn"]["act_beta"])).astype(np.uint32))))
+    _close(tffn.apply_deploy(tp["ffn"],
+                             bits=torch.from_numpy(bits.view(np.int32))),
+           jax.jit(jffn.apply_deploy)(jp["ffn"], bits=jnp.asarray(bits)))
 
 
 def test_block_prefill_and_decode(smoke):
