@@ -9,10 +9,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   2. build      nvcc builds every kernel of ``src/repro_torch/csrc``
   3. kernels    each kernel against its plain PyTorch version on the card,
                 at the main-path shapes, at every shape the encode phase
-                gives it and at ragged shapes; integer and
+                gives it, at ragged shapes and, for the tensor-core
+                kernels, at their tile edges and K-step counts; integer and
                 float32 outputs must be bitwise equal; CUDA-event timings of
                 kernel, plain version and (where one exists) the one
-                PyTorch call computing the same function
+                PyTorch call computing the same function; then
+                ``repro_torch.launch.kernel_times`` at both main-path shapes
+                of ``rbmm_mxu`` and the encoder's F1 and F2
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
                 ``ServeEngine.generate``; the launch count of every kernel
@@ -57,10 +60,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-SCALAR32_OPS = 67e12   # 32-bit operations outside the tensor cores
+from repro_torch.launch.kernel_times import (  # noqa: E402
+    BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, device_ms, eager_ms, nbytes,
+    time_all)
 
 SEED = 0
 
@@ -70,23 +72,6 @@ def log(msg: str) -> None:
 
 
 # -- timing and bounds --------------------------------------------------------
-
-
-def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Milliseconds per call from CUDA events around a loop of calls: the
-    wrapper's host work included, which is what a caller waits."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_profile(fn, iters: int, warm: bool = True, host: bool = False):
@@ -120,22 +105,6 @@ def device_profile(fn, iters: int, warm: bool = True, host: bool = False):
                    e.count / iters) for e in events
                   if e.device_type == DeviceType.CPU), key=lambda t: -t[1])
     return out + (ops,)
-
-
-def device_ms(fn, iters: int = 20) -> float:
-    """Device milliseconds per call: the sum of its CUDA kernels' times,
-    host overhead excluded."""
-    return device_profile(fn, iters)[0]
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(moved_bytes: float, ops: float, op_rate: float):
-    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # -- phase 1 and 2 ------------------------------------------------------------
@@ -318,6 +287,27 @@ def check_rbmm_binary(rng):
                                 {}),
         "scalar theta, batched": (ab, bb, 48, theta(), {}),
     }
+    # the 128 x 192 tile's edges and K-step counts (128 values a step, a
+    # 4-stage ring)
+    for bt, m, p, k, thf, kw in (
+            (1, 63, 193, 48, "P", dict(scheme="and_dc")),
+            (1, 127, 65, 100, "P", dict(causal=True)),
+            (1, 129, 127, 2048, "P", dict(scheme="and_dc", dc="given")),
+            (1, 128, 192, 576, "MP", {}),
+            (1, 65, 191, 768, "scalar", dict(scheme="and_dc", causal=True)),
+            (2, 64, 63, 1100, "MP", {}), (1, 300, 400, 768, "P", {})):
+        lead = (bt,) if bt > 1 else ()
+        x, y = _words(rng, lead + (m, (k + 31) // 32), k), \
+            _words(rng, lead + (p, (k + 31) // 32), k)
+        th = {"P": theta(p, lo=-k // 8, hi=k // 8), "scalar": theta(),
+              "MP": theta(*lead, m, p, lo=-k // 8, hi=k // 8)}[thf]
+        if kw.get("dc") == "given":
+            kw = dict(kw, dc=torch.randint(0, k, lead + (m,), device="cuda",
+                                           dtype=torch.int32))
+        cases[f"edge b={bt} M={m} P={p} K={k} theta {thf} "
+              f"{kw.get('scheme', 'xnor')}"
+              f"{' causal' if kw.get('causal') else ''}"
+              f"{' dc given' if 'dc' in kw else ''}"] = (x, y, k, th, kw)
     for case, (x, y, k, th, kw) in cases.items():
         for got, want, store in both(x, y, k, th, **kw):
             _same("rbmm_binary", f"{case}, {store}", got, want)
@@ -332,10 +322,14 @@ def check_rbmm_binary(rng):
     out, dc_out = ops.rbmm_binary(a, w, 768, th, pack_output=True)
     av = packing.unpack_signs(a, 768, torch.bfloat16)
     wv = packing.unpack_signs(w, 768, torch.bfloat16)
-    b_ms, by = bound(nbytes(a, w, th, out, dc_out), 3 * 4096 * 768 * 24,
-                     SCALAR32_OPS)
-    # a second floor the table's rate does not see: the SMs issue 16
-    # 32-bit popcounts per clock each (one per word pair here)
+    # the least of two ways to do the work: 32-bit word operations at the
+    # ALU rate, or the MACs of the unpacked values at the int8 tensor rate
+    b_ms, by = min(bound(nbytes(a, w, th, out, dc_out), 3 * 4096 * 768 * 24,
+                         SCALAR32_OPS),
+                   bound(nbytes(a, w, th, out, dc_out), 2 * 4096 * 768 * 768,
+                         INT8_OPS))
+    # the floor of the popcount route, which the table's rate does not see:
+    # the SMs issue 16 32-bit popcounts per clock each (one per word pair)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -344,8 +338,12 @@ def check_rbmm_binary(rng):
     popc = 4096 * 768 * 24
     log(f"[kernels] rbmm_binary main: {popc} popcounts at 16 per clock per "
         f"SM, {sms} SMs, {mhz:.0f} MHz max SM clock: floor "
-        f"{popc / (16 * sms * mhz * 1e6) * 1e3:.5f} ms (the table's bound "
-        f"{b_ms:.5f} ms at {SCALAR32_OPS / 1e12:.0f} T/s)")
+        f"{popc / (16 * sms * mhz * 1e6) * 1e3:.5f} ms; word operations at "
+        f"{SCALAR32_OPS / 1e12:.0f} T/s "
+        f"{3 * popc / SCALAR32_OPS * 1e3:.5f} ms; MACs at the int8 tensor "
+        f"rate {INT8_OPS / 1e12:.0f} T/s "
+        f"{2 * 4096 * 768 * 768 / INT8_OPS * 1e3:.5f} ms: bound "
+        f"{b_ms:.5f} ms ({by})")
 
     def plain():
         bits, d = ref.rbmm_binary(a, w, 768, th)
@@ -371,6 +369,23 @@ def check_rbmm_mxu(rng):
         "encode Q/K/V/O (4096x768)x(768x768)":
             (_pm1(rng, (4096, 768)), _words(rng, (768, 24), 768)),
     }
+    # tile edges (64 and 128), K-step counts of 1 to 32 (64 values a step,
+    # a 3- or 4-stage ring), K % 8 != 0, batches, {0,1} values; the last
+    # three reach the 128 x 64 and 128 x 128 tiles at ragged M and P, the
+    # last with P * 4 % 16 != 0 (masked stores instead of TMA stores)
+    for bt, m, k, p, unsigned in (
+            (1, 63, 48, 63, False), (1, 64, 100, 64, True),
+            (1, 65, 576, 65, False), (1, 127, 768, 127, True),
+            (1, 128, 1100, 128, False), (1, 129, 2048, 129, False),
+            (3, 65, 100, 129, True), (2, 129, 576, 63, False),
+            (1, 1100, 576, 1100, False), (1, 2000, 768, 1300, True),
+            (1, 1500, 100, 1501, False)):
+        lead = (bt,) if bt > 1 else ()
+        cases[f"edge b={bt} M={m} K={k} P={p} "
+              f"{'{0,1}' if unsigned else '±1'} tile "
+              f"{ops.tile_for(bt, m, p)}"] = (
+            _pm1(rng, lead + (m, k), unsigned=unsigned),
+            _words(rng, lead + (p, (k + 31) // 32), k))
     for case, (a, w) in cases.items():
         _same("rbmm_mxu", case, ops.rbmm_mxu(a, w), ref.rbmm_mxu(a, w))
     # main path: w1 at prefill, M = B*S = 1024, K = 576, P = 1536
@@ -546,6 +561,11 @@ def phase_kernels():
             f"({row['bound_by']}); per call with host work: kernel "
             f"{row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}, "
             f"library {row['library_eager_ms']}")
+    for t in time_all(SEED):
+        log(f"[kernels] {t['shape']}: device ms kernel {t['ms']:.5f}, "
+            f"library {t['library_ms']:.5f}, bound {t['bound_ms']:.5f} "
+            f"({t['bound_by']}); per call with host work: kernel "
+            f"{t['eager_ms']:.4f}, library {t['library_eager_ms']:.4f}")
     return rows
 
 
@@ -985,7 +1005,7 @@ def phase_encode():
     log(f"[encode] forward profile: device busy {busy:.3f} ms of "
         f"{wall:.2f} ms wall (busy share {busy / wall:.3f}, idle share "
         f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels per forward")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[encode]   {ms:.4f} ms/forward  {name[:90]}")
     log_host_ops("[encode]", host_ops)
     crosscheck_encode(cfg, to_device(dparams, "cpu"), dparams)
@@ -1015,11 +1035,7 @@ def crosscheck_encode(cfg, on_cpu, dparams):
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 1
+    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)

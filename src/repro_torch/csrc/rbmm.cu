@@ -26,22 +26,40 @@
 // (sequence, row, column; 0 where broadcast), so a (P,) vector, a scalar or
 // a full (batch, M, P) table take the same kernel.
 //
-// Bound on the H100: operations.  At the bert-base FFN F1 shape (M = 4096
-// tokens, K = 768 as Kp = 24 words, P = 768) it does 4096*768*24 word
-// steps of xor/and, popcount and add, 0.23 G 32-bit ops (3.4 us at the
-// 67 T/s non-tensor rate), against 0.9 MB moved (0.27 us).  Design: a block
-// of four warps owns 32 rows x 128 columns; per chunk of 32 words it stages
-// the A rows and the B columns in shared memory (B padded to 33 words a
-// column, so the 32 lanes of a warp hit 32 banks), and each thread, one
-// output column, keeps 32 row accumulators in registers and reads the A
-// words four at a time as broadcast 16-byte loads.  The xnor score is
-// k - 2*popcount(a ^ b), the same integer as the pad-corrected form.  In
-// the epilogue each warp compares its 32 columns and __ballot_sync puts
-// lane i into bit i, so the packed word exists in a register and is stored
-// once; the row's zero count is 32 minus its popcount (over the true
-// columns only), added to a cleared dc vector with one int32 atomic per
-// word, which is exact in any order.
+// Bound on the H100: operations, on the int8 tensor cores.  At the
+// bert-base FFN F1 shape (M = 4096 tokens, K = 768 as Kp = 24 words, P =
+// 768) the product is 4.83 G multiply-adds of ±1 or {0,1} values: 2.44 us
+// at 1,979 TOP/s, against 0.23 G 32-bit word operations (3.38 us at the
+// 67 T/s non-tensor rate, and 18 us at the card's popcount issue rate of
+// 16 per clock per SM, which bounded the popcount design this replaces)
+// and 0.88 MB moved (0.26 us).  The values are exact in int8 and their
+// sums, at most 32 * Kp in magnitude, in int32.
+//
+// Design: a block of two consumer warpgroups and one producer warp owns
+// 128 rows x 192 columns (128 blocks at F1: one wave on 132 SMs) and walks
+// K in steps of 128 values (4 words per row).  The producer warp copies a
+// step's A and B words into a 4-stage mbarrier ring with cp.async
+// (16-byte copies when Kp % 4 == 0 and the bases are aligned, 4-byte ones
+// otherwise; zero past M, P or Kp).  The consumers unpack a stage into
+// int8 tiles in the 128-byte-swizzled K-major wgmma layout, 16 bits to a
+// 16-byte chunk (x * 0x204081 spreads a nibble into four bytes): ±1 for
+// xnor, {0,1} for and_dc; the words go back to the producer at once.
+// Every bit of the Kp words unpacks, pad bits of the last word included,
+// and the integer correction makes the score equal the plain version for
+// any words: c = dot - (32 * Kp - K) for xnor, 2 * dot - K + d for and_dc
+// (d from all words when derived).  Words past Kp in a stage unpack to 0:
+// in ±1 form a zero word would be all -1.  Then the proxy fence, a
+// barrier among the consumers and four wgmma m64n192k32 s8.s8 -> s32 per
+// warpgroup, left running while the next step unpacks (three tile
+// buffers).  The thresholds of the block's columns are staged in shared
+// memory when theta does not depend on the row.  In the epilogue each
+// thread holds column pairs 8j + 2 * (lane % 4) + {0, 1} of two rows; it
+// thresholds them, masks causally and past P, and an OR over the four
+// lanes of a quad (__shfl_xor_sync) assembles each 32-column word, stored
+// once.  A row's zeros in the block (true columns only) go to a cleared
+// dc vector with one int32 atomic per row and block, exact in any order.
 #include "common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -95,104 +113,213 @@ COBRA_API int cobra_rbmm_int(const void* a, const void* b, const void* dc,
 
 namespace {
 
-constexpr int kBinRows = 32;   // rows per block: one accumulator each
-constexpr int kBinCols = 128;  // columns per block: four warps of 32 lanes
-constexpr int kBinChunk = 32;  // packed words staged per step
+constexpr int kBinM = 128;       // rows per block: two consumer warpgroups
+constexpr int kBinN = 192;       // columns per block: wgmma n192
+constexpr int kBinWords = 4;     // words per row and K-step (128 values)
+constexpr int kBinStages = 4;    // word ring depth
+constexpr int kBinBufs = 3;      // unpacked tiles in flight (see the loop)
+constexpr int kBinConsumers = 256;
+constexpr int kBinThreads = kBinConsumers + 32;   // + producer warp
+constexpr int kBinRows = kBinM + kBinN;           // staged rows: A then B
+constexpr int kBinStageWords = kBinRows * kBinWords;
+constexpr int kBinChunks = kBinRows * 8 / kBinConsumers;  // per thread
+constexpr int kBinTileBytes = kBinRows * tc::kRowBytes;   // A and B, int8
+constexpr int kBinTileOff = 0;
+constexpr int kBinWordOff = kBinBufs * kBinTileBytes;
+constexpr int kBinThetaOff = kBinWordOff + kBinStages * kBinStageWords * 4;
+constexpr int kBinOnesOff = kBinThetaOff + kBinN * 4;
+constexpr int kBinBarOff = kBinOnesOff + kBinM * 4;
+constexpr int kBinSmem = kBinBarOff + 2 * kBinStages * 8 + 1024;  // + align
+static_assert(kBinRows * 8 % kBinConsumers == 0, "whole chunks per thread");
 
 template <bool kAndDc, bool kPacked>
-__global__ void __launch_bounds__(kBinCols)
+__global__ void __launch_bounds__(kBinThreads)
     rbmm_binary_kernel(const uint32_t* __restrict__ a,
                        const uint32_t* __restrict__ b,
                        const int32_t* __restrict__ dc,
                        const int32_t* __restrict__ theta, long long ts_z,
                        long long ts_m, long long ts_p, int m, int p, int kp,
-                       int k, int causal, int32_t* __restrict__ out,
+                       int k, int causal, int vec16,
+                       int32_t* __restrict__ out,
                        int32_t* __restrict__ dc_out) {
-  __shared__ __align__(16) uint32_t a_s[kBinRows][kBinChunk];
-  __shared__ uint32_t b_s[kBinCols][kBinChunk + 1];
-  __shared__ int ones_s[kBinRows];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* tiles = smem + kBinTileOff;
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + kBinWordOff);
+  int32_t* theta_s = reinterpret_cast<int32_t*>(smem + kBinThetaOff);
+  int* ones_s = reinterpret_cast<int*>(smem + kBinOnesOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBinBarOff);
+  uint64_t* empty = full + kBinStages;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const long long z = blockIdx.z;
-  const int row0 = blockIdx.y * kBinRows;
-  const int col0 = blockIdx.x * kBinCols;
-  const int col = col0 + tid;
+  const int m0 = blockIdx.y * kBinM;
+  const int n0 = blockIdx.x * kBinN;
   const uint32_t* az = a + z * m * static_cast<long long>(kp);
   const uint32_t* bz = b + z * p * static_cast<long long>(kp);
-  const bool derive_dc = kAndDc && dc == nullptr;
+  const int ktiles = (kp + kBinWords - 1) / kBinWords;
 
-  int acc[kBinRows];
-#pragma unroll
-  for (int r = 0; r < kBinRows; ++r) acc[r] = 0;
-  if (tid < kBinRows) ones_s[tid] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < kBinStages; ++s) {
+      tc::mbar_init(&full[s], 32);                   // cp.async arrivals
+      tc::mbar_init(&empty[s], kBinConsumers / 32);  // one per warp
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int w0 = 0; w0 < kp; w0 += kBinChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < kBinRows * kBinChunk; i += kBinCols) {
-      const int r = i / kBinChunk, w = i % kBinChunk;
-      const int row = row0 + r, ww = w0 + w;
-      a_s[r][w] = (row < m && ww < kp)
-                      ? az[static_cast<long long>(row) * kp + ww] : 0u;
-    }
-    for (int i = tid; i < kBinCols * kBinChunk; i += kBinCols) {
-      const int c = i / kBinChunk, w = i % kBinChunk;
-      const int cc = col0 + c, ww = w0 + w;
-      b_s[c][w] = (cc < p && ww < kp)
-                      ? bz[static_cast<long long>(cc) * kp + ww] : 0u;
-    }
-    __syncthreads();
-    if (derive_dc && tid < kBinRows) {
-      int ones = 0;
-      for (int w = 0; w < kBinChunk; ++w) ones += __popc(a_s[tid][w]);
-      ones_s[tid] += ones;
-    }
-    // staged words past kp are 0 in both operands and add nothing
-    const int nw = min(kBinChunk, kp - w0);
-    for (int w = 0; w < nw; w += 4) {
-      const uint32_t b0 = b_s[tid][w], b1 = b_s[tid][w + 1],
-                     b2 = b_s[tid][w + 2], b3 = b_s[tid][w + 3];
-#pragma unroll
-      for (int r = 0; r < kBinRows; ++r) {
-        const uint4 av = *reinterpret_cast<const uint4*>(&a_s[r][w]);
-        if (kAndDc) {
-          acc[r] += __popc(av.x & b0) + __popc(av.y & b1) +
-                    __popc(av.z & b2) + __popc(av.w & b3);
-        } else {
-          acc[r] += __popc(av.x ^ b0) + __popc(av.y ^ b1) +
-                    __popc(av.z ^ b2) + __popc(av.w ^ b3);
+  if (tid >= kBinConsumers) {   // the producer warp
+    const int lane = tid - kBinConsumers;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kBinStages;
+      if (kt >= kBinStages)
+        tc::mbar_wait(&empty[s], (kt / kBinStages - 1) & 1);
+      uint32_t* ws = words + s * kBinStageWords;
+      const int w0 = kt * kBinWords;
+      if (vec16) {
+        for (int r = lane; r < kBinRows; r += 32) {
+          const int gr = r < kBinM ? m0 + r : n0 + r - kBinM;
+          const bool ok = r < kBinM ? gr < m : gr < p;
+          const uint32_t* src =
+              (r < kBinM ? az : bz) + static_cast<long long>(gr) * kp + w0;
+          tc::cp_async<16>(ws + r * kBinWords, ok ? src : a, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = lane; i < kBinStageWords; i += 32) {
+          const int r = i / kBinWords, ww = w0 + i % kBinWords;
+          const int gr = r < kBinM ? m0 + r : n0 + r - kBinM;
+          const bool ok = (r < kBinM ? gr < m : gr < p) && ww < kp;
+          const uint32_t* src =
+              (r < kBinM ? az : bz) + static_cast<long long>(gr) * kp + ww;
+          tc::cp_async<4>(ws + i, ok ? src : a, ok ? 4 : 0);
         }
       }
+      tc::cp_async_arrive(&full[s]);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
-  __syncthreads();  // ones_s is complete
 
-  const int warp_col0 = col0 + (tid & ~31);
-  const int valid = min(32, p - warp_col0);   // true columns of this word
+  // consumer warpgroups; while the first words are in flight, stage the
+  // block's thresholds when they do not depend on the row, and count the
+  // A rows' ones when dc is derived (over all words, pad bits included, as
+  // the plain version counts them)
+  const int wg = tid / 128;
+  const int warp = tid / 32;
+  const int lane = tid & 31;
+  const bool derive_dc = kAndDc && dc == nullptr;
+  const bool theta_by_col = ts_m == 0;
+  if (theta_by_col && tid < kBinN && n0 + tid < p)
+    theta_s[tid] = theta[z * ts_z + (n0 + tid) * ts_p];
+  if (derive_dc && tid < kBinM) {
+    int ones = 0;
+    if (m0 + tid < m) {
+      const uint32_t* row = az + static_cast<long long>(m0 + tid) * kp;
+#pragma unroll 8
+      for (int w = 0; w < kp; ++w) ones += __popc(row[w]);
+    }
+    ones_s[tid] = ones;
+  }
+
+  int32_t acc[kBinN / 2];
+#pragma unroll
+  for (int i = 0; i < kBinN / 2; ++i) acc[i] = 0;
+
+  // Thread tid unpacks 16-byte chunk tid % 8 of rows tid / 8 + 32 j: the
+  // chunk's 16 values are bits 16 * (c % 2) .. + 15 of the row's word c / 2
+  // of the step.
+  const int c = tid & 7;
+  const int r0 = tid >> 3;
+  // Step kt: unpack the stage's words into tile buffer kt % 3 (the words
+  // go back to the producer at once), then issue its wgmmas and, while
+  // they run, wait for those of step kt - 1.  Buffer kt % 3 was last read
+  // by the wgmmas of step kt - 3, which every warpgroup waited for before
+  // the barrier of step kt - 1.
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kBinStages;
+    tc::mbar_wait(&full[s], (kt / kBinStages) & 1);
+    uint8_t* tile = tiles + (kt % kBinBufs) * kBinTileBytes;
+    const uint32_t* ws = words + s * kBinStageWords + (c >> 1);
+    // words past Kp are zero operands: in ±1 form a zero word is all -1
+    const bool live = kt * kBinWords + (c >> 1) < kp;
+    const int shift = 16 * (c & 1);
+#pragma unroll
+    for (int j = 0; j < kBinChunks; ++j) {
+      const int r = r0 + 32 * j;
+      const uint32_t half = (ws[r * kBinWords] >> shift) & 0xFFFFu;
+      *reinterpret_cast<uint4*>(tile + tc::swz(r, c)) =
+          live ? tc::bits16_to_s8<!kAndDc>(half) : make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+    tc::fence_proxy_async();
+    tc::named_sync(1, kBinConsumers);
+    const uint8_t* at = tile + wg * 64 * tc::kRowBytes;
+    const uint8_t* bt = tile + kBinM * tc::kRowBytes;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_s8(acc, tc::desc_b128(at + 32 * kk),
+                   tc::desc_b128(bt + 32 * kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();
+  }
+  tc::wgmma_wait<0>();
+  tc::fence_operands(acc);
+  tc::named_sync(1, kBinConsumers);   // theta_s and ones_s are complete
+
+  const int tig = lane & 3;
+  const int valid = min(kBinN, p - n0);   // true columns of the block
   const int pw = (p + 31) / 32;
 #pragma unroll
-  for (int r = 0; r < kBinRows; ++r) {
-    const int row = row0 + r;
-    if (row >= m) break;  // the same for the whole block
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+    const int row = m0 + rl;
+    const bool row_ok = row < m;          // the same for the whole quad
     const long long zrow = z * m + row;
-    int c;
-    if (kAndDc) {
-      const int d = derive_dc ? k - ones_s[r] : dc[zrow];
-      c = 2 * acc[r] - k + d;
-    } else {
-      c = k - 2 * acc[r];
+    // the score is dot - off (xnor: the ±1 pad correction) or 2 dot - off
+    // (and_dc: off = K - d); a bit may be set only in the first lim
+    // columns of the block: the true ones, and col <= row when causal
+    int off = 32 * kp - k;
+    if (kAndDc && row_ok) off = k - (derive_dc ? k - ones_s[rl] : dc[zrow]);
+    int lim = row_ok ? valid : 0;
+    if (causal) lim = min(lim, row - n0 + 1);
+    const int32_t* th_row = theta + z * ts_z + row * ts_m + n0 * ts_p;
+    uint32_t word[kBinN / 32];
+#pragma unroll
+    for (int q = 0; q < kBinN / 32; ++q) word[q] = 0u;
+#pragma unroll
+    for (int j = 0; j < kBinN / 8; ++j) {
+      const int cl = 8 * j + 2 * tig;     // the pair's first column
+      int2 th;
+      if (theta_by_col) {
+        th = *reinterpret_cast<const int2*>(&theta_s[cl]);
+      } else {
+        th.x = cl < lim ? th_row[cl * ts_p] : 0;
+        th.y = cl + 1 < lim ? th_row[(cl + 1) * ts_p] : 0;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int dot = acc[4 * j + 2 * h + e];
+        const int score = (kAndDc ? 2 * dot : dot) - off;
+        const bool bit = cl + e < lim && score >= (e ? th.y : th.x);
+        word[j / 4] |= static_cast<uint32_t>(bit)
+                       << (8 * (j % 4) + 2 * tig + e);
+        if (!kPacked && row_ok && cl + e < valid)
+          out[zrow * p + n0 + cl + e] = bit ? 1 : 0;
+      }
     }
-    const bool bit = col < p && (!causal || col <= row) &&
-                     c >= theta[z * ts_z + row * ts_m + col * ts_p];
-    const unsigned word = __ballot_sync(0xffffffffu, bit);
-    if (kPacked) {
-      if (lane == 0 && valid > 0)
-        out[zrow * pw + warp_col0 / 32] = static_cast<int32_t>(word);
-    } else if (col < p) {
-      out[zrow * p + col] = bit ? 1 : 0;
+    int zeros = valid;
+#pragma unroll
+    for (int q = 0; q < kBinN / 32; ++q) {
+      word[q] |= __shfl_xor_sync(0xffffffffu, word[q], 1);
+      word[q] |= __shfl_xor_sync(0xffffffffu, word[q], 2);
+      zeros -= __popc(word[q]);
+      if (kPacked && row_ok && tig == (q & 3) && n0 / 32 + q < pw)
+        out[zrow * pw + n0 / 32 + q] = static_cast<int32_t>(word[q]);
     }
-    if (lane == 0 && valid > 0)
-      atomicAdd(&dc_out[zrow], valid - __popc(word));
+    if (row_ok && tig == 0) atomicAdd(&dc_out[zrow], zeros);
   }
 }
 
@@ -209,8 +336,8 @@ COBRA_API int cobra_rbmm_binary(const void* a, const void* b, const void* dc,
                                 int causal, int packed, void* out,
                                 void* dc_out, void* stream) {
   if (batch == 0 || m == 0 || p == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((p + kBinCols - 1) / kBinCols),
-                  static_cast<unsigned>((m + kBinRows - 1) / kBinRows),
+  const dim3 grid(static_cast<unsigned>((p + kBinN - 1) / kBinN),
+                  static_cast<unsigned>((m + kBinM - 1) / kBinM),
                   static_cast<unsigned>(batch));
   auto s = static_cast<cudaStream_t>(stream);
   auto au = static_cast<const uint32_t*>(a);
@@ -221,9 +348,24 @@ COBRA_API int cobra_rbmm_binary(const void* a, const void* b, const void* dc,
   auto dco = static_cast<int32_t*>(dc_out);
   const int mi = static_cast<int>(m), pi = static_cast<int>(p),
             kpi = static_cast<int>(kp), ki = static_cast<int>(k);
-#define COBRA_RBMM_BINARY(AND_DC, PACKED)                                  \
-  rbmm_binary_kernel<AND_DC, PACKED><<<grid, kBinCols, 0, s>>>(             \
-      au, bu, dci, th, ts_z, ts_m, ts_p, mi, pi, kpi, ki, causal, o, dco)
+  // 16-byte copies of a row's 4 words when every row start is aligned
+  const int vec16 = kp % kBinWords == 0 &&
+                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
+#define COBRA_RBMM_BINARY(AND_DC, PACKED)                                   \
+  do {                                                                       \
+    static bool attr_set = false;                                            \
+    if (!attr_set) {                                                         \
+      const cudaError_t e = cudaFuncSetAttribute(                            \
+          rbmm_binary_kernel<AND_DC, PACKED>,                                \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kBinSmem);            \
+      if (e != cudaSuccess) return static_cast<int>(e);                      \
+      attr_set = true;                                                       \
+    }                                                                        \
+    rbmm_binary_kernel<AND_DC, PACKED><<<grid, kBinThreads, kBinSmem, s>>>(  \
+        au, bu, dci, th, ts_z, ts_m, ts_p, mi, pi, kpi, ki, causal, vec16, o,  \
+        dco);                                                                \
+  } while (0)
   if (scheme) {
     if (packed) COBRA_RBMM_BINARY(true, true);
     else COBRA_RBMM_BINARY(true, false);

@@ -1,0 +1,351 @@
+// Building blocks of the port's Hopper tensor-core kernels (rbmm_mxu.cu and
+// rbmm.cu's rbmm_binary), in raw PTX for sm_90a:
+//
+//   * a ring of shared-memory stages guarded by mbarriers: "full" barriers
+//     that a producer warp completes with TMA transactions and cp.async
+//     arrivals, "empty" barriers that the consumer warps complete when a
+//     stage has been read;
+//   * TMA tile loads and stores (cp.async.bulk.tensor) on tensor maps
+//     encoded on the host by cuTensorMapEncodeTiled (libcuda);
+//   * cp.async word copies with zero fill;
+//   * wgmma descriptors for K-major tiles in the 128-byte swizzle, and the
+//     fences between the generic proxy (threads' stores) and the async
+//     proxy (TMA, wgmma) that reads what they wrote;
+//   * the unpacking of packed 1-bit words into those tiles: 8 bits to one
+//     16-byte chunk of ±1 bf16, or 16 bits to one chunk of int8.
+//
+// Tile layout (both operands, both kernels): a tile row holds 128 bytes of
+// one M or N index along K (64 bf16 or 128 int8 values); 16-byte chunk c of
+// row r lies at chunk c ^ (r % 8) of that row, which is the layout TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes and the B128 descriptor reads.  Eight
+// rows form a 1,024-byte core group (the descriptor's stride byte offset);
+// every tile starts 1,024-byte aligned; the k16 (bf16) or k32 (int8) step
+// within a row is a 32-byte advance of the start address.
+#pragma once
+
+#include <cuda.h>
+#include <string.h>
+
+#include "common.cuh"
+
+namespace tc {
+
+constexpr int kRowBytes = 128;  // one swizzled tile row along K
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarrier ----------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Block until the phase of parity ``parity`` of ``bar`` has completed (the
+// label is local to the braces, so every inlined copy may reuse it).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(addr), "r"(parity) : "memory");
+}
+
+// -- copies ------------------------------------------------------------------
+
+// 4- or 16-byte cp.async; ``src_bytes`` 0 fills the destination with zeros
+// (``src`` must still be a valid address).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         uint32_t src_bytes) {
+  static_assert(kBytes == 4 || kBytes == 16, "cp.async of 4 or 16 bytes");
+  if (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+  }
+}
+
+// The barrier counts one arrival of this thread once its earlier cp.asyncs
+// have landed (the arrival is one of those set at init).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// Fetch a tensor map into the TMA unit's cache ahead of its first use.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA load of one box of a 3-D tensor map (coordinates innermost first);
+// the bytes complete on ``bar``.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA store of one box; elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// -- proxies, barriers -------------------------------------------------------
+
+// Make this thread's shared-memory stores visible to the async proxy
+// (wgmma, TMA store).  Each writing thread fences before the barrier that
+// precedes the async read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier among the first ``threads`` threads of the block (id 0 is
+// __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------
+
+// Descriptor of a K-major, 128-byte-swizzled tile that starts at ``p``
+// (1,024-byte aligned, or advanced from such a start by whole 32-byte k
+// steps): stride byte offset 1,024 (eight rows), B128 layout.
+__device__ __forceinline__ uint64_t desc_b128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Block until at most ``kPending`` committed wgmma groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// One warpgroup issues D (64 x N) += A (64 x 16 bf16, or 64 x 32 int8) *
+// B^T (N x the same K), A and B by descriptor from shared memory, both
+// K-major; D stays in registers (thread t of the warpgroup holds rows
+// 16*(t/32) + (t%32)/4 and that + 8, columns 8j + 2*(t%4) + {0, 1}: d[4j],
+// d[4j+1] on the first row, d[4j+2], d[4j+3] on the second).
+__device__ __forceinline__ void wgmma_bf16(
+    float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(
+    float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(
+    int32_t (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+// After the last wgmma wait: ties every later read of the accumulators to
+// the wait, so the compiler cannot hoist one above it.  (Inside the
+// pipeline only wgmmas may touch the accumulators: any other instruction
+// that defines them makes ptxas serialize the wgmmas.)
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// -- unpacking packed words into swizzled tiles ------------------------------
+
+// Byte offset of 16-byte chunk ``c`` of row ``r`` in a swizzled tile.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+// 8 bits (LSB first) -> eight ±1 bf16 (+1 for a set bit): 0xBF80 is -1,
+// flipping bit 15 makes it +1; two values per 32-bit word.
+__device__ __forceinline__ uint4 bits8_to_pm1_bf16(uint32_t bits) {
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t two = bits >> (2 * i);
+    v[i] = 0xBF80BF80u ^ ((two & 1u) << 15) ^ ((two & 2u) << 30);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// 4 bits (LSB first) -> 4 bytes of 0 or 1: x * 0x204081 puts bit i of x at
+// bit 8i (the four shifted copies do not overlap).
+__device__ __forceinline__ uint32_t nibble_to_01_bytes(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// 16 bits (LSB first) -> sixteen int8: {0,1} (kPm1 false) or ±1, +1 for a
+// set bit (0xFF is -1: 0xFF ^ 0xFE = 0x01 where the byte is 1).
+template <bool kPm1>
+__device__ __forceinline__ uint4 bits16_to_s8(uint32_t bits) {
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t b = nibble_to_01_bytes((bits >> (4 * i)) & 0xFu);
+    v[i] = kPm1 ? (0xFFFFFFFFu ^ (b * 0xFEu)) : b;
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// -- host: tensor maps -------------------------------------------------------
+
+// A 3-D tensor map (innermost dimension first) with a (box0, box1, 1) box
+// in the 128-byte swizzle; out-of-bounds elements load as zero.  Returns
+// false if the driver refuses the map.
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                      int elem_bytes, const void* base, uint64_t d0,
+                      uint64_t d1, uint64_t d2, uint32_t box0,
+                      uint32_t box1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, type, 3, const_cast<void*>(base), dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc

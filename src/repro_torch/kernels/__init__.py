@@ -19,8 +19,10 @@ plain version.  Nothing falls back from one to the other.
 Build: the first launch compiles every ``csrc/*.cu`` with ``nvcc`` for
 ``sm_90a`` (one compiler process per source, all started together), links
 them into one shared library under ``build/`` at the repository root, keyed
-by a hash of the sources, and loads it with ``ctypes``.  A failed build
-raises.
+by a hash of the sources (headers ``csrc/*.cuh`` included), and loads it
+with ``ctypes``.  The library links the driver library ``libcuda``
+(``-lcuda``) for ``cuTensorMapEncodeTiled``, which encodes the TMA tensor
+maps of the tensor-core kernels on the host.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LIB_NAME = "libcobra_kernels.so"
+LINK_FLAGS = ("-lcuda",)
 
 # kernel name -> (ops module, name of the wrapper that launches and counts)
 KERNELS = {
@@ -98,7 +101,7 @@ def source_hash() -> str:
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -132,7 +135,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
-             *[str(tmp / (s.stem + ".o")) for s in sources()]],
+             *[str(tmp / (s.stem + ".o")) for s in sources()], *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link\n{link.stdout}")
         (tmp / "build.log").write_text("\n".join(log))
@@ -183,9 +186,17 @@ def launch(entry: str, argtypes: Sequence, device: torch.device,
         fn.argtypes = [*argtypes, PTR]
         fn.restype = ctypes.c_int
         _entries[entry] = fn
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    # the raw stream handle and the current device without building Python
+    # stream or device objects: each of those costs microseconds of host
+    # time per launch, and the serving paths are host-bound
+    idx = device.index if device.index is not None else \
+        torch._C._cuda_getDevice()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch._C._cuda_getDevice():
         status = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            status = fn(*args, stream)
     if status:
         msg = library().cobra_error_string(status).decode()
         raise RuntimeError(f"{entry}: CUDA launch failed with status "

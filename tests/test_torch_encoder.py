@@ -148,6 +148,37 @@ def test_rbmm_binary_plain_matches_jax_ref_and_kernel(scheme, causal,
             assert torch.equal(got_dc, dc_ret)
 
 
+def test_rbmm_binary_plain_with_pad_bits_matches_jax_ref():
+    """Nonzero pad bits in the last word (K % 32 != 0): the plain version
+    still equals the JAX ref on the same words, bits and dc, both schemes,
+    dc derived and given, causal or not.  The card kernel unpacks every bit
+    of the Kp words and must agree with this, not only on zero pads."""
+    for m, k, p in ((50, 100, 45), (33, 48, 70)):
+        rng = np.random.default_rng(k)
+        kp = (k + 31) // 32
+        a = rng.integers(0, 2**32, (m, kp), dtype=np.uint64).astype(
+            np.uint32)
+        b = rng.integers(0, 2**32, (p, kp), dtype=np.uint64).astype(
+            np.uint32)
+        a[:, -1] |= np.uint32(0xF0000000)   # pad bits set in both
+        b[:, -1] |= np.uint32(0xC0000000)
+        theta = rng.integers(-k // 3, k // 3, (p,)).astype(np.int32)
+        dc = rng.integers(0, k, (m,)).astype(np.int32)
+        for scheme, given, causal in (("xnor", False, False),
+                                      ("xnor", False, True),
+                                      ("and_dc", False, False),
+                                      ("and_dc", True, True)):
+            bits, dc_ret = tref.rbmm_binary(
+                _t(a), _t(b), k, _t(theta), scheme=scheme,
+                dc=_t(dc) if given else None, causal=causal)
+            want_bits, want_dc = jref.rbmm_binary(
+                jnp.asarray(a), jnp.asarray(b), k, jnp.asarray(theta),
+                scheme=scheme, dc=jnp.asarray(dc) if given else None,
+                causal=causal)
+            _eq(bits, np.asarray(want_bits).astype(np.int32))
+            _eq(dc_ret, want_dc)
+
+
 def test_rbmm_binary_wrapper_batches_broadcasts_and_checks():
     """Leading dims, a per-row theta and a full (..., M, P) table, each
     equal to the per-sequence JAX oracle; bad operands raise."""

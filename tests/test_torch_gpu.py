@@ -113,6 +113,51 @@ def test_rbmm_mxu_kernel(cuda):
     assert torch.equal(got, mxu_ref.rbmm_mxu(a, w))
 
 
+@pytest.mark.parametrize("bt,m,k,p,unsigned", [
+    (1, 63, 48, 129, False), (3, 128, 100, 65, True),
+    (1, 129, 2048, 127, False), (1, 1100, 576, 1100, True)])
+def test_rbmm_mxu_kernel_tile_edges(cuda, bt, m, k, p, unsigned):
+    """M and P at and past the 64 and 128 tile edges, K of 1 to 32 steps of
+    64 (more than the ring's 4 stages), K % 8 != 0, a batch, {0,1} values;
+    the last case takes the 128 x 64 tile."""
+    gen = torch.Generator().manual_seed(m + k)
+    lead = (bt,) if bt > 1 else ()
+    bits = torch.randint(0, 2, lead + (m, k), generator=gen)
+    a = (bits if unsigned else 2 * bits - 1).to(cuda, torch.bfloat16)
+    w = _words(gen, lead + (p, (k + 31) // 32), k, cuda)
+    got = _launched(lambda: mxu_ops.rbmm_mxu(a, w), "rbmm_mxu")
+    assert torch.equal(got, mxu_ref.rbmm_mxu(a, w))
+
+
+@pytest.mark.parametrize("scheme", ["xnor", "and_dc"])
+def test_rbmm_binary_kernel_tile_edges(cuda, scheme):
+    """Both stores at M and P around the 128 x 192 tile, K of 1 to 16
+    steps of 128 values, dc derived and given, causal with M > P, every
+    theta form."""
+    gen = torch.Generator().manual_seed(6)
+    th = lambda *s: torch.randint(-12, 12, s, generator=gen,
+                                  dtype=torch.int32).to(cuda)
+    for lead, m, p, k, theta, kw in (
+            ((), 63, 193, 48, th(193), {}),
+            ((), 129, 127, 2048, th(129, 127), dict(causal=True)),
+            ((2,), 128, 65, 576, th(), {}),
+            ((), 127, 128, 100, th(128), dict(dc=torch.randint(
+                0, 100, (127,), generator=gen, dtype=torch.int32).to(cuda)))):
+        a = _words(gen, lead + (m, (k + 31) // 32), k, cuda)
+        b = _words(gen, lead + (p, (k + 31) // 32), k, cuda)
+        if scheme == "xnor":
+            kw.pop("dc", None)
+        want, want_dc = rbmm_ref.rbmm_binary(a, b, k, theta, scheme=scheme,
+                                             **kw)
+        for pack in (False, True):
+            got, got_dc = _launched(lambda: rbmm_ops.rbmm_binary(
+                a, b, k, theta, scheme=scheme, pack_output=pack, **kw),
+                "rbmm_binary")
+            assert torch.equal(got, packing.pack_bits(want) if pack
+                               else want)
+            assert torch.equal(got_dc, want_dc)
+
+
 def test_sps_attention_kernel(cuda):
     gen = torch.Generator().manual_seed(3)
     q = _words(gen, (2, 3, 77, 2), 48, cuda)

@@ -13,6 +13,7 @@ import repro_torch
 from repro_torch import bridge, kernels
 from repro_torch.configs import base
 from repro_torch.kernels.pack import ops as pack_ops
+from repro_torch.kernels.rbmm_mxu import ops as mxu_ops, ref as mxu_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.attention import SPSAttention
 from repro_torch.models.lm import build_model
@@ -86,6 +87,48 @@ def test_every_kernel_source_names_what_it_replaces_and_its_bound():
         assert "Bound on the H100" in src, mod
         assert "__global__" in src and "COBRA_API" in src, mod
     assert len(kernels.source_hash()) == 16
+
+
+def test_rbmm_mxu_tile_rule():
+    """The largest compiled tile whose grid fills the 132 SMs: 128 x 64 at
+    the prefill w1 shape (128 x 128 gives only 96 blocks), 128 x 128 at the
+    encoder's Q/K/V/O shape (192 blocks), the smallest at the ragged and
+    tile-edge shapes that no tile fills."""
+    rule = mxu_ops.tile_for
+    assert mxu_ops.TILES == ((128, 128), (128, 64), (64, 64))
+    assert rule(1, 1024, 1536) == (128, 64)
+    assert rule(1, 4096, 768) == (128, 128)
+    for batch, m, p in ((1, 70, 45), (2, 33, 65), (1, 129, 127),
+                        (3, 128, 129), (1, 65, 63)):
+        assert rule(batch, m, p) == (64, 64)
+    assert rule(1, 1024, 768) == (64, 64)       # 96 blocks at 128 x 64
+    assert rule(2, 1024, 768) == (128, 64)      # the batch counts too
+    assert rule(1, 1024, 1536, sms=96) == (128, 128)
+
+
+@pytest.mark.parametrize("k", [48, 100, 1100])
+def test_rbmm_mxu_k_pad_equals_unpadded_plain(k):
+    """For K % 8 != 0 (or a base not 16-byte aligned) the wrapper hands the
+    kernel A zero-padded to ceil8(K) <= 32 * Kw; the plain product of the
+    padded A equals the unpadded one even where the words' pad bits are
+    set.  K % 8 == 0 on an aligned base is passed through as it is."""
+    rng = np.random.default_rng(k)
+    kw = (k + 31) // 32
+    a = torch.from_numpy((2 * rng.integers(0, 2, (37, k)) - 1).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.integers(0, 2**32, (29, kw), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32))   # pad bits set
+    padded = mxu_ops.pad_k(a)
+    k8 = -(-k // 8) * 8
+    assert padded.shape == (37, k8) and padded.is_contiguous()
+    assert padded.data_ptr() % 16 == 0
+    assert torch.equal(padded[:, :k], a) and not padded[:, k:].any()
+    assert (padded is a) == (k8 == k)
+    assert torch.equal(mxu_ref.rbmm_mxu(padded, w), mxu_ref.rbmm_mxu(a, w))
+    buf = torch.zeros(1 + 37 * k8, dtype=torch.bfloat16)
+    shifted = buf[1:].view(37, k8)          # contiguous, 2 bytes off
+    assert shifted.data_ptr() % 16 and mxu_ops.pad_k(shifted).data_ptr() \
+        % 16 == 0
 
 
 def test_encoder_config_kernel_registry_and_cli_exit():
