@@ -9,13 +9,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   2. build      nvcc builds every kernel of ``src/repro_torch/csrc``
   3. kernels    each kernel against its plain PyTorch version on the card,
                 at the main-path shapes, at every shape the encode phase
-                gives it, at ragged shapes and, for the tensor-core
-                kernels, at their tile edges and K-step counts; integer and
-                float32 outputs must be bitwise equal; CUDA-event timings of
-                kernel, plain version and (where one exists) the one
-                PyTorch call computing the same function; then
-                ``repro_torch.launch.kernel_times`` at both main-path shapes
-                of ``rbmm_mxu`` and the encoder's F1 and F2
+                and chunked prefill give it, at ragged shapes and, for the
+                tensor-core kernels, at their tile edges and K-step counts;
+                both routes of ``rbmm_int`` and every layout of
+                ``pack_threshold``; integer and float32 outputs must be
+                bitwise equal; CUDA-event timings of kernel, plain version
+                and (where one exists) the one PyTorch call computing the
+                same function; then ``repro_torch.launch.kernel_times`` at
+                the main-path shapes of the RBMM and pack kernels
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
                 ``ServeEngine.generate``; the launch count of every kernel
@@ -136,10 +137,11 @@ def phase_build() -> None:
 
 
 def _words(rng, shape, k):
-    """Random packed words for k true values per row (zero pad bits)."""
+    """Random packed words for k true values per row (zero pad bits; every
+    bit random when k is None)."""
     import torch
     w = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
-    pad = w.shape[-1] * 32 - k
+    pad = 0 if k is None else w.shape[-1] * 32 - k
     if pad:
         w[..., -1] &= np.uint32((1 << (32 - pad)) - 1)
     return torch.from_numpy(w.view(np.int32)).cuda()
@@ -200,6 +202,48 @@ def check_pack(rng):
             (torch.randn(8, 512, 12, 64, device="cuda").to(
                 torch.bfloat16).permute(0, 2, 3, 1),
              0.2 * torch.randn(12, 1, 1, device="cuda")),
+        # decode: 8 (static) or 16 (continuous) rows of 576, per-head q/k
+        "decode x (8, 1, 576) bf16":
+            (torch.randn(8, 1, 576, device="cuda").to(torch.bfloat16),
+             torch.zeros((), device="cuda")),
+        "decode x (16, 1, 576) bf16":
+            (torch.randn(16, 1, 576, device="cuda").to(torch.bfloat16),
+             torch.zeros((), device="cuda")),
+        "decode q (8, 1, 9, 64) bf16 per-head":
+            (torch.randn(8, 1, 9, 64, device="cuda").to(torch.bfloat16),
+             0.2 * torch.randn(9, 1, device="cuda")),
+        "decode k (16, 1, 3, 64) bf16 per-head":
+            (torch.randn(16, 1, 3, 64, device="cuda").to(torch.bfloat16),
+             0.2 * torch.randn(3, 1, device="cuda")),
+        "prefill strided V^T (8, 3, 64, 128) bf16":
+            (torch.randn(8, 128, 3, 64, device="cuda").to(
+                torch.bfloat16).permute(0, 2, 3, 1),
+             0.2 * torch.randn(3, 1, 1, device="cuda")),
+        # chunked prefill: int32 scores by a per-row theta, V^T words
+        "chunk probs (16, 3, 384, 384) int32 per-row":
+            (torch.randint(-40, 40, (16, 3, 384, 384), device="cuda",
+                           dtype=torch.int32),
+             torch.randint(-8, 8, (3, 384, 1), device="cuda",
+                           dtype=torch.int32)),
+        "chunk strided V^T words (16, 3, 64, 384) int32":
+            (torch.randint(0, 2, (16, 3, 384, 64), device="cuda",
+                           dtype=torch.int32).transpose(2, 3),
+             torch.ones((), device="cuda", dtype=torch.int32)),
+        # the layouts' fallbacks: per-column theta past shared memory,
+        # unaligned rows, odd strides, no unit stride
+        "K=4100 f32 per-column":
+            (torch.randn(5, 4100, device="cuda"),
+             torch.randn(4100, device="cuda")),
+        "row offset of one value bf16":
+            (torch.randn(9, 577, device="cuda").to(torch.bfloat16)[:, 1:],
+             torch.randn(576, device="cuda")),
+        "odd strided V^T bf16":
+            (torch.randn(2, 77, 3, 49, device="cuda").to(
+                torch.bfloat16)[..., 1:].permute(0, 2, 3, 1),
+             0.2 * torch.randn(3, 1, 1, device="cuda")),
+        "no unit stride, per-element theta":
+            (torch.randn(40, 7, 5, device="cuda").permute(2, 1, 0),
+             torch.randn(5, 7, 40, device="cuda")),
     }
     for case, (x, th) in cases.items():
         _same("pack_threshold", case, *f(x, th))
@@ -218,23 +262,61 @@ def check_rbmm_int(rng):
     import torch
     from repro_torch.core import packing
     from repro_torch.kernels.rbmm import ops, ref
+
+    def both(case, x, y, k, scheme, d):
+        """Each route and the public wrapper against the plain version."""
+        want = ref.rbmm_int(x, y, k, scheme=scheme, dc=d)
+        for which in ops.ROUTES:
+            _same("rbmm_int", f"{case} [route {which}]",
+                  ops.launch_int(which, x, y, k, scheme=scheme, dc=d), want)
+        _same("rbmm_int", f"{case} [route "
+              f"{ops.route(x.shape[-2], y.shape[-2], x.shape[-1])}, public]",
+              ops.rbmm_int(x, y, k, scheme=scheme, dc=d), want)
+
+    def dcs(lead, m, k):
+        return torch.randint(0, k + 1, lead + (m,), device="cuda",
+                             dtype=torch.int32)
+
     a, b = _words(rng, (13, 4), 100), _words(rng, (70, 4), 100)
-    dc = torch.randint(0, 100, (13,), device="cuda", dtype=torch.int32)
     ab, bb = _words(rng, (2, 3, 5, 2), 48), _words(rng, (2, 3, 67, 2), 48)
+    ch = (16, 3)   # chunked prefill: 16 slots, 3 KV heads
     cases = {
         "ragged K=100 xnor": (a, b, 100, "xnor", None),
         "ragged K=100 and_dc, dc derived": (a, b, 100, "and_dc", None),
-        "ragged K=100 and_dc, dc given": (a, b, 100, "and_dc", dc),
+        "ragged K=100 and_dc, dc given": (a, b, 100, "and_dc",
+                                          dcs((), 13, 100)),
         "batched d_h=48 xnor": (ab, bb, 48, "xnor", None),
         "batched d_h=48 and_dc": (ab, bb, 48, "and_dc", None),
         "bert F2 (4096x768)x(768x768) and_dc, dc given":
             (_words(rng, (4096, 24), 768), _words(rng, (768, 24), 768),
-             768, "and_dc", torch.randint(0, 768, (4096,), device="cuda",
-                                          dtype=torch.int32)),
+             768, "and_dc", dcs((), 4096, 768)),
+        "chunk prefix score (16,3,384,2)x(16,3,384,2) xnor":
+            (_words(rng, ch + (384, 2), 64), _words(rng, ch + (384, 2), 64),
+             64, "xnor", None),
+        "chunk context (16,3,384,12)x(16,3,64,12) and_dc, dc derived":
+            (_words(rng, ch + (384, 12), 384),
+             _words(rng, ch + (64, 12), 384), 384, "and_dc", None),
+        "chunk intra score (16,3,384,2)x(16,3,128,2) xnor":
+            (_words(rng, ch + (384, 2), 64), _words(rng, ch + (128, 2), 64),
+             64, "xnor", None),
     }
+    # tile edges (128 rows; 64, 128 or 192 columns), Kp of 1 to 5, 24 and
+    # 25 words with pad bits set, batches; xnor, and_dc with dc derived
+    # and given
+    for lead, m, p, k in (((), 17, 65, 20), ((), 127, 193, 33),
+                          ((), 129, 64, 70), ((2,), 65, 127, 100),
+                          ((), 300, 129, 130), ((3,), 200, 384, 768),
+                          ((), 129, 257, 790)):
+        kp = (k + 31) // 32
+        x, y = _words(rng, lead + (m, kp), None), \
+            _words(rng, lead + (p, kp), None)
+        for scheme, d in (("xnor", None), ("and_dc", None),
+                          ("and_dc", dcs(lead, m, k))):
+            cases[f"edge b={lead or 1} M={m} P={p} K={k} Kp={kp} pad bits "
+                  f"set {scheme}{' dc given' if d is not None else ''}"] = \
+                (x, y, k, scheme, d)
     for case, (x, y, k, scheme, d) in cases.items():
-        _same("rbmm_int", case, ops.rbmm_int(x, y, k, scheme=scheme, dc=d),
-              ref.rbmm_int(x, y, k, scheme=scheme, dc=d))
+        both(case, x, y, k, scheme, d)
     # main path: wq at decode, M = batch = 8, K = P = 576
     a, w = _words(rng, (8, 18), 576), _words(rng, (576, 18), 576)
     out = ops.rbmm_int(a, w, 576)
@@ -563,9 +645,9 @@ def phase_kernels():
             f"library {row['library_eager_ms']}")
     for t in time_all(SEED):
         log(f"[kernels] {t['shape']}: device ms kernel {t['ms']:.5f}, "
-            f"library {t['library_ms']:.5f}, bound {t['bound_ms']:.5f} "
+            f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
             f"({t['bound_by']}); per call with host work: kernel "
-            f"{t['eager_ms']:.4f}, library {t['library_eager_ms']:.4f}")
+            f"{t['eager_ms']:.4f}, library {t['library_eager_ms']}")
     return rows
 
 
@@ -1007,6 +1089,14 @@ def phase_encode():
         f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels per forward")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[encode]   {ms:.4f} ms/forward  {name[:90]}")
+    # each of our kernels' device time, whatever its rank (a kernel's CUDA
+    # functions all carry the stem of its name)
+    stems = {"pack_threshold": "pack_", "rbmm_int": "rbmm_int",
+             "rbmm_binary": "rbmm_binary", "rbmm_mxu": "rbmm_mxu",
+             "sps_attention": "sps_attention"}
+    ours = {n: round(sum(ms for k, ms in by_name.items() if stem in k), 4)
+            for n, stem in stems.items()}
+    log(f"[encode] device ms per forward of our kernels {json.dumps(ours)}")
     log_host_ops("[encode]", host_ops)
     crosscheck_encode(cfg, to_device(dparams, "cpu"), dparams)
     return launches

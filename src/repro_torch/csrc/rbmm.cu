@@ -5,16 +5,31 @@
 // (_rbmm_int_kernel, _row_body):
 //   xnor   : c = 2*popcount(~(a ^ b)) - (k + 2*pad)   (pad-0 correction)
 //   and_dc : c = 2*popcount(a & b) - k + dc,  dc = k - popcount(a) if absent
-// over a (batch, M, Kp) and b (batch, P, Kp) -> (batch, M, P) int32.
+// over a (batch, M, Kp) and b (batch, P, Kp) -> (batch, M, P) int32.  It has
+// two routes, picked by the wrapper from the shape alone (ops.route):
 //
-// Bound on the H100: bytes and launch overhead.  The main path calls it at
-// decode, where M = batch <= 16: wq at M=8 moves 60 KB (0.02 us at
-// 3.35 TB/s), so the launch itself (a few us) is the floor; the decode
-// attention score and context calls are of the same size.  Design: one
-// thread per output element looping over the Kp words with __popc;
-// neighbouring threads take neighbouring output columns, so the A row is a
-// broadcast read and the output store is coalesced.  A tiled version only
-// pays once M grows, and at M > 16 the projections take rbmm_mxu instead.
+//   * M <= 16 (decode): one thread per output element looping over the Kp
+//     words with __popc.  Bound on the H100: the launch.  wq at M = 8 moves
+//     60 KB (0.02 us at 3.35 TB/s); neighbouring threads take neighbouring
+//     columns, so the A row is a broadcast read and the store coalesced.
+//     dc is counted from a only when it is not given.
+//   * larger M (the encoder's F2, chunked prefill's scores and context): the
+//     int8 tensor-core mainloop below, shared with rbmm_binary, and a plain
+//     int32 epilogue.  Bound on the H100: bytes, of the output.  F2, M =
+//     4096 tokens, K = 768 (24 words), P = 768, and_dc with dc given: 2.4 G
+//     int8 multiply-adds (1.2 us at 1,979 TOP/s) against 12.6 MB of int32
+//     output and 0.5 MB of words (3.90 us).  The epilogue turns each
+//     accumulator into c = dot - (32 * Kp - K) (xnor) or 2 * dot - K + d
+//     (and_dc; d = dc[row], or K - popcount of the row's words, pad bits
+//     included, as the plain version counts them), stages the block's tile
+//     in shared memory over the then idle unpacked tiles (rows padded by 8
+//     words against bank conflicts), and writes it back row by row with
+//     16-byte stores, one whole row segment of the tile after another.
+//     Chosen over TMA stores: no tensor map to encode on the host per call
+//     (the callers are host-bound), and the batch and ragged edges are plain
+//     masks; rows of P % 4 != 0 columns are not 16-byte aligned and take
+//     4-byte stores.  The wrapper takes the tile's N from P (64, 128 or 192
+//     columns: the fewest padded columns, then the widest).
 //
 // rbmm_binary replaces the TPU kernel src/repro/kernels/rbmm/kernel.py
 // rbmm_binary (_rbmm_binary_kernel): the same scores with the Eq. 10
@@ -35,25 +50,28 @@
 // and 0.88 MB moved (0.26 us).  The values are exact in int8 and their
 // sums, at most 32 * Kp in magnitude, in int32.
 //
-// Design: a block of two consumer warpgroups and one producer warp owns
-// 128 rows x 192 columns (128 blocks at F1: one wave on 132 SMs) and walks
-// K in steps of 128 values (4 words per row).  The producer warp copies a
-// step's A and B words into a 4-stage mbarrier ring with cp.async
-// (16-byte copies when Kp % 4 == 0 and the bases are aligned, 4-byte ones
-// otherwise; zero past M, P or Kp).  The consumers unpack a stage into
-// int8 tiles in the 128-byte-swizzled K-major wgmma layout, 16 bits to a
-// 16-byte chunk (x * 0x204081 spreads a nibble into four bytes): ±1 for
-// xnor, {0,1} for and_dc; the words go back to the producer at once.
-// Every bit of the Kp words unpacks, pad bits of the last word included,
-// and the integer correction makes the score equal the plain version for
-// any words: c = dot - (32 * Kp - K) for xnor, 2 * dot - K + d for and_dc
-// (d from all words when derived).  Words past Kp in a stage unpack to 0:
-// in ±1 form a zero word would be all -1.  Then the proxy fence, a
-// barrier among the consumers and four wgmma m64n192k32 s8.s8 -> s32 per
-// warpgroup, left running while the next step unpacks (three tile
-// buffers).  The thresholds of the block's columns are staged in shared
-// memory when theta does not depend on the row.  In the epilogue each
-// thread holds column pairs 8j + 2 * (lane % 4) + {0, 1} of two rows; it
+// The mainloop (tc_init, tc_produce, tc_consume): a block of two consumer
+// warpgroups and one producer warp owns 128 rows x BN columns (rbmm_binary:
+// BN = 192, 128 blocks at F1: one wave on 132 SMs) and walks K in steps of
+// 128 values (4 words per row).  The producer warp copies a step's A and B
+// words into a 4-stage mbarrier ring with cp.async (16-byte copies when
+// Kp % 4 == 0 and the bases are aligned, 4-byte ones otherwise; zero past
+// M, P or Kp).  The consumers unpack a stage into int8 tiles in the
+// 128-byte-swizzled K-major wgmma layout, 16 bits to a 16-byte chunk
+// (x * 0x204081 spreads a nibble into four bytes): ±1 for xnor, {0,1} for
+// and_dc; the words go back to the producer at once.  Every bit of the Kp
+// words unpacks, pad bits of the last word included, and the integer
+// correction makes the score equal the plain version for any words.  Words
+// past Kp in a stage unpack to 0: in ±1 form a zero word would be all -1.
+// Then the proxy fence, a barrier among the consumers and four wgmma
+// m64nBNk32 s8.s8 -> s32 per warpgroup, left running while the next step
+// unpacks (three tile buffers).  The loop runs at least once (Kp = 0 is one
+// step of zero words): a path that skipped it would make ptxas serialize the
+// wgmmas.
+//
+// rbmm_binary's epilogue: the thresholds of the block's columns are staged
+// in shared memory when theta does not depend on the row.  Each thread
+// holds column pairs 8j + 2 * (lane % 4) + {0, 1} of two rows; it
 // thresholds them, masks causally and past P, and an OR over the four
 // lanes of a quad (__shfl_xor_sync) assembles each 32-column word, stored
 // once.  A row's zeros in the block (true columns only) go to a cleared
@@ -63,6 +81,8 @@
 
 namespace {
 
+// kDerive: dc is null and counted from a (xnor takes this one too).
+template <bool kDerive>
 __global__ void rbmm_int_kernel(const uint32_t* __restrict__ a,
                                 const uint32_t* __restrict__ b,
                                 const int32_t* __restrict__ dc,
@@ -85,15 +105,304 @@ __global__ void rbmm_int_kernel(const uint32_t* __restrict__ a,
   int ones = 0;
   for (int w = 0; w < kp; ++w) {
     pc += __popc(ar[w] & br[w]);
-    ones += __popc(ar[w]);
+    if (kDerive) ones += __popc(ar[w]);
   }
-  const int d = dc ? dc[rowz] : k - ones;
+  const int d = kDerive ? k - ones : dc[rowz];
   out[idx] = 2 * pc - k + d;
+}
+
+// -- the int8 tensor-core mainloop of rbmm_binary and large-M rbmm_int ------
+
+constexpr int kTcM = 128;       // rows per block: two consumer warpgroups
+constexpr int kTcWords = 4;     // words per row and K-step (128 values)
+constexpr int kTcStages = 4;    // word ring depth
+constexpr int kTcBufs = 3;      // unpacked tiles in flight (see tc_consume)
+constexpr int kTcConsumers = 256;
+constexpr int kTcThreads = kTcConsumers + 32;   // + producer warp
+
+// Shared memory of a block with a BN-column tile: the unpacked tiles, the
+// word ring, the ring's barriers, then what the kernel's epilogue keeps
+// (from kExtraOff); the whole is 1,024-byte aligned at run time.
+template <int BN>
+struct TcTile {
+  static constexpr int kRows = kTcM + BN;          // staged rows: A then B
+  static constexpr int kStageWords = kRows * kTcWords;
+  static constexpr int kChunks = kRows * 8 / kTcConsumers;  // per thread
+  static constexpr int kTileBytes = kRows * tc::kRowBytes;  // A and B, int8
+  static constexpr int kWordOff = kTcBufs * kTileBytes;
+  static constexpr int kBarOff = kWordOff + kTcStages * kStageWords * 4;
+  static constexpr int kExtraOff = kBarOff + 2 * kTcStages * 8;
+  static constexpr int kAcc = BN / 2;   // int32 accumulators per thread
+  static_assert(kRows * 8 % kTcConsumers == 0, "whole chunks per thread");
+};
+
+struct TcRing {
+  uint8_t* tiles;
+  uint32_t* words;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <int BN>
+__device__ __forceinline__ TcRing tc_ring(uint8_t* smem) {
+  using T = TcTile<BN>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
+  return {smem, reinterpret_cast<uint32_t*>(smem + T::kWordOff), full,
+          full + kTcStages};
+}
+
+__device__ __forceinline__ uint8_t* tc_smem(uint8_t* raw) {
+  return raw + ((1024 - (tc::smem_addr(raw) & 1023)) & 1023);
+}
+
+// K-steps of the loop: at least one (Kp = 0 is one step of zero words).
+__device__ __forceinline__ int tc_ktiles(int kp) {
+  return max(1, (kp + kTcWords - 1) / kTcWords);
+}
+
+// Thread 0 sets up the ring's barriers; the block syncs after.
+__device__ __forceinline__ void tc_init(const TcRing& r) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      tc::mbar_init(&r.full[s], 32);                   // cp.async arrivals
+      tc::mbar_init(&r.empty[s], kTcConsumers / 32);   // one per warp
+    }
+    tc::mbar_init_fence();
+  }
+}
+
+// The producer warp: each step's words of the block's A rows (m0..) and B
+// rows (n0..) into the ring, zero past M, P and Kp.
+template <int BN>
+__device__ __forceinline__ void tc_produce(const TcRing& r,
+                                           const uint32_t* az,
+                                           const uint32_t* bz, int m, int p,
+                                           int kp, int m0, int n0, int vec16,
+                                           int lane) {
+  using T = TcTile<BN>;
+  const int ktiles = tc_ktiles(kp);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kTcStages;
+    if (kt >= kTcStages)
+      tc::mbar_wait(&r.empty[s], (kt / kTcStages - 1) & 1);
+    uint32_t* ws = r.words + s * T::kStageWords;
+    const int w0 = kt * kTcWords;
+    if (vec16) {
+      for (int i = lane; i < T::kRows; i += 32) {
+        const int gr = i < kTcM ? m0 + i : n0 + i - kTcM;
+        const bool ok = i < kTcM ? gr < m : gr < p;
+        const uint32_t* src =
+            (i < kTcM ? az : bz) + static_cast<long long>(gr) * kp + w0;
+        tc::cp_async<16>(ws + i * kTcWords, ok ? src : az, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = lane; i < T::kStageWords; i += 32) {
+        const int row = i / kTcWords, ww = w0 + i % kTcWords;
+        const int gr = row < kTcM ? m0 + row : n0 + row - kTcM;
+        const bool ok = (row < kTcM ? gr < m : gr < p) && ww < kp;
+        const uint32_t* src =
+            (row < kTcM ? az : bz) + static_cast<long long>(gr) * kp + ww;
+        tc::cp_async<4>(ws + i, ok ? src : az, ok ? 4 : 0);
+      }
+    }
+    tc::cp_async_arrive(&r.full[s]);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The consumer warpgroups: acc (the wgmma fragment of warpgroup tid / 128's
+// 64 rows x BN columns) = the int8 product of the unpacked operands.
+template <bool kAndDc, int BN>
+__device__ __forceinline__ void tc_consume(const TcRing& r, int kp,
+                                           int32_t (&acc)[BN / 2]) {
+  using T = TcTile<BN>;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+#pragma unroll
+  for (int i = 0; i < T::kAcc; ++i) acc[i] = 0;
+  // Thread tid unpacks 16-byte chunk tid % 8 of rows tid / 8 + 32 j: the
+  // chunk's 16 values are bits 16 * (c % 2) .. + 15 of the row's word c / 2
+  // of the step.
+  const int c = tid & 7;
+  const int r0 = tid >> 3;
+  const int shift = 16 * (c & 1);
+  const int ktiles = tc_ktiles(kp);
+  // Step kt: unpack the stage's words into tile buffer kt % 3 (the words
+  // go back to the producer at once), then issue its wgmmas and, while
+  // they run, wait for those of step kt - 1.  Buffer kt % 3 was last read
+  // by the wgmmas of step kt - 3, which every warpgroup waited for before
+  // the barrier of step kt - 1.
+  int kt = 0;
+  do {
+    const int s = kt % kTcStages;
+    tc::mbar_wait(&r.full[s], (kt / kTcStages) & 1);
+    uint8_t* tile = r.tiles + (kt % kTcBufs) * T::kTileBytes;
+    const uint32_t* ws = r.words + s * T::kStageWords + (c >> 1);
+    // words past Kp are zero operands: in ±1 form a zero word is all -1
+    const bool live = kt * kTcWords + (c >> 1) < kp;
+#pragma unroll
+    for (int j = 0; j < T::kChunks; ++j) {
+      const int row = r0 + 32 * j;
+      const uint32_t half = (ws[row * kTcWords] >> shift) & 0xFFFFu;
+      *reinterpret_cast<uint4*>(tile + tc::swz(row, c)) =
+          live ? tc::bits16_to_s8<!kAndDc>(half) : make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) tc::mbar_arrive(&r.empty[s]);
+    tc::fence_proxy_async();
+    tc::named_sync(1, kTcConsumers);
+    const uint8_t* at = tile + wg * 64 * tc::kRowBytes;
+    const uint8_t* bt = tile + kTcM * tc::kRowBytes;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_s8(acc, tc::desc_b128(at + 32 * kk),
+                   tc::desc_b128(bt + 32 * kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();
+  } while (++kt < ktiles);
+  tc::wgmma_wait<0>();
+  tc::fence_operands(acc);
+}
+
+// ones[i] = popcount of A row m0 + i over all its words (0 past M), for a
+// dc derived from a; threads 0 .. kTcM - 1.
+__device__ __forceinline__ void tc_row_ones(const uint32_t* az, int m, int kp,
+                                            int m0, int* ones) {
+  const int tid = threadIdx.x;
+  if (tid >= kTcM) return;
+  int n = 0;
+  if (m0 + tid < m) {
+    const uint32_t* row = az + static_cast<long long>(m0 + tid) * kp;
+#pragma unroll 8
+    for (int w = 0; w < kp; ++w) n += __popc(row[w]);
+  }
+  ones[tid] = n;
+}
+
+// -- rbmm_int on the tensor cores ---------------------------------------------
+
+template <int BN>
+struct IntTile {
+  using T = TcTile<BN>;
+  static constexpr int kPitch = BN + 8;   // staged int32 row, + 8 banks
+  static constexpr int kOnesOff = T::kExtraOff;
+  static constexpr int kSmem = kOnesOff + kTcM * 4 + 1024;   // + align
+  static_assert(kTcM * kPitch * 4 <= kTcBufs * T::kTileBytes,
+                "the staged output fits over the unpacked tiles");
+};
+
+template <bool kAndDc, int BN>
+__global__ void __launch_bounds__(kTcThreads)
+    rbmm_int_tc_kernel(const uint32_t* __restrict__ a,
+                       const uint32_t* __restrict__ b,
+                       const int32_t* __restrict__ dc, int m, int p, int kp,
+                       int k, int vec16, int32_t* __restrict__ out) {
+  using T = TcTile<BN>;
+  using I = IntTile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = tc_smem(smem_raw);
+  const TcRing ring = tc_ring<BN>(smem);
+  int* ones_s = reinterpret_cast<int*>(smem + I::kOnesOff);
+
+  const int tid = threadIdx.x;
+  const long long z = blockIdx.z;
+  const int m0 = blockIdx.y * kTcM;
+  const int n0 = blockIdx.x * BN;
+  const uint32_t* az = a + z * m * static_cast<long long>(kp);
+  const uint32_t* bz = b + z * p * static_cast<long long>(kp);
+
+  tc_init(ring);
+  __syncthreads();
+  if (tid >= kTcConsumers) {   // the producer warp
+    tc_produce<BN>(ring, az, bz, m, p, kp, m0, n0, vec16, tid - kTcConsumers);
+    return;
+  }
+  const bool derive_dc = kAndDc && dc == nullptr;
+  if (derive_dc) tc_row_ones(az, m, kp, m0, ones_s);
+  int32_t acc[T::kAcc];
+  tc_consume<kAndDc, BN>(ring, kp, acc);
+  // every warpgroup is past its last wgmma (the tiles are free) and ones_s
+  // is complete
+  tc::named_sync(1, kTcConsumers);
+
+  const int wg = tid / 128;
+  const int lane = tid & 31;
+  const int rw = 64 * wg + 16 * ((tid / 32) & 3) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int32_t* st = reinterpret_cast<int32_t*>(smem);   // kTcM x kPitch
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = rw + 8 * h;
+    const int row = m0 + rl;
+    // score = dot - off (xnor: the ±1 pad correction) or 2 dot - off
+    // (and_dc: off = K - d)
+    int off = 32 * kp - k;
+    if (kAndDc && row < m)
+      off = k - (derive_dc ? k - ones_s[rl] : dc[z * m + row]);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      *reinterpret_cast<int2*>(st + rl * I::kPitch + 8 * j + cq) =
+          kAndDc ? make_int2(2 * x - off, 2 * y - off)
+                 : make_int2(x - off, y - off);
+    }
+  }
+  // each warpgroup writes back its own 64 rows, row-contiguous
+  tc::named_sync(2 + wg, 128);
+  const int t = tid & 127;
+  int32_t* oz = out + z * m * static_cast<long long>(p);
+  if (p % 4 == 0) {   // 16-byte aligned rows: 16-byte stores
+    constexpr int kVec = BN / 4;   // 16-byte pieces of a tile row
+#pragma unroll 4
+    for (int i = t; i < 64 * kVec; i += 128) {
+      const int rl = 64 * wg + i / kVec, cv = 4 * (i % kVec);
+      if (m0 + rl < m && n0 + cv < p)
+        *reinterpret_cast<int4*>(oz + static_cast<long long>(m0 + rl) * p +
+                                 n0 + cv) =
+            *reinterpret_cast<const int4*>(st + rl * I::kPitch + cv);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = t; i < 64 * BN; i += 128) {
+      const int rl = 64 * wg + i / BN, cl = i % BN;
+      if (m0 + rl < m && n0 + cl < p)
+        oz[static_cast<long long>(m0 + rl) * p + n0 + cl] =
+            st[rl * I::kPitch + cl];
+    }
+  }
+}
+
+template <bool kAndDc, int BN>
+int launch_int_tc(const uint32_t* a, const uint32_t* b, const int32_t* dc,
+                  long long batch, long long m, long long p, long long kp,
+                  long long k, int32_t* out, cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rbmm_int_tc_kernel<kAndDc, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, IntTile<BN>::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const dim3 grid(static_cast<unsigned>((p + BN - 1) / BN),
+                  static_cast<unsigned>((m + kTcM - 1) / kTcM),
+                  static_cast<unsigned>(batch));
+  // 16-byte copies of a row's 4 words when every row start is aligned
+  const int vec16 = kp > 0 && kp % kTcWords == 0 &&
+                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  rbmm_int_tc_kernel<kAndDc, BN>
+      <<<grid, kTcThreads, IntTile<BN>::kSmem, s>>>(
+          a, b, dc, static_cast<int>(m), static_cast<int>(p),
+          static_cast<int>(kp), static_cast<int>(k), vec16, out);
+  return cobra_launch_status();
 }
 
 }  // namespace
 
-// scheme: 0 = xnor, 1 = and_dc.  dc may be null (derived from a).
+// The one-thread-per-output route.  scheme: 0 = xnor, 1 = and_dc.  dc may
+// be null (derived from a).
 COBRA_API int cobra_rbmm_int(const void* a, const void* b, const void* dc,
                              long long batch, long long m, long long p,
                              long long kp, long long k, int scheme,
@@ -102,8 +411,9 @@ COBRA_API int cobra_rbmm_int(const void* a, const void* b, const void* dc,
   if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  rbmm_int_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = dc ? rbmm_int_kernel<false> : rbmm_int_kernel<true>;
+  kernel<<<static_cast<unsigned>(blocks), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<const int32_t*>(dc), batch, static_cast<int>(m),
       static_cast<int>(p), static_cast<int>(kp), static_cast<int>(k),
@@ -111,29 +421,42 @@ COBRA_API int cobra_rbmm_int(const void* a, const void* b, const void* dc,
   return cobra_launch_status();
 }
 
+// The tensor-core route: the same contract; bn (64, 128 or 192) is the
+// tile's N.
+COBRA_API int cobra_rbmm_int_tc(const void* a, const void* b, const void* dc,
+                                long long batch, long long m, long long p,
+                                long long kp, long long k, int scheme, int bn,
+                                void* out, void* stream) {
+  if (batch == 0 || m == 0 || p == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto au = static_cast<const uint32_t*>(a);
+  auto bu = static_cast<const uint32_t*>(b);
+  auto dci = static_cast<const int32_t*>(dc);
+  auto o = static_cast<int32_t*>(out);
+#define COBRA_INT_TC(BN)                                                   \
+  return scheme ? launch_int_tc<true, BN>(au, bu, dci, batch, m, p, kp, k, \
+                                          o, s)                            \
+                : launch_int_tc<false, BN>(au, bu, dci, batch, m, p, kp, k, \
+                                           o, s)
+  if (bn == 192) COBRA_INT_TC(192);
+  if (bn == 128) COBRA_INT_TC(128);
+  if (bn == 64) COBRA_INT_TC(64);
+#undef COBRA_INT_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// -- rbmm_binary -------------------------------------------------------------
+
 namespace {
 
-constexpr int kBinM = 128;       // rows per block: two consumer warpgroups
 constexpr int kBinN = 192;       // columns per block: wgmma n192
-constexpr int kBinWords = 4;     // words per row and K-step (128 values)
-constexpr int kBinStages = 4;    // word ring depth
-constexpr int kBinBufs = 3;      // unpacked tiles in flight (see the loop)
-constexpr int kBinConsumers = 256;
-constexpr int kBinThreads = kBinConsumers + 32;   // + producer warp
-constexpr int kBinRows = kBinM + kBinN;           // staged rows: A then B
-constexpr int kBinStageWords = kBinRows * kBinWords;
-constexpr int kBinChunks = kBinRows * 8 / kBinConsumers;  // per thread
-constexpr int kBinTileBytes = kBinRows * tc::kRowBytes;   // A and B, int8
-constexpr int kBinTileOff = 0;
-constexpr int kBinWordOff = kBinBufs * kBinTileBytes;
-constexpr int kBinThetaOff = kBinWordOff + kBinStages * kBinStageWords * 4;
+using BinTile = TcTile<kBinN>;
+constexpr int kBinThetaOff = BinTile::kExtraOff;
 constexpr int kBinOnesOff = kBinThetaOff + kBinN * 4;
-constexpr int kBinBarOff = kBinOnesOff + kBinM * 4;
-constexpr int kBinSmem = kBinBarOff + 2 * kBinStages * 8 + 1024;  // + align
-static_assert(kBinRows * 8 % kBinConsumers == 0, "whole chunks per thread");
+constexpr int kBinSmem = kBinOnesOff + kTcM * 4 + 1024;   // + align
 
 template <bool kAndDc, bool kPacked>
-__global__ void __launch_bounds__(kBinThreads)
+__global__ void __launch_bounds__(kTcThreads)
     rbmm_binary_kernel(const uint32_t* __restrict__ a,
                        const uint32_t* __restrict__ b,
                        const int32_t* __restrict__ dc,
@@ -143,61 +466,23 @@ __global__ void __launch_bounds__(kBinThreads)
                        int32_t* __restrict__ out,
                        int32_t* __restrict__ dc_out) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem =
-      smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* tiles = smem + kBinTileOff;
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + kBinWordOff);
+  uint8_t* smem = tc_smem(smem_raw);
+  const TcRing ring = tc_ring<kBinN>(smem);
   int32_t* theta_s = reinterpret_cast<int32_t*>(smem + kBinThetaOff);
   int* ones_s = reinterpret_cast<int*>(smem + kBinOnesOff);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBinBarOff);
-  uint64_t* empty = full + kBinStages;
 
   const int tid = threadIdx.x;
   const long long z = blockIdx.z;
-  const int m0 = blockIdx.y * kBinM;
+  const int m0 = blockIdx.y * kTcM;
   const int n0 = blockIdx.x * kBinN;
   const uint32_t* az = a + z * m * static_cast<long long>(kp);
   const uint32_t* bz = b + z * p * static_cast<long long>(kp);
-  const int ktiles = (kp + kBinWords - 1) / kBinWords;
 
-  if (tid == 0) {
-    for (int s = 0; s < kBinStages; ++s) {
-      tc::mbar_init(&full[s], 32);                   // cp.async arrivals
-      tc::mbar_init(&empty[s], kBinConsumers / 32);  // one per warp
-    }
-    tc::mbar_init_fence();
-  }
+  tc_init(ring);
   __syncthreads();
-
-  if (tid >= kBinConsumers) {   // the producer warp
-    const int lane = tid - kBinConsumers;
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const int s = kt % kBinStages;
-      if (kt >= kBinStages)
-        tc::mbar_wait(&empty[s], (kt / kBinStages - 1) & 1);
-      uint32_t* ws = words + s * kBinStageWords;
-      const int w0 = kt * kBinWords;
-      if (vec16) {
-        for (int r = lane; r < kBinRows; r += 32) {
-          const int gr = r < kBinM ? m0 + r : n0 + r - kBinM;
-          const bool ok = r < kBinM ? gr < m : gr < p;
-          const uint32_t* src =
-              (r < kBinM ? az : bz) + static_cast<long long>(gr) * kp + w0;
-          tc::cp_async<16>(ws + r * kBinWords, ok ? src : a, ok ? 16 : 0);
-        }
-      } else {
-        for (int i = lane; i < kBinStageWords; i += 32) {
-          const int r = i / kBinWords, ww = w0 + i % kBinWords;
-          const int gr = r < kBinM ? m0 + r : n0 + r - kBinM;
-          const bool ok = (r < kBinM ? gr < m : gr < p) && ww < kp;
-          const uint32_t* src =
-              (r < kBinM ? az : bz) + static_cast<long long>(gr) * kp + ww;
-          tc::cp_async<4>(ws + i, ok ? src : a, ok ? 4 : 0);
-        }
-      }
-      tc::cp_async_arrive(&full[s]);
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (tid >= kTcConsumers) {   // the producer warp
+    tc_produce<kBinN>(ring, az, bz, m, p, kp, m0, n0, vec16,
+                      tid - kTcConsumers);
     return;
   }
 
@@ -212,62 +497,11 @@ __global__ void __launch_bounds__(kBinThreads)
   const bool theta_by_col = ts_m == 0;
   if (theta_by_col && tid < kBinN && n0 + tid < p)
     theta_s[tid] = theta[z * ts_z + (n0 + tid) * ts_p];
-  if (derive_dc && tid < kBinM) {
-    int ones = 0;
-    if (m0 + tid < m) {
-      const uint32_t* row = az + static_cast<long long>(m0 + tid) * kp;
-#pragma unroll 8
-      for (int w = 0; w < kp; ++w) ones += __popc(row[w]);
-    }
-    ones_s[tid] = ones;
-  }
+  if (derive_dc) tc_row_ones(az, m, kp, m0, ones_s);
 
-  int32_t acc[kBinN / 2];
-#pragma unroll
-  for (int i = 0; i < kBinN / 2; ++i) acc[i] = 0;
-
-  // Thread tid unpacks 16-byte chunk tid % 8 of rows tid / 8 + 32 j: the
-  // chunk's 16 values are bits 16 * (c % 2) .. + 15 of the row's word c / 2
-  // of the step.
-  const int c = tid & 7;
-  const int r0 = tid >> 3;
-  // Step kt: unpack the stage's words into tile buffer kt % 3 (the words
-  // go back to the producer at once), then issue its wgmmas and, while
-  // they run, wait for those of step kt - 1.  Buffer kt % 3 was last read
-  // by the wgmmas of step kt - 3, which every warpgroup waited for before
-  // the barrier of step kt - 1.
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % kBinStages;
-    tc::mbar_wait(&full[s], (kt / kBinStages) & 1);
-    uint8_t* tile = tiles + (kt % kBinBufs) * kBinTileBytes;
-    const uint32_t* ws = words + s * kBinStageWords + (c >> 1);
-    // words past Kp are zero operands: in ±1 form a zero word is all -1
-    const bool live = kt * kBinWords + (c >> 1) < kp;
-    const int shift = 16 * (c & 1);
-#pragma unroll
-    for (int j = 0; j < kBinChunks; ++j) {
-      const int r = r0 + 32 * j;
-      const uint32_t half = (ws[r * kBinWords] >> shift) & 0xFFFFu;
-      *reinterpret_cast<uint4*>(tile + tc::swz(r, c)) =
-          live ? tc::bits16_to_s8<!kAndDc>(half) : make_uint4(0, 0, 0, 0);
-    }
-    __syncwarp();
-    if (lane == 0) tc::mbar_arrive(&empty[s]);
-    tc::fence_proxy_async();
-    tc::named_sync(1, kBinConsumers);
-    const uint8_t* at = tile + wg * 64 * tc::kRowBytes;
-    const uint8_t* bt = tile + kBinM * tc::kRowBytes;
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      tc::wgmma_s8(acc, tc::desc_b128(at + 32 * kk),
-                   tc::desc_b128(bt + 32 * kk));
-    tc::wgmma_commit();
-    tc::wgmma_wait<1>();
-  }
-  tc::wgmma_wait<0>();
-  tc::fence_operands(acc);
-  tc::named_sync(1, kBinConsumers);   // theta_s and ones_s are complete
+  int32_t acc[BinTile::kAcc];
+  tc_consume<kAndDc, kBinN>(ring, kp, acc);
+  tc::named_sync(1, kTcConsumers);   // theta_s and ones_s are complete
 
   const int tig = lane & 3;
   const int valid = min(kBinN, p - n0);   // true columns of the block
@@ -337,7 +571,7 @@ COBRA_API int cobra_rbmm_binary(const void* a, const void* b, const void* dc,
                                 void* dc_out, void* stream) {
   if (batch == 0 || m == 0 || p == 0) return 0;
   const dim3 grid(static_cast<unsigned>((p + kBinN - 1) / kBinN),
-                  static_cast<unsigned>((m + kBinM - 1) / kBinM),
+                  static_cast<unsigned>((m + kTcM - 1) / kTcM),
                   static_cast<unsigned>(batch));
   auto s = static_cast<cudaStream_t>(stream);
   auto au = static_cast<const uint32_t*>(a);
@@ -349,7 +583,7 @@ COBRA_API int cobra_rbmm_binary(const void* a, const void* b, const void* dc,
   const int mi = static_cast<int>(m), pi = static_cast<int>(p),
             kpi = static_cast<int>(kp), ki = static_cast<int>(k);
   // 16-byte copies of a row's 4 words when every row start is aligned
-  const int vec16 = kp % kBinWords == 0 &&
+  const int vec16 = kp > 0 && kp % kTcWords == 0 &&
                     reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(b) % 16 == 0;
 #define COBRA_RBMM_BINARY(AND_DC, PACKED)                                   \
@@ -362,7 +596,7 @@ COBRA_API int cobra_rbmm_binary(const void* a, const void* b, const void* dc,
       if (e != cudaSuccess) return static_cast<int>(e);                      \
       attr_set = true;                                                       \
     }                                                                        \
-    rbmm_binary_kernel<AND_DC, PACKED><<<grid, kBinThreads, kBinSmem, s>>>(  \
+    rbmm_binary_kernel<AND_DC, PACKED><<<grid, kTcThreads, kBinSmem, s>>>(   \
         au, bu, dci, th, ts_z, ts_m, ts_p, mi, pi, kpi, ki, causal, vec16, o,  \
         dco);                                                                \
   } while (0)

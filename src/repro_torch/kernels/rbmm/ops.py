@@ -24,10 +24,14 @@ row, and the wrappers raise otherwise.
 
 Dispatch: CUDA tensors launch ``csrc/rbmm.cu``; CPU tensors take
 ``ref.rbmm_int`` / ``ref.rbmm_binary``.  ``rbmm_int.launches`` and
-``rbmm_binary.launches`` count kernel launches.
+``rbmm_binary.launches`` count kernel launches.  ``rbmm_int`` has two
+kernels, and ``route`` picks one from the shape alone: the
+one-thread-per-output kernel at M <= 16 (decode), the int8 tensor-core
+kernel above; both count in ``rbmm_int.launches``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -40,6 +44,8 @@ from repro_torch.kernels.rbmm import ref
 SCHEMES = ("xnor", "and_dc")
 _ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 + [kernels.INT,
                                                       kernels.PTR])
+_TC_ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 +
+                [kernels.INT] * 2 + [kernels.PTR])
 _BINARY_ARGTYPES = ([kernels.PTR] * 4 + [kernels.I64] * 8 +
                     [kernels.INT] * 3 + [kernels.PTR] * 2)
 
@@ -65,20 +71,64 @@ def _check(a, b, k, scheme, dc, name="rbmm_int") -> None:
                          f" got {dc.dtype} {tuple(dc.shape)}")
 
 
+ROUTES = ("scalar", "tc")
+# the tensor-core kernel's tile widths (wgmma n), widest first
+TC_TILE_N = (192, 128, 64)
+
+
+def route(m: int, p: int, kp: int) -> str:
+    """The ``rbmm_int`` kernel for an (M x Kp words) by (P x Kp) product:
+    "scalar" (one thread per output, popcounts) at M <= 16, where the
+    launch is the floor and it beats the library call; "tc" (int8 tensor
+    cores) above, which was faster at every larger shape the main paths
+    give it on the H100 (``PERF.md`` §6)."""
+    return "scalar" if m <= 16 else "tc"
+
+
+@functools.lru_cache(maxsize=None)
+def tile_n(p: int) -> int:
+    """The tensor-core kernel's N tile for P columns: the fewest padded
+    columns, then the widest tile (cached: it runs on every launch)."""
+    return min(TC_TILE_N, key=lambda bn: (-(-p // bn) * bn, -bn))
+
+
 def rbmm_int(a: torch.Tensor, b: torch.Tensor, k: int, *,
              scheme: str = "xnor",
              dc: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(a, b, k, scheme, dc)
     if not kernels.use_kernel(a, b, dc):
         return ref.rbmm_int(a, b, k, scheme=scheme, dc=dc)
+    return _launch_int(route(a.shape[-2], b.shape[-2], a.shape[-1]), a, b,
+                       k, scheme, dc)
+
+
+def launch_int(which: str, a: torch.Tensor, b: torch.Tensor, k: int, *,
+               scheme: str = "xnor",
+               dc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch route ``which`` of ``rbmm_int`` on CUDA operands, whatever
+    the shape: the card tests and ``launch/kernel_times.py`` hold and time
+    each route; ``rbmm_int`` takes ``route(M, P, Kp)``."""
+    _check(a, b, k, scheme, dc)
+    if which not in ROUTES or not kernels.use_kernel(a, b, dc):
+        raise ValueError(f"launch_int takes a route of {ROUTES} and CUDA "
+                         f"operands, got {which!r} on {a.device}")
+    return _launch_int(which, a, b, k, scheme, dc)
+
+
+def _launch_int(which, a, b, k, scheme, dc) -> torch.Tensor:
     kernels.require_contiguous("rbmm_int", a, b, dc)
     m, p = a.shape[-2], b.shape[-2]
     batch = math.prod(a.shape[:-2])
     out = torch.empty(a.shape[:-1] + (p,), dtype=torch.int32,
                       device=a.device)
-    kernels.launch("cobra_rbmm_int", _ARGTYPES, a.device, a.data_ptr(),
-                   b.data_ptr(), kernels.ptr(dc), batch, m, p, a.shape[-1],
-                   k, SCHEMES.index(scheme), out.data_ptr())
+    args = (a.data_ptr(), b.data_ptr(), kernels.ptr(dc), batch, m, p,
+            a.shape[-1], k, SCHEMES.index(scheme))
+    if which == "tc":
+        kernels.launch("cobra_rbmm_int_tc", _TC_ARGTYPES, a.device, *args,
+                       tile_n(p), out.data_ptr())
+    else:
+        kernels.launch("cobra_rbmm_int", _ARGTYPES, a.device, *args,
+                       out.data_ptr())
     rbmm_int.launches += 1
     return out
 
@@ -110,19 +160,33 @@ def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
         return (packing.pack_bits(bits) if pack_output else bits), dc_ret
     kernels.require_contiguous("rbmm_binary", a, b, dc)
     batch = math.prod(a.shape[:-2])
-    # a (batch, M, P) view of theta: stride 0 on broadcast axes
-    th = theta.expand(shape).reshape(batch, m, p)
     width = packing.packed_len(p) if pack_output else p
     out = torch.empty(a.shape[:-1] + (width,), dtype=torch.int32,
                       device=a.device)
     dc_ret = torch.zeros(a.shape[:-1], dtype=torch.int32, device=a.device)
+    th, th_strides = _theta_view(theta, shape, batch)
     kernels.launch("cobra_rbmm_binary", _BINARY_ARGTYPES, a.device,
                    a.data_ptr(), b.data_ptr(), kernels.ptr(dc),
-                   th.data_ptr(), *th.stride(), batch, m, p, a.shape[-1],
-                   k, SCHEMES.index(scheme), int(causal), int(pack_output),
+                   th.data_ptr(), *th_strides, batch, m, p, a.shape[-1], k,
+                   SCHEMES.index(scheme), int(causal), int(pack_output),
                    out.data_ptr(), dc_ret.data_ptr())
     rbmm_binary.launches += 1
     return out, dc_ret
 
 
 rbmm_binary.launches = 0
+
+
+def _theta_view(theta: torch.Tensor, shape, batch: int):
+    """(tensor, its element strides over the (batch, M, P) output ``shape``,
+    0 on broadcast axes).  A theta of at most two dims (the (P,) vector, a
+    scalar, a per-row or an (M, P) table) is read in place through its own
+    strides, with no tensor op on the host; a higher one through a
+    (batch, M, P) view of it (or a copy where no view exists)."""
+    if theta.dim() > 2:
+        th = theta.expand(shape).reshape(batch, shape[-2], shape[-1])
+        return th, th.stride()
+    size = (1,) * (2 - theta.dim()) + tuple(theta.shape)
+    stride = (0,) * (2 - theta.dim()) + tuple(theta.stride())
+    return theta, (0,) + tuple(0 if n == 1 else st
+                               for n, st in zip(size, stride))

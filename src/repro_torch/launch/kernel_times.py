@@ -1,7 +1,9 @@
-"""Times of the port's RBMM kernels at the shapes the main paths give them,
-on one CUDA card.
+"""Times of the port's RBMM and pack kernels at the shapes the main paths
+give them, on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times --trace
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times --ksteps
 
 For each shape it prints one JSON object: the device time of one call
 (``ms``: every CUDA kernel the call launches, under torch.profiler), the
@@ -10,15 +12,24 @@ around a loop of calls), the least time the card could take (``bound_ms``:
 the larger of the bytes moved, each input read once and each output
 written once, at 3.35 TB/s and the operations at the data-sheet rate of
 the fastest unit that can do them) and the time of one PyTorch call that
-computes the same product (``library_ms``: bf16 ``torch.matmul`` of the
-unpacked operands).  It calls only the wrappers' public signatures, so run
-by path under another checkout's ``src`` it times that checkout's kernels
-in the same process layout, which is how two versions are compared inside
-one call on one card.
+computes the same function (``library_ms``: bf16 ``torch.matmul`` of the
+unpacked operands for the RBMM kernels; none for pack).  Where the
+checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
+ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
+each tensor-core kernel under torch.profiler (host and card) and prints
+where the host time per call goes; ``--ksteps`` times the int8 mainloop
+against its number of K-steps.
+
+It calls the wrappers' public signatures, so run by path under another
+checkout's ``src`` (``PYTHONPATH=<checkout>/src python
+<this file>``) it times that checkout's kernels at this file's shapes,
+which is how two versions are compared inside one call on one card.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import time
 from typing import Callable, Dict, List
 
 import torch
@@ -30,6 +41,9 @@ INT8_OPS = 1979e12
 SCALAR32_OPS = 67e12     # 32-bit operations outside the tensor cores
 
 M_ENC, D_ENC = 4096, 768   # bert-base-cobra, B = 8 x 512 tokens
+# chunked prefill of the continuous path: 16 slots, 3 KV heads of 3 query
+# heads each, chunks of 128 tokens, a ring view of 12 pages of 32 tokens
+CH_B, CH_HKV, CH_ROWS, CH_C, CH_W, CH_DH = 16, 3, 3 * 128, 128, 384, 64
 
 
 def device_ms(fn: Callable, iters: int = 20) -> float:
@@ -48,20 +62,25 @@ def device_ms(fn: Callable, iters: int = 20) -> float:
                if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
-def eager_ms(fn: Callable, iters: int = 50, warmup: int = 5) -> float:
-    """Milliseconds per call from CUDA events around a loop of calls: the
-    wrapper's host work included, which is what a caller waits."""
+def eager_ms(fn: Callable, iters: int = 50, warmup: int = 5,
+             repeats: int = 3) -> float:
+    """Milliseconds per call from CUDA events around a loop of calls, the
+    median of ``repeats`` loops: the wrapper's host work included, which
+    is what a caller waits."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
 
 
 def nbytes(*tensors) -> int:
@@ -76,21 +95,33 @@ def bound(moved_bytes: float, ops: float, op_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def shapes(seed: int = 0) -> Dict[str, Dict]:
-    """Each shape: the kernel's call, the library call and the bound."""
+def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
+    """The RBMM kernels: each shape's call, library call and bound."""
     from repro_torch.core import packing
     from repro_torch.kernels.rbmm import ops as rbmm
     from repro_torch.kernels.rbmm_mxu import ops as mxu
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def words(rows, k):          # every shape here has k % 32 == 0
-        return torch.randint(-2**31, 2**31, (rows, k // 32), generator=gen,
-                             device="cuda", dtype=torch.int64).to(
-                                 torch.int32)
+    def words(*shape_k):
+        *shape, k = shape_k
+        w = torch.randint(-2**31, 2**31, (*shape, (k + 31) // 32),
+                          generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+        if k % 32:
+            w[..., -1] &= (1 << (k % 32)) - 1
+        return w
 
     def signs(rows, k):
         bits = torch.randint(0, 2, (rows, k), generator=gen, device="cuda")
         return (2 * bits - 1).to(torch.bfloat16)
+
+    def word_or_mac(m, p, k, *tensors):
+        """The faster of two ways to do the work: popcount words (3 ops a
+        word pair) on the ALUs, or the MACs of the unpacked values on the
+        int8 tensor cores."""
+        moved = nbytes(*tensors)
+        return min(bound(moved, 3 * m * p * ((k + 31) // 32), SCALAR32_OPS),
+                   bound(moved, 2 * m * p * k, INT8_OPS))
 
     out = {}
     for name, (m, k, p) in {
@@ -105,51 +136,205 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
             library=lambda a=a, wv=wv: torch.matmul(a, wv.T),
             bound=bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
     m, k, p = M_ENC, D_ENC, D_ENC
-    kp = packing.packed_len(k)
     a, w = words(m, k), words(p, k)
     av = packing.unpack_signs(a, k, torch.bfloat16)
     wv = packing.unpack_signs(w, k, torch.bfloat16)
     theta = torch.randint(-40, 40, (p,), generator=gen, device="cuda",
                           dtype=torch.int32)
     bits, dc_ret = rbmm.rbmm_binary(a, w, k, theta, pack_output=True)
-    def word_or_mac(*tensors):
-        """The faster of two ways to do the work: popcount words (3 ops a
-        word pair) on the ALUs, or the MACs of the unpacked values on the
-        int8 tensor cores."""
-        moved = nbytes(*tensors)
-        return min(bound(moved, 3 * m * p * kp, SCALAR32_OPS),
-                   bound(moved, 2 * m * p * k, INT8_OPS))
-
     out["rbmm_binary F1 (4096x768)x(768x768) xnor, packed, theta (768,)"] = \
         dict(kernel=lambda: rbmm.rbmm_binary(a, w, k, theta,
                                              pack_output=True),
              library=lambda: torch.matmul(av, wv.T),
-             bound=word_or_mac(a, w, theta, bits, dc_ret))
+             bound=word_or_mac(m, p, k, a, w, theta, bits, dc_ret))
+    # rbmm_int at the main paths' shapes: decode (wq; w2 with dc derived),
+    # the encoder's F2 and chunked prefill's prefix score, context and
+    # intra-chunk score
     dc = torch.randint(0, k, (m,), generator=gen, device="cuda",
                        dtype=torch.int32)
-    res = rbmm.rbmm_int(a, w, k, scheme="and_dc", dc=dc)
-    out["rbmm_int F2 (4096x768)x(768x768) and_dc, dc given"] = dict(
-        kernel=lambda: rbmm.rbmm_int(a, w, k, scheme="and_dc", dc=dc),
-        library=lambda: torch.matmul(av, wv.T),
-        bound=word_or_mac(a, w, dc, res))
+    lead = (CH_B, CH_HKV)
+    for name, (x, y, kk, scheme, d) in {
+            "rbmm_int decode wq (8x576)x(576x576) xnor":
+                (words(8, 576), words(576, 576), 576, "xnor", None),
+            "rbmm_int decode w2 (8x1536)x(576x1536) and_dc, dc derived":
+                (words(8, 1536), words(576, 1536), 1536, "and_dc", None),
+            "rbmm_int F2 (4096x768)x(768x768) and_dc, dc given":
+                (a, w, k, "and_dc", dc),
+            "rbmm_int chunk prefix score (16,3,384,2)x(16,3,384,2) xnor":
+                (words(*lead, CH_ROWS, CH_DH), words(*lead, CH_W, CH_DH),
+                 CH_DH, "xnor", None),
+            "rbmm_int chunk context (16,3,384,12)x(16,3,64,12) and_dc, dc "
+            "derived": (words(*lead, CH_ROWS, CH_W),
+                        words(*lead, CH_DH, CH_W), CH_W, "and_dc", None),
+            "rbmm_int chunk intra score (16,3,384,2)x(16,3,128,2) xnor":
+                (words(*lead, CH_ROWS, CH_DH), words(*lead, CH_C, CH_DH),
+                 CH_DH, "xnor", None)}.items():
+        mm, pp = x.shape[-2], y.shape[-2]
+        xv = packing.unpack_signs(x, kk, torch.bfloat16)
+        yv = packing.unpack_signs(y, kk, torch.bfloat16)
+        res = rbmm.rbmm_int(x, y, kk, scheme=scheme, dc=d)
+        batch = x.numel() // (mm * x.shape[-1])
+        row = dict(library=lambda xv=xv, yv=yv: torch.matmul(
+                       xv, yv.transpose(-1, -2)),
+                   bound=word_or_mac(batch * mm, pp, kk, *(
+                       t for t in (x, y, d, res) if t is not None)))
+        out[name] = dict(row, kernel=lambda x=x, y=y, kk=kk, s=scheme, d=d:
+                         rbmm.rbmm_int(x, y, kk, scheme=s, dc=d))
+        for which in getattr(rbmm, "ROUTES", ()):
+            out[f"{name} [route {which}]"] = dict(
+                row, kernel=lambda x=x, y=y, kk=kk, s=scheme, d=d, r=which:
+                rbmm.launch_int(r, x, y, kk, scheme=s, dc=d))
+    return out
+
+
+def pack_shapes(seed: int = 0) -> Dict[str, Dict]:
+    """pack_threshold at the main paths' shapes: (x, theta) each."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def ints(*shape, lo=-40, hi=40):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    zero = torch.zeros((), device="cuda")
+    return {
+        "pack decode x (8,1,576) bf16, one theta": (randn(8, 1, 576), zero),
+        "pack decode q (8,1,9,64) bf16, per-head theta":
+            (randn(8, 1, 9, 64), randn(9, 1, dtype=torch.float32)),
+        "pack continuous decode x (16,1,576) bf16, one theta":
+            (randn(16, 1, 576), zero),
+        "pack continuous decode q (16,1,9,64) bf16, per-head theta":
+            (randn(16, 1, 9, 64), randn(9, 1, dtype=torch.float32)),
+        "pack prefill x (1024,576) bf16, one theta": (randn(1024, 576), zero),
+        "pack prefill V^T (8,3,64,128) bf16 strided, per-head theta":
+            (randn(8, 128, 3, 64).permute(0, 2, 3, 1),
+             randn(3, 1, 1, dtype=torch.float32)),
+        "pack encoder x (8,512,768) bf16, one theta":
+            (randn(8, 512, 768), zero),
+        "pack encoder ctx (8,512,768) f32, one theta":
+            (randn(8, 512, 768, dtype=torch.float32), zero),
+        "pack encoder q (8,512,12,64) bf16, per-head theta":
+            (randn(8, 512, 12, 64), randn(12, 1, dtype=torch.float32)),
+        "pack encoder V^T (8,12,64,512) bf16 strided, per-head theta":
+            (randn(8, 512, 12, 64).permute(0, 2, 3, 1),
+             randn(12, 1, 1, dtype=torch.float32)),
+        "pack chunk probs (16,3,384,384) int32, per-row theta":
+            (ints(CH_B, CH_HKV, CH_ROWS, CH_W),
+             ints(CH_HKV, CH_ROWS, 1, lo=-8, hi=8)),
+        "pack chunk V^T words (16,3,64,384) int32 strided, one theta":
+            (ints(CH_B, CH_HKV, CH_W, CH_DH, lo=0, hi=2).transpose(2, 3),
+             torch.ones((), dtype=torch.int32, device="cuda")),
+    }
+
+
+def shapes(seed: int = 0) -> Dict[str, Dict]:
+    """Each shape: the kernel's call, the library call and the bound."""
+    from repro_torch.kernels.pack import ops as pack
+    out = rbmm_shapes(seed)
+    for name, (x, th) in pack_shapes(seed).items():
+        res = pack.pack_threshold(x, th)
+        out[name] = dict(
+            kernel=lambda x=x, th=th: pack.pack_threshold(x, th),
+            library=None,
+            bound=bound(nbytes(x, th, res), x.numel(), SCALAR32_OPS))
     return out
 
 
 def time_all(seed: int = 0) -> List[Dict]:
+    """One row per shape.  The per-call times are all taken before the
+    first profiler session, which would otherwise leave its tracing costs
+    in the next loop."""
+    todo = shapes(seed)
+    eager = {n: (eager_ms(s["kernel"]), None if s["library"] is None
+                 else eager_ms(s["library"])) for n, s in todo.items()}
     rows = []
-    for name, s in shapes(seed).items():
+    for name, s in todo.items():
         b_ms, by = s["bound"]
+        lib = s["library"]
         rows.append({"shape": name, "ms": device_ms(s["kernel"]),
-                     "eager_ms": eager_ms(s["kernel"]),
+                     "eager_ms": eager[name][0],
                      "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": device_ms(s["library"]),
-                     "library_eager_ms": eager_ms(s["library"])})
+                     "library_ms": None if lib is None else device_ms(lib),
+                     "library_eager_ms": eager[name][1]})
+    return rows
+
+
+def host_trace(fn: Callable, iters: int = 50, top: int = 8) -> Dict:
+    """Where one call's time goes on the host: the wall time per call of a
+    loop with no sync inside (the host's enqueue rate; the card keeps up
+    when it is the faster), and the traced host ops and runtime calls by
+    self time per call (torch.profiler, host and card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        traced = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    ops = sorted(((e.key, e.self_cpu_time_total / iters / 1e3,
+                   e.count / iters) for e in ev
+                  if e.device_type == DeviceType.CPU), key=lambda t: -t[1])
+    dev = sum(e.self_device_time_total for e in ev
+              if e.device_type == DeviceType.CUDA) / iters / 1e3
+    return {"host_ms_per_call": host, "traced_ms_per_call": traced,
+            "device_ms_per_call": dev,
+            "traced_op_ms_per_call": sum(t for _, t, _ in ops),
+            "top_ops": [[k, round(t, 5), c] for k, t, c in ops[:top]]}
+
+
+TRACED = ("rbmm_mxu prefill w1", "rbmm_binary F1", "rbmm_int F2")
+
+
+def ksteps(seed: int = 0) -> List[Dict]:
+    """The int8 mainloop's cost per K-step: rbmm_binary's device time at
+    one block (128 x 192) and at F1's grid against Kp (4 words a step)."""
+    from repro_torch.kernels.rbmm import ops as rbmm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for m, p in ((128, 192), (M_ENC, D_ENC)):
+        for kp in (4, 8, 24, 48, 96):
+            a, b = (torch.randint(-2**31, 2**31, (n, kp), generator=gen,
+                                  device="cuda", dtype=torch.int64).to(
+                                      torch.int32) for n in (m, p))
+            th = torch.zeros(p, dtype=torch.int32, device="cuda")
+            rows.append({"kernel": "rbmm_binary", "m": m, "p": p, "kp": kp,
+                         "ms": device_ms(lambda: rbmm.rbmm_binary(
+                             a, b, 32 * kp, th, pack_output=True))})
     return rows
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace", action="store_true",
+                    help="trace the host side of the tensor-core kernels")
+    ap.add_argument("--ksteps", action="store_true",
+                    help="time the int8 mainloop against its K-steps")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
+    if args.ksteps:
+        for row in ksteps():
+            print(json.dumps(row), flush=True)
+        return 0
+    if args.trace:
+        for name, s in rbmm_shapes().items():
+            if name.startswith(TRACED):
+                print(json.dumps({"shape": name, **host_trace(s["kernel"])}),
+                      flush=True)
+        return 0
     for row in time_all():
         print(json.dumps(row), flush=True)
     return 0
