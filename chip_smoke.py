@@ -12,11 +12,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 and chunked prefill give it, at ragged shapes and, for the
                 tensor-core kernels, at their tile edges and K-step counts;
                 both routes of ``rbmm_int`` and every layout of
-                ``pack_threshold``; integer and float32 outputs must be
-                bitwise equal; CUDA-event timings of kernel, plain version
-                and (where one exists) the one PyTorch call computing the
-                same function; then ``repro_torch.launch.kernel_times`` at
-                the main-path shapes of the RBMM and pack kernels
+                ``pack_threshold``; ``sps_attention`` at its query and key
+                tile edges in both masks, G = 16 and d_h = 256;
+                ``paged_gather_decode`` with more pages than warps, G = 16,
+                d_h = 256 and pages of 256; integer and float32 outputs
+                must be bitwise equal; CUDA-event timings of kernel, plain
+                version and (where one exists) the one PyTorch call
+                computing the same function; then
+                ``repro_torch.launch.kernel_times`` at the main-path shapes
+                of the RBMM, pack and attention kernels
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
                 ``ServeEngine.generate``; the launch count of every kernel
@@ -63,7 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
     BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, device_ms, eager_ms, nbytes,
-    time_all)
+    paged_bound, sps_bound, time_all)
 
 SEED = 0
 
@@ -512,7 +516,14 @@ def check_paged_gather_decode(rng):
             "page=64 G=3": (3, 3, 1, 64, 64, 2, 4, 128),
             "G=1 single block": (2, 4, 4, 32, 32, 1, 2, 32),
             "G=2 page=64": (1, 6, 3, 32, 64, 2, 5, 128),
-            "ring 48 < nblk*page 64": (2, 2, 2, 32, 32, 2, 3, 48)}.items():
+            "ring 48 < nblk*page 64": (2, 2, 2, 32, 32, 2, 3, 48),
+            # the page split's edges: more pages than the 16 warps of a
+            # sequence (page 96: three words), a warp past 32 table
+            # entries, G = 16 with d_h = 256 and pages of 256
+            "nblk=40 page=96 d_h=48": (3, 4, 2, 48, 96, 40, 60, 3800),
+            "nblk=530": (2, 2, 1, 32, 32, 530, 540, 16950),
+            "G=16 d_h=256 page=256": (2, 32, 2, 256, 256, 3, 4, 700)
+    }.items():
         _same("paged_gather_decode", f"{case}, trash entries, lengths 0 "
               f"and >= ring", *f(inputs(*shape), shape[3]))
     # main path: 16 slots, H=9 over 3, d_h=64, 12 blocks of 32 over an
@@ -525,14 +536,7 @@ def check_paged_gather_decode(rng):
                 "blocks of 32, 96 pages", out, want)
     # what this run's data needs: the pages up to each row's last valid
     # column, once per KV head, and q, table, lengths, thresholds, output
-    last = np.minimum(lens, ring - 1)
-    pages_read = int((last // page + 1).sum()) * hkv
-    dhp, groups = dh // 32, h // hkv
-    page_bytes = 4 * (page * dhp + dh * page // 32)
-    moved = pages_read * page_bytes + nbytes(a[0], a[3], a[4], a[6], out)
-    word_ops = pages_read * (page * groups * dhp * 3 +
-                             groups * dh * (page // 32) * 3)
-    bnd, by = bound(moved, word_ops, SCALAR32_OPS)
+    bnd, by = paged_bound(*a, out)
     return dict(err=err, bound_ms=bnd, bound_by=by,
                 kernel=lambda: ops.paged_gather_decode(*a, d_h=dh),
                 plain=lambda: ref.paged_gather_decode_popcount(*a, d_h=dh),
@@ -552,9 +556,18 @@ def check_sps_attention(rng):
                 _words(rng, (b, hkv, length, dhp), dh),
                 _words(rng, (b, hkv, dh, lw), length), theta(h))
 
-    for case, (b, h, hkv, length, dh) in {
-            "ragged L=77 d_h=48 GQA 3:1": (2, 3, 1, 77, 48),
-            "L=40 d_h=64 MHA": (1, 2, 2, 40, 64)}.items():
+    cases = {
+        "ragged L=77 d_h=48 GQA 3:1": (2, 3, 1, 77, 48),
+        "L=40 d_h=64 MHA": (1, 2, 2, 40, 64),
+        # the tensor-core design's edges: 64-row query tiles, 128-key
+        # tiles, three heads a block (G = 16: six blocks a group, G = 4:
+        # two of two), 64 context columns a pass, odd d_h, six key tiles
+        "G=16 d_h=256 L=130": (1, 16, 1, 130, 256),
+        "G=4 d_h=95 L=200": (2, 8, 2, 200, 95),
+        "L=700 d_h=96": (1, 6, 2, 700, 96)}
+    for length in (63, 64, 65, 129):
+        cases[f"L={length} d_h=64 GQA 3:1"] = (2, 6, 2, length, 64)
+    for case, (b, h, hkv, length, dh) in cases.items():
         q, k, vt, th = gqa(b, h, hkv, length, dh)
         for causal in (True, False):
             _same("sps_attention", f"{case} causal={causal}",
@@ -580,9 +593,7 @@ def check_sps_attention(rng):
     out = ops.sps_attention_gqa(q, k, vt, th, d_h=64)
     err = _same("sps_attention", "main prefill B=8 L=128 H=9/3", out,
                 ref.sps_attention_gqa(q, k, vt, th, d_h=64))
-    pairs = 8 * 9 * 128 * 129 // 2
-    ops_count = 3 * pairs * 2 + 3 * (pairs // 32) * 64
-    b, by = bound(nbytes(q, k, vt, th, out), ops_count, SCALAR32_OPS)
+    b, by = sps_bound(q, k, vt, th, out, causal=True)
     return dict(err=err, bound_ms=b, bound_by=by,
                 kernel=lambda: ops.sps_attention_gqa(q, k, vt, th, d_h=64),
                 plain=lambda: ref.sps_attention_gqa(q, k, vt, th, d_h=64),

@@ -1,5 +1,6 @@
-// Building blocks of the port's Hopper tensor-core kernels (rbmm_mxu.cu, and
-// rbmm.cu's rbmm_binary and large-M rbmm_int), in raw PTX for sm_90a:
+// Building blocks of the port's Hopper tensor-core kernels (rbmm_mxu.cu,
+// rbmm.cu's rbmm_binary and large-M rbmm_int, and sps_attn.cu), in raw PTX
+// for sm_90a:
 //
 //   * a ring of shared-memory stages guarded by mbarriers: "full" barriers
 //     that a producer warp completes with TMA transactions and cp.async
@@ -174,7 +175,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // B^T (N x the same K), A and B by descriptor from shared memory, both
 // K-major; D stays in registers (thread t of the warpgroup holds rows
 // 16*(t/32) + (t%32)/4 and that + 8, columns 8j + 2*(t%4) + {0, 1}: d[4j],
-// d[4j+1] on the first row, d[4j+2], d[4j+3] on the second).
+// d[4j+1] on the first row, d[4j+2], d[4j+3] on the second).  The int8
+// forms take ``scale_d``: 0 makes this product overwrite D instead of
+// adding to it, so a loop can restart D without other instructions
+// defining the accumulators.
 __device__ __forceinline__ void wgmma_bf16(
     float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
@@ -230,7 +234,7 @@ __device__ __forceinline__ void wgmma_bf16(
 }
 
 __device__ __forceinline__ void wgmma_s8(
-    int32_t (&d)[32], uint64_t a, uint64_t b) {
+    int32_t (&d)[32], uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
@@ -247,11 +251,11 @@ __device__ __forceinline__ void wgmma_s8(
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_s8(
-    int32_t (&d)[64], uint64_t a, uint64_t b) {
+    int32_t (&d)[64], uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
@@ -280,11 +284,11 @@ __device__ __forceinline__ void wgmma_s8(
         "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_s8(
-    int32_t (&d)[96], uint64_t a, uint64_t b) {
+    int32_t (&d)[96], uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
@@ -325,7 +329,7 @@ __device__ __forceinline__ void wgmma_s8(
         "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
         "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
         "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 

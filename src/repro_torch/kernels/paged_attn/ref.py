@@ -6,6 +6,8 @@
 ``paged_gather_decode_popcount`` the same gather, but scores and context
     stay on packed words end to end (Eq. 7 xnor score with the pad
     correction, then popcount(probs & V^T) - nnz).
+``paged_gather_decode_split``    no gather: the page-split kernel's
+    per-page int32 partials added in any order (a test helper).
 
 Words are int32 tensors holding the reference's uint32 bits."""
 from __future__ import annotations
@@ -74,3 +76,38 @@ def paged_gather_decode_popcount(q_bits, k_pages, vt_pages, block_table,
     pc = packing.popcount_words(probs_p[:, :, None, :] & vc).sum(
         -1, dtype=torch.int32)
     return 2 * pc - nnz[..., None]
+
+
+def paged_gather_decode_split(q_bits, k_pages, vt_pages, block_table,
+                              lengths, ring_len, theta, *, d_h: int,
+                              generator=None) -> torch.Tensor:
+    """The page-split kernel's arithmetic, a test helper that no model
+    path calls: per sequence, each live page's int32 partial context
+    (``2*popcount(P_page & V^T_page) - nnz(P_page)`` for every query head)
+    is added into the output in a random order drawn from ``generator``
+    (table order when None).  A page is live up to the one holding
+    column ``min(lengths[b], ring_len - 1)``; columns are masked by their
+    position only.  Same contract as ``paged_gather_decode``."""
+    b, h, _ = q_bits.shape
+    npages, hkv, page, _ = k_pages.shape
+    nblk = block_table.shape[1]
+    groups = h // hkv
+    dh = vt_pages.shape[2]
+    out = torch.zeros((b, h, dh), dtype=torch.int32, device=q_bits.device)
+    for i in range(b):
+        last = min(int(lengths[i]), int(ring_len) - 1)
+        live = 0 if last < 0 else min(nblk, last // page + 1)
+        order = (range(live) if generator is None else
+                 torch.randperm(live, generator=generator).tolist())
+        for j in order:
+            phys = min(max(int(block_table[i, j]), 0), npages - 1)
+            k = k_pages[phys].repeat_interleave(groups, 0)  # (H, page, dhp)
+            c = packing.xnor_popcount_score(q_bits[i][:, None, :], k, d_h)
+            cols = j * page + torch.arange(page, device=q_bits.device)
+            probs = (c >= theta[i][:, None]) & (cols <= last)[None, :]
+            pw = packing.pack_bits(probs)                 # (H, page/32)
+            vt = vt_pages[phys].repeat_interleave(groups, 0)
+            pc = packing.popcount_words(pw[:, None, :] & vt).sum(
+                -1, dtype=torch.int32)
+            out[i] += 2 * pc - probs.sum(-1, dtype=torch.int32)[:, None]
+    return out

@@ -29,7 +29,7 @@ from repro_torch.core import packing
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.sps_attn import ref
 
-MAX_DH = 256  # the kernel keeps a (32, d_h) int32 accumulator per block
+MAX_DH = 256  # the kernel unpacks Q and K rows of at most 256 bits
 _ARGTYPES = [kernels.PTR] * 4 + [kernels.I64] * 5 + [kernels.INT,
                                                      kernels.PTR]
 

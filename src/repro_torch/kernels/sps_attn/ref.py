@@ -1,6 +1,8 @@
 """Plain PyTorch version of the fused SPS attention kernel: unfused but
 packed end to end (the mirror of the JAX ``ref.sps_attention_popcount``),
-batched and GQA-aware like the kernel."""
+batched and GQA-aware like the kernel; and ``sps_attention_int8``, the
+tensor-core kernel's two integer matrix products written plainly (a test
+helper)."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +36,29 @@ def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
     pc = packing.popcount_words(probs_p.unsqueeze(3) & vth.unsqueeze(2)
                                 ).sum(-1, dtype=torch.int32)    # (B,H,L,dh)
     return 2 * pc - nnz.unsqueeze(-1)
+
+
+def sps_attention_int8(q_bits: torch.Tensor, k_bits: torch.Tensor,
+                       vt_bits: torch.Tensor, theta: torch.Tensor, *,
+                       d_h: int, causal: bool = True) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic as plain integer matrix
+    products, a test helper that no model path calls.  Every bit of the
+    32 * dhp-bit rows unpacks to ±1 and the score is the int32 dot
+    product minus the pad (a pad bit adds +1 where q and k agree, -1
+    where they differ, as the popcount form counts it, so this equals
+    ``sps_attention_gqa`` for any words); the probabilities are {0,1};
+    V^T unpacks to ±1 along the keys, and the context is P @ V, the
+    and_dc context itself.  Same contract as ``sps_attention_gqa``."""
+    groups = q_bits.shape[1] // k_bits.shape[1]
+    length = q_bits.shape[2]
+    bits = q_bits.shape[-1] * packing.WORD
+    q = packing.unpack_signs(q_bits, bits, torch.int32)
+    k = packing.unpack_signs(k_bits, bits, torch.int32).repeat_interleave(
+        groups, dim=1)
+    c = torch.matmul(q, k.transpose(-1, -2)) - (bits - d_h)   # (B,H,L,L)
+    probs = c >= theta.to(torch.int32)[None, :, None, None]
+    if causal:
+        probs = torch.tril(probs)
+    v = packing.unpack_signs(vt_bits, length, torch.int32).repeat_interleave(
+        groups, dim=1)                                          # (B,H,dh,L)
+    return torch.matmul(probs.to(torch.int32), v.transpose(-1, -2))

@@ -1,9 +1,10 @@
-"""Times of the port's RBMM and pack kernels at the shapes the main paths
-give them, on one CUDA card.
+"""Times of the port's RBMM, pack and attention kernels at the shapes the
+main paths give them, on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --trace
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --ksteps
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times --only 'sps_|paged_'
 
 For each shape it prints one JSON object: the device time of one call
 (``ms``: every CUDA kernel the call launches, under torch.profiler), the
@@ -13,7 +14,11 @@ the larger of the bytes moved, each input read once and each output
 written once, at 3.35 TB/s and the operations at the data-sheet rate of
 the fastest unit that can do them) and the time of one PyTorch call that
 computes the same function (``library_ms``: bf16 ``torch.matmul`` of the
-unpacked operands for the RBMM kernels; none for pack).  Where the
+unpacked operands for the RBMM kernels; none for pack and the
+attention kernels).  ``sps_attention`` is also timed at L = 64, 128, 256
+and 512 (the encoder's heads, bidirectional) for its cost per key tile;
+``paged_gather_decode`` at the continuous path's decode shape with lengths
+drawn from a fixed seed, so every checkout reads the same pages.  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
 each tensor-core kernel under torch.profiler (host and card) and prints
@@ -29,9 +34,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
@@ -229,6 +236,103 @@ def pack_shapes(seed: int = 0) -> Dict[str, Dict]:
     }
 
 
+def sps_bound(q, k, vt, theta, out, causal: bool):
+    """The bound of one sps_attention call: the bytes of its operands and
+    output against the faster of two ways to do the work, the score and
+    context words on the ALUs (3 operations a word pair) or their
+    multiply-adds on the int8 tensor cores."""
+    b, h, length, dhp = q.shape
+    dh = vt.shape[2]
+    pairs = b * h * (length * (length + 1) // 2 if causal else
+                     length * length)
+    moved = nbytes(q, k, vt, theta, out)
+    return min(bound(moved, 3 * pairs * dhp + 3 * pairs * dh // 32,
+                     SCALAR32_OPS),
+               bound(moved, 2 * 2 * pairs * dh, INT8_OPS))
+
+
+def paged_bound(q, k_pages, vt_pages, block_table, lengths, ring: int,
+                theta, out):
+    """The bound of one paged_gather_decode call at these lengths: the
+    pages up to each row's last valid column, once per KV head, and q,
+    table, lengths, thresholds and output; the words' popcount operations
+    at the ALU rate."""
+    _, h, dhp = q.shape
+    _, hkv, page, _ = k_pages.shape
+    dh = vt_pages.shape[2]
+    last = torch.clamp(lengths.long(), max=ring - 1)
+    live = torch.clamp(torch.div(last, page, rounding_mode="floor") + 1,
+                       min=0, max=block_table.shape[1])
+    pages_read = int(live.sum()) * hkv
+    groups = h // hkv
+    moved = pages_read * 4 * (page * dhp + dh * page // 32) + nbytes(
+        q, block_table, lengths, theta, out)
+    word_ops = pages_read * 3 * groups * (page * dhp + dh * page // 32)
+    return bound(moved, word_ops, SCALAR32_OPS)
+
+
+# continuous decode: 16 slots, H = 9 over 3, d_h = 64, 12 blocks of 32 over
+# an arena of 96 pages
+PG_B, PG_H, PG_HKV, PG_DH, PG_PAGE, PG_NBLK, PG_PAGES = 16, 9, 3, 64, 32, \
+    12, 96
+PG_RING = PG_NBLK * PG_PAGE
+
+
+def attention_shapes(seed: int = 0) -> Dict[str, Dict]:
+    """sps_attention and paged_gather_decode: each shape's call and bound
+    (no PyTorch call computes either function)."""
+    from repro_torch.kernels.paged_attn import ops as paged
+    from repro_torch.kernels.sps_attn import ops as sps
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def words(*shape, k):
+        w = torch.randint(-2**31, 2**31, shape, generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        if k % 32:
+            w[..., -1] &= (1 << (k % 32)) - 1
+        return w
+
+    def ints(*shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    out = {}
+    for name, (b, h, hkv, length, causal) in {
+            "sps_attention prefill B=8 L=128 H=9/3 causal":
+                (8, 9, 3, 128, True),
+            "sps_attention encoder B=8 L=512 H=12/12 bidirectional":
+                (8, 12, 12, 512, False),
+            "sps_attention B=8 L=64 H=12/12 bidirectional":
+                (8, 12, 12, 64, False),
+            "sps_attention B=8 L=128 H=12/12 bidirectional":
+                (8, 12, 12, 128, False),
+            "sps_attention B=8 L=256 H=12/12 bidirectional":
+                (8, 12, 12, 256, False)}.items():
+        dh = 64
+        q = words(b, h, length, 2, k=dh)
+        k = words(b, hkv, length, 2, k=dh)
+        vt = words(b, hkv, dh, (length + 31) // 32, k=length)
+        th = ints(h, lo=-8, hi=9)
+        res = sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal)
+        out[name] = dict(
+            kernel=lambda q=q, k=k, vt=vt, th=th, c=causal:
+            sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=c),
+            library=None, bound=sps_bound(q, k, vt, th, res, causal))
+    lens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, PG_RING, (PG_B,)).astype(np.int32)).cuda()
+    args = (words(PG_B, PG_H, 2, k=PG_DH),
+            words(PG_PAGES + 1, PG_HKV, PG_PAGE, 2, k=PG_DH),
+            words(PG_PAGES + 1, PG_HKV, PG_DH, PG_PAGE // 32, k=PG_PAGE),
+            ints(PG_B, PG_NBLK, lo=0, hi=PG_PAGES + 1), lens, PG_RING,
+            ints(PG_B, PG_H, lo=-12, hi=12))
+    res = paged.paged_gather_decode(*args, d_h=PG_DH)
+    out["paged_gather_decode decode 16 slots H=9/3 d_h=64, 12 blocks of 32"
+        ", seeded lengths"] = dict(
+        kernel=lambda: paged.paged_gather_decode(*args, d_h=PG_DH),
+        library=None, bound=paged_bound(*args, res))
+    return out
+
+
 def shapes(seed: int = 0) -> Dict[str, Dict]:
     """Each shape: the kernel's call, the library call and the bound."""
     from repro_torch.kernels.pack import ops as pack
@@ -239,14 +343,16 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
             kernel=lambda x=x, th=th: pack.pack_threshold(x, th),
             library=None,
             bound=bound(nbytes(x, th, res), x.numel(), SCALAR32_OPS))
+    out.update(attention_shapes(seed))
     return out
 
 
-def time_all(seed: int = 0) -> List[Dict]:
-    """One row per shape.  The per-call times are all taken before the
-    first profiler session, which would otherwise leave its tracing costs
-    in the next loop."""
-    todo = shapes(seed)
+def time_all(seed: int = 0, only: str = "") -> List[Dict]:
+    """One row per shape (those whose name matches the regular expression
+    ``only``).  The per-call times are all taken before the first profiler
+    session, which would otherwise leave its tracing costs in the next
+    loop."""
+    todo = {n: s for n, s in shapes(seed).items() if re.search(only, n)}
     eager = {n: (eager_ms(s["kernel"]), None if s["library"] is None
                  else eager_ms(s["library"])) for n, s in todo.items()}
     rows = []
@@ -322,6 +428,9 @@ def main() -> int:
                     help="trace the host side of the tensor-core kernels")
     ap.add_argument("--ksteps", action="store_true",
                     help="time the int8 mainloop against its K-steps")
+    ap.add_argument("--only", default="",
+                    help="time only the shapes whose name matches this "
+                    "regular expression")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -335,7 +444,7 @@ def main() -> int:
                 print(json.dumps({"shape": name, **host_trace(s["kernel"])}),
                       flush=True)
         return 0
-    for row in time_all():
+    for row in time_all(only=args.only):
         print(json.dumps(row), flush=True)
     return 0
 
