@@ -11,7 +11,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 at the main-path shapes, at every shape the encode phase
                 and chunked prefill give it, at ragged shapes and, for the
                 tensor-core kernels, at their tile edges and K-step counts;
-                both routes of ``rbmm_int`` and every layout of
+                both routes of ``rbmm_int`` (also at every decode call of
+                smollm-135m at M = 8 and 16, M of 1 to 17, Kp of 1 to 256
+                with pad bits set and bases off 16 bytes) and every layout of
                 ``pack_threshold``; ``sps_attention`` at its query and key
                 tile edges in both masks, G = 16 and d_h = 256;
                 ``paged_gather_decode`` with more pages than warps, G = 16,
@@ -24,7 +26,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
                 ``ServeEngine.generate``; the launch count of every kernel
-                of the static path must move during that run
+                of the static path must move during that run; a profile of
+                one decode step with each of our kernels' device ms
   5. continuous the same model serves a 24-request trace through
                 ``ServeEngine.serve`` on a page arena a quarter of full
                 provisioning (16 slots, 12 blocks of 32, 48 pages, prefix
@@ -33,7 +36,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 served, the launch counts of the paged path's kernels
                 move, exactly one ``paged_gather_decode`` per layer in
                 every pure-decode iteration; iteration times, page
-                statistics and a profile of one pure-decode iteration
+                statistics and a profile of one pure-decode iteration with
+                each of our kernels' device ms
   6. crosscheck the same model in float32 on the card and on the CPU
                 (plain versions): static B=2, S=32, 4 tokens with equal
                 greedy tokens and logits within a stated tolerance; then
@@ -54,6 +58,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -66,14 +71,20 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, device_ms, eager_ms, nbytes,
-    paged_bound, sps_bound, time_all)
+    BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, decode_calls, device_ms,
+    eager_ms, nbytes, paged_bound, sps_bound, time_all)
 
 SEED = 0
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def digest(obj) -> str:
+    """A short digest of a JSON-able value (generated tokens), so two
+    checkouts' runs compare token for token."""
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
 
 
 # -- timing and bounds --------------------------------------------------------
@@ -110,6 +121,20 @@ def device_profile(fn, iters: int, warm: bool = True, host: bool = False):
                    e.count / iters) for e in events
                   if e.device_type == DeviceType.CPU), key=lambda t: -t[1])
     return out + (ops,)
+
+
+# each of our kernels' CUDA functions carries the stem of its name
+KERNEL_STEMS = {"pack_threshold": "pack_", "rbmm_int": "rbmm_int",
+                "rbmm_binary": "rbmm_binary", "rbmm_mxu": "rbmm_mxu",
+                "sps_attention": "sps_attention",
+                "paged_gather_decode": "paged_gather_decode"}
+
+
+def our_kernels_ms(by_name) -> dict:
+    """Device ms of each of our kernels, whatever its rank, from a
+    profile's {CUDA kernel name: ms}."""
+    return {n: round(sum(ms for k, ms in by_name.items() if stem in k), 4)
+            for n, stem in KERNEL_STEMS.items()}
 
 
 # -- phase 1 and 2 ------------------------------------------------------------
@@ -319,6 +344,36 @@ def check_rbmm_int(rng):
             cases[f"edge b={lead or 1} M={m} P={p} K={k} Kp={kp} pad bits "
                   f"set {scheme}{' dc given' if d is not None else ''}"] = \
                 (x, y, k, scheme, d)
+    # the decode route: every decode call of smollm-135m at M = 8 and 16
+    # (kernel_times.decode_calls), M of 1 to 17, Kp of 1 to 256 with pad
+    # bits set, P off the column tile, batches, and operands whose base is
+    # 4, 8 or 12 bytes past a 16-byte boundary
+    for name, (lead, m, p, k, scheme) in decode_calls(crossover=()).items():
+        kp = (k + 31) // 32
+        x, y = _words(rng, lead + (m, kp), k), _words(rng, lead + (p, kp), k)
+        cases[name] = (x, y, k, scheme, None)
+        if scheme == "and_dc":
+            cases[f"{name}, dc given"] = (x, y, k, scheme, dcs(lead, m, k))
+    for lead, m, p, k in (((), 1, 576, 575), ((), 3, 77, 33),
+                          ((), 16, 193, 1530), ((5,), 2, 33, 8),
+                          ((2, 3), 5, 160, 150), ((), 9, 100, 540),
+                          ((), 8, 129, 600), ((), 17, 65, 1560),
+                          ((), 12, 31, 8190)):
+        kp = (k + 31) // 32
+        x, y = _words(rng, lead + (m, kp), None), \
+            _words(rng, lead + (p, kp), None)
+        for scheme, d in (("xnor", None), ("and_dc", None),
+                          ("and_dc", dcs(lead, m, k))):
+            cases[f"decode edge b={lead or 1} M={m} P={p} K={k} Kp={kp} pad "
+                  f"bits set {scheme}{' dc given' if d is not None else ''}"
+                  ] = (x, y, k, scheme, d)
+    for off in (1, 2, 3):
+        for m, p, kp in ((8, 576, 48), (16, 192, 18)):
+            flat = _words(rng, (off + (m + p) * kp,), None)
+            x = flat[off:off + m * kp].view(m, kp)
+            y = flat[off + m * kp:].view(p, kp)
+            cases[f"decode base +{4 * off} bytes M={m} P={p} Kp={kp}"] = (
+                x, y, 32 * kp - 3, "and_dc", None)
     for case, (x, y, k, scheme, d) in cases.items():
         both(case, x, y, k, scheme, d)
     # main path: wq at decode, M = batch = 8, K = P = 576
@@ -728,7 +783,8 @@ def phase_serve():
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; KV cache "
         f"{report['total_bytes'] / 2**20:.2f} MiB "
         f"({report['compression_vs_bf16']:.1f}x below bf16)")
-    log(f"[serve] sample tokens {toks[0, :8].tolist()}")
+    log(f"[serve] sample tokens {toks[0, :8].tolist()}; all {toks.size} "
+        f"tokens' digest {digest(toks.tolist())}")
     profile_decode(model, dparams, prompts,
                    1e3 * (t_end - t_pre) / steps)
     return launches, model, dparams
@@ -758,6 +814,8 @@ def profile_decode(model, dparams, prompts, step_ms: float) -> None:
         f"{launches:.0f} CUDA kernels per step")
     for name, ms in top:
         log(f"[serve]   {ms:.4f} ms/step  {name[:90]}")
+    log(f"[serve] device ms per decode step of our kernels "
+        f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[serve]", host_ops)
 
 
@@ -884,6 +942,8 @@ def phase_continuous(model, dparams):
                              f"per pure-decode iteration {per_layer}, not "
                              f"{model.cfg.num_layers}")
     tokens = sum(len(t) for t in res.values())
+    by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
+    log(f"[continuous] tokens by rid, digest {digest(by_rid)}")
     ms = lambda rows: [m for m, _ in rows]
     prompt = sum(len(r.tokens) for r in reqs)
     log(f"[continuous] {len(reqs)} requests ({prompt} prompt tokens, "
@@ -915,6 +975,8 @@ def phase_continuous(model, dparams):
         f"{1 - busy / step_ms:.3f}), {n_kernels:.0f} CUDA kernels")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[continuous]   {t:.4f} ms  {name[:90]}")
+    log(f"[continuous] device ms per pure-decode iteration of our kernels "
+        f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[continuous]", host_ops)
     return launches
 
@@ -1100,14 +1162,8 @@ def phase_encode():
         f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels per forward")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[encode]   {ms:.4f} ms/forward  {name[:90]}")
-    # each of our kernels' device time, whatever its rank (a kernel's CUDA
-    # functions all carry the stem of its name)
-    stems = {"pack_threshold": "pack_", "rbmm_int": "rbmm_int",
-             "rbmm_binary": "rbmm_binary", "rbmm_mxu": "rbmm_mxu",
-             "sps_attention": "sps_attention"}
-    ours = {n: round(sum(ms for k, ms in by_name.items() if stem in k), 4)
-            for n, stem in stems.items()}
-    log(f"[encode] device ms per forward of our kernels {json.dumps(ours)}")
+    log(f"[encode] device ms per forward of our kernels "
+        f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[encode]", host_ops)
     crosscheck_encode(cfg, to_device(dparams, "cpu"), dparams)
     return launches

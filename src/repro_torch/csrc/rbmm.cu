@@ -8,11 +8,21 @@
 // over a (batch, M, Kp) and b (batch, P, Kp) -> (batch, M, P) int32.  It has
 // two routes, picked by the wrapper from the shape alone (ops.route):
 //
-//   * M <= 16 (decode): one thread per output element looping over the Kp
-//     words with __popc.  Bound on the H100: the launch.  wq at M = 8 moves
-//     60 KB (0.02 us at 3.35 TB/s); neighbouring threads take neighbouring
-//     columns, so the A row is a broadcast read and the store coalesced.
-//     dc is counted from a only when it is not given.
+//   * M <= 16 (decode, rbmm_int_dec_kernel): groups of lanes split each
+//     column's Kp words (coalesced, 16-byte loads where Kp and the bases
+//     allow) and meet in a shuffle reduce-scatter; a block's rows are held
+//     in registers and each weight word is used against all of them.
+//     Bound on the H100: bytes, far below the launch: wq at M = 8 moves 60
+//     KB (0.018 us at 3.35 TB/s), w2 (M = 8, Kp = 48) 130 KB (0.04 us).
+//     What sets the time past the launch is each warp's serial chain: one
+//     round trip to L2 for both operands, then rows x words popcounts at
+//     the SM's 16 a clock (a warp's takes 8 clocks on its sub-partition),
+//     then the shuffles.  So the design keeps that chain short: no shared
+//     memory and no barrier, one vector a lane, row blocks of at most 8
+//     rows and 8 popcounts a lane per column (the weights are read once per
+//     row block, from L2 after the first), and a grid of large blocks
+//     spread over the SMs (ops.decode_tile; PERF.md section 6 has the
+//     tile sweep that chose it).
 //   * larger M (the encoder's F2, chunked prefill's scores and context): the
 //     int8 tensor-core mainloop below, shared with rbmm_binary, and a plain
 //     int32 epilogue.  Bound on the H100: bytes, of the output.  F2, M =
@@ -81,34 +91,173 @@
 
 namespace {
 
-// kDerive: dc is null and counted from a (xnor takes this one too).
-template <bool kDerive>
-__global__ void rbmm_int_kernel(const uint32_t* __restrict__ a,
-                                const uint32_t* __restrict__ b,
-                                const int32_t* __restrict__ dc,
-                                long long batch, int m, int p, int kp, int k,
-                                int and_dc, int32_t* __restrict__ out) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= batch * m * p) return;
-  const int col = static_cast<int>(idx % p);
-  const long long rowz = idx / p;  // z * m + row
-  const long long z = rowz / m;
-  const uint32_t* ar = a + rowz * kp;
-  const uint32_t* br = b + (z * p + col) * kp;
-  int pc = 0;
-  if (!and_dc) {
-    for (int w = 0; w < kp; ++w) pc += __popc(~(ar[w] ^ br[w]));
-    out[idx] = 2 * pc - (k + 2 * (kp * 32 - k));
-    return;
+// -- rbmm_int's decode route (M <= 16) -------------------------------------
+//
+// A block owns MT rows of one batch item (MT: 1, 2, 4 or 8; more rows take
+// more row blocks) and warps * 32 / G columns: a group of G lanes
+// shares a column and splits its Kp words, lane j taking the V-word vectors
+// j, j + G, j + 2G, ... (the tile rule makes that one vector where 32
+// lanes allow).  Both operands are read straight into registers: the
+// column's B words once per row block, each by one lane; the MT A rows'
+// words at the same positions, which every group of the warp reads at the
+// same addresses (one broadcast request).  Per word and row one LOP3 and
+// one popcount: X = popc(a ^ b) (xnor and derived dc) or popc(a & b) (dc
+// given), so that, over all 32 Kp bits, pad bits included as the plain
+// version counts them,
+//   xnor          c = k - 2 X
+//   and_dc given  c = 2 popc(a & b) - k + dc
+//   and_dc, derived  2 popc(a & b) - popc(a) = popc(b) - X:  c = popc(b) - X
+// (popc(a & b) = (popc a + popc b - popc(a ^ b)) / 2 word by word): the
+// ones of b are a column's, counted once per word, not once per row.  Rows
+// past M add nothing that is stored.  The G lanes' partials then meet in a
+// reduce-scatter over __shfl_xor_sync: each step a lane keeps half of its
+// rows and sends the other half, so MT rows cost MT - 1 shuffles (plus
+// log2(G / MT) when G > MT) and each lane ends with MT / G rows (or one)
+// to store.
+template <int V>
+__device__ __forceinline__ void load_vec(const uint32_t* p, uint32_t* d) {
+  if constexpr (V == 4) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else if constexpr (V == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    d[0] = t.x; d[1] = t.y;
+  } else {
+    d[0] = __ldg(p);
   }
-  int ones = 0;
-  for (int w = 0; w < kp; ++w) {
-    pc += __popc(ar[w] & br[w]);
-    if (kDerive) ones += __popc(ar[w]);
+}
+
+// v[0, H) are a lane's partial rows; lanes S apart swap halves and add.
+template <int H, int S, int N>
+__device__ __forceinline__ void reduce_scatter(int (&v)[N], int lane) {
+  if constexpr (S >= 1) {
+    if constexpr (H > 1) {
+      const bool up = lane & S;
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) {
+        const int send = up ? v[i] : v[i + H / 2];
+        const int keep = up ? v[i + H / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], S);
+    }
+    reduce_scatter<(H > 1 ? H / 2 : 1), S / 2>(v, lane);
   }
-  const int d = kDerive ? k - ones : dc[rowz];
-  out[idx] = 2 * pc - k + d;
+}
+
+// The first row that reduce_scatter<H, S> leaves in v[0] of this lane.
+template <int H, int S>
+__device__ __forceinline__ int held_row(int lane) {
+  if constexpr (S >= 1 && H > 1)
+    return ((lane & S) ? H / 2 : 0) + held_row<H / 2, S / 2>(lane);
+  return 0;
+}
+
+// mode: 0 xnor, 1 and_dc with dc given, 2 and_dc with dc derived.
+template <int MT, int G, int V>
+__global__ void __launch_bounds__(256)
+rbmm_int_dec_kernel(const uint32_t* __restrict__ a,
+                    const uint32_t* __restrict__ b,
+                    const int32_t* __restrict__ dc, int m, int p, int kp,
+                    int k, int mode, int32_t* __restrict__ out) {
+  constexpr int kHeld = MT > G ? MT / G : 1;   // rows a lane stores
+  const int lane = threadIdx.x & 31;
+  const int j = lane % G;
+  const long long z = blockIdx.z;
+  const int row0 = blockIdx.y * MT;
+  const int col = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool col_ok = col < p;
+  const int rows = min(MT, m - row0);
+  const uint32_t* bp = b + (z * p + col) * kp;
+  const uint32_t* ap = a + (z * m + row0) * kp;
+  const int my_row = held_row<MT, G / 2>(lane);
+  // the stores' rows: lanes G / MT apart hold the same sums (G > MT)
+  const bool stores = col_ok && (G <= MT || (j & (G / MT - 1)) == 0);
+  int bias[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int r = my_row + i;
+    bias[i] = mode == 0 ? k : 0;
+    if (mode == 1 && stores && r < rows) bias[i] = dc[z * m + row0 + r] - k;
+  }
+  // a & b when and_dc has dc given, else a ^ b: one LOP3 either way
+  const uint32_t and_mask = mode == 1 ? 0xffffffffu : 0u;
+
+  int acc[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) acc[r] = 0;
+  int b_ones = 0;
+  const int nvec = col_ok ? kp / V : 0;   // kp % V == 0
+#pragma unroll 2
+  for (int vi = j; vi < nvec; vi += G) {
+    const int w = vi * V;
+    uint32_t bw[V], aw[MT][V];
+    load_vec<V>(bp + w, bw);
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      if (r < rows) {
+        load_vec<V>(ap + static_cast<long long>(r) * kp + w, aw[r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) aw[r][e] = 0;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      b_ones += __popc(bw[e]);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        const uint32_t x = aw[r][e], y = bw[e];
+        acc[r] += __popc((x ^ y) ^ (and_mask & (x | y)));
+      }
+    }
+  }
+  int v[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+    v[r] = mode == 0 ? -2 * acc[r] : mode == 1 ? 2 * acc[r]
+                                               : b_ones - acc[r];
+  reduce_scatter<MT, G / 2>(v, lane);
+  if (!stores) return;
+  int32_t* o = out + (z * m + row0) * p + col;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i)
+    if (my_row + i < rows)
+      o[static_cast<long long>(my_row + i) * p] = v[i] + bias[i];
+}
+
+template <int MT, int G>
+void launch_dec_v(int vec, dim3 grid, int threads, cudaStream_t s,
+                  const uint32_t* a, const uint32_t* b, const int32_t* dc,
+                  int m, int p, int kp, int k, int mode, int32_t* out) {
+  if (vec == 4)
+    rbmm_int_dec_kernel<MT, G, 4><<<grid, threads, 0, s>>>(
+        a, b, dc, m, p, kp, k, mode, out);
+  else if (vec == 2)
+    rbmm_int_dec_kernel<MT, G, 2><<<grid, threads, 0, s>>>(
+        a, b, dc, m, p, kp, k, mode, out);
+  else
+    rbmm_int_dec_kernel<MT, G, 1><<<grid, threads, 0, s>>>(
+        a, b, dc, m, p, kp, k, mode, out);
+}
+
+template <int MT>
+bool launch_dec_g(int lanes, int vec, dim3 grid, int threads,
+                  cudaStream_t s, const uint32_t* a, const uint32_t* b,
+                  const int32_t* dc, int m, int p, int kp, int k, int mode,
+                  int32_t* out) {
+#define COBRA_DEC_G(G)                                                     \
+  case G:                                                                  \
+    launch_dec_v<MT, G>(vec, grid, threads, s, a, b, dc, m, p, kp, k, mode, \
+                        out);                                              \
+    return true;
+  switch (lanes) {
+    COBRA_DEC_G(1) COBRA_DEC_G(2) COBRA_DEC_G(4) COBRA_DEC_G(8)
+    COBRA_DEC_G(16) COBRA_DEC_G(32)
+  }
+#undef COBRA_DEC_G
+  return false;
 }
 
 // -- the int8 tensor-core mainloop of rbmm_binary and large-M rbmm_int ------
@@ -401,23 +550,49 @@ int launch_int_tc(const uint32_t* a, const uint32_t* b, const int32_t* dc,
 
 }  // namespace
 
-// The one-thread-per-output route.  scheme: 0 = xnor, 1 = and_dc.  dc may
-// be null (derived from a).
+// The decode route (M <= 16; any M works, in blocks of rows).  scheme: 0 =
+// xnor, 1 = and_dc; dc may be null (derived from a).  rows (1, 2, 4 or 8)
+// make a row block, lanes (1 to 32, a power of two) share a column,
+// warps (1 to 8) make a block, vec (1, 2 or 4) words make a load:
+// ops.decode_tile picks them from the shape; vec is lowered here where Kp
+// or the operands' bases do not allow it.  The grid is (column tiles, row
+// blocks, batch).
 COBRA_API int cobra_rbmm_int(const void* a, const void* b, const void* dc,
                              long long batch, long long m, long long p,
-                             long long kp, long long k, int scheme,
-                             void* out, void* stream) {
-  const long long total = batch * m * p;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  auto kernel = dc ? rbmm_int_kernel<false> : rbmm_int_kernel<true>;
-  kernel<<<static_cast<unsigned>(blocks), threads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<const int32_t*>(dc), batch, static_cast<int>(m),
-      static_cast<int>(p), static_cast<int>(kp), static_cast<int>(k),
-      scheme, static_cast<int32_t*>(out));
+                             long long kp, long long k, int scheme, int rows,
+                             int lanes, int warps, int vec, void* out,
+                             void* stream) {
+  if (batch == 0 || m == 0 || p == 0) return 0;
+  const long long cols = 32LL * warps / (lanes > 0 ? lanes : 1);
+  const long long n_ct = (p + cols - 1) / cols;
+  const long long n_rb = (m + rows - 1) / (rows > 0 ? rows : 1);
+  if (warps < 1 || warps > 8 || lanes < 1 || lanes > 32 || rows < 1 ||
+      n_ct > 0x7fffffffLL || n_rb > 65535 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a) |
+                          reinterpret_cast<uintptr_t>(b);
+  while (vec > 1 && (kp % vec != 0 || bases % (4 * vec) != 0)) vec /= 2;
+  const dim3 grid(static_cast<unsigned>(n_ct), static_cast<unsigned>(n_rb),
+                  static_cast<unsigned>(batch));
+  const int mode = scheme == 0 ? 0 : dc ? 1 : 2;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto au = static_cast<const uint32_t*>(a);
+  auto bu = static_cast<const uint32_t*>(b);
+  auto dci = static_cast<const int32_t*>(dc);
+  auto o = static_cast<int32_t*>(out);
+  const int mi = static_cast<int>(m), pi = static_cast<int>(p),
+            kpi = static_cast<int>(kp), ki = static_cast<int>(k);
+  bool ok = false;
+  switch (rows) {
+#define COBRA_DEC_M(MT)                                                     \
+  case MT:                                                                  \
+    ok = launch_dec_g<MT>(lanes, vec, grid, 32 * warps, s, au, bu, dci, mi, \
+                          pi, kpi, ki, mode, o);                            \
+    break;
+    COBRA_DEC_M(1) COBRA_DEC_M(2) COBRA_DEC_M(4) COBRA_DEC_M(8)
+#undef COBRA_DEC_M
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return cobra_launch_status();
 }
 

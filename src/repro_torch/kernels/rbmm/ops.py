@@ -25,9 +25,10 @@ row, and the wrappers raise otherwise.
 Dispatch: CUDA tensors launch ``csrc/rbmm.cu``; CPU tensors take
 ``ref.rbmm_int`` / ``ref.rbmm_binary``.  ``rbmm_int.launches`` and
 ``rbmm_binary.launches`` count kernel launches.  ``rbmm_int`` has two
-kernels, and ``route`` picks one from the shape alone: the
-one-thread-per-output kernel at M <= 16 (decode), the int8 tensor-core
-kernel above; both count in ``rbmm_int.launches``.
+kernels, and ``route`` picks one from the shape alone: the decode kernel
+at M <= 16 (groups of lanes split each column's words, its tile from
+``decode_tile``), the int8 tensor-core kernel above; both count in
+``rbmm_int.launches``.
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ from repro_torch.core import packing
 from repro_torch.kernels.rbmm import ref
 
 SCHEMES = ("xnor", "and_dc")
-_ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 + [kernels.INT,
-                                                      kernels.PTR])
+_ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 + [kernels.INT] * 5 +
+             [kernels.PTR])
 _TC_ARGTYPES = ([kernels.PTR] * 3 + [kernels.I64] * 5 +
                 [kernels.INT] * 2 + [kernels.PTR])
 _BINARY_ARGTYPES = ([kernels.PTR] * 4 + [kernels.I64] * 8 +
@@ -78,10 +79,10 @@ TC_TILE_N = (192, 128, 64)
 
 def route(m: int, p: int, kp: int) -> str:
     """The ``rbmm_int`` kernel for an (M x Kp words) by (P x Kp) product:
-    "scalar" (one thread per output, popcounts) at M <= 16, where the
-    launch is the floor and it beats the library call; "tc" (int8 tensor
-    cores) above, which was faster at every larger shape the main paths
-    give it on the H100 (``PERF.md`` §6)."""
+    "scalar" (the decode kernel: popcounts, no tensor cores) at M <= 16,
+    where the launch is the floor; "tc" (int8 tensor cores) above, which
+    was faster at every larger shape the main paths give it on the H100
+    (``PERF.md`` §6)."""
     return "scalar" if m <= 16 else "tc"
 
 
@@ -90,6 +91,52 @@ def tile_n(p: int) -> int:
     """The tensor-core kernel's N tile for P columns: the fewest padded
     columns, then the widest tile (cached: it runs on every launch)."""
     return min(TC_TILE_N, key=lambda bn: (-(-p // bn) * bn, -bn))
+
+
+# the decode kernel: its row blocks, the popcounts a lane makes per column
+# at most (rows times the words it takes, where M allows), the warps a
+# block may have, and the blocks a grid keeps at least where the columns
+# allow (half the 132 SMs of an H100 SXM)
+DECODE_ROWS = (1, 2, 4, 8)
+DECODE_LANE_WORDS = 8
+DECODE_WARPS = (8, 4, 2, 1)
+DECODE_MIN_BLOCKS = 66
+
+
+def decode_rows(m: int) -> int:
+    """The smallest row block of ``DECODE_ROWS`` that holds M rows (the
+    largest above it)."""
+    return next((r for r in DECODE_ROWS if r >= m), DECODE_ROWS[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def decode_tile(batch: int, m: int, p: int,
+                kp: int) -> Tuple[int, int, int, int]:
+    """The decode kernel's (rows per block, lanes per column, warps per
+    block, words per load) for ``batch`` products of (M x Kp words) by
+    (P x Kp): 16-byte loads where Kp allows (the kernel lowers them where
+    the operands' bases do not), then 8- and 4-byte ones; one load a lane
+    where 32 lanes allow; the most rows (up to M's block) that keep a
+    lane's popcounts per column at ``DECODE_LANE_WORDS``; the most warps
+    that keep ``DECODE_MIN_BLOCKS`` blocks (fewer, larger blocks were
+    faster down to there on the H100, ``PERF.md`` §6).  Cached: it runs on
+    every launch."""
+    vec = 4 if kp % 4 == 0 else 2 if kp % 2 == 0 else 1
+    vecs = kp // vec
+    lanes = min(32, 1 << (vecs - 1).bit_length())
+    words = -(-vecs // lanes) * vec
+    rows = max([r for r in DECODE_ROWS if r <= decode_rows(m) and
+                r * words <= DECODE_LANE_WORDS] or [1])
+    warps = next((w for w in DECODE_WARPS if decode_grid(
+        batch, m, p, rows, lanes, w) >= DECODE_MIN_BLOCKS), DECODE_WARPS[-1])
+    return rows, lanes, warps, vec
+
+
+def decode_grid(batch: int, m: int, p: int, rows: int, lanes: int,
+                warps: int) -> int:
+    """The decode kernel's blocks (as ``cobra_rbmm_int`` launches them):
+    column tiles of ``32 * warps / lanes`` by row blocks by batch items."""
+    return -(-p // (32 * warps // lanes)) * -(-m // rows) * batch
 
 
 def rbmm_int(a: torch.Tensor, b: torch.Tensor, k: int, *,
@@ -128,6 +175,7 @@ def _launch_int(which, a, b, k, scheme, dc) -> torch.Tensor:
                        tile_n(p), out.data_ptr())
     else:
         kernels.launch("cobra_rbmm_int", _ARGTYPES, a.device, *args,
+                       *decode_tile(batch, m, p, a.shape[-1]),
                        out.data_ptr())
     rbmm_int.launches += 1
     return out

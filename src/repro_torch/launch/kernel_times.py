@@ -4,6 +4,7 @@ main paths give them, on one CUDA card.
     PYTHONPATH=src python -m repro_torch.launch.kernel_times
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --trace
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --ksteps
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times --tiles
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --only 'sps_|paged_'
 
 For each shape it prints one JSON object: the device time of one call
@@ -17,13 +18,17 @@ computes the same function (``library_ms``: bf16 ``torch.matmul`` of the
 unpacked operands for the RBMM kernels; none for pack and the
 attention kernels).  ``sps_attention`` is also timed at L = 64, 128, 256
 and 512 (the encoder's heads, bidirectional) for its cost per key tile;
+``rbmm_int`` at every decode call of smollm-135m at M = 8 and 16 and at
+w2 for M = 32, 64 and 128, where its routes would cross;
 ``paged_gather_decode`` at the continuous path's decode shape with lengths
 drawn from a fixed seed, so every checkout reads the same pages.  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
-each tensor-core kernel under torch.profiler (host and card) and prints
-where the host time per call goes; ``--ksteps`` times the int8 mainloop
-against its number of K-steps.
+each tensor-core kernel and of the decode route at wq and w2 under
+torch.profiler (host and card) and prints where the host time per call
+goes; ``--ksteps`` times the int8 mainloop
+against its number of K-steps; ``--tiles`` times ``rbmm_int``'s decode
+kernel at every decode call for the tiles around its rule.
 
 It calls the wrappers' public signatures, so run by path under another
 checkout's ``src`` (``PYTHONPATH=<checkout>/src python
@@ -53,20 +58,26 @@ M_ENC, D_ENC = 4096, 768   # bert-base-cobra, B = 8 x 512 tokens
 CH_B, CH_HKV, CH_ROWS, CH_C, CH_W, CH_DH = 16, 3, 3 * 128, 128, 384, 64
 
 
-def device_ms(fn: Callable, iters: int = 20) -> float:
+def device_ms(fn: Callable, iters: int = 20, tries: int = 3) -> float:
     """Device milliseconds per call: the summed time of the CUDA kernels
     it launches (torch.profiler, after one warm call), host work
-    excluded."""
+    excluded.  A profile that saw no kernel at all (one in a few hundred
+    did on the H100) is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    ms = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / iters / 1e3
+        if ms > 0:
+            break
+    return ms
 
 
 def eager_ms(fn: Callable, iters: int = 50, warmup: int = 5,
@@ -100,6 +111,45 @@ def bound(moved_bytes: float, ops: float, op_rate: float):
     t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# rbmm_int's decode calls at smollm-135m's full width (d = 576, 9/3 heads,
+# d_h = 64, d_ff = 1536, a ring of 128 + 32 tokens): M is the batch (8 in a
+# static decode step, 16 slots in a pure-decode iteration), or, for the
+# ring's score and context, the 3 query heads of a KV head over (batch, 3
+# KV heads) products
+DECODE_CALLS = {   # name: (lead dims, M, P, K, scheme; and_dc: dc derived)
+    "wq/wo": (0, None, 576, 576, "xnor"),
+    "wk/wv": (0, None, 192, 576, "xnor"),
+    "w1/w3": (0, None, 1536, 576, "xnor"),
+    "w2": (0, None, 576, 1536, "and_dc"),
+    "ring score": (2, 3, 160, 64, "xnor"),
+    "ring context": (2, 3, 64, 160, "and_dc"),
+}
+
+
+def decode_calls(batches=(8, 16), crossover=(32, 64, 128)
+                 ) -> Dict[str, tuple]:
+    """``rbmm_int decode <call> ...``: (lead, M, P, K, scheme) of every
+    decode call at each batch; ``rbmm_int w2 crossover ...``: w2 at the M
+    of ``crossover``, where the decode and tensor-core routes meet."""
+    out = {}
+    for n in batches:
+        for call, (nlead, m, p, k, scheme) in DECODE_CALLS.items():
+            lead = (n, 3)[:nlead]
+            m = n if m is None else m
+            kp = (k + 31) // 32
+            sa = ",".join(map(str, lead + (m, kp)))
+            sb = ",".join(map(str, lead + (p, kp)))
+            dims = (f"({sa})x({sb})" if lead else
+                    f"({m}x{k})x({p}x{k})")
+            tail = ", dc derived" if scheme == "and_dc" else ""
+            out[f"rbmm_int decode {call} {dims} {scheme}{tail}"] = (
+                lead, m, p, k, scheme)
+    for m in crossover:
+        out[f"rbmm_int w2 crossover ({m}x1536)x(576x1536) and_dc, dc "
+            f"derived"] = ((), m, 576, 1536, "and_dc")
+    return out
 
 
 def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
@@ -154,17 +204,17 @@ def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
                                              pack_output=True),
              library=lambda: torch.matmul(av, wv.T),
              bound=word_or_mac(m, p, k, a, w, theta, bits, dc_ret))
-    # rbmm_int at the main paths' shapes: decode (wq; w2 with dc derived),
-    # the encoder's F2 and chunked prefill's prefix score, context and
-    # intra-chunk score
+    # rbmm_int at the main paths' shapes: every decode call at M = 8 and
+    # 16 and w2 at M = 32, 64 and 128 (the routes' crossing), the encoder's F2
+    # and chunked prefill's prefix score, context and intra-chunk score
     dc = torch.randint(0, k, (m,), generator=gen, device="cuda",
                        dtype=torch.int32)
     lead = (CH_B, CH_HKV)
+    calls = {name: (words(*lead_, mm, kk), words(*lead_, pp, kk), kk,
+                    scheme, None)
+             for name, (lead_, mm, pp, kk, scheme) in decode_calls().items()}
     for name, (x, y, kk, scheme, d) in {
-            "rbmm_int decode wq (8x576)x(576x576) xnor":
-                (words(8, 576), words(576, 576), 576, "xnor", None),
-            "rbmm_int decode w2 (8x1536)x(576x1536) and_dc, dc derived":
-                (words(8, 1536), words(576, 1536), 1536, "and_dc", None),
+            **calls,
             "rbmm_int F2 (4096x768)x(768x768) and_dc, dc given":
                 (a, w, k, "and_dc", dc),
             "rbmm_int chunk prefix score (16,3,384,2)x(16,3,384,2) xnor":
@@ -401,7 +451,53 @@ def host_trace(fn: Callable, iters: int = 50, top: int = 8) -> Dict:
             "top_ops": [[k, round(t, 5), c] for k, t, c in ops[:top]]}
 
 
-TRACED = ("rbmm_mxu prefill w1", "rbmm_binary F1", "rbmm_int F2")
+TRACED = ("rbmm_mxu prefill w1", "rbmm_binary F1", "rbmm_int F2",
+          "rbmm_int decode wq/wo", "rbmm_int decode w2")
+
+
+def decode_tiles(seed: int = 0, iters: int = 30) -> List[Dict]:
+    """The decode kernel's device time at every decode call for the tiles
+    around the rule's (``ops.decode_tile``): each lane count and load width
+    at the rule's rows and warps, each warp count at the rule's rows, lanes
+    and width, and every row block with the rule's lanes, half and twice
+    them (the weights are read once per row block).  Every tile's output
+    must equal the public wrapper's."""
+    from repro_torch import kernels
+    from repro_torch.kernels.rbmm import ops as rbmm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = []
+    for name, (lead, m, p, k, scheme) in decode_calls().items():
+        kp = (k + 31) // 32
+        a, b = (torch.randint(-2**31, 2**31, lead + (n, kp), generator=gen,
+                              device="cuda", dtype=torch.int64).to(
+                                  torch.int32) for n in (m, p))
+        batch = int(np.prod(lead, dtype=np.int64))
+        want = rbmm.rbmm_int(a, b, k, scheme=scheme)
+        rule = rbmm.decode_tile(batch, m, p, kp)
+        rows, lanes, warps, vec = rule
+        tiles = sorted(
+            {(rows, g, warps, v) for g in (1, 2, 4, 8, 16, 32)
+             for v in (1, 2, 4) if kp % v == 0} |
+            {(rows, lanes, w, vec) for w in (1, 2, 4, 8)} |
+            {(r, g, warps, vec) for r in rbmm.DECODE_ROWS
+             for g in (max(1, lanes // 2), lanes, min(32, 2 * lanes))})
+        out = torch.empty_like(want)
+
+        def run(tile):
+            kernels.launch("cobra_rbmm_int", rbmm._ARGTYPES, a.device,
+                           a.data_ptr(), b.data_ptr(), None, batch, m, p, kp,
+                           k, rbmm.SCHEMES.index(scheme), *tile,
+                           out.data_ptr())
+        for tile in tiles:
+            out.zero_()
+            run(tile)
+            if not torch.equal(out, want):
+                raise AssertionError(f"decode tile {tile} at {name} differs "
+                                     f"from the wrapper")
+            table.append(dict(shape=name, rows=tile[0], lanes=tile[1],
+                              warps=tile[2], vec=tile[3], rule=tile == rule,
+                              ms=device_ms(lambda: run(tile), iters)))
+    return table
 
 
 def ksteps(seed: int = 0) -> List[Dict]:
@@ -428,6 +524,8 @@ def main() -> int:
                     help="trace the host side of the tensor-core kernels")
     ap.add_argument("--ksteps", action="store_true",
                     help="time the int8 mainloop against its K-steps")
+    ap.add_argument("--tiles", action="store_true",
+                    help="time the decode kernel's tiles around its rule")
     ap.add_argument("--only", default="",
                     help="time only the shapes whose name matches this "
                     "regular expression")
@@ -436,6 +534,10 @@ def main() -> int:
         raise SystemExit("kernel_times: needs a CUDA card")
     if args.ksteps:
         for row in ksteps():
+            print(json.dumps(row), flush=True)
+        return 0
+    if args.tiles:
+        for row in decode_tiles():
             print(json.dumps(row), flush=True)
         return 0
     if args.trace:

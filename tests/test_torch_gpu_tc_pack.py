@@ -1,4 +1,4 @@
-"""Both routes of ``rbmm_int`` (one thread per output, and the int8
+"""Both routes of ``rbmm_int`` (the decode kernel, and the int8
 tensor-core kernel) and ``pack_threshold``'s three layouts against their
 plain versions on a CUDA card.
 
