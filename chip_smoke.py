@@ -25,19 +25,30 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 of the RBMM, pack and attention kernels
   4. serve      full-width smollm-135m (random weights from a seed) serves
                 8 prompts of 128 tokens, 32 greedy tokens each, through
-                ``ServeEngine.generate``; the launch count of every kernel
-                of the static path must move during that run; a profile of
-                one decode step with each of our kernels' device ms
+                ``ServeEngine.generate``, its decode step a replayed CUDA
+                graph (captured by a first, untimed call on the same
+                engine; captures, capture time and graph pool printed);
+                the launch count of every kernel of the static path must
+                move during that run, and each replay must credit the
+                launches of the eager step; a test-local eager loop of
+                ``decode_step`` from the same state gives equal tokens and
+                bitwise-equal logits (eager and graphed ms per step);
+                100 replays allocate nothing; a profile of one replay
+                with each of our kernels' device ms
   5. continuous the same model serves a 24-request trace through
                 ``ServeEngine.serve`` on a page arena a quarter of full
                 provisioning (16 slots, 12 blocks of 32, 48 pages, prefix
-                sharing, chunks of 128):
+                sharing, chunks of 128), every step a replayed graph: a
+                first serve of the trace captures them, the timed second
+                one captures nothing and gives the same tokens;
                 at least one preemption and one prefix hit, every budget
                 served, the launch counts of the paged path's kernels
                 move, exactly one ``paged_gather_decode`` per layer in
                 every pure-decode iteration; iteration times, page
-                statistics and a profile of one pure-decode iteration with
-                each of our kernels' device ms
+                statistics and a profile of one pure-decode replay with
+                each of our kernels' device ms; then the unified and
+                decode graphs against eager steps from the same paged
+                state (live rows' logits bitwise, pages and lengths)
   6. crosscheck the same model in float32 on the card and on the CPU
                 (plain versions): static B=2, S=32, 4 tokens with equal
                 greedy tokens and logits within a stated tolerance; then
@@ -45,12 +56,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 with equal tokens by rid and equal page and engine counters
   7. encode     full-width bert-base-cobra (random weights from a seed,
                 bf16) encodes B=8 x 512 tokens through
-                ``LMModel.prefill_logits``: exactly 48 ``rbmm_binary``, 48
-                ``rbmm_int`` and 12 ``sps_attention`` launches per forward
-                and every kernel of the path launched; ms per forward,
-                tokens/s, device busy share, peak memory and the top
-                kernels; then float32 card vs CPU at B=2, S=64 with equal
-                argmax and logits within a stated tolerance
+                ``LMModel.prefill_logits`` captured as one CUDA graph
+                (``graphs.prefill_logits_graph``; its logits bitwise
+                equal to the eager forward's): exactly 48 ``rbmm_binary``,
+                48 ``rbmm_int`` and 12 ``sps_attention`` launches per
+                replay and every kernel of the path launched; ms per
+                replay and per eager forward, tokens/s, device busy share
+                of one replay, peak memory and the top kernels; then
+                float32 card vs CPU at B=2, S=64 with equal argmax and
+                logits within a stated tolerance
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -746,8 +760,11 @@ def phase_serve():
         0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
     eng = ServeEngine(model, dparams, ServeConfig(
         cache=CacheConfig(max_len=SERVE_S + SERVE_NEW)))
-    eng.generate(prompts, max_new_tokens=2)            # warm-up
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=2)     # warm-up: captures the step
     torch.cuda.synchronize()
+    log_captures("[serve]", eng, time.perf_counter() - t0)
+    captures = dict(eng._graphs.captures)
     torch.cuda.reset_peak_memory_stats()
 
     marks = []
@@ -756,6 +773,7 @@ def phase_serve():
         # generate copied the tokens to the host: the card is idle here
         marks.append((time.perf_counter(), kernels.launch_counts()))
 
+    probe = IterationProbe(eng)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     toks, report = eng.generate(prompts, max_new_tokens=SERVE_NEW,
@@ -770,14 +788,23 @@ def phase_serve():
     if idle:
         raise AssertionError(f"serve: kernels {idle} never launched on the "
                              f"static path: {launches}")
+    if eng._graphs.captures != captures or captures["decode"] != 1:
+        raise AssertionError(f"serve: captures {eng._graphs.captures} "
+                             f"after the warm-up's {captures}")
     (t_pre, c_pre), (t_end, c_end) = marks[0], marks[-1]
     steps = SERVE_NEW - 1
     per_step = {n: (c_end[n] - c_pre[n]) / steps for n in launches}
+    eager_step = check_static_graph(model, dparams, prompts)
+    if per_step != {n: float(c) for n, c in eager_step.items()}:
+        raise AssertionError(f"serve: launches per replayed decode step "
+                             f"{per_step}, per eager step {eager_step}")
     log(f"[serve] launches per prefill {json.dumps(c_pre)}")
-    log(f"[serve] launches per decode step {json.dumps(per_step)}")
+    log(f"[serve] launches per decode step (credited by the replays, equal "
+        f"to the eager step's) {json.dumps(per_step)}")
     log(f"[serve] B={SERVE_B} prompts of {SERVE_S} tokens, {SERVE_NEW} "
         f"greedy tokens: prefill {1e3 * (t_pre - t0):.1f} ms, decode "
-        f"{1e3 * (t_end - t_pre) / steps:.2f} ms/step, total {total:.3f} s,"
+        f"{1e3 * (t_end - t_pre) / steps:.2f} ms/step (graph replays), "
+        f"total {total:.3f} s,"
         f" {SERVE_B * SERVE_NEW / total:.1f} tok/s, decode "
         f"{SERVE_B * steps / (t_end - t_pre):.1f} tok/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; KV cache "
@@ -785,38 +812,124 @@ def phase_serve():
         f"({report['compression_vs_bf16']:.1f}x below bf16)")
     log(f"[serve] sample tokens {toks[0, :8].tolist()}; all {toks.size} "
         f"tokens' digest {digest(toks.tolist())}")
-    profile_decode(model, dparams, prompts,
-                   1e3 * (t_end - t_pre) / steps)
+    step_ms = 1e3 * (t_end - t_pre) / steps
+    walls = [1e3 * (t1 - t0) for (t0, _), (t1, _) in zip(marks, marks[1:])]
+    replays = [r for k, _, _, r in probe.stamps if k == "decode"]
+    host = [w - r for w, r in zip(walls, replays)]
+    log(f"[serve] decode replay to its end (median) "
+        f"{np.median(replays):.2f} ms; the host's own work per step outside "
+        f"the replay (median, mean) {np.median(host):.2f}, "
+        f"{np.mean(host):.2f} ms")
+    profile_decode(eng, step_ms)
     return launches, model, dparams
 
 
-def profile_decode(model, dparams, prompts, step_ms: float) -> None:
-    """Where a decode step's time goes: device busy time per step (sum of
-    kernel times under torch.profiler) against the step's wall time from
-    the serve run; the rest is the card waiting for the host."""
+GRAPH_CHECK_STEPS = 8
+
+
+def check_static_graph(model, dparams, prompts) -> dict:
+    """The decode step captured as a graph against a test-local eager loop
+    of ``decode_step`` from the same prefilled state: equal tokens and
+    bitwise-equal logits at every step (the first call captures), the
+    same launches per step; each step's wall time (ending in the tokens'
+    copy to the host, as the engine's) in turns, eager then graph.
+    Returns the eager step's launch counts."""
     import torch
+    from repro_torch import kernels
+    from repro_torch.serve import graphs
     with torch.inference_mode():
-        logits, caches = model.prefill_with_cache(
+        logits, eager = model.prefill_with_cache(
             dparams, torch.as_tensor(prompts, device="cuda"),
             max_len=SERVE_S + SERVE_NEW)
-        state = {"token": logits.argmax(-1), "caches": caches}
+        caches = clone_caches(eager)
+        g = graphs.StepGraph(
+            lambda tokens: model.decode_step(dparams, tokens, caches)[0],
+            {"tokens": (SERVE_B, 1)}, device=torch.device("cuda"),
+            state=graphs.cache_tensors(caches))
+        tok = logits.argmax(-1).cpu()
+        ms = {"eager": [], "graph": []}
+        for step in range(GRAPH_CHECK_STEPS):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            want, _ = model.decode_step(dparams, tok.cuda(), eager)
+            tok_e = want[:, -1:].argmax(-1).cpu()
+            t1 = time.perf_counter()
+            counted = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            got = g(tokens=tok.numpy())
+            tok_g = got[:, -1:].argmax(-1).cpu()
+            t2 = time.perf_counter()
+            if step:     # the first graph call warms up and captures
+                ms["eager"].append(1e3 * (t1 - t0))
+                ms["graph"].append(1e3 * (t2 - t1))
+                if kernels.launch_counts() != counted:
+                    raise AssertionError(
+                        f"graph check: a replay credited "
+                        f"{kernels.launch_counts()}, the eager step "
+                        f"counted {counted}")
+            if not (torch.equal(got, want) and torch.equal(tok_e, tok_g)):
+                raise AssertionError(
+                    f"graph check: decode step {step} replayed differs from"
+                    f" eager, max |logit diff| "
+                    f"{(got - want).abs().max().item()}")
+            tok = tok_e
+    out = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[serve] graph == eager: {GRAPH_CHECK_STEPS} decode steps from the "
+        f"same prefill, equal tokens, logits bitwise equal; median ms per "
+        f"step (tokens on the host), in turns: eager {out['eager']:.2f}, "
+        f"graph replay {out['graph']:.2f}")
+    return counted
 
-        def step():
-            lg, state["caches"] = model.decode_step(
-                dparams, state["token"], state["caches"])
-            state["token"] = lg.argmax(-1)
 
+def profile_decode(eng, step_ms: float) -> None:
+    """Where a decode step's time goes: device busy time of a replay of the
+    engine's decode graph (sum of kernel times under torch.profiler)
+    against the step's wall time from the serve run; the rest is the card
+    waiting for the host."""
+    import torch
+    g = next(g for (kind, _), g in eng._graphs.graphs.items()
+             if kind == "decode")
+    tok = np.zeros((SERVE_B, 1), np.int64)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(100):
+        g(tokens=tok)
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"serve: 100 replays moved memory_allocated "
+                             f"from {before} to "
+                             f"{torch.cuda.memory_allocated()}")
+    log(f"[serve] 100 decode replays allocated nothing "
+        f"(memory_allocated {before} bytes before and after)")
+    with torch.inference_mode():
         busy, launches, by_name, host_ops = device_profile(
-            step, iters=3, host=True)
+            lambda: g(tokens=tok), iters=3, host=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[serve] decode step profile: device busy {busy:.3f} ms of "
+    log(f"[serve] decode replay profile: device busy {busy:.3f} ms of "
         f"{step_ms:.2f} ms wall (idle share {1 - busy / step_ms:.3f}), "
-        f"{launches:.0f} CUDA kernels per step")
+        f"{launches:.0f} CUDA kernels per replay")
     for name, ms in top:
         log(f"[serve]   {ms:.4f} ms/step  {name[:90]}")
     log(f"[serve] device ms per decode step of our kernels "
         f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[serve]", host_ops)
+
+
+def log_captures(tag: str, eng, first_s: float) -> None:
+    """The engine's captured steps: count by kind, the seconds spent
+    warming up and capturing, the graph pool's reserved memory."""
+    g = eng._graphs
+    log(f"{tag} captures {json.dumps(g.captures)}: {g.capture_s:.3f} s of "
+        f"warm-up and capture within the first call's {first_s:.3f} s; graph "
+        f"pool {g.pool_bytes() / 2**20:.1f} MiB")
+
+
+def clone_caches(caches):
+    """A copy of per-layer caches, every tensor cloned."""
+    import torch
+    return [{k: type(v)(*[t.clone() if isinstance(t, torch.Tensor) else t
+                          for t in v]) for k, v in c.items()}
+            for c in caches]
 
 
 def log_host_ops(tag: str, host_ops) -> None:
@@ -841,51 +954,59 @@ CONT_PAGES, CONT_CHUNK = 48, 128
 
 
 class IterationProbe:
-    """The model, with a stamp at the start of every pooled forward the
-    engine runs: wall time and launch counts.  The engine copies each
-    iteration's sampled tokens to the host before the next one starts, so
-    the span between two stamps is one whole iteration, host work
-    included.  ``profile_after`` pure-decode iterations, one more runs
-    under torch.profiler (and is left out of the timings)."""
+    """The engine's captured steps, with a stamp at the start of every
+    replay the engine runs: wall time and launch counts (the replays
+    credit them).  The engine copies each iteration's sampled tokens to
+    the host before the next one starts, so the span between two stamps
+    is one whole iteration, host work included.  Each replay is timed to
+    its end (a synchronize right after it, where the engine's sampling
+    would wait anyway), so the rest of the iteration is the host's own
+    work outside the replay.  After ``profile_after[kind]`` iterations of
+    a kind (``decode``, ``mixed``), one more replays under torch.profiler
+    (and is left out of the timings)."""
 
-    def __init__(self, model, profile_after=None):
-        self.model = model
-        self.stamps = []           # (kind, perf_counter, launch counts)
-        self.profile_after = profile_after
-        self.profile = None        # (busy ms, CUDA kernels, by name)
+    def __init__(self, eng, profile_after=None):
+        self.stamps = []    # [kind, perf_counter, launch counts, replay ms]
+        self.profile_after = profile_after or {}
+        self.profile = {}   # kind -> (busy ms, CUDA kernels, by name, host)
+        get = eng._graphs.get
 
-    def __getattr__(self, name):
-        return getattr(self.model, name)
+        def probed(kind, *args, **kw):
+            g = get(kind, *args, **kw)
+            return lambda **values: self._run(
+                "decode" if kind == "decode" else "mixed", g, values)
+        eng._graphs.get = probed
 
     def _stamp(self, kind):
         from repro_torch import kernels
-        self.stamps.append((kind, time.perf_counter(),
-                            kernels.launch_counts()))
+        self.stamps.append([kind, time.perf_counter(),
+                            kernels.launch_counts(), None])
 
-    def prefill_with_cache(self, *args, **kw):
-        self._stamp("mixed")
-        return self.model.prefill_with_cache(*args, **kw)
-
-    def decode_step(self, *args, **kw):
-        n = sum(1 for k, _, _ in self.stamps if k == "decode")
-        if self.profile is None and self.profile_after is not None and \
-                n >= self.profile_after:
+    def _run(self, kind, g, values):
+        import torch
+        n = sum(1 for k, *_ in self.stamps if k == kind)
+        if kind not in self.profile and kind in self.profile_after and \
+                n >= self.profile_after[kind]:
             self._stamp("profiled")
             out = {}
 
             def step():
-                out["r"] = self.model.decode_step(*args, **kw)
-            self.profile = device_profile(step, iters=1, warm=False,
-                                          host=True)
+                out["r"] = g(**values)
+            self.profile[kind] = device_profile(step, iters=1, warm=False,
+                                                host=True)
             return out["r"]
-        self._stamp("decode")
-        return self.model.decode_step(*args, **kw)
+        self._stamp(kind)
+        t0 = time.perf_counter()
+        out = g(**values)
+        torch.cuda.synchronize()
+        self.stamps[-1][3] = 1e3 * (time.perf_counter() - t0)
+        return out
 
     def iterations(self, end_time, end_counts):
-        """[(kind, ms, {kernel: launches})] per iteration."""
-        marks = self.stamps + [("end", end_time, end_counts)]
-        return [(k, 1e3 * (t1 - t0), {n: c1[n] - c0[n] for n in c0})
-                for (k, t0, c0), (_, t1, c1) in zip(marks, marks[1:])]
+        """[(kind, ms, {kernel: launches}, replay ms)] per iteration."""
+        marks = self.stamps + [("end", end_time, end_counts, None)]
+        return [(k, 1e3 * (t1 - t0), {n: c1[n] - c0[n] for n in c0}, r)
+                for (k, t0, c0, r), (_, t1, c1, _) in zip(marks, marks[1:])]
 
 
 def continuous_requests(cfg):
@@ -911,10 +1032,13 @@ def phase_continuous(model, dparams):
         num_pages=CONT_PAGES, prefix_share=True),
         policy=PolicyConfig(prefill_chunk=CONT_CHUNK))
     reqs = continuous_requests(model.cfg)
-    ServeEngine(model, dparams, cfg).serve(reqs[:2])          # warm-up
-    probe = IterationProbe(model, profile_after=8)
-    eng = ServeEngine(probe, dparams, cfg)
+    eng = ServeEngine(model, dparams, cfg)
+    t0 = time.perf_counter()
+    first, _ = eng.serve(continuous_requests(model.cfg))  # captures the steps
     torch.cuda.synchronize()
+    log_captures("[continuous]", eng, time.perf_counter() - t0)
+    captures = dict(eng._graphs.captures)
+    probe = IterationProbe(eng, profile_after={"decode": 8, "mixed": 2})
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -922,6 +1046,15 @@ def phase_continuous(model, dparams):
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
     its = probe.iterations(t0 + total, launches)
+    if eng._graphs.captures != captures or \
+            captures != {"unified": 1, "decode": 1, "spec": 0}:
+        raise AssertionError(f"continuous: captures {eng._graphs.captures} "
+                             f"after the first serve's {captures}")
+    changed = [rid for rid in res if not np.array_equal(res[rid],
+                                                        first[rid])]
+    if changed:
+        raise AssertionError(f"continuous: the second serve's tokens differ "
+                             f"from the first's for rids {changed}")
     short = [r.rid for r in reqs if len(res[r.rid]) != r.max_new_tokens]
     if short:
         raise AssertionError(f"continuous: requests {short} did not get "
@@ -934,14 +1067,19 @@ def phase_continuous(model, dparams):
     if idle:
         raise AssertionError(f"continuous: kernels {idle} never launched "
                              f"on the paged path: {launches}")
-    dec = [(ms, c) for k, ms, c in its if k == "decode"]
-    mix = [(ms, c) for k, ms, c in its if k == "mixed"]
+    dec = [(ms, c) for k, ms, c, _ in its if k == "decode"]
+    mix = [(ms, c) for k, ms, c, _ in its if k == "mixed"]
+    host = {kind: [ms - r for k, ms, _, r in its if k == kind]
+            for kind in ("decode", "mixed")}
+    replay = {kind: [r for k, _, _, r in its if k == kind]
+              for kind in ("decode", "mixed")}
     per_layer = {c["paged_gather_decode"] for _, c in dec}
     if per_layer != {model.cfg.num_layers}:
         raise AssertionError(f"continuous: paged_gather_decode launches "
                              f"per pure-decode iteration {per_layer}, not "
                              f"{model.cfg.num_layers}")
     tokens = sum(len(t) for t in res.values())
+    profiled_s = sum(ms for k, ms, _, _ in its if k == "profiled") / 1e3
     by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
     log(f"[continuous] tokens by rid, digest {digest(by_rid)}")
     ms = lambda rows: [m for m, _ in rows]
@@ -951,11 +1089,22 @@ def phase_continuous(model, dparams):
         f"{CONT_PAGES} pages of {CONT_PAGE} "
         f"({CONT_PAGES / (CONT_SLOTS * CONT_BLOCKS):.2f} of {CONT_SLOTS} x "
         f"{CONT_BLOCKS}), chunks of {CONT_CHUNK}: {total:.3f} s, "
-        f"{tokens / total:.1f} tok/s")
-    log(f"[continuous] iterations: {len(dec)} pure-decode, median "
-        f"{np.median(ms(dec)):.2f} ms, mean {np.mean(ms(dec)):.2f} ms; "
-        f"{len(mix)} mixed, median {np.median(ms(mix)):.2f} ms, mean "
-        f"{np.mean(ms(mix)):.2f} ms; 1 profiled (not timed)")
+        f"{tokens / total:.1f} tok/s; without the profiled iterations "
+        f"{total - profiled_s:.3f} s, {tokens / (total - profiled_s):.1f} "
+        f"tok/s")
+    log(f"[continuous] iterations (graph replays): {len(dec)} pure-decode, "
+        f"median {np.median(ms(dec)):.2f} ms, mean {np.mean(ms(dec)):.2f} "
+        f"ms; {len(mix)} mixed, median {np.median(ms(mix)):.2f} ms, mean "
+        f"{np.mean(ms(mix)):.2f} ms; 1 of each profiled (not timed); "
+        f"engine report: unified_compiles {rep.unified_compiles:.0f}, "
+        f"engine_compiles {rep.engine_compiles:.0f}")
+    log(f"[continuous] replay to its end (median): pure-decode "
+        f"{np.median(replay['decode']):.2f} ms, mixed "
+        f"{np.median(replay['mixed']):.2f} ms; the host's own work outside "
+        f"the replay (median, mean): pure-decode "
+        f"{np.median(host['decode']):.2f}, {np.mean(host['decode']):.2f} ms; "
+        f"mixed {np.median(host['mixed']):.2f}, "
+        f"{np.mean(host['mixed']):.2f} ms")
     mix_mean = {n: float(np.mean([c[n] for _, c in mix])) for n in launches}
     log(f"[continuous] launches per pure-decode iteration "
         f"{json.dumps(dec[0][1])}; per mixed iteration (mean) "
@@ -968,9 +1117,15 @@ def phase_continuous(model, dparams):
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, arena and "
         f"tables {rep.total_bytes / 2**20:.2f} MiB, peak mapped pages "
         f"{rep.peak_page_bytes / 2**20:.2f} MiB")
-    busy, n_kernels, by_name, host_ops = probe.profile
+    busy, n_kernels, by_name, _ = probe.profile["mixed"]
+    mix_ms = float(np.median(ms(mix)))
+    log(f"[continuous] mixed replay profile: device busy {busy:.3f} ms of "
+        f"{mix_ms:.2f} ms wall (idle share {1 - busy / mix_ms:.3f}), "
+        f"{n_kernels:.0f} CUDA kernels; our kernels' device ms "
+        f"{json.dumps(our_kernels_ms(by_name))}")
+    busy, n_kernels, by_name, host_ops = probe.profile["decode"]
     step_ms = float(np.median(ms(dec)))
-    log(f"[continuous] pure-decode iteration profile: device busy "
+    log(f"[continuous] pure-decode replay profile: device busy "
         f"{busy:.3f} ms of {step_ms:.2f} ms wall (idle share "
         f"{1 - busy / step_ms:.3f}), {n_kernels:.0f} CUDA kernels")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
@@ -978,7 +1133,85 @@ def phase_continuous(model, dparams):
     log(f"[continuous] device ms per pure-decode iteration of our kernels "
         f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[continuous]", host_ops)
+    check_paged_graph(model, dparams)
     return launches
+
+
+def check_paged_graph(model, dparams) -> None:
+    """The unified and pooled decode steps captured as graphs against eager
+    steps from the same paged state, at the continuous phase's shapes (16
+    slots, chunks of 128, 12 blocks of 32, 48 pages; 12 live rows with 4
+    pages each, 4 inactive rows on the trash page): equal tokens and
+    bitwise-equal logits on the live rows, equal pages 1.. and lengths.
+    The trash page takes colliding writes in an order no version fixes,
+    so the inactive rows' logits are not compared."""
+    import torch
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.serve import graphs
+    dev = torch.device("cuda")
+    spec = PageSpec(page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
+                    num_pages=CONT_PAGES)
+    b, live = CONT_SLOTS, 12
+
+    def shared_table(caches):
+        t = caches[0]["attn"].block_table
+        return [dict(c, attn=c["attn"]._replace(block_table=t))
+                for c in caches]
+
+    rng = np.random.default_rng(SEED + 4)
+    with torch.inference_mode():
+        eager = shared_table(model.init_caches(b, 0, dev, paged=spec))
+        table = np.zeros((b, CONT_BLOCKS), np.int32)
+        table[:live, :4] = 1 + rng.permutation(CONT_PAGES)[:4 * live].reshape(
+            live, 4)
+        eager[0]["attn"].block_table.copy_(torch.from_numpy(table))
+        caches = shared_table(clone_caches(eager))
+        state = graphs.cache_tensors(caches)
+
+        def unified(tokens, start, valid):
+            return model.prefill_with_cache(dparams, tokens, caches=caches,
+                                            start=start, seq_lens=valid)[0]
+        uni = graphs.StepGraph(unified, {"tokens": (b, CONT_CHUNK),
+                                         "start": (b,), "valid": (b,)},
+                               device=dev, state=state)
+        dec = graphs.StepGraph(
+            lambda tokens: model.decode_step(dparams, tokens, caches)[0],
+            {"tokens": (b, 1)}, device=dev, state=state)
+        valid = np.zeros(b, np.int64)
+        valid[:live] = rng.integers(1, 121, live)
+        toks = rng.integers(0, model.cfg.vocab_size, (b, CONT_CHUNK))
+        start = np.zeros(b, np.int64)
+        steps = [("unified", dict(tokens=toks, start=start, valid=valid))]
+        steps += [("decode", None)] * 6
+        tok = None
+        for i, (kind, kw) in enumerate(steps):
+            if kind == "unified":
+                want = model.prefill_with_cache(
+                    dparams, torch.from_numpy(toks).to(dev), caches=eager,
+                    start=torch.from_numpy(start).to(dev),
+                    seq_lens=torch.from_numpy(valid).to(dev))[0]
+                got = uni(**kw)
+            else:
+                want, _ = model.decode_step(dparams, tok.to(dev), eager)
+                got = dec(tokens=tok.numpy())
+            if not torch.equal(got[:live], want[:live]):
+                raise AssertionError(
+                    f"graph check: paged {kind} step {i} replayed differs "
+                    f"from eager, max |logit diff| "
+                    f"{(got[:live] - want[:live]).abs().max().item()}")
+            for e, c in zip(eager, caches):
+                e, c = e["attn"], c["attn"]
+                if not (torch.equal(e.k_pages[1:], c.k_pages[1:]) and
+                        torch.equal(e.vt_pages[1:], c.vt_pages[1:]) and
+                        torch.equal(e.length, c.length)):
+                    raise AssertionError(f"graph check: paged {kind} step "
+                                         f"{i}: pages or lengths differ")
+            tok = want[:, -1:].argmax(-1).cpu()
+    log(f"[continuous] graph == eager: a unified chunk of {CONT_CHUNK} "
+        f"(valid {valid[:live].min()}..{valid[:live].max()}, "
+        f"{b - live} inactive rows) and 6 pooled decode steps from the same "
+        f"paged state: live rows' logits bitwise equal, pages and lengths "
+        f"equal")
 
 
 # -- phase 6: card vs CPU -----------------------------------------------------
@@ -1106,6 +1339,7 @@ def phase_encode():
     from repro_torch import kernels, to_device
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
+    from repro_torch.serve import graphs
     cfg = get_config("bert-base-cobra")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1127,11 +1361,24 @@ def phase_encode():
     with torch.inference_mode():
         forward()                                          # warm-up
         torch.cuda.synchronize()
+        g = graphs.prefill_logits_graph(model, dparams, ENC_B, ENC_S)
+        t0 = time.perf_counter()
+        g(tokens=tokens)                                   # captures
+        torch.cuda.synchronize()
+        log(f"[encode] captured the forward (B={ENC_B}, S={ENC_S}) as one "
+            f"graph: {g.capture_s:.3f} s of warm-up and capture within the "
+            f"first call's {time.perf_counter() - t0:.3f} s; graph pool "
+            f"{graphs.pool_bytes(g.graph.pool()) / 2**20:.1f} MiB")
         torch.cuda.reset_peak_memory_stats()
+        want = forward()
         kernels.reset_launch_counts()
-        logits = forward()
+        logits = g(tokens=tokens)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        if not torch.equal(logits, want):
+            raise AssertionError(f"encode: the replay differs from the eager"
+                                 f" forward, max |logit diff| "
+                                 f"{(logits - want).abs().max().item()}")
         want = {n: c * cfg.num_layers for n, c in ENC_PER_LAYER.items()}
         got = {n: launches[n] for n in want}
         idle = [n for n in ENCODE_PATH if launches[n] == 0]
@@ -1144,20 +1391,29 @@ def phase_encode():
             raise AssertionError(f"encode: bad logits {tuple(logits.shape)}"
                                  f" {logits.dtype}")
         peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        for _ in range(ENC_ITERS):
-            forward()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / ENC_ITERS
+        walls = {}
+        for name, fn in (("eager", forward), ("graph",
+                                              lambda: g(tokens=tokens)),
+                         ("graph2", lambda: g(tokens=tokens)),
+                         ("eager2", forward)):
+            t0 = time.perf_counter()
+            for _ in range(ENC_ITERS):
+                fn()
+            torch.cuda.synchronize()
+            walls[name] = 1e3 * (time.perf_counter() - t0) / ENC_ITERS
+        wall = min(walls["graph"], walls["graph2"])
         busy, n_kernels, by_name, host_ops = device_profile(
-            forward, iters=2, host=True)
+            lambda: g(tokens=tokens), iters=2, host=True)
     tokens_n = ENC_B * ENC_S
-    log(f"[encode] launches per forward {json.dumps(launches)}")
-    log(f"[encode] B={ENC_B} x {ENC_S} tokens: {wall:.2f} ms per forward "
-        f"(mean of {ENC_ITERS}), {tokens_n / wall * 1e3:.0f} tokens/s; "
+    log(f"[encode] launches per replay {json.dumps(launches)}; logits "
+        f"bitwise equal to the eager forward's")
+    log(f"[encode] B={ENC_B} x {ENC_S} tokens: {wall:.2f} ms per replay "
+        f"(means of {ENC_ITERS}, in turns: eager {walls['eager']:.2f}, graph "
+        f"{walls['graph']:.2f}, graph {walls['graph2']:.2f}, eager "
+        f"{walls['eager2']:.2f}), {tokens_n / wall * 1e3:.0f} tokens/s; "
         f"logits {tuple(logits.shape)} {logits.dtype}, finite; peak device "
         f"memory {peak / 2**20:.0f} MiB")
-    log(f"[encode] forward profile: device busy {busy:.3f} ms of "
+    log(f"[encode] replay profile: device busy {busy:.3f} ms of "
         f"{wall:.2f} ms wall (busy share {busy / wall:.3f}, idle share "
         f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels per forward")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:

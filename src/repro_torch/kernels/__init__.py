@@ -214,10 +214,22 @@ def _wrappers() -> Dict[str, object]:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset, by kernel name."""
+    """Kernel launches executed since the last reset, by kernel name: the
+    wrappers' own launches, plus those that replays of captured CUDA
+    graphs credit (``credit_launches``)."""
     return {name: w.launches for name, w in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+
+
+def credit_launches(deltas: Dict[str, int]) -> None:
+    """Add ``deltas`` ({kernel name: launches}) to the counters.  A graph
+    replay runs no Python wrapper, so the capture records each wrapper's
+    count delta and every replay credits it here (a capture itself
+    executes nothing and takes its delta back)."""
+    wrappers = _wrappers()
+    for name, n in deltas.items():
+        wrappers[name].launches += n

@@ -22,8 +22,9 @@
 
 Attention reads caches grouped by KV head (the query heads of one group
 are the rows of one RBMM against their KV head's ring) — the same integers
-as repeating K/V to every head, without the copy.  Caches are updated IN
-PLACE (the JAX package returns new arrays).  Supports GQA, RoPE and the
+as repeating K/V to every head, without the copy.  Caches, their lengths
+included, are updated IN PLACE (the JAX package returns new arrays), so a
+cache keeps its addresses from step to step.  Supports GQA, RoPE and the
 ``layer`` / ``head`` SPS threshold granularities; ``row``, sliding
 windows, cross-attention and speculation are not ported yet.
 """
@@ -228,9 +229,15 @@ class SPSAttention:
                              f"got {self.score_impl!r}")
         return "popcount" if self.score_impl == "auto" else self.score_impl
 
+    def _per_query_head(self, t: torch.Tensor) -> torch.Tensor:
+        """(Hkv,) -> (H,): each KV head's value for the G query heads of
+        its group."""
+        return t[:, None].expand(self.num_kv_heads, self.groups).reshape(
+            self.num_heads)
+
     def _theta_int(self, params: Params) -> torch.Tensor:
         """Integer SPS thresholds per query head, (H,) int32."""
-        ak = params["k_alpha"].repeat_interleave(self.groups)
+        ak = self._per_query_head(params["k_alpha"])
         scale = (params["q_alpha"] * ak) / math.sqrt(self.head_dim)
         lam = params["sps_lambda"].expand(self.num_heads)
         return torch.ceil(lam / scale.clamp_min(1e-12)).to(torch.int32)
@@ -267,7 +274,7 @@ class SPSAttention:
                        ctx_int: torch.Tensor) -> torch.Tensor:
         """ctx_int (B, H, S, dh) int32 -> wo -> (B, S, d)."""
         b, h, s, dh = ctx_int.shape
-        av = params["v_alpha"].repeat_interleave(self.groups)
+        av = self._per_query_head(params["v_alpha"])
         ctx = ctx_int.to(torch.float32) * av[None, :, None, None]
         ctx = ctx.transpose(1, 2).reshape(b, s, self.q_dim)
         bits = pack_ops.pack_threshold(ctx, params["ctx_beta"])
@@ -395,8 +402,9 @@ class SPSAttention:
         t < start+valid with t % ring == s, IF that token is the chunk's
         (>= start); other slots keep their contents.  Rows with
         valid == 0 write nothing and keep their length.  ``vc_old`` is
-        the V^T ring view read before any write.  Returns the cache with
-        ``length = start + valid`` where anything was written."""
+        the V^T ring view read before any write.  Returns the same cache,
+        its ``length`` set in place to ``start + valid`` where anything
+        was written."""
         b, hkv, c_len, dhp = k_bits.shape
         dh = self.head_dim
         dev = k_bits.device
@@ -425,11 +433,12 @@ class SPSAttention:
             (vg & wr[:, None, None, :]).to(torch.int32),
             torch.ones((), dtype=torch.int32, device=dev))
         merged = (vc_old & ~wr_words[:, None, None, :]) | new_words
+        cache.length.copy_(new_len)
         if not paged:
             cache.k_bits.copy_(torch.where(wr[:, None, :, None], kg,
                                            cache.k_bits))
             cache.vt_bits.copy_(merged)
-            return KVCache(cache.k_bits, cache.vt_bits, new_len)
+            return cache
         # scatter written slots / words through the block table; unwritten
         # positions route to the trash page 0 (page_size % 32 keeps whole
         # V^T words inside one page)
@@ -441,7 +450,7 @@ class SPSAttention:
         physw = torch.where(wr_words != 0, bt[:, j32 // page], 0)
         wj = ((j32 % page) // packing.WORD).expand(b, -1)
         cache.vt_pages[physw, :, :, wj] = merged.permute(0, 3, 1, 2)
-        return cache._replace(length=new_len)
+        return cache
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor, cache,
                              *, start: Optional[torch.Tensor] = None,
@@ -452,8 +461,8 @@ class SPSAttention:
         covering the chunk are mapped.  ``valid_len`` (B,) marks the real
         chunk rows; pad rows never write and never leak into real rows.
         The attend reads the prefix BEFORE the chunk is written (in place).
-        Returns (out (B, C, d), the cache with ``length = start +
-        valid_len``)."""
+        Returns (out (B, C, d), the same cache, its ``length`` set in place
+        to ``start + valid_len`` on the rows that wrote)."""
         b, c_len, _ = x.shape
         dev = x.device
         start = cache.length if start is None else start
@@ -550,9 +559,10 @@ class SPSAttention:
                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """x: (B, 1, d) one new token per sequence.  Every sequence
         advances from its own ``cache.length``.  A ``PagedKVCache`` takes
-        the paged path.  The cache tensors are updated IN PLACE (the JAX
-        package returns new arrays); the returned cache shares them and
-        carries the new lengths."""
+        the paged path.  The cache tensors, ``length`` included, are
+        updated IN PLACE (the JAX package returns new arrays), and the
+        same cache is returned: a captured CUDA graph of the step keeps
+        reading the addresses it was captured with."""
         if isinstance(cache, PagedKVCache):
             return self._deploy_decode_paged(params, x, cache)
         b = x.shape[0]
@@ -566,7 +576,8 @@ class SPSAttention:
         valid = torch.arange(w, device=x.device)[None, :] <= pos[:, None]
         out = self._attend_cache(params, q_bits, cache.k_bits,
                                  cache.vt_bits, valid)
-        return out, KVCache(cache.k_bits, cache.vt_bits, pos + 1)
+        cache.length.add_(1)      # pos aliases it: every reader comes first
+        return out, cache
 
     def _deploy_decode_paged(self, params: Params, x: torch.Tensor,
                              cache: PagedKVCache
@@ -574,7 +585,9 @@ class SPSAttention:
         """Paged decode step: write the new K/V^T bits through the block
         table (free pool rows have table rows of 0 and write the trash
         page), then attend over the pages with the paged_gather_decode
-        kernel; the gathered ring view is never built."""
+        kernel; the gathered ring view is never built.  ``ring_len`` is
+        a host int, so a captured graph of the step bakes it in: that is
+        right, because it is fixed for the arena's life."""
         b = x.shape[0]
         page = cache.k_pages.shape[2]
         pos = cache.length.to(torch.int32)
@@ -591,4 +604,5 @@ class SPSAttention:
             cache.block_table, pos, cache.ring_len, theta.contiguous(),
             d_h=self.head_dim)
         out = self._output_deploy(params, ctx[:, :, None, :])
-        return out, cache._replace(length=pos + 1)
+        cache.length.add_(1)      # pos aliases it: every reader comes first
+        return out, cache

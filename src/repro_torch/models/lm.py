@@ -18,6 +18,7 @@ to ``compute_dtype``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -35,6 +36,14 @@ VOCAB_PAD = 256  # embeddings pad to a multiple of this; logits are sliced
 
 def padded_vocab(v: int) -> int:
     return -(-v // VOCAB_PAD) * VOCAB_PAD
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt_rounded(d: int, dtype: torch.dtype) -> float:
+    """sqrt(d) taken in float32 and rounded to ``dtype``, as the JAX
+    package scales the embedding; computed once per width and dtype, so
+    the forward reads no tensor on the host."""
+    return torch.tensor(d, dtype=torch.float32).sqrt().to(dtype).item()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +98,7 @@ class LMModel:
     def _scale(self, x: torch.Tensor) -> torch.Tensor:
         """x * sqrt(d), with sqrt(d) taken in float32 and rounded to x's
         dtype before the product, as the JAX package does."""
-        d = torch.tensor(self.cfg.d_model, dtype=torch.float32)
-        return x * d.sqrt().to(x.dtype).item()
+        return x * _sqrt_rounded(self.cfg.d_model, x.dtype)
 
     def _embed_tokens(self, params: Params,
                       tokens: torch.Tensor) -> torch.Tensor:
@@ -149,7 +157,8 @@ class LMModel:
         the next chunk of sequences whose first ``start[b]`` tokens
         (default: the caches' own lengths) are written; ``seq_lens`` is
         each row's real chunk width, logits come at each row's last real
-        token, and ``max_len`` is ignored.  The caches update in place.
+        token, and ``max_len`` is ignored.  The caches update in place and
+        come back as the same objects.
         Ragged whole-prompt prefill (``seq_lens`` without ``caches``) is
         not ported yet."""
         if caches is not None:
@@ -175,14 +184,13 @@ class LMModel:
                           start: Optional[torch.Tensor],
                           seq_lens: Optional[torch.Tensor]
                           ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-        """One chunk of a cache-resuming prefill (see prefill_with_cache)."""
+        """One chunk of a cache-resuming prefill (see prefill_with_cache):
+        the caches given, updated in place, come back."""
         x = self._embed_tokens(dparams, tokens)
-        new_caches: List[Dict[str, Any]] = []
         for bp, cache in zip(dparams["blocks"], caches):
-            x, c = self._block().deploy_prefill_chunk(
+            x, _ = self._block().deploy_prefill_chunk(
                 bp, x, cache, start=start, valid_len=seq_lens)
-            new_caches.append(c)
-        return self._logits(dparams, self._last_real(x, seq_lens)), new_caches
+        return self._logits(dparams, self._last_real(x, seq_lens)), caches
 
     def init_caches(self, batch: int, max_len: int, device,
                     paged: Optional[PageSpec] = None
@@ -205,14 +213,13 @@ class LMModel:
     def decode_step(self, dparams: Params, token: torch.Tensor,
                     caches: List[Dict[str, Any]]
                     ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-        """token: (B, 1).  Returns (logits (B, 1, V), caches); the ring
-        tensors are updated in place."""
+        """token: (B, 1).  Returns (logits (B, 1, V), caches): the caches
+        given, their tensors (lengths included) updated in place, so a
+        captured graph of the step and its caller hold the same caches."""
         x = self._scale(self._embed().apply(dparams["embed"], token))
-        new_caches = []
         for bp, cache in zip(dparams["blocks"], caches):
-            x, c = self._block().deploy_decode(bp, x, cache)
-            new_caches.append(c)
-        return self._logits(dparams, x), new_caches
+            x, _ = self._block().deploy_decode(bp, x, cache)
+        return self._logits(dparams, x), caches
 
 
 def build_model(cfg: ModelConfig) -> LMModel:

@@ -23,8 +23,20 @@ write would diverge a shared page.  ``PolicyConfig.prefill_chunk`` streams
 long prompts one chunk per iteration beside the decode rows.  The host
 logic is the JAX package's, decision for decision, so with greedy sampling
 and arrivals at 0 both engines give the same tokens, preemptions and page
-statistics.  The caches are updated in place, so the port has no jit and
-no buffer donation.
+statistics.
+
+The steps the JAX engine jits run here as captured CUDA graphs
+(``serve/graphs.py``): the static decode step at its batch, the pooled
+decode step, and the unified forward once per chunk width, each captured
+at first use and replayed after, with the captures counted by kind as the
+JAX engine counts its traces (``EngineReport.unified_compiles`` /
+``engine_compiles``).  A graph reads the addresses it was captured with,
+so the engine keeps its caches (one set per pool shape, updated in place,
+where JAX donates them to the jitted step) and one device block table per
+ring group, refreshed in place from the host's tables; host inputs are
+copied into each graph's static buffers.  Sampling runs eagerly on the
+replayed logits.  Prefill of the static batch, the copy-on-write page
+copies and all host bookkeeping run between replays.
 
 Speculative decode (``SpecConfig.k``) and the flat ``ServeConfig``
 keywords are not ported yet.
@@ -41,6 +53,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.attention import PagedKVCache, PageSpec
+from repro_torch.serve import graphs as graphs_lib
 from repro_torch.serve import kvcache, sampler as sampler_lib
 from repro_torch.serve.policy import (PolicyConfig, Scheduler,
                                       SchedulingPolicy, _pow2_bucket,
@@ -281,6 +294,11 @@ class ServeEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._policy_proto = policy
+        # the captured steps (the JAX engine's ``_decode_jit`` /
+        # ``_unified_jit`` and their ``_compiles``) and the caches they
+        # read, by pool shape (batch, max_len, PageSpec or None)
+        self._graphs = graphs_lib.StepGraphs(self.device)
+        self._pools: Dict[tuple, list] = {}
         self._sample = {
             "greedy": lambda lg, g: sampler_lib.greedy(lg),
             "temperature": lambda lg, g: sampler_lib.temperature(
@@ -292,8 +310,53 @@ class ServeEngine:
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.cfg.seed)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def _pool_caches(self, batch: int, spec: Optional[PageSpec]
+                     ) -> Tuple[tuple, list]:
+        """(key, caches): the engine's caches for a pool of ``batch`` rows,
+        built at first use and kept, since a captured step reads them at
+        fixed addresses.  The paged layers of a ring group share one
+        device block table."""
+        key = (batch, self.cfg.max_len, spec)
+        caches = self._pools.get(key)
+        if caches is None:
+            caches = self.model.init_caches(batch, self.cfg.max_len,
+                                            self.device, paged=spec)
+            if spec:
+                tables: Dict[int, torch.Tensor] = {}
+                for i, ring in enumerate(self._layer_rings(spec)):
+                    pg = caches[i].get("attn")
+                    if ring is not None and isinstance(pg, PagedKVCache):
+                        t = tables.setdefault(ring, pg.block_table)
+                        caches[i] = dict(caches[i],
+                                         attn=pg._replace(block_table=t))
+            self._pools[key] = caches
+        return key, caches
+
+    def _decode_graph(self, key: tuple,
+                      caches: list) -> graphs_lib.StepGraph:
+        """The pooled decode step of the caches of ``key``: tokens (B, 1)
+        -> logits (B, 1, V)."""
+        return self._graphs.get("decode", key, lambda: (
+            lambda tokens: self.model.decode_step(self.dparams, tokens,
+                                                  caches)[0],
+            {"tokens": (key[0], 1)}, graphs_lib.cache_tensors(caches)))
+
+    def _unified_graph(self, key: tuple, caches: list,
+                       width: int) -> graphs_lib.StepGraph:
+        """The unified forward over the whole pool at one chunk width:
+        tokens (B, width), start, valid, fresh (B,) -> logits (B, 1, V) at
+        each row's last real token."""
+        def forward(tokens, start, valid, fresh):
+            self.model.reset_recurrent_rows(caches, fresh != 0)
+            logits, _ = self.model.prefill_with_cache(
+                self.dparams, tokens, caches=caches, start=start,
+                seq_lens=valid)
+            return logits
+
+        b = key[0]
+        return self._graphs.get("unified", (key, width), lambda: (
+            forward, {"tokens": (b, width), "start": (b,), "valid": (b,),
+                      "fresh": (b,)}, graphs_lib.cache_tensors(caches)))
 
     # -- public API ---------------------------------------------------------
 
@@ -336,16 +399,21 @@ class ServeEngine:
                 "static batch path)")
         b, s = prompts.shape
         gen = self._generator()
-        toks = self._tensor(prompts.astype(np.int64))
-        logits, caches = self.model.prefill_with_cache(
+        toks = torch.as_tensor(prompts.astype(np.int64), device=self.device)
+        logits, prefilled = self.model.prefill_with_cache(
             self.dparams, toks, max_len=self.cfg.max_len)
+        # the decode graph's caches take the prefilled rings
+        key, caches = self._pool_caches(b, None)
+        for dst, src in zip(graphs_lib.cache_tensors(caches),
+                            graphs_lib.cache_tensors(prefilled)):
+            dst.copy_(src)
+        del prefilled
         token = self._sample(logits, gen)
         out = [token.cpu().numpy()]
         if stream_cb:
             stream_cb(0, out[-1])
         for t in range(1, max_new_tokens):
-            logits, caches = self.model.decode_step(self.dparams, token,
-                                                    caches)
+            logits = self._decode_graph(key, caches)(tokens=out[-1])
             token = self._sample(logits[:, -1:], gen)
             out.append(token.cpu().numpy())
             if stream_cb:
@@ -361,22 +429,21 @@ class ServeEngine:
         (every ported block is full attention)."""
         return [spec.ring_for(0)] * self.model.cfg.num_layers
 
-    def _sync_tables(self, caches, arenas, rings):
-        """Push dirty host block tables to the device, once per ring group:
-        the layers of a group share one device copy (the port passes no
-        buffers through a jit, so nothing forbids the sharing)."""
+    def _sync_tables(self, caches, arenas, rings) -> None:
+        """Copy dirty host block tables into the device table of their ring
+        group, in place (the layers of a group share that one tensor, and
+        the captured steps read it at its fixed address)."""
         if not any(a.dirty for a in arenas.values()):
-            return caches
-        tables = {ring: self._tensor(a.block_tables)
-                  for ring, a in arenas.items()}
-        out = []
+            return
+        done = set()
         for c, ring in zip(caches, rings):
-            if ring is not None and isinstance(c.get("attn"), PagedKVCache):
-                c = dict(c, attn=c["attn"]._replace(block_table=tables[ring]))
-            out.append(c)
+            if ring in arenas and ring not in done and \
+                    isinstance(c.get("attn"), PagedKVCache):
+                self._graphs.upload(c["attn"].block_table,
+                                    arenas[ring].block_tables)
+                done.add(ring)
         for a in arenas.values():
             a.dirty = False
-        return out
 
     def _page_keys(self, toks: np.ndarray) -> List[bytes]:
         """Hash-cons keys of a prompt's FULL pages: key j is a chain digest
@@ -468,8 +535,11 @@ class ServeEngine:
                 arenas[ring] = kvcache.PageArena(
                     spec.arena_pages(ring, pool.num_slots), spec.page_size,
                     pool.num_slots, spec.blocks_for_ring(ring), ring)
-        caches = self.model.init_caches(pool.num_slots, self.cfg.max_len,
-                                        self.device, paged=spec)
+        # the pool's caches, kept by the engine for its captured steps and
+        # cleared as the JAX engine's fresh init_caches
+        key, caches = self._pool_caches(pool.num_slots, spec)
+        for t in graphs_lib.cache_tensors(caches):
+            t.zero_()
         token_buf = np.zeros((pool.num_slots, 1), np.int32)
         states: Dict[int, _SlotState] = {}
         inflight: Dict[int, _PrefillState] = {}
@@ -656,16 +726,16 @@ class ServeEngine:
                 if copies:
                     # before the forward writes anything: (old, new) are
                     # snapshots of the sweep-time page contents
-                    caches = self._copy_pages(caches, rings, copies)
+                    self._copy_pages(caches, rings, copies)
                 peak()
-                caches = self._sync_tables(caches, arenas, rings)
+                self._sync_tables(caches, arenas, rings)
             # -- ONE pooled forward advances every in-flight stream ------
             if inflight:
                 width = width_now
-                toks_buf = np.zeros((pool.num_slots, width), np.int32)
-                start_buf = np.zeros((pool.num_slots,), np.int32)
-                valid_buf = np.zeros((pool.num_slots,), np.int32)
-                fresh_buf = np.zeros((pool.num_slots,), bool)
+                toks_buf = np.zeros((pool.num_slots, width), np.int64)
+                start_buf = np.zeros((pool.num_slots,), np.int64)
+                valid_buf = np.zeros((pool.num_slots,), np.int64)
+                fresh_buf = np.zeros((pool.num_slots,), np.int64)
                 advance: Dict[int, int] = {}
                 for slot in sorted(inflight):
                     ist = inflight[slot]
@@ -679,12 +749,9 @@ class ServeEngine:
                     toks_buf[slot, 0] = token_buf[slot, 0]
                     start_buf[slot] = states[slot].cache_len
                     valid_buf[slot] = 1
-                caches = self.model.reset_recurrent_rows(
-                    caches, self._tensor(fresh_buf))
-                logits, caches = self.model.prefill_with_cache(
-                    self.dparams, self._tensor(toks_buf.astype(np.int64)),
-                    caches=caches, start=self._tensor(start_buf),
-                    seq_lens=self._tensor(valid_buf))
+                logits = self._unified_graph(key, caches, width)(
+                    tokens=toks_buf, start=start_buf, valid=valid_buf,
+                    fresh=fresh_buf)
                 nxt_np = self._sample(logits, gen).cpu().numpy()
                 iterations += 1
                 dispatches += 1
@@ -715,9 +782,7 @@ class ServeEngine:
                         retire(slot)
             else:
                 # pure-decode iteration: the pooled decode step
-                logits, caches = self.model.decode_step(
-                    self.dparams, self._tensor(token_buf.astype(np.int64)),
-                    caches)
+                logits = self._decode_graph(key, caches)(tokens=token_buf)
                 toks = self._sample(logits[:, -1:], gen).cpu().numpy()
                 iterations += 1
                 dispatches += 1
@@ -738,7 +803,8 @@ class ServeEngine:
             busy_slot_steps=pool.busy_slot_steps,
             decode_steps=pool.decode_steps,
             arenas=list(arenas.values()) if arenas else None,
-            iterations=iterations, dispatches=dispatches)
+            iterations=iterations, dispatches=dispatches,
+            compiles=dict(self._graphs.captures))
         report.prefill_batches = float(prefill_batches)
         report.prefill_chunks = float(prefill_chunks)
         report.requests = float(len(requests))

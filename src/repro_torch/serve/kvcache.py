@@ -64,10 +64,10 @@ class EngineReport:
 
     Field groups: memory (always set), slots, pages, spec, engine,
     traffic (see ``repro.serve.kvcache.EngineReport``).  In the port
-    ``unified_compiles`` and ``engine_compiles`` stay ``None``: they count
-    XLA traces of the JAX engine's jitted steps, and the port runs
-    eagerly, so it has nothing to trace.  The spec group stays ``None``
-    too: speculative decode is not ported yet.
+    ``unified_compiles`` and ``engine_compiles`` count the engine's CUDA
+    graph captures (``serve/graphs.py``) where the JAX package counts the
+    XLA traces of its jitted steps: one per step kind and shape on both.
+    The spec group stays ``None``: speculative decode is not ported yet.
     """
     # memory (always set)
     total_bytes: float = 0.0
@@ -163,12 +163,15 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
                  busy_slot_steps: int = 0, decode_steps: int = 0,
                  arenas: Optional[Sequence["PageArena"]] = None,
                  iterations: Optional[int] = None,
-                 dispatches: int = 0) -> EngineReport:
+                 dispatches: int = 0,
+                 compiles: Optional[Dict[str, int]] = None) -> EngineReport:
     """Memory report, plus the slot group with ``slot_lengths``, the page
     group with ``arenas`` and the engine group with ``iterations`` (the
     semantics of every field are those of the JAX package's
     ``cache_report``; ``seq_len * batch`` is the nominal capacity behind
-    ``bytes_per_token``)."""
+    ``bytes_per_token``).  ``compiles`` is the engine's captures by step
+    kind (``unified``, ``decode``, ``spec``): ``unified_compiles`` counts
+    the unified forward's, ``engine_compiles`` all of them."""
     total = cache_bytes(caches)
     bf16 = bf16_equivalent_bytes(caches)
     report = EngineReport(total_bytes=float(total),
@@ -219,6 +222,9 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
     if iterations is not None:
         report.iterations = float(iterations)
         report.dispatches_per_iteration = dispatches / max(iterations, 1)
+        compiles = compiles or {}
+        report.unified_compiles = float(compiles.get("unified", 0))
+        report.engine_compiles = float(sum(compiles.values()))
     return report
 
 

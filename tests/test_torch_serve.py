@@ -30,7 +30,7 @@ from repro_torch.serve import policy as tpolicy
 from repro_torch.serve import trace as ttrace
 
 TIMING = ("elapsed_s", "goodput_under_slo", "ttft_p50_s", "ttft_p99_s",
-          "tenants", "unified_compiles", "engine_compiles")
+          "tenants")
 
 
 def _arena_state(a):
