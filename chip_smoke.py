@@ -17,7 +17,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 ``pack_threshold``; ``sps_attention`` at its query and key
                 tile edges in both masks, G = 16 and d_h = 256;
                 ``paged_gather_decode`` with more pages than warps, G = 16,
-                d_h = 256 and pages of 256; integer and float32 outputs
+                d_h = 256 and pages of 256; every call of the speculative
+                iteration at its exact shape; integer and float32 outputs
                 must be bitwise equal; CUDA-event timings of kernel, plain
                 version and (where one exists) the one PyTorch call
                 computing the same function; then
@@ -49,11 +50,31 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 each of our kernels' device ms; then the unified and
                 decode graphs against eager steps from the same paged
                 state (live rows' logits bitwise, pages and lengths)
+  5b. speculative
+                the same trace and engine with speculative decode (k = 4,
+                a one-layer draft on the trunk's weights), served twice
+                on one engine (the first serve captures one unified and
+                one spec graph), every budget served, every spec
+                iteration one replay with the launches of
+                ``kernel_times.SPEC_CALLS``; acceptance, tokens per step,
+                rollback frees, preemptions, ms per spec iteration, a
+                profile of one spec replay; then the unified and spec
+                graphs against eager steps from the same paged state
+                (greedy and top_k), and the draft's rings after each
+                rollback against a draft that ingested only the committed
+                tokens; the bf16 tokens against phase 5's, beside the
+                plain engine's own on a roomier arena (in bf16 tokens
+                follow the schedule); and the gate: in float32 the same
+                trace and engine give equal tokens by rid plainly and
+                speculatively
   6. crosscheck the same model in float32 on the card and on the CPU
                 (plain versions): static B=2, S=32, 4 tokens with equal
                 greedy tokens and logits within a stated tolerance; then
                 4 requests continuously on 2 slots and a 3-page arena,
-                with equal tokens by rid and equal page and engine counters
+                plainly and speculatively, with equal tokens by rid and
+                equal page, engine and spec counters, the speculative
+                tokens equal to the plain ones; a full-depth draft on the
+                card accepts every draft
   7. encode     full-width bert-base-cobra (random weights from a seed,
                 bf16) encodes B=8 x 512 tokens through
                 ``LMModel.prefill_logits`` captured as one CUDA graph
@@ -86,7 +107,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
     BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, decode_calls, device_ms,
-    eager_ms, nbytes, paged_bound, sps_bound, time_all)
+    eager_ms, nbytes, paged_bound, spec_launches, spec_operands, sps_bound,
+    time_all)
 
 SEED = 0
 
@@ -694,6 +716,22 @@ ENCODE_PATH = ("pack_threshold", "rbmm_int", "rbmm_binary", "rbmm_mxu",
                "sps_attention")
 
 
+def check_spec_calls() -> None:
+    """Every call of the speculative iteration at its exact shape
+    (``kernel_times.SPEC_CALLS``: the verify's chunk attend at M = 15
+    rows over the 384-slot ring view and its projections at M = 80, the
+    draft's ring decode and projections at M = 16, every pack), kernel
+    against plain version, bitwise."""
+    calls = spec_operands(SEED)
+    for name, (kernel, call, plain, _, _) in calls.items():
+        _same(kernel, name, call(), plain())
+    by_kernel = {}
+    for kernel, *_ in calls.values():
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    log(f"[kernels] the speculative iteration's {len(calls)} calls "
+        f"{json.dumps(by_kernel)} equal their plain versions bitwise")
+
+
 def phase_kernels():
     """Each kernel against its plain version; its row of the kernels line
     (``ms``, ``plain_ms`` and ``library_ms`` are device times from the
@@ -723,6 +761,7 @@ def phase_kernels():
             f"({row['bound_by']}); per call with host work: kernel "
             f"{row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}, "
             f"library {row['library_eager_ms']}")
+    check_spec_calls()
     for t in time_all(SEED):
         log(f"[kernels] {t['shape']}: device ms kernel {t['ms']:.5f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
@@ -962,7 +1001,8 @@ class IterationProbe:
     its end (a synchronize right after it, where the engine's sampling
     would wait anyway), so the rest of the iteration is the host's own
     work outside the replay.  After ``profile_after[kind]`` iterations of
-    a kind (``decode``, ``mixed``), one more replays under torch.profiler
+    a kind (``decode``, ``spec``, ``mixed``), one more replays under
+    torch.profiler
     (and is left out of the timings)."""
 
     def __init__(self, eng, profile_after=None):
@@ -974,7 +1014,7 @@ class IterationProbe:
         def probed(kind, *args, **kw):
             g = get(kind, *args, **kw)
             return lambda **values: self._run(
-                "decode" if kind == "decode" else "mixed", g, values)
+                "mixed" if kind == "unified" else kind, g, values)
         eng._graphs.get = probed
 
     def _stamp(self, kind):
@@ -1020,17 +1060,26 @@ def continuous_requests(cfg):
     return reqs
 
 
-def phase_continuous(model, dparams):
-    """Full-width smollm-135m through ``ServeEngine.serve`` on the paged
-    pool; returns the launch counts of the run."""
-    import torch
-    from repro_torch import kernels
+def continuous_config(spec_k=None):
+    """The continuous phase's engine: 16 slots, 48 pages of 32 with prefix
+    sharing, chunks of 128; with ``spec_k`` speculative decode by a
+    one-layer draft."""
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
-                                          ServeConfig, ServeEngine)
-    cfg = ServeConfig(num_slots=CONT_SLOTS, cache=CacheConfig(
+                                          ServeConfig, SpecConfig)
+    return ServeConfig(num_slots=CONT_SLOTS, cache=CacheConfig(
         paged=True, page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
         num_pages=CONT_PAGES, prefix_share=True),
-        policy=PolicyConfig(prefill_chunk=CONT_CHUNK))
+        policy=PolicyConfig(prefill_chunk=CONT_CHUNK),
+        spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
+
+
+def phase_continuous(model, dparams):
+    """Full-width smollm-135m through ``ServeEngine.serve`` on the paged
+    pool; returns the launch counts of the run and its tokens by rid."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve.engine import ServeEngine
+    cfg = continuous_config()
     reqs = continuous_requests(model.cfg)
     eng = ServeEngine(model, dparams, cfg)
     t0 = time.perf_counter()
@@ -1134,7 +1183,7 @@ def phase_continuous(model, dparams):
         f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops("[continuous]", host_ops)
     check_paged_graph(model, dparams)
-    return launches
+    return launches, res
 
 
 def check_paged_graph(model, dparams) -> None:
@@ -1214,6 +1263,297 @@ def check_paged_graph(model, dparams) -> None:
         f"equal")
 
 
+# -- phase 5b: speculative ----------------------------------------------------
+
+# k = 4 drafted tokens per slot, a one-layer draft on the trunk's weights
+SPEC_K, SPEC_DRAFT = 4, 1
+# the kernels a speculative serve launches (its verify attends over the
+# gathered ring view, as the JAX engine's does: no paged_gather_decode)
+SPEC_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu")
+
+
+def phase_speculative(model, dparams, plain):
+    """Phase 5's trace and engine shape with speculative decode, in bf16:
+    served twice on one engine (the first serve captures) and measured;
+    its tokens by rid against phase 5's plain tokens ``plain`` (logged:
+    in bf16 the tokens depend on the schedule, see
+    ``log_bf16_schedule``); then the gate in float32 (``gate_float32``).
+    Returns the launch counts of the timed serve."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve.engine import ServeEngine
+    reqs = continuous_requests(model.cfg)
+    eng = ServeEngine(model, dparams, continuous_config(SPEC_K))
+    t0 = time.perf_counter()
+    first, _ = eng.serve(continuous_requests(model.cfg))  # captures
+    torch.cuda.synchronize()
+    log_captures("[speculative]", eng, time.perf_counter() - t0)
+    captures = dict(eng._graphs.captures)
+    probe = IterationProbe(eng, profile_after={"spec": 8, "mixed": 2})
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rep = eng.serve(reqs)
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    its = probe.iterations(t0 + total, launches)
+    if eng._graphs.captures != captures or \
+            captures != {"unified": 1, "decode": 0, "spec": 1}:
+        raise AssertionError(f"speculative: captures "
+                             f"{eng._graphs.captures} after the first "
+                             f"serve's {captures}")
+    changed = [rid for rid in res if not np.array_equal(res[rid],
+                                                        first[rid])]
+    if changed:
+        raise AssertionError(f"speculative: the second serve's tokens "
+                             f"differ from the first's for rids {changed}")
+    short = [r.rid for r in reqs if len(res[r.rid]) != r.max_new_tokens]
+    if short or sorted(res) != sorted(plain):
+        raise AssertionError(f"speculative: requests {short} did not get "
+                             f"their budget (no EOS is set)")
+    if rep.spec_steps < 1:
+        raise AssertionError("speculative: no speculative iteration ran")
+    idle = [n for n in SPEC_PATH if launches[n] == 0]
+    if idle:
+        raise AssertionError(f"speculative: kernels {idle} never launched: "
+                             f"{launches}")
+    spec = [(ms, c) for k, ms, c, _ in its if k == "spec"]
+    mix = [(ms, c) for k, ms, c, _ in its if k == "mixed"]
+    want = {n: spec_launches().get(n, 0) for n in launches}
+    bad = [c for _, c in spec if c != want]
+    if bad:
+        raise AssertionError(f"speculative: launches per spec iteration "
+                             f"{bad[0]}, expected {want}")
+    host = [ms - r for k, ms, _, r in its if k == "spec"]
+    replay = [r for k, _, _, r in its if k == "spec"]
+    tokens = sum(len(t) for t in res.values())
+    profiled_s = sum(ms for k, ms, _, _ in its if k == "profiled") / 1e3
+    by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
+    ms = lambda rows: [m for m, _ in rows]
+    log(f"[speculative] tokens by rid, digest {digest(by_rid)}")
+    log(f"[speculative] k={SPEC_K}, a {SPEC_DRAFT}-layer draft: spec_steps "
+        f"{rep.spec_steps:.0f}, spec_accept_rate {rep.spec_accept_rate:.4f},"
+        f" spec_tokens_per_step {rep.spec_tokens_per_step:.4f}, "
+        f"pages_freed_rollback {rep.pages_freed_rollback:.0f}, preemptions "
+        f"{rep.preemptions:.0f}, COW copies {rep.cow_copies:.0f}, prefix "
+        f"hit rate {rep.prefix_hit_rate:.3f}")
+    log(f"[speculative] {len(reqs)} requests, {tokens} tokens: {total:.3f} "
+        f"s, {tokens / total:.1f} tok/s; without the profiled iterations "
+        f"{total - profiled_s:.3f} s, {tokens / (total - profiled_s):.1f} "
+        f"tok/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    log(f"[speculative] iterations (graph replays): {len(spec)} spec, "
+        f"median {np.median(ms(spec)):.2f} ms, mean {np.mean(ms(spec)):.2f} "
+        f"ms; {len(mix)} mixed, median {np.median(ms(mix)):.2f} ms, mean "
+        f"{np.mean(ms(mix)):.2f} ms; 1 of each profiled (not timed); one "
+        f"replay per iteration")
+    log(f"[speculative] spec replay to its end (median) "
+        f"{np.median(replay):.2f} ms; the host's own work outside it "
+        f"(median, mean) {np.median(host):.2f}, {np.mean(host):.2f} ms")
+    log(f"[speculative] launches per spec iteration {json.dumps(spec[0][1])}")
+    busy, n_kernels, by_name, host_ops = probe.profile["spec"]
+    step_ms = float(np.median(ms(spec)))
+    log(f"[speculative] spec replay profile: device busy {busy:.3f} ms of "
+        f"{step_ms:.2f} ms wall (idle share {1 - busy / step_ms:.3f}), "
+        f"{n_kernels:.0f} CUDA kernels")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[speculative]   {t:.4f} ms  {name[:90]}")
+    log(f"[speculative] device ms per spec iteration of our kernels "
+        f"{json.dumps(our_kernels_ms(by_name))}")
+    log_host_ops("[speculative]", host_ops)
+    for sampler in ("greedy", "top_k"):
+        check_spec_graph(model, dparams, sampler)
+    log_bf16_schedule(model, dparams, plain, res)
+    gate_float32(dparams)
+    return launches
+
+
+def _differ(a, b) -> list:
+    """Rids whose tokens differ between two results by rid."""
+    return sorted(rid for rid in a if not np.array_equal(a[rid], b[rid]))
+
+
+def log_bf16_schedule(model, dparams, plain, spec) -> None:
+    """In bf16 a token's bits depend on the iteration that computes it:
+    ``decode_step`` keeps a float32 residual stream, the unified forward
+    (prefill chunks, and decode rows beside them) a bf16 one, and a
+    preempted request recomputes its tokens' K/V through the latter.  So
+    any change of schedule may move tokens, in the plain engine too: the
+    same plain engine on an arena of twice phase 5's pages (no
+    preemption) is served and compared with phase 5 beside the
+    speculative serve."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = continuous_config()
+    cfg.cache.num_pages = 2 * CONT_PAGES
+    roomy, rep = ServeEngine(model, dparams, cfg).serve(
+        continuous_requests(model.cfg))
+    log(f"[speculative] bf16 tokens by rid against phase 5's plain serve: "
+        f"{len(_differ(spec, plain))} of {len(plain)} requests differ "
+        f"{_differ(spec, plain)}; the plain engine on {2 * CONT_PAGES} pages "
+        f"({rep.preemptions:.0f} preemptions, against phase 5's 48 pages) "
+        f"differs from phase 5 on {len(_differ(roomy, plain))} "
+        f"{_differ(roomy, plain)}: in bf16 the tokens follow the schedule")
+
+
+def gate_float32(dparams) -> None:
+    """The gate of phase 5b: in float32, where every path computes the
+    same function (decode == a width-1 chunk == a verify position, bit for
+    bit), phase 5's trace on phase 5's engine shape must give the same
+    tokens by rid plainly and speculatively."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.engine import ServeEngine
+    model = build_model(get_config("smollm-135m").with_(
+        compute_dtype="float32"))
+    runs = {}
+    for k in (None, SPEC_K):
+        runs[k] = ServeEngine(model, dparams, continuous_config(k)).serve(
+            continuous_requests(model.cfg))
+    (plain, _), (spec, rep) = runs[None], runs[SPEC_K]
+    differ = _differ(spec, plain)
+    if differ or sorted(spec) != sorted(plain) or rep.spec_steps < 1:
+        raise AssertionError(f"speculative float32: tokens differ from the "
+                             f"plain serve's for rids {differ}")
+    by_rid = sorted((rid, [int(x) for x in t]) for rid, t in spec.items())
+    log(f"[speculative] float32, phase 5's trace and engine shape: "
+        f"speculative tokens equal the plain serve's for all {len(spec)} "
+        f"requests (digest {digest(by_rid)}); spec_accept_rate "
+        f"{rep.spec_accept_rate:.4f}, spec_tokens_per_step "
+        f"{rep.spec_tokens_per_step:.4f}, preemptions "
+        f"{rep.preemptions:.0f}")
+
+
+SPEC_CHECK_ITERS = 3
+
+
+def check_spec_graph(model, dparams, sampler: str) -> None:
+    """The speculative engine's graphs against the same steps run eagerly
+    from the same paged state, at phase 5b's shapes (16 slots, 48 pages of
+    32, chunks of 128; 12 live rows of 4 pages, 4 inactive rows): a
+    unified chunk that the draft ingests too, then speculative iterations.
+    Live rows' logits and outputs bitwise equal, trunk pages 1.. and
+    lengths equal, the draft's rings equal, the launches credited by a
+    replay equal to the eager iteration's; and after each rollback the
+    draft's rings equal those of a draft that ingested only the committed
+    tokens.  ``top_k`` (temperature 1.5) draws from uniforms given to the
+    graph, so some drafts are accepted and some rejected."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve import sampler as sampler_lib
+    from repro_torch.serve.engine import ServeEngine
+    dev = torch.device("cuda")
+    b, live, k = CONT_SLOTS, 12, SPEC_K
+    cfg = continuous_config(SPEC_K)
+    cfg.sampler, cfg.temperature = sampler, 1.5
+    eng = ServeEngine(model, dparams, cfg)
+    spec = cfg.page_spec()
+    rng = np.random.default_rng(SEED + 5)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+
+    def shared_table(caches):
+        tb = caches[0]["attn"].block_table
+        return [dict(c, attn=c["attn"]._replace(block_table=tb))
+                for c in caches]
+
+    def same(a, b, trash):
+        for x, y in zip(a, b):
+            x, y = x["attn"], y["attn"]
+            pairs = ((x.k_pages[1:], y.k_pages[1:]),
+                     (x.vt_pages[1:], y.vt_pages[1:]),
+                     (x.length, y.length)) if trash else [
+                (s, u) for s, u in zip(x, y) if isinstance(s, torch.Tensor)]
+            if not all(torch.equal(s, u) for s, u in pairs):
+                return False
+        return True
+
+    ms = {"eager": [], "graph": []}
+    accepted = []
+    with torch.inference_mode():
+        key, caches = eng._pool_caches(b, spec)
+        eng._resolve_draft()
+        draft = eng._draft_caches(b, spec.capacity)
+        dmodel, ddp = eng.draft_model, eng.draft_dparams
+        table = np.zeros((b, CONT_BLOCKS), np.int32)
+        table[:live, :4] = 1 + rng.permutation(CONT_PAGES)[:4 * live].reshape(
+            live, 4)
+        caches[0]["attn"].block_table.copy_(torch.from_numpy(table))
+        eager = shared_table(clone_caches(caches))
+        deager, dcommit = clone_caches(draft[1]), clone_caches(draft[1])
+        valid = np.zeros(b, np.int64)
+        valid[:live] = rng.integers(1, 101, live)   # + 3 x 5 within 4 pages
+        toks = rng.integers(0, model.cfg.vocab_size, (b, CONT_CHUNK))
+        zero = np.zeros(b, np.int64)
+        got = eng._unified_graph(key, caches, CONT_CHUNK, draft)(
+            tokens=toks, start=zero, valid=valid, fresh=(valid > 0) * 1)
+        want, _ = model.prefill_with_cache(dparams, t(toks), caches=eager,
+                                           start=t(zero), seq_lens=t(valid))
+        for dc in (deager, dcommit):
+            dmodel.prefill_with_cache(ddp, t(toks), caches=dc, start=t(zero),
+                                      seq_lens=t(valid))
+        if not (torch.equal(got[:live], want[:live]) and
+                same(caches, eager, True) and same(draft[1], deager, False)):
+            raise AssertionError(f"spec graph check ({sampler}): the unified "
+                                 f"graph with the draft differs from eager")
+        graph = eng._spec_graph(key, caches, draft)
+        step = eng.spec_forward(eager, deager)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pending = want[:, -1].argmax(-1, keepdim=True).cpu().numpy()
+        start, active = valid.copy(), (valid > 0) * 1
+        for i in range(SPEC_CHECK_ITERS):
+            inputs = dict(tokens=pending, start=start, active=active)
+            if sampler != "greedy":
+                inputs["rand"] = torch.randint(
+                    0, 2 ** sampler_lib.UNIFORM_BITS, (b, 2 * k + 2),
+                    generator=gen, device=dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res_g = graph(**inputs).cpu()
+            t1 = time.perf_counter()
+            credited = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            res_e = step(**{n: v if isinstance(v, torch.Tensor) else t(v)
+                            for n, v in inputs.items()}).cpu()
+            t2 = time.perf_counter()
+            if i:       # the first graph call warms up and captures
+                ms["graph"].append(1e3 * (t1 - t0))
+                ms["eager"].append(1e3 * (t2 - t1))
+                if credited != kernels.launch_counts():
+                    raise AssertionError(
+                        f"spec graph check ({sampler}): a replay credited "
+                        f"{credited}, the eager iteration counted "
+                        f"{kernels.launch_counts()}")
+            if not (torch.equal(res_g[:live], res_e[:live]) and
+                    same(caches, eager, True) and
+                    same(draft[1], deager, False)):
+                raise AssertionError(f"spec graph check ({sampler}): "
+                                     f"iteration {i} replayed differs from "
+                                     f"eager")
+            res = res_e.numpy()
+            n_acc = res[:, k + 1]
+            n_commit = active * (n_acc + 1)
+            accepted += n_acc[:live].tolist()
+            committed = np.concatenate([pending, res[:, :k]], axis=1)
+            dmodel.prefill_with_cache(ddp, t(committed), caches=dcommit,
+                                      start=t(start), seq_lens=t(n_commit))
+            if not same(draft[1], dcommit, False):
+                raise AssertionError(f"spec graph check ({sampler}): after "
+                                     f"iteration {i} the draft's rings "
+                                     f"differ from a draft that ingested "
+                                     f"only the committed tokens")
+            pending = res[np.arange(b), n_acc][:, None]
+            start = start + n_commit
+    log(f"[speculative] graph == eager ({sampler}): a unified chunk of "
+        f"{CONT_CHUNK} with the draft and {SPEC_CHECK_ITERS} spec iterations "
+        f"from the same paged state ({b - live} inactive rows): live rows "
+        f"bitwise equal, pages, lengths and draft rings equal, launches "
+        f"credited equal; accepted drafts per live row "
+        f"{np.bincount(accepted, minlength=k + 1).tolist()} (0..{k}); the "
+        f"draft's rings after each rollback equal a committed-only draft's;"
+        f" median ms per iteration, in turns: eager "
+        f"{np.median(ms['eager']):.2f}, graph replay "
+        f"{np.median(ms['graph']):.2f}")
+
+
 # -- phase 6: card vs CPU -----------------------------------------------------
 
 CROSS_B, CROSS_S, CROSS_NEW = 2, 32, 4
@@ -1270,7 +1610,14 @@ def phase_crosscheck(dparams):
     log(f"[crosscheck] float32 B={CROSS_B} S={CROSS_S} {CROSS_NEW} tokens: "
         f"card == CPU tokens {tok_card.tolist()}, max |logit diff| "
         f"{diff:.3g} <= {CROSS_ATOL}")
-    crosscheck_continuous(model, dparams, on_cpu)
+    plain = crosscheck_continuous(model, dparams, on_cpu)
+    spec = crosscheck_continuous(model, dparams, on_cpu, spec_k=SPEC_K)
+    differ = [rid for rid in plain if not np.array_equal(spec[rid],
+                                                         plain[rid])]
+    if differ:
+        raise AssertionError(f"crosscheck: speculative tokens differ from "
+                             f"plain ones for rids {differ}")
+    crosscheck_full_depth_draft(model, dparams, plain)
 
 
 # continuous card-vs-CPU: two requests share a 32-token page (a prefix
@@ -1281,12 +1628,20 @@ CROSS_CONT_COUNTERS = ("preemptions", "prefix_hits", "prefix_lookups",
                        "cow_copies", "pages_freed_retire", "iterations",
                        "prefill_chunks", "prefill_batches",
                        "peak_page_utilization")
+CROSS_SPEC_COUNTERS = ("spec_steps", "spec_drafted", "spec_accepted",
+                       "pages_freed_rollback", "unified_compiles",
+                       "engine_compiles")
 
 
-def crosscheck_continuous(model, dparams, on_cpu):
+def crosscheck_continuous(model, dparams, on_cpu, spec_k=None):
+    """The same 4 requests on the card and on the CPU (plain versions),
+    served plainly or, with ``spec_k``, speculatively by a one-layer draft:
+    equal tokens by rid and equal counters (the spec group's too).
+    Returns the card's tokens by rid."""
     import torch
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
-                                          Request, ServeConfig, ServeEngine)
+                                          Request, ServeConfig, ServeEngine,
+                                          SpecConfig)
     rng = np.random.default_rng(SEED + 2)
     shared = rng.integers(0, model.cfg.vocab_size, 32)
     prompts = [np.concatenate([shared, rng.integers(
@@ -1294,7 +1649,8 @@ def crosscheck_continuous(model, dparams, on_cpu):
         rng.integers(0, model.cfg.vocab_size, n) for n in (30, 29)]
     cfg = ServeConfig(num_slots=2, cache=CacheConfig(
         paged=True, page_size=32, max_blocks=2, num_pages=3),
-        policy=PolicyConfig(prefill_chunk=32))
+        policy=PolicyConfig(prefill_chunk=32),
+        spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
     runs = {}
     for dev, params in (("cuda", dparams), ("cpu", on_cpu)):
         reqs = [Request(rid=i, tokens=p.astype(np.int32),
@@ -1306,19 +1662,59 @@ def crosscheck_continuous(model, dparams, on_cpu):
     (res_card, rep_card), (res_cpu, rep_cpu) = runs["cuda"], runs["cpu"]
     bad = [rid for rid in res_cpu
            if not np.array_equal(res_card[rid], res_cpu[rid])]
-    counters = {k: (rep_card[k], rep_cpu[k]) for k in CROSS_CONT_COUNTERS}
+    names = CROSS_CONT_COUNTERS + (CROSS_SPEC_COUNTERS if spec_k else ())
+    counters = {k: (rep_card[k], rep_cpu[k]) for k in names}
+    tag = f"speculative k={spec_k}" if spec_k else "plain"
     if bad or sorted(res_card) != sorted(res_cpu) or \
             any(a != b for a, b in counters.values()):
-        raise AssertionError(f"crosscheck continuous: tokens differ for "
-                             f"rids {bad}, counters (card, CPU) {counters}")
+        raise AssertionError(f"crosscheck continuous ({tag}): tokens differ "
+                             f"for rids {bad}, counters (card, CPU) "
+                             f"{counters}")
     if rep_cpu.preemptions < 1 or rep_cpu.prefix_hits < 1:
-        raise AssertionError(f"crosscheck continuous: expected a "
+        raise AssertionError(f"crosscheck continuous ({tag}): expected a "
                              f"preemption and a prefix hit: {counters}")
-    log(f"[crosscheck] float32 continuous, 4 requests on 2 slots and 3 "
-        f"pages: card == CPU tokens by rid "
+    log(f"[crosscheck] float32 continuous, {tag}, 4 requests on 2 slots and "
+        f"3 pages: card == CPU tokens by rid "
         f"{ {rid: res_cpu[rid].tolist() for rid in sorted(res_cpu)} }; "
         f"equal counters "
         f"{json.dumps({k: a for k, (a, _) in counters.items()})}")
+    return res_card
+
+
+def crosscheck_full_depth_draft(model, dparams, plain) -> None:
+    """A draft as deep as the trunk is the trunk on its own weights: on
+    the card every draft is accepted, each verify commits k+1 tokens, and
+    the tokens are the plain serve's ``plain``."""
+    import torch
+    from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
+                                          Request, ServeConfig, ServeEngine,
+                                          SpecConfig)
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, model.cfg.vocab_size, 32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, model.cfg.vocab_size, n)]) for n in (2, 8)] + [
+        rng.integers(0, model.cfg.vocab_size, n) for n in (30, 29)]
+    cfg = ServeConfig(num_slots=2, cache=CacheConfig(
+        paged=True, page_size=32, max_blocks=2, num_pages=3),
+        policy=PolicyConfig(prefill_chunk=32),
+        spec=SpecConfig(k=SPEC_K, draft_layers=model.cfg.num_layers))
+    reqs = [Request(rid=i, tokens=p.astype(np.int32),
+                    max_new_tokens=CROSS_CONT_NEW)
+            for i, p in enumerate(prompts)]
+    with torch.inference_mode():
+        res, rep = ServeEngine(model, dparams, cfg).serve(reqs)
+    bad = [rid for rid in plain if not np.array_equal(res[rid], plain[rid])]
+    if bad or rep.spec_accept_rate != 1.0 or \
+            rep.spec_tokens_per_step != SPEC_K + 1:
+        raise AssertionError(f"full-depth draft: tokens differ from plain "
+                             f"for rids {bad}, spec_accept_rate "
+                             f"{rep.spec_accept_rate}, spec_tokens_per_step "
+                             f"{rep.spec_tokens_per_step}")
+    log(f"[crosscheck] float32, a {model.cfg.num_layers}-layer draft (the "
+        f"whole trunk), k={SPEC_K}, on the card: spec_accept_rate "
+        f"{rep.spec_accept_rate}, spec_tokens_per_step "
+        f"{rep.spec_tokens_per_step} over {rep.spec_steps:.0f} spec steps; "
+        f"tokens equal to the plain serve's")
 
 
 # -- phase 7: encode ------------------------------------------------------------
@@ -1459,9 +1855,10 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     static, model, dparams = phase_serve()
-    paged = phase_continuous(model, dparams)
+    paged, plain = phase_continuous(model, dparams)
+    spec = phase_speculative(model, dparams, plain)
     for name in rows:
-        rows[name]["launches"] = static[name] + paged[name]
+        rows[name]["launches"] = static[name] + paged[name] + spec[name]
     phase_crosscheck(dparams)
     del model, dparams
     encode = phase_encode()

@@ -103,6 +103,15 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def truncated(self, num_layers: int) -> "ModelConfig":
+        """The first ``num_layers`` layers of this config: the shape of a
+        layer-truncated self-speculative draft, whose layers are exactly
+        the prefix of the full stack's and share its packed weights."""
+        if not 1 <= num_layers <= self.num_layers:
+            raise ValueError(
+                f"truncated({num_layers}) outside [1, {self.num_layers}]")
+        return self.with_(num_layers=num_layers)
+
 
 ARCH_IDS: Sequence[str] = (
     "mixtral-8x22b",

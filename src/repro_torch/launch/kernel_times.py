@@ -21,7 +21,9 @@ and 512 (the encoder's heads, bidirectional) for its cost per key tile;
 ``rbmm_int`` at every decode call of smollm-135m at M = 8 and 16 and at
 w2 for M = 32, 64 and 128, where its routes would cross;
 ``paged_gather_decode`` at the continuous path's decode shape with lengths
-drawn from a fixed seed, so every checkout reads the same pages.  Where the
+drawn from a fixed seed, so every checkout reads the same pages; every
+call of the speculative iteration (``SPEC_CALLS``, rows named ``... spec
+...``, each with its launches per iteration, ``spec_launches``).  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
 each tensor-core kernel and of the decode route at wq and w2 under
@@ -152,6 +154,16 @@ def decode_calls(batches=(8, 16), crossover=(32, 64, 128)
     return out
 
 
+def word_or_mac(m, p, k, *tensors):
+    """The bound of an RBMM: its operands' and output's bytes against the
+    faster of two ways to do the work, popcount words (3 ops a word pair)
+    on the ALUs or the MACs of the unpacked values on the int8 tensor
+    cores."""
+    moved = nbytes(*tensors)
+    return min(bound(moved, 3 * m * p * ((k + 31) // 32), SCALAR32_OPS),
+               bound(moved, 2 * m * p * k, INT8_OPS))
+
+
 def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
     """The RBMM kernels: each shape's call, library call and bound."""
     from repro_torch.core import packing
@@ -171,14 +183,6 @@ def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
     def signs(rows, k):
         bits = torch.randint(0, 2, (rows, k), generator=gen, device="cuda")
         return (2 * bits - 1).to(torch.bfloat16)
-
-    def word_or_mac(m, p, k, *tensors):
-        """The faster of two ways to do the work: popcount words (3 ops a
-        word pair) on the ALUs, or the MACs of the unpacked values on the
-        int8 tensor cores."""
-        moved = nbytes(*tensors)
-        return min(bound(moved, 3 * m * p * ((k + 31) // 32), SCALAR32_OPS),
-                   bound(moved, 2 * m * p * k, INT8_OPS))
 
     out = {}
     for name, (m, k, p) in {
@@ -383,10 +387,168 @@ def attention_shapes(seed: int = 0) -> Dict[str, Dict]:
     return out
 
 
+# The speculative iteration of the continuous path (smollm-135m, 16 slots,
+# k = 4, a one-layer draft over a 384-slot ring, 30 trunk layers): every
+# call it makes, as (kernel, operands, launches per spec iteration).  The
+# verify runs the trunk over 16 x 5 candidates (projections at M = 80 on
+# rbmm_mxu; per layer the prefix score, context and intra-chunk score of
+# the chunk attend over the 384-slot ring view, the 3 query heads of a KV
+# head times 5 positions as M = 15 rows); the draft runs 5 decode steps at
+# M = 16.  Operands: rbmm_int (lead, M, P, K, scheme; and_dc: dc derived);
+# rbmm_mxu (M, K, P, values in {0,1}); pack_threshold (x shape, x dtype,
+# theta shape, x a strided view of the packed axis).
+SPEC_K, SPEC_LAYERS, SPEC_STEPS = 4, 30, 5
+SPEC_CALLS = {
+    "rbmm_int spec verify prefix score (16,3,15,2)x(16,3,384,2) xnor":
+        ("rbmm_int", ((16, 3), 15, 384, 64, "xnor"), SPEC_LAYERS),
+    "rbmm_int spec verify context (16,3,15,12)x(16,3,64,12) and_dc, dc "
+    "derived": ("rbmm_int", ((16, 3), 15, 64, 384, "and_dc"), SPEC_LAYERS),
+    "rbmm_int spec verify intra score (16,3,15,2)x(16,3,5,2) xnor":
+        ("rbmm_int", ((16, 3), 15, 5, 64, "xnor"), SPEC_LAYERS),
+    "rbmm_int spec draft ring score (16,3,3,2)x(16,3,384,2) xnor":
+        ("rbmm_int", ((16, 3), 3, 384, 64, "xnor"), SPEC_STEPS),
+    "rbmm_int spec draft ring context (16,3,3,12)x(16,3,64,12) and_dc, dc "
+    "derived": ("rbmm_int", ((16, 3), 3, 64, 384, "and_dc"), SPEC_STEPS),
+    "rbmm_int spec draft wq/wo (16x576)x(576x576) xnor":
+        ("rbmm_int", ((), 16, 576, 576, "xnor"), 2 * SPEC_STEPS),
+    "rbmm_int spec draft wk/wv (16x576)x(192x576) xnor":
+        ("rbmm_int", ((), 16, 192, 576, "xnor"), 2 * SPEC_STEPS),
+    "rbmm_int spec draft w1/w3 (16x576)x(1536x576) xnor":
+        ("rbmm_int", ((), 16, 1536, 576, "xnor"), 2 * SPEC_STEPS),
+    "rbmm_int spec draft w2 (16x1536)x(576x1536) and_dc, dc derived":
+        ("rbmm_int", ((), 16, 576, 1536, "and_dc"), SPEC_STEPS),
+    "rbmm_mxu spec verify wq/wo (80x576)x(576x576)":
+        ("rbmm_mxu", (80, 576, 576, False), 2 * SPEC_LAYERS),
+    "rbmm_mxu spec verify wk/wv (80x576)x(192x576)":
+        ("rbmm_mxu", (80, 576, 192, False), 2 * SPEC_LAYERS),
+    "rbmm_mxu spec verify w1/w3 (80x576)x(1536x576)":
+        ("rbmm_mxu", (80, 576, 1536, False), 2 * SPEC_LAYERS),
+    "rbmm_mxu spec verify w2 (80x1536)x(576x1536) {0,1}":
+        ("rbmm_mxu", (80, 1536, 576, True), SPEC_LAYERS),
+    "pack spec verify x (16,5,576) bf16, one theta":
+        ("pack_threshold", ((16, 5, 576), "bfloat16", (), False),
+         2 * SPEC_LAYERS),
+    "pack spec verify ctx (16,5,576) f32, one theta":
+        ("pack_threshold", ((16, 5, 576), "float32", (), False), SPEC_LAYERS),
+    "pack spec verify h (16,5,1536) f32, one theta":
+        ("pack_threshold", ((16, 5, 1536), "float32", (), False),
+         SPEC_LAYERS),
+    "pack spec verify q (16,5,9,64) bf16, per-head theta":
+        ("pack_threshold", ((16, 5, 9, 64), "bfloat16", (9, 1), False),
+         SPEC_LAYERS),
+    "pack spec verify k (16,5,3,64) bf16, per-head theta":
+        ("pack_threshold", ((16, 5, 3, 64), "bfloat16", (3, 1), False),
+         SPEC_LAYERS),
+    "pack spec verify probs (16,3,15,384) int32, per-row theta":
+        ("pack_threshold", ((16, 3, 15, 384), "int32", (3, 15, 1), False),
+         SPEC_LAYERS),
+    "pack spec commit V^T words (16,3,64,384) int32 strided, one theta":
+        ("pack_threshold", ((16, 3, 64, 384), "int32", (), True),
+         SPEC_LAYERS),
+    "pack spec draft x (16,1,576) f32, one theta":
+        ("pack_threshold", ((16, 1, 576), "float32", (), False),
+         3 * SPEC_STEPS),
+    "pack spec draft h (16,1,1536) f32, one theta":
+        ("pack_threshold", ((16, 1, 1536), "float32", (), False),
+         SPEC_STEPS),
+    "pack spec draft q (16,1,9,64) bf16, per-head theta":
+        ("pack_threshold", ((16, 1, 9, 64), "bfloat16", (9, 1), False),
+         SPEC_STEPS),
+    "pack spec draft k (16,1,3,64) bf16, per-head theta":
+        ("pack_threshold", ((16, 1, 3, 64), "bfloat16", (3, 1), False),
+         SPEC_STEPS),
+}
+
+
+def spec_launches() -> Dict[str, int]:
+    """Launches of each kernel per speculative iteration, from
+    ``SPEC_CALLS``."""
+    out: Dict[str, int] = {}
+    for kernel, _, n in SPEC_CALLS.values():
+        out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
+def spec_operands(seed: int = 0) -> Dict[str, tuple]:
+    """{name: (kernel, call, plain, library, bound)} for every call of
+    ``SPEC_CALLS`` on random operands on the card: ``call`` and ``plain``
+    run the public wrapper and its plain version (``ref.py``), ``library``
+    one PyTorch call computing the same function (None for pack)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.pack import ops as pack, ref as pack_ref
+    from repro_torch.kernels.rbmm import ops as rbmm, ref as rbmm_ref
+    from repro_torch.kernels.rbmm_mxu import ops as mxu, ref as mxu_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def words(*shape, k):
+        w = torch.randint(-2**31, 2**31, shape + ((k + 31) // 32,),
+                          generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+        if k % 32:
+            w[..., -1] &= (1 << (k % 32)) - 1
+        return w
+
+    out = {}
+    for name, (kernel, spec, _) in SPEC_CALLS.items():
+        if kernel == "rbmm_int":
+            lead, m, p, k, scheme = spec
+            x, y = words(*lead, m, k=k), words(*lead, p, k=k)
+            xv = packing.unpack_signs(x, k, torch.bfloat16)
+            yv = packing.unpack_signs(y, k, torch.bfloat16)
+            res = rbmm.rbmm_int(x, y, k, scheme=scheme)
+            batch = x.numel() // (m * x.shape[-1])
+            out[name] = (
+                kernel,
+                lambda x=x, y=y, k=k, s=scheme: rbmm.rbmm_int(x, y, k,
+                                                              scheme=s),
+                lambda x=x, y=y, k=k, s=scheme: rbmm_ref.rbmm_int(
+                    x, y, k, scheme=s),
+                lambda xv=xv, yv=yv: torch.matmul(xv, yv.transpose(-1, -2)),
+                word_or_mac(batch * m, p, k, x, y, res))
+        elif kernel == "rbmm_mxu":
+            m, k, p, unsigned = spec
+            bits = torch.randint(0, 2, (m, k), generator=gen, device="cuda")
+            a = (bits if unsigned else 2 * bits - 1).to(torch.bfloat16)
+            w = words(p, k=k)
+            wv = packing.unpack_signs(w, k, torch.bfloat16)
+            res = mxu.rbmm_mxu(a, w)
+            out[name] = (kernel, lambda a=a, w=w: mxu.rbmm_mxu(a, w),
+                         lambda a=a, w=w: mxu_ref.rbmm_mxu(a, w),
+                         lambda a=a, wv=wv: torch.matmul(a, wv.T),
+                         bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
+        else:
+            shape, dtype, th_shape, strided = spec
+            if dtype == "int32":
+                lo, hi = (0, 2) if strided else (-40, 40)
+                x = torch.randint(lo, hi, shape, generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                th = (torch.ones(th_shape, dtype=torch.int32, device="cuda")
+                      if strided else
+                      torch.randint(-8, 8, th_shape, generator=gen,
+                                    device="cuda", dtype=torch.int32))
+            else:
+                x = torch.randn(shape, generator=gen, device="cuda").to(
+                    getattr(torch, dtype))
+                th = 0.2 * torch.randn(th_shape, generator=gen,
+                                       device="cuda")
+            if strided:     # the packed axis strided, as the commit's view
+                x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+            res = pack.pack_threshold(x, th)
+            out[name] = (kernel, lambda x=x, th=th: pack.pack_threshold(x, th),
+                         lambda x=x, th=th: pack_ref.pack_threshold(x, th),
+                         None,
+                         bound(nbytes(x, th, res), x.numel(), SCALAR32_OPS))
+    return out
+
+
 def shapes(seed: int = 0) -> Dict[str, Dict]:
-    """Each shape: the kernel's call, the library call and the bound."""
+    """Each shape: the kernel's call, the library call and the bound (and,
+    for the speculative iteration's calls, the launches per iteration)."""
     from repro_torch.kernels.pack import ops as pack
     out = rbmm_shapes(seed)
+    for name, (_, call, _, lib, bnd) in spec_operands(seed).items():
+        out[name] = dict(kernel=call, library=lib, bound=bnd,
+                         spec_launches=SPEC_CALLS[name][2])
     for name, (x, th) in pack_shapes(seed).items():
         res = pack.pack_threshold(x, th)
         out[name] = dict(
@@ -413,7 +575,9 @@ def time_all(seed: int = 0, only: str = "") -> List[Dict]:
                      "eager_ms": eager[name][0],
                      "bound_ms": b_ms, "bound_by": by,
                      "library_ms": None if lib is None else device_ms(lib),
-                     "library_eager_ms": eager[name][1]})
+                     "library_eager_ms": eager[name][1],
+                     **({"spec_launches": s["spec_launches"]}
+                        if "spec_launches" in s else {})})
     return rows
 
 

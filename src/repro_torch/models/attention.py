@@ -19,6 +19,9 @@
                   kernel, context as the and_dc rbmm_int; the intra-chunk
                   causal block is an integer-exact float32 matmul; then the
                   chunk's bits are written.
+  deploy_verify_chunk / commit_chunk
+                  speculative decode: the chunk attend without the write,
+                  then the write of each sequence's accepted prefix only.
 
 Attention reads caches grouped by KV head (the query heads of one group
 are the rows of one RBMM against their KV head's ring) — the same integers
@@ -26,7 +29,7 @@ as repeating K/V to every head, without the copy.  Caches, their lengths
 included, are updated IN PLACE (the JAX package returns new arrays), so a
 cache keeps its addresses from step to step.  Supports GQA, RoPE and the
 ``layer`` / ``head`` SPS threshold granularities; ``row``, sliding
-windows, cross-attention and speculation are not ported yet.
+windows and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -480,6 +483,50 @@ class SPSAttention:
         out = self._output_deploy(params, ctx)
         return out, self._write_chunk(cache, k_bits, v_bits, start, valid,
                                       vc_old)
+
+    # -- speculative verify (attend only) and the deferred commit -------------
+
+    def deploy_verify_chunk(self, params: Params, x: torch.Tensor, cache, *,
+                            start: Optional[torch.Tensor] = None,
+                            valid: Optional[torch.Tensor] = None):
+        """Score a candidate chunk WITHOUT writing the cache: the attend of
+        ``deploy_prefill_chunk`` with the write deferred.  x (B, C, d) holds
+        each sequence's pending token and its drafted tokens; ``valid``
+        (B,) the real leading positions (default all C).  Returns (out (B,
+        C, d), (k_bits (B,Hkv,C,dhp), v_bits (B,Hkv,C,dh) bool)), which
+        ``commit_chunk`` writes once acceptance is known, so a rejected
+        draft never reaches the cache."""
+        b, c_len, _ = x.shape
+        dev = x.device
+        start = cache.length if start is None else start
+        start = torch.as_tensor(start, device=dev).to(torch.int64).expand(b)
+        valid = (torch.full((b,), c_len, dtype=torch.int64, device=dev)
+                 if valid is None else
+                 torch.as_tensor(valid, device=dev).to(torch.int64).expand(b))
+        positions = start[:, None] + torch.arange(c_len, device=dev)[None, :]
+        q_bits, k_bits, v = self._project_qkv_deploy(params, x, positions)
+        v_bits = self._v_bits(params, v).transpose(1, 2)       # (B,Hkv,C,dh)
+        kc_old, vc_old, ring = self._cache_ring_view(cache)
+        ctx = self._chunk_attend(params, q_bits, k_bits, v_bits, kc_old,
+                                 vc_old, start, valid, ring)
+        return self._output_deploy(params, ctx), (k_bits, v_bits)
+
+    def commit_chunk(self, cache, proj: Tuple[torch.Tensor, torch.Tensor],
+                     start: torch.Tensor, n_commit: torch.Tensor):
+        """Write the first ``n_commit[b]`` positions of a verified chunk
+        (the projections of ``deploy_verify_chunk``) at ``start[b]``, in
+        place.  Rows with n_commit == 0 keep their content and length.
+        The V^T ring view is read here, after the verify, which wrote
+        nothing.  Returns the same cache."""
+        k_bits, v_bits = proj
+        b = k_bits.shape[0]
+        dev = k_bits.device
+        start = torch.as_tensor(start, device=dev).to(torch.int64).expand(b)
+        n_commit = torch.as_tensor(n_commit, device=dev).to(
+            torch.int64).expand(b)
+        vc_old = self._cache_ring_view(cache)[1]
+        return self._write_chunk(cache, k_bits, v_bits, start, n_commit,
+                                 vc_old)
 
     # -- decode ---------------------------------------------------------------
 

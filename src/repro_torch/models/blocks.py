@@ -100,6 +100,28 @@ class Block:
                                          norm.apply(params["norm2"], x))
         return x, dict(cache, attn=kv)
 
+    def deploy_verify_chunk(self, params: Params, x: torch.Tensor,
+                            cache: Dict[str, Any], *, start=None,
+                            valid=None) -> Tuple[torch.Tensor, Any]:
+        """Speculative verify: the block over a candidate chunk WITHOUT
+        writing the cache; returns (out, the attention's projections) for
+        ``commit_chunk`` (see ``SPSAttention.deploy_verify_chunk``)."""
+        norm = self._norm()
+        h = norm.apply(params["norm1"], x)
+        a_out, proj = self._attn().deploy_verify_chunk(
+            params["attn"], h, cache["attn"], start=start, valid=valid)
+        x = x + a_out
+        x = x + self._ffn().apply_deploy(params["ffn"],
+                                         norm.apply(params["norm2"], x))
+        return x, proj
+
+    def commit_chunk(self, cache: Dict[str, Any], proj, start,
+                     n_commit) -> Dict[str, Any]:
+        """Write the accepted prefix of a verified chunk into this block's
+        attention cache, in place (rows with n_commit == 0 untouched)."""
+        self._attn().commit_chunk(cache["attn"], proj, start, n_commit)
+        return cache
+
     def init_cache(self, batch: int, max_len: int, device,
                    paged: Optional[PageSpec] = None) -> Dict[str, Any]:
         """Empty decode cache: a contiguous ring of ``max_len``, or with

@@ -8,6 +8,11 @@
                       ``caches=``) one chunk continuing sequences already
                       in ring or paged caches
   decode_step         one token per sequence against those caches
+  verify_with_cache   speculative decode: logits at every position of a
+                      candidate chunk, the caches unwritten; then
+                      ``commit_chunks`` writes each sequence's accepted
+                      prefix; ``truncate_deploy`` builds the layer-truncated
+                      draft on the trunk's own weights
 
 Blocks are a plain list of per-layer param dicts (the JAX package stacks
 them for ``scan``; ``repro_torch.bridge`` unstacks).  As in the JAX
@@ -59,6 +64,12 @@ class LMModel:
 
     def _block(self) -> Block:
         return Block(self.cfg)
+
+    @property
+    def plan(self) -> List[Tuple[str, int]]:
+        """(block kind, window) per layer, as the JAX package's: every
+        ported block is full attention."""
+        return [("attn", 0)] * self.cfg.num_layers
 
     def _embed(self) -> nn.Embedding:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
@@ -191,6 +202,57 @@ class LMModel:
             x, _ = self._block().deploy_prefill_chunk(
                 bp, x, cache, start=start, valid_len=seq_lens)
         return self._logits(dparams, self._last_real(x, seq_lens)), caches
+
+    def verify_with_cache(self, dparams: Params, tokens: torch.Tensor,
+                          caches: List[Dict[str, Any]], *,
+                          start: Optional[torch.Tensor] = None,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, List[Any]]:
+        """Speculative verify forward: a (B, C) candidate chunk (the pending
+        token and C-1 drafted tokens per sequence) against the cached
+        prefix, WITHOUT writing the caches.  Returns (logits (B, C, V) at
+        every chunk position, per-layer attention projections): row j
+        scores the token after prefix + chunk[:j+1], so the caller accepts
+        a prefix per sequence and ``commit_chunks`` exactly that many.
+
+        The residual stream keeps ``decode_step``'s precision (the float32
+        embedding; the JAX package's verify casts it to ``compute_dtype``
+        as chunked prefill does), so each position computes what a decode
+        step would and greedy speculative decode equals plain decode in
+        bf16 too.  In float32 the two are the same function."""
+        x = self._scale(self._embed().apply(dparams["embed"], tokens))
+        projs: List[Any] = []
+        for bp, cache in zip(dparams["blocks"], caches):
+            x, proj = self._block().deploy_verify_chunk(
+                bp, x, cache, start=start, valid=valid)
+            projs.append(proj)
+        return self._logits(dparams, x), projs
+
+    def commit_chunks(self, caches: List[Dict[str, Any]], projs: List[Any],
+                      start: torch.Tensor, n_commit: torch.Tensor
+                      ) -> List[Dict[str, Any]]:
+        """Commit the first ``n_commit[b]`` verified positions at
+        ``start[b]`` into every layer's cache, in place; rows with
+        n_commit == 0 keep their content and length.  Returns the caches
+        given."""
+        for cache, proj in zip(caches, projs):
+            self._block().commit_chunk(cache, proj, start, n_commit)
+        return caches
+
+    def truncate_deploy(self, dparams: Params, num_layers: int
+                        ) -> Tuple["LMModel", Params]:
+        """Layer-truncated self-speculative draft: the first
+        ``num_layers`` blocks of this model, with the embedding, final
+        norm and head SHARED.  The draft's params hold the trunk's own
+        tensors (nothing is copied); only its caches are its own.
+        Returns (draft_model, draft_dparams)."""
+        n = num_layers
+        if not 1 <= n <= self.cfg.num_layers:
+            raise ValueError(f"draft depth {n} outside [1, "
+                             f"{self.cfg.num_layers}]")
+        dd = {k: v for k, v in dparams.items() if k != "blocks"}
+        dd["blocks"] = dparams["blocks"][:n]
+        return LMModel(self.cfg.truncated(n)), dd
 
     def init_caches(self, batch: int, max_len: int, device,
                     paged: Optional[PageSpec] = None

@@ -38,21 +38,37 @@ copied into each graph's static buffers.  Sampling runs eagerly on the
 replayed logits.  Prefill of the static batch, the copy-on-write page
 copies and all host bookkeeping run between replays.
 
-Speculative decode (``SpecConfig.k``) and the flat ``ServeConfig``
-keywords are not ported yet.
+``SpecConfig.k`` adds speculative decode on the pure-decode iterations: a
+draft (the first ``draft_layers`` blocks of the trunk on its own weights,
+or an independent draft passed to the engine) proposes k tokens per slot
+from its own contiguous ring pool, ONE verify forward of the trunk scores
+all k+1 positions without writing its caches, acceptance picks each
+slot's prefix, exactly that prefix commits to the trunk, and the draft's
+rings roll back to the committed tokens.  The whole iteration is one
+captured graph (kind ``spec``): greedy acceptance is an in-graph argmax,
+and the stochastic samplers draw by inverting cumulative sums at uniforms
+that the engine's generator draws before the replay and copies into the
+graph's inputs, so no generator runs inside a graph.  On mixed iterations
+the draft pool ingests the same chunk in the same unified graph.  Greedy
+output equals plain decode token for token where every path computes the
+same function, i.e. in float32: in bf16 a decode step keeps a float32
+residual stream and the unified forward a bf16 one, so the tokens of any
+run, speculative or not, depend on which iterations were mixed.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.attention import PagedKVCache, PageSpec
+from repro_torch.core import packing
+from repro_torch.models.attention import KVCache, PagedKVCache, PageSpec
 from repro_torch.serve import graphs as graphs_lib
 from repro_torch.serve import kvcache, sampler as sampler_lib
 from repro_torch.serve.policy import (PolicyConfig, Scheduler,
@@ -98,9 +114,15 @@ class CacheConfig:
 
 @dataclasses.dataclass
 class SpecConfig:
-    """Speculative-decode knobs (``ServeConfig.spec``), kept for equality
-    with the JAX config.  ``k`` set makes ``serve`` raise: speculative
-    decode is not ported yet."""
+    """Speculative-decode knobs (``ServeConfig.spec``).
+
+    k: drafted tokens per slot per pure-decode iteration, verified by one
+      pooled k+1-token forward; accepted prefixes commit, rejected tails
+      never reach the trunk's caches.  None disables.
+    draft_layers: depth of the layer-truncated draft on the trunk's own
+      weights (clamped to the stack; a full-depth draft accepts
+      everything).  Ignored when ``ServeEngine`` gets an explicit draft.
+    """
     k: Optional[int] = None
     draft_layers: int = 1
 
@@ -113,6 +135,12 @@ class SpecConfig:
                              f"{self.draft_layers}")
 
 
+_FLAT_CACHE = ("max_len", "paged", "page_size", "max_blocks", "num_pages",
+               "prefix_share")
+_FLAT_SPEC = {"spec_decode": "k", "spec_draft_layers": "draft_layers"}
+_FLAT_POLICY = ("prefill_chunk",)
+
+
 class ServeConfig:
     """Engine-level serving knobs, grouped as in the JAX package.
 
@@ -123,8 +151,10 @@ class ServeConfig:
     cache: ``CacheConfig``; spec: ``SpecConfig``; policy: ``PolicyConfig``.
 
     The JAX package's deprecated flat keywords (``max_len=``,
-    ``paged=``, ...) are not ported yet; the read-through properties
-    (``cfg.max_len``, ``cfg.paged``, ...) are.
+    ``paged=``, ``prefill_chunk=``, ``spec_decode=``, ...) still construct:
+    they map onto the sub-configs with one ``DeprecationWarning``, and the
+    read-through properties (``cfg.max_len``, ``cfg.spec_decode``, ...)
+    read them back.
     """
 
     def __init__(self, *, sampler: str = "greedy",
@@ -133,20 +163,39 @@ class ServeConfig:
                  cache: Optional[CacheConfig] = None,
                  spec: Optional[SpecConfig] = None,
                  policy: Optional[PolicyConfig] = None, **flat):
-        if flat:
-            raise NotImplementedError(
-                f"flat ServeConfig keywords {sorted(flat)} are not ported "
-                f"yet: pass cache=CacheConfig(...), spec=SpecConfig(...) "
-                f"and/or policy=PolicyConfig(...)")
         self.sampler = sampler
         self.temperature = temperature
         self.top_k = top_k
         self.seed = seed
         self.num_slots = num_slots
         self.eos_id = eos_id
-        self.cache = cache if cache is not None else CacheConfig()
-        self.spec = spec if spec is not None else SpecConfig()
-        self.policy = policy if policy is not None else PolicyConfig()
+        cache = cache if cache is not None else CacheConfig()
+        spec = spec if spec is not None else SpecConfig()
+        policy = policy if policy is not None else PolicyConfig()
+        if flat:
+            unknown = [k for k in flat if k not in _FLAT_CACHE and
+                       k not in _FLAT_SPEC and k not in _FLAT_POLICY]
+            if unknown:
+                raise TypeError(f"ServeConfig got unexpected keyword "
+                                f"arguments {sorted(unknown)}")
+            warnings.warn(
+                f"flat ServeConfig keywords {sorted(flat)} are "
+                f"deprecated: pass cache=CacheConfig(...), "
+                f"spec=SpecConfig(...) and/or policy=PolicyConfig(...)",
+                DeprecationWarning, stacklevel=2)
+            ck = {k: v for k, v in flat.items() if k in _FLAT_CACHE}
+            if ck:
+                cache = dataclasses.replace(cache, **ck)
+            sk = {_FLAT_SPEC[k]: v for k, v in flat.items()
+                  if k in _FLAT_SPEC}
+            if sk:
+                spec = dataclasses.replace(spec, **sk)
+            pk = {k: v for k, v in flat.items() if k in _FLAT_POLICY}
+            if pk:
+                policy = dataclasses.replace(policy, **pk)
+        self.cache = cache
+        self.spec = spec
+        self.policy = policy
 
     def _fields(self) -> tuple:
         return (self.sampler, self.temperature, self.top_k, self.seed,
@@ -282,23 +331,66 @@ class _PrefillState:
         self.admit_seq = admit_seq
 
 
+def _attention_only(model) -> bool:
+    """Every block of ``model``'s plan is attention."""
+    plan = getattr(model, "plan", None)
+    return plan is not None and {k for k, _ in plan} == {"attn"}
+
+
+def _rollback_draft(cache: KVCache, k0: torch.Tensor, vt0: torch.Tensor,
+                    len0: torch.Tensor, n_commit: torch.Tensor,
+                    span: int) -> None:
+    """Put a draft ring back to its committed state, in place.  The draft
+    steps wrote positions len0 .. len0+span-1 of each row; every ring slot
+    whose last writer among them lies at or past len0 + n_commit (every
+    one the steps wrote, where n_commit is 0) takes its content from
+    before the steps (``k0``, ``vt0``), and the length becomes
+    len0 + n_commit.  Same last-writer slot map as
+    ``SPSAttention._write_chunk``."""
+    w = cache.k_bits.shape[2]
+    s_all = torch.arange(w, device=k0.device)
+    l0 = len0.to(torch.int64)
+    lv = l0 + span                             # end of the steps' writes
+    t_new = lv[:, None] - 1 - torch.remainder(
+        lv[:, None] - 1 - s_all[None, :], w)                    # (B, W)
+    rejected = t_new >= (l0 + n_commit)[:, None]
+    cache.k_bits.copy_(torch.where(rejected[:, None, :, None], k0,
+                                   cache.k_bits))
+    rej_w = packing.pack_bits(rejected)
+    cache.vt_bits.copy_((cache.vt_bits & ~rej_w[:, None, None, :]) |
+                        (vt0 & rej_w[:, None, None, :]))
+    cache.length.copy_(l0 + n_commit)
+
+
 class ServeEngine:
-    def __init__(self, model, dparams, cfg: ServeConfig, *,
+    def __init__(self, model, dparams, cfg: ServeConfig, draft_model=None,
+                 draft_dparams=None, *,
                  policy: Optional[SchedulingPolicy] = None, device="cuda"):
         """``dparams`` must already lie on ``device`` (CUDA by default;
-        asking for CUDA without a card raises).  ``policy`` optionally
-        injects a ``SchedulingPolicy`` reused across ``serve`` calls;
-        by default each call builds one from ``cfg.policy``."""
+        asking for CUDA without a card raises).  ``draft_model`` /
+        ``draft_dparams`` optionally supply an independent speculative
+        draft (an attention-only decoder with its own params, on the same
+        device); with ``cfg.spec.k`` and no explicit draft, the
+        layer-truncated draft on the trunk's own weights is built at the
+        first speculative ``serve``.  ``policy`` optionally injects a
+        ``SchedulingPolicy`` reused across ``serve`` calls; by default
+        each call builds one from ``cfg.policy``."""
         self.model = model
         self.dparams = dparams
         self.cfg = cfg
         self.device = resolve_device(device)
         self._policy_proto = policy
+        if (draft_model is None) != (draft_dparams is None):
+            raise ValueError("pass draft_model and draft_dparams together")
+        self.draft_model = draft_model
+        self.draft_dparams = draft_dparams
         # the captured steps (the JAX engine's ``_decode_jit`` /
-        # ``_unified_jit`` and their ``_compiles``) and the caches they
-        # read, by pool shape (batch, max_len, PageSpec or None)
+        # ``_unified_jit`` / ``_spec_jit`` and their ``_compiles``) and the
+        # caches they read, by pool shape (batch, max_len, PageSpec or
+        # None); the draft's contiguous rings by (batch, ring length)
         self._graphs = graphs_lib.StepGraphs(self.device)
         self._pools: Dict[tuple, list] = {}
+        self._draft_pools: Dict[tuple, list] = {}
         self._sample = {
             "greedy": lambda lg, g: sampler_lib.greedy(lg),
             "temperature": lambda lg, g: sampler_lib.temperature(
@@ -332,6 +424,17 @@ class ServeEngine:
             self._pools[key] = caches
         return key, caches
 
+    def _draft_caches(self, batch: int, ring: int) -> Tuple[tuple, list]:
+        """(key, caches): the draft's contiguous rings for a pool of
+        ``batch`` rows, kept as ``_pool_caches`` keeps the trunk's.  They
+        are a small unshared pool, but cover the trunk's capacity."""
+        key = (batch, ring)
+        caches = self._draft_pools.get(key)
+        if caches is None:
+            caches = self.draft_model.init_caches(batch, ring, self.device)
+            self._draft_pools[key] = caches
+        return key, caches
+
     def _decode_graph(self, key: tuple,
                       caches: list) -> graphs_lib.StepGraph:
         """The pooled decode step of the caches of ``key``: tokens (B, 1)
@@ -341,22 +444,112 @@ class ServeEngine:
                                                   caches)[0],
             {"tokens": (key[0], 1)}, graphs_lib.cache_tensors(caches)))
 
-    def _unified_graph(self, key: tuple, caches: list,
-                       width: int) -> graphs_lib.StepGraph:
+    def _unified_graph(self, key: tuple, caches: list, width: int,
+                       draft: Optional[Tuple[tuple, list]] = None
+                       ) -> graphs_lib.StepGraph:
         """The unified forward over the whole pool at one chunk width:
         tokens (B, width), start, valid, fresh (B,) -> logits (B, 1, V) at
-        each row's last real token."""
+        each row's last real token.  With ``draft`` = (key, caches) the
+        draft pool ingests the same chunk in the same graph, so its rings
+        follow the trunk's."""
+        dcaches = draft[1] if draft else None
+
         def forward(tokens, start, valid, fresh):
             self.model.reset_recurrent_rows(caches, fresh != 0)
             logits, _ = self.model.prefill_with_cache(
                 self.dparams, tokens, caches=caches, start=start,
                 seq_lens=valid)
+            if dcaches is not None:
+                self.draft_model.prefill_with_cache(
+                    self.draft_dparams, tokens, caches=dcaches, start=start,
+                    seq_lens=valid)
             return logits
 
         b = key[0]
-        return self._graphs.get("unified", (key, width), lambda: (
+        state = graphs_lib.cache_tensors(caches) + (
+            graphs_lib.cache_tensors(dcaches) if dcaches else [])
+        gkey = (key, width) + ((draft[0],) if draft else ())
+        return self._graphs.get("unified", gkey, lambda: (
             forward, {"tokens": (b, width), "start": (b,), "valid": (b,),
-                      "fresh": (b,)}, graphs_lib.cache_tensors(caches)))
+                      "fresh": (b,)}, state))
+
+    def spec_forward(self, caches: list, dcaches: list
+                     ) -> Callable[..., torch.Tensor]:
+        """One pooled speculative iteration (the JAX engine's
+        ``_build_spec_step``) on these trunk and draft caches, as a
+        function of tokens (B, 1) pending, start (B,) the trunk's lengths,
+        active (B,) 0/1 and, for the stochastic samplers, ``rand`` (B,
+        2k+2) integers below 2**23 (the uniforms: k+1 draft draws, k
+        acceptances, one residual draw).  It updates both caches in place
+        and returns (B, k+2) int64: each row's k+1 output tokens, then its
+        accepted count.
+
+          1. the draft proposes from the pending token (k+1 decode steps;
+             the last ingests d_k, so its rings cover every outcome)
+          2. the trunk scores all k+1 positions in one verify forward
+             that writes nothing
+          3. acceptance: greedy argmax matching, or rejection sampling
+          4. exactly the accepted prefix (nothing for inactive rows)
+             commits to the trunk, and the draft rolls back: every ring
+             slot whose last writer was a rejected position takes its
+             content from before step 1, and the length follows.
+
+        The draft's caches update in place, so step 1 overwrites what
+        the rollback needs: their rings and lengths are copied first.
+        The slots restored are those the draft steps wrote, counted from
+        each row's own length (the JAX engine counts from ``start``,
+        which is the same for active rows; on an inactive row it leaves
+        the steps' writes in slots no later read reaches)."""
+        k = self.cfg.spec_decode
+        smp = self.cfg.sampler
+        stochastic = smp != "greedy"
+        temp, top = self.cfg.temperature, self.cfg.top_k
+        draft, ddparams = self.draft_model, self.draft_dparams
+
+        def forward(tokens, start, active, rand=None):
+            u = sampler_lib.uniforms(rand) if stochastic else None
+            saved = [(c["attn"].k_bits.clone(), c["attn"].vt_bits.clone(),
+                      c["attn"].length.clone()) for c in dcaches]
+            tok, drafts, qs = tokens, [], []
+            for i in range(k + 1):
+                lg, _ = draft.decode_step(ddparams, tok, dcaches)
+                if stochastic:
+                    q = sampler_lib.sampling_probs(lg[:, -1], smp, temp, top)
+                    nxt = sampler_lib.categorical(q, u[:, i])
+                    qs.append(q)
+                else:
+                    nxt = torch.argmax(lg[:, -1], dim=-1)
+                drafts.append(nxt)
+                tok = nxt[:, None]
+            drafts_bk = torch.stack(drafts[:k], dim=1)         # (B, k)
+            logits, projs = self.model.verify_with_cache(
+                self.dparams, torch.cat([tokens, drafts_bk], dim=1), caches,
+                start=start)
+            out, n_acc = sampler_lib.speculative_accept(
+                drafts_bk, torch.stack(qs[:k], dim=1) if stochastic else None,
+                logits, sampler=smp, temp=temp, k=top,
+                u=u[:, k + 1:] if stochastic else None)
+            n_commit = torch.where(active != 0, n_acc.to(torch.int64) + 1, 0)
+            self.model.commit_chunks(caches, projs, start, n_commit)
+            for c, (k0, vt0, len0) in zip(dcaches, saved):
+                _rollback_draft(c["attn"], k0, vt0, len0, n_commit, k + 1)
+            return torch.cat([out.to(torch.int64),
+                              n_acc.to(torch.int64)[:, None]], dim=1)
+
+        return forward
+
+    def _spec_graph(self, key: tuple, caches: list,
+                    draft: Tuple[tuple, list]) -> graphs_lib.StepGraph:
+        """The speculative iteration of ``spec_forward`` as one graph,
+        captured once per pool shape and k."""
+        b, k = key[0], self.cfg.spec_decode
+        shapes = {"tokens": (b, 1), "start": (b,), "active": (b,)}
+        if self.cfg.sampler != "greedy":
+            shapes["rand"] = (b, 2 * k + 2)
+        return self._graphs.get("spec", (key, draft[0], k), lambda: (
+            self.spec_forward(caches, draft[1]), shapes,
+            graphs_lib.cache_tensors(caches) +
+            graphs_lib.cache_tensors(draft[1])))
 
     # -- public API ---------------------------------------------------------
 
@@ -424,6 +617,25 @@ class ServeEngine:
 
     # -- continuous batching ------------------------------------------------
 
+    @property
+    def _ragged_ok(self) -> bool:
+        """Speculative decode needs an attention-only stack: the verify
+        scores candidates without writing state, which recurrent carries
+        cannot do."""
+        return _attention_only(self.model)
+
+    def _resolve_draft(self) -> None:
+        """The draft: the explicit independent one if given, else the
+        first ``spec_draft_layers`` blocks of the trunk on its weights."""
+        if self.draft_model is not None:
+            if not _attention_only(self.draft_model):
+                raise ValueError("speculative draft must be an attention-"
+                                 "only decoder stack")
+            return
+        n = min(self.cfg.spec_draft_layers, self.model.cfg.num_layers)
+        self.draft_model, self.draft_dparams = self.model.truncate_deploy(
+            self.dparams, n)
+
     def _layer_rings(self, spec: PageSpec) -> List[Optional[int]]:
         """Per-layer logical ring length of the paged attention caches
         (every ported block is full attention)."""
@@ -485,10 +697,7 @@ class ServeEngine:
         admission, paged growth (preempting when the arena runs dry) and
         the copy-on-write sweep, then ONE pooled forward, the unified
         chunk+decode forward while any prefill is in flight and the pooled
-        decode step otherwise."""
-        if self.cfg.spec_decode:
-            raise NotImplementedError(
-                "speculative decode (SpecConfig.k) is not ported yet")
+        decode (or speculative draft-verify-commit) step otherwise."""
         spec = self.cfg.page_spec() if self.cfg.paged else None
         for r in requests:
             if len(r.tokens) == 0:
@@ -525,6 +734,12 @@ class ServeEngine:
                     "first": None, "last": None}
             for r in requests}
         preempt_counts: Dict[str, int] = {}
+        # speculative decode needs an attention-only stack
+        spec_k = self.cfg.spec_decode if (self.cfg.spec_decode and
+                                          self._ragged_ok) else None
+        # positions a decode row may write per pure-decode iteration: the
+        # pending token, plus the k drafted ones when speculating
+        span = (spec_k + 1) if spec_k else 1
         arenas: Dict[int, kvcache.PageArena] = {}
         rings: List[Optional[int]] = []
         if spec:
@@ -538,7 +753,13 @@ class ServeEngine:
         # the pool's caches, kept by the engine for its captured steps and
         # cleared as the JAX engine's fresh init_caches
         key, caches = self._pool_caches(pool.num_slots, spec)
-        for t in graphs_lib.cache_tensors(caches):
+        draft = None         # (key, caches) of the draft's ring pool
+        if spec_k:
+            self._resolve_draft()
+            draft = self._draft_caches(
+                pool.num_slots, spec.capacity if spec else self.cfg.max_len)
+        for t in graphs_lib.cache_tensors(caches) + (
+                graphs_lib.cache_tensors(draft[1]) if draft else []):
             t.zero_()
         token_buf = np.zeros((pool.num_slots, 1), np.int32)
         states: Dict[int, _SlotState] = {}
@@ -552,6 +773,10 @@ class ServeEngine:
         admit_seq = 0
         iterations = 0
         dispatches = 0       # pooled forwards run: one per iteration
+        spec_steps = 0
+        spec_slot_steps = 0  # (active slot, verify step) pairs
+        spec_drafted = 0
+        spec_accepted = 0
         peak_pages = 0       # simultaneous peak across all arenas
 
         def release_slot(slot: int) -> _SlotState:
@@ -681,13 +906,18 @@ class ServeEngine:
                         time.sleep(min(gap, 0.005))
                 continue
             # -- paged growth and the copy-on-write sweep; preempt on
-            # exhaustion.  The width is planned once and shared with the
-            # forward below, so growth covers exactly what it writes.
+            # exhaustion.  Prefill rows grow to their chunk's end (+ the
+            # first decode write when it lands the prompt), decode rows by
+            # the write span (1; k+1 on a speculative iteration), and every
+            # shared page a decode write would diverge is copied first.
+            # The width is planned once and shared with the forward below,
+            # so growth covers exactly what it writes.
             width_now = plan_width() if inflight else 0
             if arenas:
                 copies: Dict[int, List[Tuple[int, int]]] = {}
                 while states or inflight:
                     ok = True
+                    dspan = span if (spec_k and not inflight) else 1
                     for slot in sorted(set(states) | set(inflight)):
                         if slot in inflight:
                             ist = inflight[slot]
@@ -695,7 +925,7 @@ class ServeEngine:
                             final = ist.done + n == len(ist.toks)
                             target = ist.done + n + (1 if final else 0)
                         else:
-                            target = states[slot].cache_len + 1
+                            target = states[slot].cache_len + dspan
                         if not all(a.grow(slot, target)
                                    for a in arenas.values()):
                             ok = False
@@ -703,18 +933,23 @@ class ServeEngine:
                     if ok:
                         for ring, a in arenas.items():
                             for slot in sorted(states):
-                                lp, page = a.write_page(
-                                    slot, states[slot].cache_len)
-                                if page == 0:
-                                    continue
-                                if a.refcount(page) > 1:
-                                    if not a.can_cow():
-                                        ok = False
-                                        break
-                                    copies.setdefault(ring, []).append(
-                                        a.cow(slot, lp))
-                                elif a.page_key(page) is not None:
-                                    a.invalidate_key(page)
+                                base = states[slot].cache_len
+                                done_lp = set()
+                                for pos in range(base, base + dspan):
+                                    lp, page = a.write_page(slot, pos)
+                                    if page == 0 or lp in done_lp:
+                                        continue
+                                    done_lp.add(lp)
+                                    if a.refcount(page) > 1:
+                                        if not a.can_cow():
+                                            ok = False
+                                            break
+                                        copies.setdefault(ring, []).append(
+                                            a.cow(slot, lp))
+                                    elif a.page_key(page) is not None:
+                                        a.invalidate_key(page)
+                                if not ok:
+                                    break
                             if not ok:
                                 break
                     if ok:
@@ -749,7 +984,7 @@ class ServeEngine:
                     toks_buf[slot, 0] = token_buf[slot, 0]
                     start_buf[slot] = states[slot].cache_len
                     valid_buf[slot] = 1
-                logits = self._unified_graph(key, caches, width)(
+                logits = self._unified_graph(key, caches, width, draft)(
                     tokens=toks_buf, start=start_buf, valid=valid_buf,
                     fresh=fresh_buf)
                 nxt_np = self._sample(logits, gen).cpu().numpy()
@@ -780,6 +1015,46 @@ class ServeEngine:
                     token_buf[slot, 0] = tok
                     if emit(sst, tok):
                         retire(slot)
+            elif spec_k:
+                # pure-decode speculative iteration: draft k, verify k+1,
+                # commit the accepted prefix, roll the draft back
+                start_buf = np.zeros((pool.num_slots,), np.int64)
+                active_buf = np.zeros((pool.num_slots,), np.int64)
+                for slot in states:
+                    start_buf[slot] = states[slot].cache_len
+                    active_buf[slot] = 1
+                inputs = dict(tokens=token_buf, start=start_buf,
+                              active=active_buf)
+                if self.cfg.sampler != "greedy":
+                    inputs["rand"] = torch.randint(
+                        0, 2 ** sampler_lib.UNIFORM_BITS,
+                        (pool.num_slots, 2 * spec_k + 2), generator=gen,
+                        device=self.device)
+                res = self._spec_graph(key, caches, draft)(
+                    **inputs).cpu().numpy()
+                out_np, n_np = res[:, :spec_k + 1], res[:, spec_k + 1]
+                iterations += 1
+                dispatches += 1
+                pool.tick(busy=len(states))
+                token_buf = out_np[np.arange(pool.num_slots), n_np][:, None]
+                spec_steps += 1
+                spec_slot_steps += len(states)
+                for slot in sorted(states):
+                    st = states[slot]
+                    n = int(n_np[slot])
+                    spec_drafted += spec_k
+                    spec_accepted += n
+                    st.cache_len += n + 1
+                    for i in range(n + 1):
+                        if emit(st, int(out_np[slot, i])):
+                            retire(slot)
+                            break
+                # the arena's rollback: pages grown for the candidate span
+                # un-grow to the committed length (counted as rollback
+                # frees, never as retirements)
+                for slot in sorted(states):
+                    for a in arenas.values():
+                        a.truncate(slot, states[slot].cache_len)
             else:
                 # pure-decode iteration: the pooled decode step
                 logits = self._decode_graph(key, caches)(tokens=token_buf)
@@ -803,12 +1078,14 @@ class ServeEngine:
             busy_slot_steps=pool.busy_slot_steps,
             decode_steps=pool.decode_steps,
             arenas=list(arenas.values()) if arenas else None,
+            spec_drafted=spec_drafted if spec_k else None,
+            spec_accepted=spec_accepted, spec_slot_steps=spec_slot_steps,
             iterations=iterations, dispatches=dispatches,
             compiles=dict(self._graphs.captures))
         report.prefill_batches = float(prefill_batches)
         report.prefill_chunks = float(prefill_chunks)
         report.requests = float(len(requests))
-        report.spec_steps = 0.0
+        report.spec_steps = float(spec_steps)
         report.preemptions = float(preemptions)
         if spec:
             # the per-step simultaneous peak the loop observed

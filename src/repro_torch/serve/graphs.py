@@ -31,6 +31,7 @@ the JAX engine counts its traces.
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -129,8 +130,16 @@ class StepGraph:
         del saved
         graph = torch.cuda.CUDAGraph()
         before = kernels.launch_counts()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = self.forward(**self.inputs)
+        # a graph that the collector frees while this one is captured
+        # destroys itself on the device, which invalidates the capture:
+        # collect first, and not during the capture
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = self.forward(**self.inputs)
+        finally:
+            gc.enable()
         self.launches = _delta(before, kernels.launch_counts())
         # the capture recorded the launches and executed none of them
         kernels.credit_launches({n: -c for n, c in self.launches.items()})

@@ -67,7 +67,6 @@ class EngineReport:
     ``unified_compiles`` and ``engine_compiles`` count the engine's CUDA
     graph captures (``serve/graphs.py``) where the JAX package counts the
     XLA traces of its jitted steps: one per step kind and shape on both.
-    The spec group stays ``None``: speculative decode is not ported yet.
     """
     # memory (always set)
     total_bytes: float = 0.0
@@ -162,11 +161,15 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
                  active: Optional[Sequence[bool]] = None,
                  busy_slot_steps: int = 0, decode_steps: int = 0,
                  arenas: Optional[Sequence["PageArena"]] = None,
+                 spec_drafted: Optional[int] = None,
+                 spec_accepted: int = 0, spec_slot_steps: int = 0,
                  iterations: Optional[int] = None,
                  dispatches: int = 0,
                  compiles: Optional[Dict[str, int]] = None) -> EngineReport:
     """Memory report, plus the slot group with ``slot_lengths``, the page
-    group with ``arenas`` and the engine group with ``iterations`` (the
+    group with ``arenas``, the spec group with ``spec_drafted`` (drafted
+    tokens; ``spec_slot_steps`` counts (active slot, verify step) pairs)
+    and the engine group with ``iterations`` (the
     semantics of every field are those of the JAX package's
     ``cache_report``; ``seq_len * batch`` is the nominal capacity behind
     ``bytes_per_token``).  ``compiles`` is the engine's captures by step
@@ -219,6 +222,12 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
                                               for a in arenas))
         report.pages_freed_rollback = float(sum(a.rollback_frees
                                                 for a in arenas))
+    if spec_drafted is not None:
+        report.spec_drafted = float(spec_drafted)
+        report.spec_accepted = float(spec_accepted)
+        report.spec_accept_rate = spec_accepted / max(spec_drafted, 1)
+        report.spec_tokens_per_step = (
+            (spec_accepted + spec_slot_steps) / max(spec_slot_steps, 1))
     if iterations is not None:
         report.iterations = float(iterations)
         report.dispatches_per_iteration = dispatches / max(iterations, 1)

@@ -205,8 +205,11 @@ def test_configs_and_report_schema_match_jax():
                 dict(max_blocks=4, num_pages=2)):
         with pytest.raises(ValueError):
             tattention.PageSpec(**bad)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tengine.ServeConfig(max_len=64)
+    with pytest.warns(DeprecationWarning, match="flat ServeConfig"):
+        t = tengine.ServeConfig(max_len=64)
+    with pytest.warns(DeprecationWarning, match="flat ServeConfig"):
+        j = jengine.ServeConfig(max_len=64)
+    assert repr(t) == repr(j) and t.max_len == 64
 
 
 # -- the engine against the JAX engine ----------------------------------------
