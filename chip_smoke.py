@@ -18,7 +18,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 tile edges in both masks, G = 16 and d_h = 256;
                 ``paged_gather_decode`` with more pages than warps, G = 16,
                 d_h = 256 and pages of 256; every call of the speculative
-                iteration at its exact shape; integer and float32 outputs
+                iteration at its exact shape; ``sps_attention`` with
+                per-sequence key lengths (``lens``: 1, L, tile edges +-1,
+                0); every call of granite-3-2b's and qwen1.5-32b's serve
+                paths at full width (``kernel_times.ARCH_CALLS``: decode
+                projections up to Kp = 856 words, prefill projections up
+                to K = 27,392, d_h = 128 with G = 1); integer and float32
+                outputs
                 must be bitwise equal; CUDA-event timings of kernel, plain
                 version and (where one exists) the one PyTorch call
                 computing the same function; then
@@ -87,6 +93,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 float32 card vs CPU at B=2, S=64 with equal argmax and
                 logits within a stated tolerance
 
+  8. granite   full-width, full-depth granite-3-2b (40 layers, bf16,
+                random weights from a seed): phase 4's static serving
+                (``[granite]`` lines, graph == eager), the ragged
+                whole-prompt prefill (8 rows of 1 to 128 tokens: each
+                row's rings bitwise equal to its own unpadded prefill,
+                logits within a stated tolerance), then phase 5's
+                continuous paged serving (``[granite continuous]``: a
+                preemption, a prefix hit, 40 ``paged_gather_decode`` per
+                pure-decode iteration, graphs == eager)
+  9. qwen       qwen1.5-32b at full width and 8 of its 64 layers (the
+                full depth's float32 masters exceed one card): static
+                and continuous serving as in phase 8 (``[qwen]``,
+                ``[qwen continuous]``): d_h = 128, G = 1, the QKV bias and
+                the untied 152,064-wide head through every kernel
+  10. crosscheck
+                a narrow qwen-shaped config (2 layers, d = 256, 2 heads of
+                d_h = 128, G = 1, the QKV bias drawn off zero) in float32
+                on the card and on the CPU: equal greedy tokens, logits
+                within a stated tolerance
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -106,9 +132,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, decode_calls, device_ms,
-    eager_ms, nbytes, paged_bound, spec_launches, spec_operands, sps_bound,
-    time_all)
+    ARCH_CALLS, BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, call_operands,
+    decode_calls, device_ms, eager_ms, nbytes, paged_bound, spec_launches,
+    spec_operands, sps_bound, time_all)
 
 SEED = 0
 
@@ -664,6 +690,21 @@ def check_sps_attention(rng):
             _same("sps_attention", f"{case} causal={causal}",
                   ops.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal),
                   ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal))
+    # per-sequence key lengths (ragged prefill): 1, L, the 64-row query
+    # and 128-key tile edges +-1, 0
+    for case, (h, hkv, length, dh) in {
+            "L=200 d_h=64 GQA 3:1": (6, 2, 200, 64),
+            "L=130 d_h=128 MHA": (4, 4, 130, 128)}.items():
+        lens = torch.tensor([1, length, 63, 64, 65, 127, 129, 0],
+                            dtype=torch.int32, device="cuda")
+        q, k, vt, th = gqa(len(lens), h, hkv, length, dh)
+        for causal in (True, False):
+            _same("sps_attention", f"{case} lens {lens.tolist()} "
+                  f"causal={causal}",
+                  ops.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal,
+                                        lens=lens),
+                  ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal,
+                                        lens=lens))
     # the encode path's shape: bert-base, bidirectional, B=8, L=512
     q, k, vt, th = gqa(8, 12, 12, 512, 64)
     _same("sps_attention", "encode B=8 L=512 H=12/12 d_h=64 causal=False",
@@ -732,6 +773,22 @@ def check_spec_calls() -> None:
         f"{json.dumps(by_kernel)} equal their plain versions bitwise")
 
 
+def check_arch_calls() -> None:
+    """Every call of granite-3-2b's and qwen1.5-32b's serve paths at full
+    width (``kernel_times.ARCH_CALLS``: the decode projections at M = 8
+    and 16 up to Kp = 856 words, the ring score and context, the prefill
+    projections up to K = 27,392, the packs, the prefill attention at
+    d_h = 64 and 128 with and without ``lens``, the paged decode at G = 4
+    and G = 1), kernel against plain version, bitwise."""
+    calls = call_operands(ARCH_CALLS, SEED)
+    by_kernel = {}
+    for name, (kernel, call, plain, _, _) in calls.items():
+        _same(kernel, name, call(), plain())
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    log(f"[kernels] granite-3-2b's and qwen1.5-32b's {len(calls)} calls "
+        f"{json.dumps(by_kernel)} equal their plain versions bitwise")
+
+
 def phase_kernels():
     """Each kernel against its plain version; its row of the kernels line
     (``ms``, ``plain_ms`` and ``library_ms`` are device times from the
@@ -762,11 +819,15 @@ def phase_kernels():
             f"{row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}, "
             f"library {row['library_eager_ms']}")
     check_spec_calls()
+    check_arch_calls()
     for t in time_all(SEED):
+        per_layer = (f"; {t['layer_launches']} launches per layer of its "
+                     f"step" if "layer_launches" in t else "")
         log(f"[kernels] {t['shape']}: device ms kernel {t['ms']:.5f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
             f"({t['bound_by']}); per call with host work: kernel "
-            f"{t['eager_ms']:.4f}, library {t['library_eager_ms']}")
+            f"{t['eager_ms']:.4f}, library {t['library_eager_ms']}"
+            f"{per_layer}")
     return rows
 
 
@@ -775,26 +836,44 @@ def phase_kernels():
 SERVE_B, SERVE_S, SERVE_NEW = 8, 128, 32
 
 
-def phase_serve():
-    """Full-width smollm-135m through ``ServeEngine.generate``; returns
-    (launch counts of the run, the params on the card)."""
+def load_model(arch: str, tag: str, num_layers: int = 0):
+    """``arch``'s full-width model (its first ``num_layers`` layers when
+    given), random weights from ``SEED`` made on the card, converted;
+    the float32 masters are freed.  Returns (model, deploy params)."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
-    from repro_torch.serve.engine import (CacheConfig, ServeConfig,
-                                          ServeEngine)
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
+    if num_layers:
+        cfg = cfg.truncated(num_layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     with torch.inference_mode():
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         dparams = model.convert(model.init(gen))
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff={cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.compute_dtype}; init+convert "
-        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers"
+        f"{f' (of {get_config(arch).num_layers})' if num_layers else ''}, "
+        f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"d_h={cfg.resolved_head_dim}, d_ff={cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, qkv bias {cfg.attn_bias}, tied head "
+        f"{cfg.tie_embeddings}, {cfg.compute_dtype}; "
+        f"{cfg.param_count() / 1e9:.3f} B parameters; init+convert "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return model, dparams
+
+
+def serve_static(model, dparams, tag: str) -> dict:
+    """B = 8 prompts of 128 tokens and 32 greedy tokens each through
+    ``ServeEngine.generate``, the decode step a replayed graph; returns
+    the launch counts of the run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve.engine import (CacheConfig, ServeConfig,
+                                          ServeEngine)
+    cfg = model.cfg
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
     eng = ServeEngine(model, dparams, ServeConfig(
@@ -802,7 +881,7 @@ def phase_serve():
     t0 = time.perf_counter()
     eng.generate(prompts, max_new_tokens=2)     # warm-up: captures the step
     torch.cuda.synchronize()
-    log_captures("[serve]", eng, time.perf_counter() - t0)
+    log_captures(tag, eng, time.perf_counter() - t0)
     captures = dict(eng._graphs.captures)
     torch.cuda.reset_peak_memory_stats()
 
@@ -821,26 +900,26 @@ def phase_serve():
     launches = kernels.launch_counts()
     if toks.shape != (SERVE_B, SERVE_NEW) or toks.min() < 0 or \
             toks.max() >= cfg.vocab_size:
-        raise AssertionError(f"serve: bad tokens {toks.shape} "
+        raise AssertionError(f"{tag} bad tokens {toks.shape} "
                              f"[{toks.min()}, {toks.max()}]")
     idle = [n for n in STATIC_PATH if launches[n] == 0]
     if idle:
-        raise AssertionError(f"serve: kernels {idle} never launched on the "
+        raise AssertionError(f"{tag} kernels {idle} never launched on the "
                              f"static path: {launches}")
     if eng._graphs.captures != captures or captures["decode"] != 1:
-        raise AssertionError(f"serve: captures {eng._graphs.captures} "
+        raise AssertionError(f"{tag} captures {eng._graphs.captures} "
                              f"after the warm-up's {captures}")
     (t_pre, c_pre), (t_end, c_end) = marks[0], marks[-1]
     steps = SERVE_NEW - 1
     per_step = {n: (c_end[n] - c_pre[n]) / steps for n in launches}
-    eager_step = check_static_graph(model, dparams, prompts)
+    eager_step = check_static_graph(model, dparams, prompts, tag)
     if per_step != {n: float(c) for n, c in eager_step.items()}:
-        raise AssertionError(f"serve: launches per replayed decode step "
+        raise AssertionError(f"{tag} launches per replayed decode step "
                              f"{per_step}, per eager step {eager_step}")
-    log(f"[serve] launches per prefill {json.dumps(c_pre)}")
-    log(f"[serve] launches per decode step (credited by the replays, equal "
+    log(f"{tag} launches per prefill {json.dumps(c_pre)}")
+    log(f"{tag} launches per decode step (credited by the replays, equal "
         f"to the eager step's) {json.dumps(per_step)}")
-    log(f"[serve] B={SERVE_B} prompts of {SERVE_S} tokens, {SERVE_NEW} "
+    log(f"{tag} B={SERVE_B} prompts of {SERVE_S} tokens, {SERVE_NEW} "
         f"greedy tokens: prefill {1e3 * (t_pre - t0):.1f} ms, decode "
         f"{1e3 * (t_end - t_pre) / steps:.2f} ms/step (graph replays), "
         f"total {total:.3f} s,"
@@ -849,24 +928,24 @@ def phase_serve():
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; KV cache "
         f"{report['total_bytes'] / 2**20:.2f} MiB "
         f"({report['compression_vs_bf16']:.1f}x below bf16)")
-    log(f"[serve] sample tokens {toks[0, :8].tolist()}; all {toks.size} "
+    log(f"{tag} sample tokens {toks[0, :8].tolist()}; all {toks.size} "
         f"tokens' digest {digest(toks.tolist())}")
     step_ms = 1e3 * (t_end - t_pre) / steps
     walls = [1e3 * (t1 - t0) for (t0, _), (t1, _) in zip(marks, marks[1:])]
     replays = [r for k, _, _, r in probe.stamps if k == "decode"]
     host = [w - r for w, r in zip(walls, replays)]
-    log(f"[serve] decode replay to its end (median) "
+    log(f"{tag} decode replay to its end (median) "
         f"{np.median(replays):.2f} ms; the host's own work per step outside "
         f"the replay (median, mean) {np.median(host):.2f}, "
         f"{np.mean(host):.2f} ms")
-    profile_decode(eng, step_ms)
-    return launches, model, dparams
+    profile_decode(eng, step_ms, tag)
+    return launches
 
 
 GRAPH_CHECK_STEPS = 8
 
 
-def check_static_graph(model, dparams, prompts) -> dict:
+def check_static_graph(model, dparams, prompts, tag: str) -> dict:
     """The decode step captured as a graph against a test-local eager loop
     of ``decode_step`` from the same prefilled state: equal tokens and
     bitwise-equal logits at every step (the first call captures), the
@@ -903,24 +982,24 @@ def check_static_graph(model, dparams, prompts) -> dict:
                 ms["graph"].append(1e3 * (t2 - t1))
                 if kernels.launch_counts() != counted:
                     raise AssertionError(
-                        f"graph check: a replay credited "
+                        f"{tag} graph check: a replay credited "
                         f"{kernels.launch_counts()}, the eager step "
                         f"counted {counted}")
             if not (torch.equal(got, want) and torch.equal(tok_e, tok_g)):
                 raise AssertionError(
-                    f"graph check: decode step {step} replayed differs from"
-                    f" eager, max |logit diff| "
+                    f"{tag} graph check: decode step {step} replayed "
+                    f"differs from eager, max |logit diff| "
                     f"{(got - want).abs().max().item()}")
             tok = tok_e
     out = {k: float(np.median(v)) for k, v in ms.items()}
-    log(f"[serve] graph == eager: {GRAPH_CHECK_STEPS} decode steps from the "
+    log(f"{tag} graph == eager: {GRAPH_CHECK_STEPS} decode steps from the "
         f"same prefill, equal tokens, logits bitwise equal; median ms per "
         f"step (tokens on the host), in turns: eager {out['eager']:.2f}, "
         f"graph replay {out['graph']:.2f}")
     return counted
 
 
-def profile_decode(eng, step_ms: float) -> None:
+def profile_decode(eng, step_ms: float, tag: str) -> None:
     """Where a decode step's time goes: device busy time of a replay of the
     engine's decode graph (sum of kernel times under torch.profiler)
     against the step's wall time from the serve run; the rest is the card
@@ -935,23 +1014,23 @@ def profile_decode(eng, step_ms: float) -> None:
         g(tokens=tok)
     torch.cuda.synchronize()
     if torch.cuda.memory_allocated() != before:
-        raise AssertionError(f"serve: 100 replays moved memory_allocated "
+        raise AssertionError(f"{tag} 100 replays moved memory_allocated "
                              f"from {before} to "
                              f"{torch.cuda.memory_allocated()}")
-    log(f"[serve] 100 decode replays allocated nothing "
+    log(f"{tag} 100 decode replays allocated nothing "
         f"(memory_allocated {before} bytes before and after)")
     with torch.inference_mode():
         busy, launches, by_name, host_ops = device_profile(
             lambda: g(tokens=tok), iters=3, host=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[serve] decode replay profile: device busy {busy:.3f} ms of "
+    log(f"{tag} decode replay profile: device busy {busy:.3f} ms of "
         f"{step_ms:.2f} ms wall (idle share {1 - busy / step_ms:.3f}), "
         f"{launches:.0f} CUDA kernels per replay")
     for name, ms in top:
-        log(f"[serve]   {ms:.4f} ms/step  {name[:90]}")
-    log(f"[serve] device ms per decode step of our kernels "
+        log(f"{tag}   {ms:.4f} ms/step  {name[:90]}")
+    log(f"{tag} device ms per decode step of our kernels "
         f"{json.dumps(our_kernels_ms(by_name))}")
-    log_host_ops("[serve]", host_ops)
+    log_host_ops(tag, host_ops)
 
 
 def log_captures(tag: str, eng, first_s: float) -> None:
@@ -1073,7 +1152,7 @@ def continuous_config(spec_k=None):
         spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
 
 
-def phase_continuous(model, dparams):
+def phase_continuous(model, dparams, tag: str = "[continuous]"):
     """Full-width smollm-135m through ``ServeEngine.serve`` on the paged
     pool; returns the launch counts of the run and its tokens by rid."""
     import torch
@@ -1085,7 +1164,7 @@ def phase_continuous(model, dparams):
     t0 = time.perf_counter()
     first, _ = eng.serve(continuous_requests(model.cfg))  # captures the steps
     torch.cuda.synchronize()
-    log_captures("[continuous]", eng, time.perf_counter() - t0)
+    log_captures(tag, eng, time.perf_counter() - t0)
     captures = dict(eng._graphs.captures)
     probe = IterationProbe(eng, profile_after={"decode": 8, "mixed": 2})
     torch.cuda.reset_peak_memory_stats()
@@ -1097,24 +1176,24 @@ def phase_continuous(model, dparams):
     its = probe.iterations(t0 + total, launches)
     if eng._graphs.captures != captures or \
             captures != {"unified": 1, "decode": 1, "spec": 0}:
-        raise AssertionError(f"continuous: captures {eng._graphs.captures} "
+        raise AssertionError(f"{tag} captures {eng._graphs.captures} "
                              f"after the first serve's {captures}")
     changed = [rid for rid in res if not np.array_equal(res[rid],
                                                         first[rid])]
     if changed:
-        raise AssertionError(f"continuous: the second serve's tokens differ "
+        raise AssertionError(f"{tag} the second serve's tokens differ "
                              f"from the first's for rids {changed}")
     short = [r.rid for r in reqs if len(res[r.rid]) != r.max_new_tokens]
     if short:
-        raise AssertionError(f"continuous: requests {short} did not get "
+        raise AssertionError(f"{tag} requests {short} did not get "
                              f"their budget (no EOS is set)")
     if rep.preemptions < 1 or rep.prefix_hits < 1:
-        raise AssertionError(f"continuous: expected a preemption and a "
+        raise AssertionError(f"{tag} expected a preemption and a "
                              f"prefix hit, got {rep.preemptions} and "
                              f"{rep.prefix_hits}")
     idle = [n for n in PAGED_PATH if launches[n] == 0]
     if idle:
-        raise AssertionError(f"continuous: kernels {idle} never launched "
+        raise AssertionError(f"{tag} kernels {idle} never launched "
                              f"on the paged path: {launches}")
     dec = [(ms, c) for k, ms, c, _ in its if k == "decode"]
     mix = [(ms, c) for k, ms, c, _ in its if k == "mixed"]
@@ -1124,16 +1203,16 @@ def phase_continuous(model, dparams):
               for kind in ("decode", "mixed")}
     per_layer = {c["paged_gather_decode"] for _, c in dec}
     if per_layer != {model.cfg.num_layers}:
-        raise AssertionError(f"continuous: paged_gather_decode launches "
+        raise AssertionError(f"{tag} paged_gather_decode launches "
                              f"per pure-decode iteration {per_layer}, not "
                              f"{model.cfg.num_layers}")
     tokens = sum(len(t) for t in res.values())
     profiled_s = sum(ms for k, ms, _, _ in its if k == "profiled") / 1e3
     by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
-    log(f"[continuous] tokens by rid, digest {digest(by_rid)}")
+    log(f"{tag} tokens by rid, digest {digest(by_rid)}")
     ms = lambda rows: [m for m, _ in rows]
     prompt = sum(len(r.tokens) for r in reqs)
-    log(f"[continuous] {len(reqs)} requests ({prompt} prompt tokens, "
+    log(f"{tag} {len(reqs)} requests ({prompt} prompt tokens, "
         f"{tokens} generated), {CONT_SLOTS} slots, "
         f"{CONT_PAGES} pages of {CONT_PAGE} "
         f"({CONT_PAGES / (CONT_SLOTS * CONT_BLOCKS):.2f} of {CONT_SLOTS} x "
@@ -1141,13 +1220,13 @@ def phase_continuous(model, dparams):
         f"{tokens / total:.1f} tok/s; without the profiled iterations "
         f"{total - profiled_s:.3f} s, {tokens / (total - profiled_s):.1f} "
         f"tok/s")
-    log(f"[continuous] iterations (graph replays): {len(dec)} pure-decode, "
+    log(f"{tag} iterations (graph replays): {len(dec)} pure-decode, "
         f"median {np.median(ms(dec)):.2f} ms, mean {np.mean(ms(dec)):.2f} "
         f"ms; {len(mix)} mixed, median {np.median(ms(mix)):.2f} ms, mean "
         f"{np.mean(ms(mix)):.2f} ms; 1 of each profiled (not timed); "
         f"engine report: unified_compiles {rep.unified_compiles:.0f}, "
         f"engine_compiles {rep.engine_compiles:.0f}")
-    log(f"[continuous] replay to its end (median): pure-decode "
+    log(f"{tag} replay to its end (median): pure-decode "
         f"{np.median(replay['decode']):.2f} ms, mixed "
         f"{np.median(replay['mixed']):.2f} ms; the host's own work outside "
         f"the replay (median, mean): pure-decode "
@@ -1155,10 +1234,10 @@ def phase_continuous(model, dparams):
         f"mixed {np.median(host['mixed']):.2f}, "
         f"{np.mean(host['mixed']):.2f} ms")
     mix_mean = {n: float(np.mean([c[n] for _, c in mix])) for n in launches}
-    log(f"[continuous] launches per pure-decode iteration "
+    log(f"{tag} launches per pure-decode iteration "
         f"{json.dumps(dec[0][1])}; per mixed iteration (mean) "
         f"{json.dumps(mix_mean)}")
-    log(f"[continuous] preemptions {rep.preemptions:.0f}, peak page "
+    log(f"{tag} preemptions {rep.preemptions:.0f}, peak page "
         f"utilization {rep.peak_page_utilization:.3f}, prefix hit rate "
         f"{rep.prefix_hit_rate:.3f} ({rep.prefix_hits:.0f} of "
         f"{rep.prefix_lookups:.0f}), COW copies {rep.cow_copies:.0f}, "
@@ -1168,25 +1247,27 @@ def phase_continuous(model, dparams):
         f"{rep.peak_page_bytes / 2**20:.2f} MiB")
     busy, n_kernels, by_name, _ = probe.profile["mixed"]
     mix_ms = float(np.median(ms(mix)))
-    log(f"[continuous] mixed replay profile: device busy {busy:.3f} ms of "
+    log(f"{tag} mixed replay profile: device busy {busy:.3f} ms of "
         f"{mix_ms:.2f} ms wall (idle share {1 - busy / mix_ms:.3f}), "
         f"{n_kernels:.0f} CUDA kernels; our kernels' device ms "
         f"{json.dumps(our_kernels_ms(by_name))}")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"{tag}   {t:.4f} ms  {name[:90]}")
     busy, n_kernels, by_name, host_ops = probe.profile["decode"]
     step_ms = float(np.median(ms(dec)))
-    log(f"[continuous] pure-decode replay profile: device busy "
+    log(f"{tag} pure-decode replay profile: device busy "
         f"{busy:.3f} ms of {step_ms:.2f} ms wall (idle share "
         f"{1 - busy / step_ms:.3f}), {n_kernels:.0f} CUDA kernels")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"[continuous]   {t:.4f} ms  {name[:90]}")
-    log(f"[continuous] device ms per pure-decode iteration of our kernels "
+        log(f"{tag}   {t:.4f} ms  {name[:90]}")
+    log(f"{tag} device ms per pure-decode iteration of our kernels "
         f"{json.dumps(our_kernels_ms(by_name))}")
-    log_host_ops("[continuous]", host_ops)
-    check_paged_graph(model, dparams)
+    log_host_ops(tag, host_ops)
+    check_paged_graph(model, dparams, tag)
     return launches, res
 
 
-def check_paged_graph(model, dparams) -> None:
+def check_paged_graph(model, dparams, tag: str) -> None:
     """The unified and pooled decode steps captured as graphs against eager
     steps from the same paged state, at the continuous phase's shapes (16
     slots, chunks of 128, 12 blocks of 32, 48 pages; 12 live rows with 4
@@ -1245,18 +1326,18 @@ def check_paged_graph(model, dparams) -> None:
                 got = dec(tokens=tok.numpy())
             if not torch.equal(got[:live], want[:live]):
                 raise AssertionError(
-                    f"graph check: paged {kind} step {i} replayed differs "
-                    f"from eager, max |logit diff| "
+                    f"{tag} graph check: paged {kind} step {i} replayed "
+                    f"differs from eager, max |logit diff| "
                     f"{(got[:live] - want[:live]).abs().max().item()}")
             for e, c in zip(eager, caches):
                 e, c = e["attn"], c["attn"]
                 if not (torch.equal(e.k_pages[1:], c.k_pages[1:]) and
                         torch.equal(e.vt_pages[1:], c.vt_pages[1:]) and
                         torch.equal(e.length, c.length)):
-                    raise AssertionError(f"graph check: paged {kind} step "
-                                         f"{i}: pages or lengths differ")
+                    raise AssertionError(f"{tag} graph check: paged {kind} "
+                                         f"step {i}: pages or lengths differ")
             tok = want[:, -1:].argmax(-1).cpu()
-    log(f"[continuous] graph == eager: a unified chunk of {CONT_CHUNK} "
+    log(f"{tag} graph == eager: a unified chunk of {CONT_CHUNK} "
         f"(valid {valid[:live].min()}..{valid[:live].max()}, "
         f"{b - live} inactive rows) and 6 pooled decode steps from the same "
         f"paged state: live rows' logits bitwise equal, pages and lengths "
@@ -1843,6 +1924,131 @@ def crosscheck_encode(cfg, on_cpu, dparams):
         f"{ENC_CROSS_ATOL}")
 
 
+# -- phase 8: granite-3-2b; phase 9: qwen1.5-32b --------------------------------
+
+# the ragged prefill's 8 rows: 1 to 128 tokens, tile edges (64) +-1 among
+# them
+RAGGED_LENS = (1, 128, 63, 64, 65, 127, 100, 2)
+# bf16 logits of a row in the ragged batch against its own prefill: the
+# residual stream and the rings are bitwise equal, the head is a float32
+# cuBLAS product whose algorithm may change with M
+RAGGED_ATOL = 1e-3
+QWEN_LAYERS = 8      # of 64: the full depth's float32 masters exceed 80 GB
+
+
+def phase_dense_arch(arch: str, tag: str, num_layers: int = 0) -> dict:
+    """``arch`` at full width (``num_layers`` deep when given): static
+    serving (phase 4's shapes, graph == eager), the ragged whole-prompt
+    prefill, then continuous paged serving of phase 5's trace on phase
+    5's engine shape (a preemption, a prefix hit, one
+    ``paged_gather_decode`` per layer in every pure-decode iteration).
+    Returns the launch counts of the two serves."""
+    import torch
+    model, dparams = load_model(arch, tag, num_layers)
+    launches = serve_static(model, dparams, tag)
+    check_ragged_prefill(model, dparams, tag)
+    paged, _ = phase_continuous(model, dparams, f"{tag[:-1]} continuous]")
+    del model, dparams
+    torch.cuda.empty_cache()
+    return {n: launches[n] + paged[n] for n in launches}
+
+
+def check_ragged_prefill(model, dparams, tag: str) -> None:
+    """``prefill_with_cache(..., seq_lens=...)`` on 8 right-padded rows of
+    ``RAGGED_LENS`` tokens: one ``sps_attention`` per layer (with its
+    ``lens``); each row's ring cache (160 slots) bitwise equal to that
+    row's own unpadded prefill, its logits within ``RAGGED_ATOL``."""
+    import torch
+    from repro_torch import kernels
+    lens = np.asarray(RAGGED_LENS, np.int32)
+    width = SERVE_S + SERVE_NEW
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, model.cfg.vocab_size, (len(lens), SERVE_S))
+    toks = np.where(np.arange(SERVE_S) < lens[:, None], toks, 0)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill_with_cache(
+            dparams, torch.as_tensor(toks, device="cuda"), max_len=width,
+            seq_lens=torch.as_tensor(lens, device="cuda"))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = kernels.launch_counts()
+        if launches["sps_attention"] != model.cfg.num_layers:
+            raise AssertionError(f"{tag} ragged prefill: sps_attention "
+                                 f"launches {launches}")
+        diff, bad = 0.0, []
+        for i, n in enumerate(lens):
+            own, own_caches = model.prefill_with_cache(
+                dparams, torch.as_tensor(toks[i:i + 1, :n], device="cuda"),
+                max_len=width)
+            diff = max(diff, (logits[i] - own[0]).abs().max().item())
+            for layer, (c, o) in enumerate(zip(caches, own_caches)):
+                c, o = c["attn"], o["attn"]
+                if not (torch.equal(c.k_bits[i], o.k_bits[0]) and
+                        torch.equal(c.vt_bits[i], o.vt_bits[0]) and
+                        int(c.length[i]) == int(o.length[0]) == n):
+                    bad.append((i, int(n), layer))
+    if bad or diff > RAGGED_ATOL or not torch.isfinite(logits).all():
+        raise AssertionError(f"{tag} ragged prefill: rings differ from the "
+                             f"rows' own prefills at (row, length, layer) "
+                             f"{bad[:12]} ({len(bad)} in all); max |logit "
+                             f"diff| {diff} (tol {RAGGED_ATOL})")
+    log(f"{tag} ragged whole-prompt prefill, 8 rows of lengths "
+        f"{list(RAGGED_LENS)} padded to {SERVE_S}: {ms:.1f} ms, launches "
+        f"{json.dumps(launches)}; every row's ring ({width} slots, "
+        f"{model.cfg.num_layers} layers) bitwise equal to its own unpadded "
+        f"prefill, max |logit diff| {diff:.3g} <= {RAGGED_ATOL}")
+
+
+# -- phase 10: card vs CPU on a narrow qwen-shaped config ----------------------
+
+# qwen's head width, G = 1 and the QKV bias at a size the CPU runs: 2
+# layers, d = 256, 2 heads of d_h = 128
+NARROW_QWEN = dict(num_layers=2, d_model=256, num_heads=2, num_kv_heads=2,
+                   d_ff=512, compute_dtype="float32")
+
+
+def phase_crosscheck_qwen() -> None:
+    """The narrow qwen-shaped config in float32 on the card and on the CPU
+    (plain versions), with the QKV bias drawn off zero: static greedy
+    tokens equal and logits within ``CROSS_ATOL`` (phase 6's
+    ``_greedy_run``)."""
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    cfg = get_config("qwen1.5-32b").with_(**NARROW_QWEN)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        qat = model.init(gen)
+        for bp in qat["blocks"]:
+            for name in ("wq", "wk", "wv"):
+                bias = bp["attn"][name]["bias"]
+                bias.copy_(0.1 * torch.randn(bias.shape, generator=gen,
+                                             device="cuda"))
+        dparams = model.convert(qat)
+        prompts = np.random.default_rng(SEED + 6).integers(
+            0, cfg.vocab_size, (CROSS_B, CROSS_S))
+        tok_card, lg_card = _greedy_run(model, dparams, prompts, "cuda")
+        tok_cpu, lg_cpu = _greedy_run(model, to_device(dparams, "cpu"),
+                                      prompts, "cpu")
+    diff = max((a - b).abs().max().item() for a, b in zip(lg_card, lg_cpu))
+    if not np.array_equal(tok_card, tok_cpu) or diff > CROSS_ATOL:
+        raise AssertionError(
+            f"qwen crosscheck: card tokens {tok_card.tolist()} vs CPU "
+            f"{tok_cpu.tolist()}, max |logit diff| {diff} (tol "
+            f"{CROSS_ATOL})")
+    log(f"[crosscheck] float32 qwen-shaped ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}, {cfg.num_heads} heads of d_h="
+        f"{cfg.resolved_head_dim}, G=1, QKV bias, untied head over "
+        f"{cfg.vocab_size}) B={CROSS_B} S={CROSS_S} {CROSS_NEW} tokens: card "
+        f"== CPU tokens {tok_card.tolist()}, max |logit diff| {diff:.3g} <= "
+        f"{CROSS_ATOL}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1854,7 +2060,8 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernels()
-    static, model, dparams = phase_serve()
+    model, dparams = load_model("smollm-135m", "[serve]")
+    static = serve_static(model, dparams, "[serve]")
     paged, plain = phase_continuous(model, dparams)
     spec = phase_speculative(model, dparams, plain)
     for name in rows:
@@ -1862,8 +2069,11 @@ def main() -> int:
     phase_crosscheck(dparams)
     del model, dparams
     encode = phase_encode()
+    granite = phase_dense_arch("granite-3-2b", "[granite]")
+    qwen = phase_dense_arch("qwen1.5-32b", "[qwen]", QWEN_LAYERS)
+    phase_crosscheck_qwen()
     for name in rows:
-        rows[name]["launches"] += encode[name]
+        rows[name]["launches"] += encode[name] + granite[name] + qwen[name]
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,6 +112,36 @@ class ModelConfig:
                 f"truncated({num_layers}) outside [1, {self.num_layers}]")
         return self.with_(num_layers=num_layers)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once), as the
+        JAX package counts it."""
+        d, ff = self.d_model, self.d_ff
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ffn_dense = (3 if self.glu and ff else 2) * d * ff
+        ffn = ffn_dense
+        if self.moe.num_experts:
+            ffn = self.moe.num_experts * ffn_dense + d * self.moe.num_experts
+            if self.moe.dense_residual:
+                ffn += ffn_dense
+        if self.ssm is not None and self.family == "ssm":
+            # xlstm: no FFN; the in and out projections of the expanded dim
+            ffn = 2 * d * (self.ssm.expand * d)
+        block = attn + ffn + 2 * d
+        if self.family == "hybrid":
+            e = self.ssm.expand if self.ssm else 2
+            block += 2 * d * (e * d)   # the parallel mamba branch
+        layers = self.num_layers + self.num_encoder_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return layers * block + emb
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: the top_k experts only)."""
+        if not self.moe.num_experts:
+            return self.param_count()
+        dense_expert = (3 if self.glu else 2) * self.d_model * self.d_ff
+        inactive = (self.moe.num_experts - self.moe.top_k) * dense_expert
+        return self.param_count() - self.num_layers * inactive
+
 
 ARCH_IDS: Sequence[str] = (
     "mixtral-8x22b",
@@ -130,6 +160,8 @@ ARCH_IDS: Sequence[str] = (
 # archs the port runs; the rest of ARCH_IDS raise "not ported yet"
 _MODULE_FOR: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
+    "granite-3-2b": "granite_3_2b",
+    "qwen1.5-32b": "qwen15_32b",
     "bert-base-cobra": "bert_base_cobra",
 }
 

@@ -4,13 +4,17 @@
 // Replaces the TPU kernel src/repro/kernels/sps_attn/kernel.py
 // sps_attention (_kernel_vpu, _kernel_mxu, _probs_tile, _pack_cols):
 //   score  c = 2*popcount(~(q ^ k)) - (d_h + 2*pad)       (Eq. 7, pad-0)
-//   prob   p = (c >= theta[h]) & (key < L) & (key <= row if causal)
+//   prob   p = (c >= theta[h]) & (key < L_b) & (key <= row if causal)
 //   ctx[row, d] = sum_key p * v[key, d] = 2*popcount(P & V^T[d]) - nnz(P)
 // with no softmax state, so key tiles combine by plain integer addition
 // and the L x L score matrix never leaves the registers and one shared
 // tile.  Inputs are batched and GQA-aware: q (B, H, L, dhp), k (B, Hkv, L,
 // dhp), vt (B, Hkv, d_h, ceil(L/32)) and query head h reads KV head
-// h / (H/Hkv), so K and V are never repeated to H heads.
+// h / (H/Hkv), so K and V are never repeated to H heads.  L_b is L, or
+// lens[b] when the caller passes per-sequence key lengths (a ragged,
+// right-padded batch: the JAX model's ragged prefill masks keys at columns
+// >= seq_lens[b] in every row; the TPU kernel masks one global length
+// only).  lens is read once per block, and key tiles past L_b are skipped.
 //
 // Both products are int8 matrix products with exact int32 sums:
 //   * the score is the ±1 dot product of q and k over all 32 * dhp bits,
@@ -139,7 +143,8 @@ __global__ void __launch_bounds__(kMaxWG * 128)
     sps_attention_kernel(const uint32_t* __restrict__ q,
                          const uint32_t* __restrict__ k,
                          const uint32_t* __restrict__ vt,
-                         const int32_t* __restrict__ theta, int h_q,
+                         const int32_t* __restrict__ theta,
+                         const int32_t* __restrict__ lens, int h_q,
                          int h_kv, int len, int dh, int lw, int causal,
                          int nwg, int head_groups,
                          int32_t* __restrict__ out) {
@@ -166,6 +171,8 @@ __global__ void __launch_bounds__(kMaxWG * 128)
   const bool live = g < groups;
   const int h = hk * groups + min(g, groups - 1);
   const long long b = blockIdx.z;
+  // this sequence's keys: L, or lens[b] (clamped to [0, L])
+  const int len_b = lens ? min(max(lens[b], 0), len) : len;
   const uint32_t* kb = k + (b * h_kv + hk) * static_cast<long long>(len) *
                                kDhp;
   const uint32_t* vb = vt + (b * h_kv + hk) * static_cast<long long>(dh) *
@@ -196,8 +203,9 @@ __global__ void __launch_bounds__(kMaxWG * 128)
   }
   // c >= theta  <=>  dot >= theta + pad
   const int thp = theta[h] + (kDhp * 32 - dh);
-  const int last_key = causal ? min(len - 1, i0 + kBM - 1) : len - 1;
-  const int tiles = last_key / kBK + 1;
+  // at least one tile: its first wgmma clears the context accumulator
+  const int last_key = causal ? min(len_b - 1, i0 + kBM - 1) : len_b - 1;
+  const int tiles = max(last_key, 0) / kBK + 1;
   const int passes = (dh + kBD - 1) / kBD;
 
   // the accumulator fragment: rows wr and wr + 8, columns 8j + 2 tig + e
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(kMaxWG * 128)
         for (int hh = 0; hh < 2; ++hh) {
           const int rl = wr + 8 * hh;
           const int row = i0 + rl;
-          const int lim = (causal ? min(len, row + 1) : len) - jt * kBK;
+          const int lim = (causal ? min(len_b, row + 1) : len_b) - jt * kBK;
 #pragma unroll
           for (int j = 0; j < kBK / 8; ++j) {
             const int col = 8 * j + 2 * tig;
@@ -295,8 +303,9 @@ __global__ void __launch_bounds__(kMaxWG * 128)
 
 template <int kDhp>
 int launch(const uint32_t* q, const uint32_t* k, const uint32_t* vt,
-           const int32_t* theta, long long batch, long long h_q,
-           long long h_kv, long long len, long long dh, int causal,
+           const int32_t* theta, const int32_t* lens, long long batch,
+           long long h_q, long long h_kv, long long len, long long dh,
+           int causal,
            int32_t* out, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
@@ -318,7 +327,7 @@ int launch(const uint32_t* q, const uint32_t* k, const uint32_t* vt,
                   static_cast<unsigned>(h_kv * head_groups),
                   static_cast<unsigned>(batch));
   sps_attention_kernel<kDhp><<<grid, nwg * 128, smem, stream>>>(
-      q, k, vt, theta, static_cast<int>(h_q), static_cast<int>(h_kv),
+      q, k, vt, theta, lens, static_cast<int>(h_q), static_cast<int>(h_kv),
       static_cast<int>(len), static_cast<int>(dh),
       static_cast<int>((len + 31) / 32), causal, nwg,
       static_cast<int>(head_groups), out);
@@ -329,9 +338,10 @@ int launch(const uint32_t* q, const uint32_t* k, const uint32_t* vt,
 
 COBRA_API int cobra_sps_attention(const void* q, const void* k,
                                   const void* vt, const void* theta,
-                                  long long batch, long long h_q,
-                                  long long h_kv, long long len, long long dh,
-                                  int causal, void* out, void* stream) {
+                                  const void* lens, long long batch,
+                                  long long h_q, long long h_kv,
+                                  long long len, long long dh, int causal,
+                                  void* out, void* stream) {
   if (batch * h_q * len == 0) return 0;
   const long long dhp = (dh + 31) / 32;
   if (dh <= 0 || dhp > kMaxDhp || h_kv <= 0 || h_q % h_kv)
@@ -340,12 +350,14 @@ COBRA_API int cobra_sps_attention(const void* q, const void* k,
   auto ku = static_cast<const uint32_t*>(k);
   auto vu = static_cast<const uint32_t*>(vt);
   auto th = static_cast<const int32_t*>(theta);
+  auto ln = static_cast<const int32_t*>(lens);
   auto o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (dhp) {
-#define COBRA_SPS(DHP) \
-  case DHP:            \
-    return launch<DHP>(qu, ku, vu, th, batch, h_q, h_kv, len, dh, causal, o, s)
+#define COBRA_SPS(DHP)                                                    \
+  case DHP:                                                               \
+    return launch<DHP>(qu, ku, vu, th, ln, batch, h_q, h_kv, len, dh,     \
+                       causal, o, s)
     COBRA_SPS(1); COBRA_SPS(2); COBRA_SPS(3); COBRA_SPS(4);
     COBRA_SPS(5); COBRA_SPS(6); COBRA_SPS(7); COBRA_SPS(8);
 #undef COBRA_SPS

@@ -13,6 +13,11 @@ same, so one kernel serves both).  ``sps_attention_gqa`` is the batched
 entry the model calls: q ``(B, H, L, dhp)``, k ``(B, Hkv, L, dhp)``, V^T
 ``(B, Hkv, d_h, ceil(L/32))``; query head h reads KV head ``h // (H/Hkv)``.
 
+A ragged, right-padded batch passes ``lens`` (B,) int32: keys at columns
+>= lens[b] are masked out of every row of sequence b, as the JAX model's
+ragged prefill masks them in its jnp body (the TPU kernel masks one global
+length only; this operand is the port's own).
+
 Padding contract: operands carry exactly ``ceil(d_h/32)`` words with zero
 pad bits; the wrappers check the word count and raise.
 
@@ -22,6 +27,8 @@ launches (``sps_attention`` goes through it).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import kernels
@@ -30,7 +37,7 @@ from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.sps_attn import ref
 
 MAX_DH = 256  # the kernel unpacks Q and K rows of at most 256 bits
-_ARGTYPES = [kernels.PTR] * 4 + [kernels.I64] * 5 + [kernels.INT,
+_ARGTYPES = [kernels.PTR] * 5 + [kernels.I64] * 5 + [kernels.INT,
                                                      kernels.PTR]
 
 
@@ -44,11 +51,11 @@ def _validate(q_bits: torch.Tensor, k_bits: torch.Tensor, d_h: int) -> None:
             f"(pad bits must be 0)")
 
 
-def _check_gqa(q, k, vt, theta, d_h) -> None:
+def _check_gqa(q, k, vt, theta, d_h, lens) -> None:
     _validate(q, k, d_h)
     for name, t in (("q_bits", q), ("k_bits", k), ("vt_bits", vt),
-                    ("theta", theta)):
-        if t.dtype != torch.int32:
+                    ("theta", theta), ("lens", lens)):
+        if t is not None and t.dtype != torch.int32:
             raise TypeError(f"sps_attention: {name} must be int32, got "
                             f"{t.dtype}")
     if q.dim() != 4 or k.dim() != 4 or vt.dim() != 4:
@@ -64,27 +71,31 @@ def _check_gqa(q, k, vt, theta, d_h) -> None:
         raise ValueError(f"vt_bits must be {want}, got {tuple(vt.shape)}")
     if tuple(theta.shape) != (h,):
         raise ValueError(f"theta must be ({h},), got {tuple(theta.shape)}")
+    if lens is not None and tuple(lens.shape) != (b,):
+        raise ValueError(f"lens must be ({b},), got {tuple(lens.shape)}")
 
 
 def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
                       vt_bits: torch.Tensor, theta: torch.Tensor, *,
-                      d_h: int, causal: bool = True) -> torch.Tensor:
-    _check_gqa(q_bits, k_bits, vt_bits, theta, d_h)
-    if not kernels.use_kernel(q_bits, k_bits, vt_bits, theta):
+                      d_h: int, causal: bool = True,
+                      lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_gqa(q_bits, k_bits, vt_bits, theta, d_h, lens)
+    if not kernels.use_kernel(q_bits, k_bits, vt_bits, theta, lens):
         return ref.sps_attention_gqa(q_bits, k_bits, vt_bits, theta,
-                                     d_h=d_h, causal=causal)
+                                     d_h=d_h, causal=causal, lens=lens)
     if d_h > MAX_DH:
         raise ValueError(f"sps_attention: the kernel takes d_h <= {MAX_DH}"
                          f", got {d_h}")
     kernels.require_contiguous("sps_attention", q_bits, k_bits, vt_bits,
-                               theta)
+                               theta, lens)
     b, h, length, _ = q_bits.shape
     out = torch.empty((b, h, length, d_h), dtype=torch.int32,
                       device=q_bits.device)
     kernels.launch("cobra_sps_attention", _ARGTYPES, q_bits.device,
                    q_bits.data_ptr(), k_bits.data_ptr(), vt_bits.data_ptr(),
-                   theta.data_ptr(), b, h, k_bits.shape[1], length, d_h,
-                   int(causal), out.data_ptr())
+                   theta.data_ptr(), kernels.ptr(lens), b, h,
+                   k_bits.shape[1], length, d_h, int(causal),
+                   out.data_ptr())
     sps_attention_gqa.launches += 1
     return out
 

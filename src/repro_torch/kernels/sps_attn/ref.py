@@ -5,6 +5,8 @@ tensor-core kernel's two integer matrix products written plainly (a test
 helper)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import packing
@@ -18,9 +20,12 @@ def v_transpose_packed(v_vals: torch.Tensor) -> torch.Tensor:
 
 def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
                       vt_bits: torch.Tensor, theta: torch.Tensor, *,
-                      d_h: int, causal: bool = True) -> torch.Tensor:
+                      d_h: int, causal: bool = True,
+                      lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q_bits (B, H, L, dhp), k_bits (B, Hkv, L, dhp), vt_bits
-    (B, Hkv, d_h, ceil(L/32)), theta (H,) int32 -> (B, H, L, d_h) int32."""
+    (B, Hkv, d_h, ceil(L/32)), theta (H,) int32 -> (B, H, L, d_h) int32.
+    ``lens`` (B,) int32, if given, masks the keys at columns >= lens[b]
+    out of every row of sequence b (a ragged, right-padded batch)."""
     groups = q_bits.shape[1] // k_bits.shape[1]
     kh = k_bits.repeat_interleave(groups, dim=1)
     vth = vt_bits.repeat_interleave(groups, dim=1)
@@ -29,6 +34,9 @@ def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
     probs = c >= theta.to(torch.int32)[None, :, None, None]
     if causal:
         probs = torch.tril(probs)
+    if lens is not None:
+        cols = torch.arange(probs.shape[-1], device=probs.device)
+        probs = probs & (cols[None, :] < lens[:, None])[:, None, None, :]
     # and_dc context: the -L + dc terms telescope to -nnz (pad columns
     # are 0 in both operands)
     probs_p = packing.pack_bits(probs)                          # (B,H,L,Lw)

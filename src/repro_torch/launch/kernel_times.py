@@ -23,7 +23,10 @@ w2 for M = 32, 64 and 128, where its routes would cross;
 ``paged_gather_decode`` at the continuous path's decode shape with lengths
 drawn from a fixed seed, so every checkout reads the same pages; every
 call of the speculative iteration (``SPEC_CALLS``, rows named ``... spec
-...``, each with its launches per iteration, ``spec_launches``).  Where the
+...``, each with its launches per iteration, ``spec_launches``); every
+call of granite-3-2b's and qwen1.5-32b's serve paths at full width
+(``ARCH_CALLS``, rows named by the arch, each with its launches per layer
+of its step, ``layer_launches``).  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
 each tensor-core kernel and of the decode route at wq and w2 under
@@ -469,15 +472,19 @@ def spec_launches() -> Dict[str, int]:
     return out
 
 
-def spec_operands(seed: int = 0) -> Dict[str, tuple]:
-    """{name: (kernel, call, plain, library, bound)} for every call of
-    ``SPEC_CALLS`` on random operands on the card: ``call`` and ``plain``
-    run the public wrapper and its plain version (``ref.py``), ``library``
-    one PyTorch call computing the same function (None for pack)."""
+def call_operands(calls: Dict[str, tuple], seed: int = 0
+                  ) -> Dict[str, tuple]:
+    """{name: (kernel, call, plain, library, bound)} for every call of a
+    table of (kernel, operands, launches) (``SPEC_CALLS``, ``ARCH_CALLS``)
+    on random operands on the card: ``call`` and ``plain`` run the public
+    wrapper and its plain version (``ref.py``), ``library`` one PyTorch
+    call computing the same function (None for pack and attention)."""
     from repro_torch.core import packing
     from repro_torch.kernels.pack import ops as pack, ref as pack_ref
+    from repro_torch.kernels.paged_attn import ops as paged, ref as paged_ref
     from repro_torch.kernels.rbmm import ops as rbmm, ref as rbmm_ref
     from repro_torch.kernels.rbmm_mxu import ops as mxu, ref as mxu_ref
+    from repro_torch.kernels.sps_attn import ops as sps, ref as sps_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def words(*shape, k):
@@ -488,8 +495,12 @@ def spec_operands(seed: int = 0) -> Dict[str, tuple]:
             w[..., -1] &= (1 << (k % 32)) - 1
         return w
 
+    def ints(*shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
     out = {}
-    for name, (kernel, spec, _) in SPEC_CALLS.items():
+    for name, (kernel, spec, _) in calls.items():
         if kernel == "rbmm_int":
             lead, m, p, k, scheme = spec
             x, y = words(*lead, m, k=k), words(*lead, p, k=k)
@@ -516,6 +527,40 @@ def spec_operands(seed: int = 0) -> Dict[str, tuple]:
                          lambda a=a, w=w: mxu_ref.rbmm_mxu(a, w),
                          lambda a=a, wv=wv: torch.matmul(a, wv.T),
                          bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
+        elif kernel == "sps_attention":
+            b, h, hkv, length, dh, causal, lens = spec
+            q, k = words(b, h, length, k=dh), words(b, hkv, length, k=dh)
+            vt = words(b, hkv, dh, k=length)
+            th = ints(h, lo=-dh // 8, hi=dh // 8 + 1)
+            ln = None if lens is None else torch.tensor(
+                lens, dtype=torch.int32, device="cuda")
+            res = sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal,
+                                        lens=ln)
+            out[name] = (
+                kernel,
+                lambda q=q, k=k, vt=vt, th=th, dh=dh, c=causal, ln=ln:
+                sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=c,
+                                      lens=ln),
+                lambda q=q, k=k, vt=vt, th=th, dh=dh, c=causal, ln=ln:
+                sps_ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=c,
+                                          lens=ln),
+                None, sps_bound(q, k, vt, th, res, causal))
+        elif kernel == "paged_gather_decode":
+            b, h, hkv, dh, page, nblk, pages = spec
+            ring = nblk * page
+            lens = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, ring, (b,)).astype(np.int32)).cuda()
+            args = (words(b, h, k=dh), words(pages + 1, hkv, page, k=dh),
+                    words(pages + 1, hkv, dh, k=page),
+                    ints(b, nblk, lo=0, hi=pages + 1), lens, ring,
+                    ints(b, h, lo=-dh // 6, hi=dh // 6 + 1))
+            res = paged.paged_gather_decode(*args, d_h=dh)
+            out[name] = (
+                kernel,
+                lambda a=args, dh=dh: paged.paged_gather_decode(*a, d_h=dh),
+                lambda a=args, dh=dh: paged_ref.paged_gather_decode_popcount(
+                    *a, d_h=dh),
+                None, paged_bound(*args, res))
         else:
             shape, dtype, th_shape, strided = spec
             if dtype == "int32":
@@ -541,6 +586,94 @@ def spec_operands(seed: int = 0) -> Dict[str, tuple]:
     return out
 
 
+def spec_operands(seed: int = 0) -> Dict[str, tuple]:
+    """``call_operands`` of ``SPEC_CALLS``."""
+    return call_operands(SPEC_CALLS, seed)
+
+
+# granite-3-2b and qwen1.5-32b at full width (repro_torch/configs; written
+# out so this file times another checkout's kernels too): d_model, query
+# heads, KV heads, d_h, d_ff.  The static path's shapes: B = 8 prompts of
+# 128 tokens (1,024 rows at prefill), a ring of 128 + 32; the continuous
+# path's: 16 slots, 12 blocks of 32 over 96 pages.
+DENSE_ARCHS = {"granite-3-2b": (2048, 32, 8, 64, 8192),
+               "qwen1.5-32b": (5120, 40, 40, 128, 27392)}
+ARCH_B, ARCH_S, ARCH_RING, ARCH_SLOTS = 8, 128, 160, 16
+DTYPE_TAGS = {"bfloat16": "bf16", "float32": "f32", "int32": "int32"}
+
+
+def _arch_calls() -> Dict[str, tuple]:
+    """Every call the two archs' serve paths make per layer, at their own
+    shapes: (kernel, operands, launches per layer of its step).  The
+    decode calls at M = 8 (a static decode step) and 16 (a pure-decode
+    iteration; its ring calls do not run there: the paged kernel attends),
+    the prefill projections at M = 1,024, the activation packs, the
+    prefill attention (and its ragged form, with ``lens``), the paged
+    decode attention."""
+    out = {}
+    for arch, (d, h, hkv, dh, ff) in DENSE_ARCHS.items():
+        g = h // hkv
+        proj = {"wq/wo": (d, d, 2), "wk/wv": (hkv * dh, d, 2),
+                "w1/w3": (ff, d, 2), "w2": (d, ff, 1)}
+        for n in (ARCH_B, ARCH_SLOTS):
+            for call, (p, k, per) in proj.items():
+                scheme = "and_dc" if call == "w2" else "xnor"
+                tail = ", dc derived" if scheme == "and_dc" else ""
+                out[f"rbmm_int {arch} decode {call} ({n}x{k})x({p}x{k}) "
+                    f"{scheme}{tail}"] = ("rbmm_int",
+                                          ((), n, p, k, scheme), per)
+            ring = n == ARCH_B
+            lead = f"{n},{hkv}"
+            out[f"rbmm_int {arch} decode ring score ({lead},{g},"
+                f"{(dh + 31) // 32})x({lead},{ARCH_RING},{(dh + 31) // 32})"
+                f" xnor"] = ("rbmm_int",
+                             ((n, hkv), g, ARCH_RING, dh, "xnor"), int(ring))
+            out[f"rbmm_int {arch} decode ring context ({lead},{g},"
+                f"{ARCH_RING // 32})x({lead},{dh},{ARCH_RING // 32}) and_dc,"
+                f" dc derived"] = ("rbmm_int", ((n, hkv), g, dh, ARCH_RING,
+                                                "and_dc"), int(ring))
+        m = ARCH_B * ARCH_S
+        for call, (p, k, per) in proj.items():
+            out[f"rbmm_mxu {arch} prefill {call} ({m}x{k})x({p}x{k})"
+                f"{' {0,1}' if call == 'w2' else ''}"] = (
+                "rbmm_mxu", (m, k, p, call == "w2"), per)
+        for shape, dtype, th, strided, per in (
+                ((m, d), "bfloat16", (), False, 2),      # x, attn and FFN
+                ((m, d), "float32", (), False, 1),       # ctx
+                ((m, ff), "float32", (), False, 1),      # h
+                ((ARCH_B, ARCH_S, h, dh), "bfloat16", (h, 1), False, 1),
+                ((ARCH_B, ARCH_S, hkv, dh), "bfloat16", (hkv, 1), False, 1),
+                ((ARCH_B, hkv, dh, ARCH_S), "bfloat16", (hkv, 1, 1), True,
+                 1),                                     # V^T, strided
+                ((ARCH_SLOTS, 1, d), "float32", (), False, 3),
+                ((ARCH_SLOTS, 1, ff), "float32", (), False, 1),
+                ((ARCH_SLOTS, 1, h, dh), "bfloat16", (h, 1), False, 1),
+                ((ARCH_SLOTS, 1, hkv, dh), "bfloat16", (hkv, 1), False, 1)):
+            name = (f"pack {arch} ({','.join(map(str, shape))}) "
+                    f"{DTYPE_TAGS[dtype]}{' strided' if strided else ''}, "
+                    f"{'one' if th == () else 'per-head'} theta")
+            n0 = out.pop(name, (None, None, 0))[2]   # q and k of MHA agree
+            out[name] = ("pack_threshold", (shape, dtype, th, strided),
+                         n0 + per)
+        for causal in (True, False):
+            mode = "causal" if causal else "bidirectional"
+            out[f"sps_attention {arch} prefill B={ARCH_B} L={ARCH_S} "
+                f"H={h}/{hkv} d_h={dh} {mode}"] = (
+                "sps_attention",
+                (ARCH_B, h, hkv, ARCH_S, dh, causal, None), int(causal))
+        lens = (1, ARCH_S, 63, 64, 65, 127, 100, 2)
+        out[f"sps_attention {arch} ragged prefill B={ARCH_B} L={ARCH_S} "
+            f"H={h}/{hkv} d_h={dh} causal, lens {lens}"] = (
+            "sps_attention", (ARCH_B, h, hkv, ARCH_S, dh, True, lens), 0)
+        out[f"paged_gather_decode {arch} {ARCH_SLOTS} slots H={h}/{hkv} "
+            f"d_h={dh}, 12 blocks of 32, seeded lengths"] = (
+            "paged_gather_decode", (ARCH_SLOTS, h, hkv, dh, 32, 12, 96), 1)
+    return out
+
+
+ARCH_CALLS = _arch_calls()
+
+
 def shapes(seed: int = 0) -> Dict[str, Dict]:
     """Each shape: the kernel's call, the library call and the bound (and,
     for the speculative iteration's calls, the launches per iteration)."""
@@ -549,6 +682,10 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
     for name, (_, call, _, lib, bnd) in spec_operands(seed).items():
         out[name] = dict(kernel=call, library=lib, bound=bnd,
                          spec_launches=SPEC_CALLS[name][2])
+    for name, (_, call, _, lib, bnd) in call_operands(ARCH_CALLS,
+                                                      seed).items():
+        out[name] = dict(kernel=call, library=lib, bound=bnd,
+                         layer_launches=ARCH_CALLS[name][2])
     for name, (x, th) in pack_shapes(seed).items():
         res = pack.pack_threshold(x, th)
         out[name] = dict(
@@ -576,8 +713,8 @@ def time_all(seed: int = 0, only: str = "") -> List[Dict]:
                      "bound_ms": b_ms, "bound_by": by,
                      "library_ms": None if lib is None else device_ms(lib),
                      "library_eager_ms": eager[name][1],
-                     **({"spec_launches": s["spec_launches"]}
-                        if "spec_launches" in s else {})})
+                     **{k: s[k] for k in ("spec_launches",
+                                          "layer_launches") if k in s}})
     return rows
 
 

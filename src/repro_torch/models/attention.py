@@ -289,13 +289,22 @@ class SPSAttention:
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions: Optional[torch.Tensor] = None,
-                       cache_size: int = 0
+                       cache_size: int = 0,
+                       seq_lens: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Full-sequence deploy forward.  Returns (out, cache); the ring
-        cache (W = cache_size) is built when cache_size > 0."""
+        cache (W = cache_size) is built when cache_size > 0.
+
+        ``seq_lens`` (B,) takes a ragged, right-padded batch: keys at
+        columns >= seq_lens[b] are masked out of every row of sequence b
+        (the ``lens`` operand of the sps_attention kernel), and the cache
+        holds each sequence's own ring contents and length.  Pad rows
+        still compute, but no real row reads them."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
+        lens = None if seq_lens is None else torch.as_tensor(
+            seq_lens, device=x.device).to(torch.int32).expand(b).contiguous()
         q_bits, k_bits, v = self._project_qkv_deploy(params, x, positions)
         # V^T packed along the sequence, straight from the fp projection
         vt_bits = pack_ops.pack_threshold(v.permute(0, 2, 3, 1),
@@ -303,31 +312,40 @@ class SPSAttention:
         ctx = sps_ops.sps_attention_gqa(q_bits, k_bits, vt_bits,
                                         self._theta_int(params),
                                         d_h=self.head_dim,
-                                        causal=self.causal)
+                                        causal=self.causal, lens=lens)
         out = self._output_deploy(params, ctx)
-        cache = (self._ring_cache(k_bits, vt_bits, s, cache_size)
-                 if cache_size else None)
+        cache = None
+        if cache_size:
+            if lens is None:
+                lens = torch.full((b,), s, dtype=torch.int32,
+                                  device=x.device)
+            cache = self._ring_cache(k_bits, vt_bits, lens, cache_size)
         return out, cache
 
     @staticmethod
-    def _ring_cache(k_bits: torch.Tensor, vt_bits: torch.Tensor, s: int,
-                    w: int) -> KVCache:
-        """The last min(s, W) tokens at ring slots t % W; empty slots 0."""
+    def _ring_cache(k_bits: torch.Tensor, vt_bits: torch.Tensor,
+                    lens: torch.Tensor, w: int) -> KVCache:
+        """Each sequence's last min(lens[b], W) tokens at ring slots
+        t % W; empty slots 0.  The W tokens a row considers are
+        consecutive, so its slots are a permutation of 0..W-1."""
         dev = k_bits.device
-        b = k_bits.shape[0]
-        t = s - w + torch.arange(w, device=dev)         # token per entry
+        b, hkv, s, dhp = k_bits.shape
+        t = lens.long()[:, None] - w + torch.arange(w, device=dev)  # (B,W)
         valid = t >= 0
         tc = t.clamp(0, max(s - 1, 0))
-        slots = torch.remainder(t, w)                   # a permutation
-        kc = torch.zeros(k_bits.shape[:2] + (w, k_bits.shape[-1]),
-                         dtype=torch.int32, device=dev)
-        kc[:, :, slots] = k_bits[:, :, tc] * valid[None, None, :, None]
+        slots = torch.remainder(t, w)
+        kg = torch.gather(k_bits, 2, tc[:, None, :, None].expand(
+            b, hkv, w, dhp)) * valid[:, None, :, None]
+        kc = torch.zeros_like(kg).scatter_(
+            2, slots[:, None, :, None].expand(b, hkv, w, dhp), kg)
         v_seq = packing.unpack_bits(vt_bits, s)          # (B,Hkv,dh,S)
-        v_ring = torch.zeros(v_seq.shape[:3] + (w,), dtype=torch.int32,
-                             device=dev)
-        v_ring[..., slots] = v_seq[..., tc] * valid
-        length = torch.full((b,), s, dtype=torch.int32, device=dev)
-        return KVCache(kc, packing.pack_bits(v_ring), length)
+        dh = v_seq.shape[2]
+        vg = torch.gather(v_seq, 3, tc[:, None, None, :].expand(
+            b, hkv, dh, w)) * valid[:, None, None, :]
+        v_ring = torch.zeros_like(vg).scatter_(
+            3, slots[:, None, None, :].expand(b, hkv, dh, w), vg)
+        return KVCache(kc, packing.pack_bits(v_ring),
+                       lens.to(torch.int32, copy=True))
 
     # -- chunked prefill (cache continuation) ---------------------------------
 

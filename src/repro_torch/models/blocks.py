@@ -71,12 +71,15 @@ class Block:
                 "norm1": params["norm1"], "norm2": params["norm2"]}
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
-                       positions=None, cache_size: int = 0
-                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                       positions=None, cache_size: int = 0,
+                       seq_lens=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Whole-sequence forward; ``seq_lens`` (B,) takes a ragged,
+        right-padded batch (see ``SPSAttention.deploy_prefill``)."""
         norm = self._norm()
         h = norm.apply(params["norm1"], x)
         a_out, kv = self._attn().deploy_prefill(
-            params["attn"], h, positions=positions, cache_size=cache_size)
+            params["attn"], h, positions=positions, cache_size=cache_size,
+            seq_lens=seq_lens)
         x = x + a_out
         x = x + self._ffn().apply_deploy(params["ffn"],
                                          norm.apply(params["norm2"], x))

@@ -164,31 +164,32 @@ class LMModel:
         """tokens (B, S) -> (logits (B, 1, V) at the last token, per-layer
         caches with rings of ``max_len``).
 
+        ``seq_lens`` (B,) takes a ragged, right-padded batch: attention
+        masks the keys past each sequence's length, each ring holds its
+        sequence's own last min(len, max_len) tokens and length, and the
+        logits come at each sequence's last real token.
+
         Continuation mode (chunked prefill): with ``caches`` the tokens are
         the next chunk of sequences whose first ``start[b]`` tokens
         (default: the caches' own lengths) are written; ``seq_lens`` is
         each row's real chunk width, logits come at each row's last real
         token, and ``max_len`` is ignored.  The caches update in place and
-        come back as the same objects.
-        Ragged whole-prompt prefill (``seq_lens`` without ``caches``) is
-        not ported yet."""
+        come back as the same objects."""
         if caches is not None:
             return self._prefill_continue(dparams, tokens, caches,
                                           start=start, seq_lens=seq_lens)
-        if seq_lens is not None:
-            raise NotImplementedError(
-                "ragged whole-prompt prefill (seq_lens without caches=) is "
-                "not ported yet")
         if max_len <= 0:
             raise ValueError("prefill_with_cache needs max_len > 0 (or "
                              "caches= for chunk continuation)")
         x = self._embed_tokens(dparams, tokens)
+        sl = None if seq_lens is None else torch.as_tensor(
+            seq_lens, device=x.device).to(torch.int32)
         caches_out: List[Dict[str, Any]] = []
         for bp in dparams["blocks"]:
-            x, cache = self._block().deploy_prefill(bp, x,
-                                                    cache_size=max_len)
+            x, cache = self._block().deploy_prefill(
+                bp, x, cache_size=max_len, seq_lens=sl)
             caches_out.append(cache)
-        return self._logits(dparams, self._last_real(x, None)), caches_out
+        return self._logits(dparams, self._last_real(x, sl)), caches_out
 
     def _prefill_continue(self, dparams: Params, tokens: torch.Tensor,
                           caches: List[Dict[str, Any]], *,

@@ -6,10 +6,10 @@ The cache tensors live in the model layers (``KVCache`` rings or
 batch == num_slots plus the host-side bookkeeping here: ``SlotPool``
 (which rows are live) and ``PageArena`` (refcounted pages, hash-consed
 prompt-prefix keys, copy-on-write).  ``cache_report`` builds the typed
-``EngineReport``.  The slot-surgery functions of the JAX package
-(``insert_slots``, ``extract_slots``, ``writeback_slots``,
-``reset_slots``) are not called by ``ServeEngine.serve`` and are not
-ported yet.
+``EngineReport``.  The slot-surgery functions (``insert_slots``,
+``extract_slots``, ``writeback_slots``, ``reset_slots``) move whole slots
+of decode state between a pool and per-request caches; ``ServeEngine``
+does not call them.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.models.attention import KVCache, PagedKVCache
 
 Caches = List[Dict[str, Any]]
@@ -235,6 +236,126 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
         report.unified_compiles = float(compiles.get("unified", 0))
         report.engine_compiles = float(sum(compiles.values()))
     return report
+
+
+# -- slot-level cache surgery ---------------------------------------------
+#
+# A pool is the per-layer caches with batch == num_slots.  Each function
+# takes the pool and updates it IN PLACE (the JAX package returns a new
+# pool), so a captured graph that holds the pool's tensors sees the change;
+# it returns the pool given.
+
+
+def _slot_index(slots, device) -> torch.Tensor:
+    return torch.as_tensor(slots, device=device).long()
+
+
+def _parts(*pools: Caches) -> Iterator[Tuple[Any, ...]]:
+    """The matching cache parts of each layer of ``pools``."""
+    for layers in zip(*pools):
+        for name in layers[0]:
+            yield tuple(layer[name] for layer in layers)
+
+
+def _insert_paged(pg: PagedKVCache, ring: KVCache,
+                  idx: torch.Tensor) -> None:
+    """Scatter per-request contiguous rings into a paged pool's pages.
+
+    The ring must be wrap-free (its slot s holds token s), so slot s maps
+    to logical page ``s // page_size``, offset ``s % page_size``, resolved
+    through the pool's block-table rows at ``idx``.  Positions past a
+    slot's table (or past its mapped pages) go to the trash page 0."""
+    n, _, w_r, _ = ring.k_bits.shape
+    dev = pg.k_pages.device
+    page = pg.k_pages.shape[2]
+    nblk = pg.block_table.shape[1]
+    bt = pg.block_table[idx].long()                          # (n, nblk)
+
+    def pages_of(slot0: torch.Tensor) -> torch.Tensor:
+        lp = slot0 // page
+        beyond = lp >= nblk
+        return torch.where(beyond[None], 0,
+                           bt[:, torch.where(beyond, 0, lp)])
+    s = torch.arange(w_r, device=dev)
+    pg.k_pages[pages_of(s), :, (s % page).expand(n, w_r)] = \
+        ring.k_bits.transpose(1, 2)
+    # V^T words: ring word j covers slots 32j..32j+31, inside one page
+    # (page_size % 32 == 0): page 32j // page, in-page word (32j % page)/32
+    j32 = torch.arange(ring.vt_bits.shape[-1], device=dev) * packing.WORD
+    pg.vt_pages[pages_of(j32), :, :,
+                ((j32 % page) // packing.WORD).expand(n, -1)] = \
+        ring.vt_bits.permute(0, 3, 1, 2)
+    pg.length[idx] = ring.length.to(torch.int32)
+
+
+def insert_slots(pool: Caches, seq_caches: Caches, slots) -> Caches:
+    """Write per-request caches (leading batch n == len(slots), from a
+    prefill: contiguous rings) into pool rows ``slots``.  A ring pool
+    takes whole rows; a paged pool takes the rings page by page through
+    its block-table rows (``_insert_paged``), which the caller mapped."""
+    for p, s in _parts(pool, seq_caches):
+        idx = _slot_index(slots, p.length.device)
+        if isinstance(p, PagedKVCache):
+            _insert_paged(p, s, idx)
+        else:
+            for dst, src in zip(p, s):
+                dst[idx] = src.to(dst.dtype)
+    return pool
+
+
+def extract_slots(pool: Caches, slots) -> Caches:
+    """The decode state of ``slots`` as a batch-n cache list, the read
+    side of ``insert_slots``.  Ring rows are copied out; a paged cache
+    keeps the pool's page arenas themselves (shared, not copied) with the
+    rows' block tables and lengths, so a chunk prefill on the view writes
+    straight into the pool's pages.  ``writeback_slots`` commits it."""
+    out = []
+    for layer in pool:
+        view = {}
+        for name, p in layer.items():
+            idx = _slot_index(slots, p.length.device)
+            if isinstance(p, PagedKVCache):
+                view[name] = p._replace(block_table=p.block_table[idx],
+                                        length=p.length[idx])
+            else:
+                view[name] = type(p)(*[t[idx] for t in p])
+        out.append(view)
+    return out
+
+
+def writeback_slots(pool: Caches, sub: Caches, slots) -> Caches:
+    """Commit an ``extract_slots`` view back into the pool: ring rows are
+    written back; a paged cache takes the view's pages (the pool's own
+    tensors when the view wrote in place) and the rows' lengths, while
+    its block tables stay the pool's (the host's ``PageArena`` owns
+    them)."""
+    for p, s in _parts(pool, sub):
+        idx = _slot_index(slots, p.length.device)
+        if isinstance(p, PagedKVCache):
+            for dst, src in ((p.k_pages, s.k_pages),
+                             (p.vt_pages, s.vt_pages)):
+                if src is not dst:
+                    dst.copy_(src)
+            p.length[idx] = s.length.to(torch.int32)
+        else:
+            for dst, src in zip(p, s):
+                dst[idx] = src.to(dst.dtype)
+    return pool
+
+
+def reset_slots(pool: Caches, slots) -> Caches:
+    """Zero the decode state of ``slots``: ring rows and lengths; a paged
+    cache zeroes the rows' block tables (unmapping their pages, whose
+    contents stay for the next owner to overwrite) and lengths."""
+    for (p,) in _parts(pool):
+        idx = _slot_index(slots, p.length.device)
+        if isinstance(p, PagedKVCache):
+            p.block_table[idx] = 0
+            p.length[idx] = 0
+        else:
+            for t in p:
+                t[idx] = 0
+    return pool
 
 
 def slot_lengths(caches: Caches) -> np.ndarray:

@@ -46,7 +46,11 @@ def temperature(logits: torch.Tensor, gen: torch.Generator,
 
 def top_k(logits: torch.Tensor, gen: torch.Generator, k: int = 40,
           temp: float = 1.0) -> torch.Tensor:
-    vals, idx = torch.topk(logits, k, dim=-1)
+    """Draws among the k largest logits; among equal logits the lowest
+    indices are kept, as ``lax.top_k`` keeps them in the JAX package (a
+    stable descending sort, as in ``sampling_probs``)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
     pick = _categorical(vals / max(temp, 1e-4), gen)
     return torch.gather(idx, -1, pick.unsqueeze(-1))[..., 0].to(torch.int32)
 
