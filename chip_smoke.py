@@ -23,8 +23,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 0); every call of granite-3-2b's and qwen1.5-32b's serve
                 paths at full width (``kernel_times.ARCH_CALLS``: decode
                 projections up to Kp = 856 words, prefill projections up
-                to K = 27,392, d_h = 128 with G = 1); integer and float32
-                outputs
+                to K = 27,392, d_h = 128 with G = 1) and of gemma3-27b's
+                (``kernel_times.GEMMA_CALLS``); ``sps_attention`` with a
+                causal window (1, 31, 32, 33, 1,024 at L = 64, 1,100,
+                1,536; with ``lens``) and an (H, 512) row table at L =
+                600; ``paged_gather_decode`` with a row table's
+                thresholds gathered by position on wrapped rings of
+                1,024; integer and float32 outputs
                 must be bitwise equal; CUDA-event timings of kernel, plain
                 version and (where one exists) the one PyTorch call
                 computing the same function; then
@@ -112,6 +117,27 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 d_h = 128, G = 1, the QKV bias drawn off zero) in float32
                 on the card and on the CPU: equal greedy tokens, logits
                 within a stated tolerance
+  11. gemma    gemma3-27b at full width and 12 of its 62 layers (two 5:1
+                local:global periods; bf16, random weights from a seed):
+                static serving of 4 prompts of 1,536 tokens (``[gemma]``:
+                the local layers' rings of 1,024 wrap, graph == eager),
+                the ragged windowed prefill (8 rows of 1 to 1,536
+                tokens, each row's local and global rings equal to its
+                own prefill's), continuous paged serving of a 16-request
+                trace on two ring groups (``[gemma continuous]``: 8
+                slots, chunks of 512, prefix hits and preemptions by
+                group, graphs == eager) and the same trace
+                speculatively (``[gemma speculative]``: a one-layer
+                draft whose ring wraps; a spec replay against the eager
+                iteration on wrapped draft rings)
+  12. crosscheck
+                a narrow gemma-shaped config (6 layers at 5:1, window
+                64, G = 2, d_h = 128, the GELU GLU) and a ``row``
+                configuration (smollm's widths, 2 layers, a seeded
+                lambda table, prompts across position 511) in float32
+                on the card and on the CPU: statically (tokens equal,
+                logits within a stated tolerance), continuously and
+                speculatively (tokens by rid and counters equal)
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -119,6 +145,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -132,9 +159,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    ARCH_CALLS, BF16_FLOPS, INT8_OPS, SCALAR32_OPS, bound, call_operands,
-    decode_calls, device_ms, eager_ms, nbytes, paged_bound, spec_launches,
-    spec_operands, sps_bound, time_all)
+    ARCH_CALLS, BF16_FLOPS, GEMMA_CALLS, INT8_OPS, SCALAR32_OPS, bound,
+    call_operands, decode_calls, device_ms, eager_ms, nbytes, paged_bound,
+    spec_launches, spec_operands, sps_bound, time_all)
 
 SEED = 0
 
@@ -643,6 +670,17 @@ def check_paged_gather_decode(rng):
     }.items():
         _same("paged_gather_decode", f"{case}, trash entries, lengths 0 "
               f"and >= ring", *f(inputs(*shape), shape[3]))
+    # the row granularity's thresholds: an (H, 512) table gathered at each
+    # row's position (clamped to 511), on gemma's local ring of 1,024
+    # slots with lengths past it (wrapped rings), G = 2, d_h = 128
+    a = inputs(8, 32, 16, 128, 32, 32, 256, 1024,
+               lens=rng.integers(1025, 2176, (8,)))
+    table = torch.from_numpy(rng.integers(-20, 21, (32, 512)).astype(
+        np.int32)).cuda()
+    a = a[:-1] + (table[:, a[4].long().clamp(max=511)].T.contiguous(),)
+    _same("paged_gather_decode", "row-table thresholds gathered by "
+          "position, ring 1024, lengths 1025..2175, H=32/16 d_h=128",
+          *f(a, 128))
     # main path: 16 slots, H=9 over 3, d_h=64, 12 blocks of 32 over an
     # arena of 96 pages, ragged lengths
     b, h, hkv, dh, page, nblk, ring = 16, 9, 3, 64, 32, 12, 384
@@ -705,6 +743,38 @@ def check_sps_attention(rng):
                                         lens=lens),
                   ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal,
                                         lens=lens))
+    # causal windows (gemma's local layers: 1,024): a window of one key,
+    # the 32-bit word's edges, the 64-row query and 128-key tile edges
+    # below and above; with lens; d_h 64 and 128 (G = 2)
+    for length in (64, 1100, 1536):
+        for window in (1, 31, 32, 33, 1024):
+            for dh in (64, 128):
+                q, k, vt, th = gqa(1, 4, 2, length, dh)
+                _same("sps_attention", f"L={length} window={window} "
+                      f"d_h={dh} G=2",
+                      ops.sps_attention_gqa(q, k, vt, th, d_h=dh,
+                                            window=window),
+                      ref.sps_attention_gqa(q, k, vt, th, d_h=dh,
+                                            window=window))
+    lens = torch.tensor([1100, 1, 1024, 1025, 130, 0], dtype=torch.int32,
+                        device="cuda")
+    q, k, vt, th = gqa(len(lens), 4, 2, 1100, 128)
+    _same("sps_attention", f"L=1100 window=1024 lens {lens.tolist()}",
+          ops.sps_attention_gqa(q, k, vt, th, d_h=128, window=1024,
+                                lens=lens),
+          ref.sps_attention_gqa(q, k, vt, th, d_h=128, window=1024,
+                                lens=lens))
+    # the row granularity's (H, 512) table at L = 600: rows 511.. read
+    # column 511; with a window and lens too
+    table = torch.randint(-20, 21, (4, 512), device="cuda",
+                          dtype=torch.int32)
+    for dh in (64, 128):
+        q, k, vt, _ = gqa(2, 4, 2, 600, dh)
+        for kw in (dict(), dict(window=33, lens=lens[:2].clamp(max=600))):
+            _same("sps_attention", f"L=600 row table (4, 512) d_h={dh} "
+                  f"{kw}",
+                  ops.sps_attention_gqa(q, k, vt, table, d_h=dh, **kw),
+                  ref.sps_attention_gqa(q, k, vt, table, d_h=dh, **kw))
     # the encode path's shape: bert-base, bidirectional, B=8, L=512
     q, k, vt, th = gqa(8, 12, 12, 512, 64)
     _same("sps_attention", "encode B=8 L=512 H=12/12 d_h=64 causal=False",
@@ -779,14 +849,21 @@ def check_arch_calls() -> None:
     and 16 up to Kp = 856 words, the ring score and context, the prefill
     projections up to K = 27,392, the packs, the prefill attention at
     d_h = 64 and 128 with and without ``lens``, the paged decode at G = 4
-    and G = 1), kernel against plain version, bitwise."""
-    calls = call_operands(ARCH_CALLS, SEED)
-    by_kernel = {}
-    for name, (kernel, call, plain, _, _) in calls.items():
-        _same(kernel, name, call(), plain())
-        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
-    log(f"[kernels] granite-3-2b's and qwen1.5-32b's {len(calls)} calls "
-        f"{json.dumps(by_kernel)} equal their plain versions bitwise")
+    and G = 1), then of gemma3-27b's (``kernel_times.GEMMA_CALLS``: the
+    decode projections at M = 4, 8 and 16 up to Kp = 672, the rings of
+    1,024 and 1,568, the prefill projections at M = 6,144, the prefill
+    attention windowed, full and with a row table, both paged ring
+    groups), kernel against plain version, bitwise."""
+    for label, table in (("granite-3-2b's and qwen1.5-32b's", ARCH_CALLS),
+                         ("gemma3-27b's", GEMMA_CALLS)):
+        calls = call_operands(table, SEED)
+        by_kernel = {}
+        for name, (kernel, call, plain, _, _) in calls.items():
+            _same(kernel, name, call(), plain())
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        del calls
+        log(f"[kernels] {label} {sum(by_kernel.values())} calls "
+            f"{json.dumps(by_kernel)} equal their plain versions bitwise")
 
 
 def phase_kernels():
@@ -865,19 +942,22 @@ def load_model(arch: str, tag: str, num_layers: int = 0):
     return model, dparams
 
 
-def serve_static(model, dparams, tag: str) -> dict:
-    """B = 8 prompts of 128 tokens and 32 greedy tokens each through
-    ``ServeEngine.generate``, the decode step a replayed graph; returns
-    the launch counts of the run."""
+def serve_static(model, dparams, tag: str,
+                 shape=(SERVE_B, SERVE_S, SERVE_NEW)) -> dict:
+    """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
+    (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
+    rings of S + new tokens (a windowed layer's: its window), the decode
+    step a replayed graph; returns the launch counts of the run."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
                                           ServeEngine)
     cfg = model.cfg
+    n_b, n_s, n_new = shape
     prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
+        0, cfg.vocab_size, (n_b, n_s)).astype(np.int32)
     eng = ServeEngine(model, dparams, ServeConfig(
-        cache=CacheConfig(max_len=SERVE_S + SERVE_NEW)))
+        cache=CacheConfig(max_len=n_s + n_new)))
     t0 = time.perf_counter()
     eng.generate(prompts, max_new_tokens=2)     # warm-up: captures the step
     torch.cuda.synchronize()
@@ -894,11 +974,11 @@ def serve_static(model, dparams, tag: str) -> dict:
     probe = IterationProbe(eng)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    toks, report = eng.generate(prompts, max_new_tokens=SERVE_NEW,
+    toks, report = eng.generate(prompts, max_new_tokens=n_new,
                                 stream_cb=on_token)
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    if toks.shape != (SERVE_B, SERVE_NEW) or toks.min() < 0 or \
+    if toks.shape != (n_b, n_new) or toks.min() < 0 or \
             toks.max() >= cfg.vocab_size:
         raise AssertionError(f"{tag} bad tokens {toks.shape} "
                              f"[{toks.min()}, {toks.max()}]")
@@ -910,21 +990,22 @@ def serve_static(model, dparams, tag: str) -> dict:
         raise AssertionError(f"{tag} captures {eng._graphs.captures} "
                              f"after the warm-up's {captures}")
     (t_pre, c_pre), (t_end, c_end) = marks[0], marks[-1]
-    steps = SERVE_NEW - 1
+    steps = n_new - 1
     per_step = {n: (c_end[n] - c_pre[n]) / steps for n in launches}
-    eager_step = check_static_graph(model, dparams, prompts, tag)
+    eager_step = check_static_graph(model, dparams, prompts, tag,
+                                    n_s + n_new)
     if per_step != {n: float(c) for n, c in eager_step.items()}:
         raise AssertionError(f"{tag} launches per replayed decode step "
                              f"{per_step}, per eager step {eager_step}")
     log(f"{tag} launches per prefill {json.dumps(c_pre)}")
     log(f"{tag} launches per decode step (credited by the replays, equal "
         f"to the eager step's) {json.dumps(per_step)}")
-    log(f"{tag} B={SERVE_B} prompts of {SERVE_S} tokens, {SERVE_NEW} "
+    log(f"{tag} B={n_b} prompts of {n_s} tokens, {n_new} "
         f"greedy tokens: prefill {1e3 * (t_pre - t0):.1f} ms, decode "
         f"{1e3 * (t_end - t_pre) / steps:.2f} ms/step (graph replays), "
         f"total {total:.3f} s,"
-        f" {SERVE_B * SERVE_NEW / total:.1f} tok/s, decode "
-        f"{SERVE_B * steps / (t_end - t_pre):.1f} tok/s; peak memory "
+        f" {n_b * n_new / total:.1f} tok/s, decode "
+        f"{n_b * steps / (t_end - t_pre):.1f} tok/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; KV cache "
         f"{report['total_bytes'] / 2**20:.2f} MiB "
         f"({report['compression_vs_bf16']:.1f}x below bf16)")
@@ -938,14 +1019,15 @@ def serve_static(model, dparams, tag: str) -> dict:
         f"{np.median(replays):.2f} ms; the host's own work per step outside "
         f"the replay (median, mean) {np.median(host):.2f}, "
         f"{np.mean(host):.2f} ms")
-    profile_decode(eng, step_ms, tag)
+    profile_decode(eng, step_ms, tag, n_b)
     return launches
 
 
 GRAPH_CHECK_STEPS = 8
 
 
-def check_static_graph(model, dparams, prompts, tag: str) -> dict:
+def check_static_graph(model, dparams, prompts, tag: str,
+                       max_len: int = SERVE_S + SERVE_NEW) -> dict:
     """The decode step captured as a graph against a test-local eager loop
     of ``decode_step`` from the same prefilled state: equal tokens and
     bitwise-equal logits at every step (the first call captures), the
@@ -958,11 +1040,11 @@ def check_static_graph(model, dparams, prompts, tag: str) -> dict:
     with torch.inference_mode():
         logits, eager = model.prefill_with_cache(
             dparams, torch.as_tensor(prompts, device="cuda"),
-            max_len=SERVE_S + SERVE_NEW)
+            max_len=max_len)
         caches = clone_caches(eager)
         g = graphs.StepGraph(
             lambda tokens: model.decode_step(dparams, tokens, caches)[0],
-            {"tokens": (SERVE_B, 1)}, device=torch.device("cuda"),
+            {"tokens": (len(prompts), 1)}, device=torch.device("cuda"),
             state=graphs.cache_tensors(caches))
         tok = logits.argmax(-1).cpu()
         ms = {"eager": [], "graph": []}
@@ -999,7 +1081,7 @@ def check_static_graph(model, dparams, prompts, tag: str) -> dict:
     return counted
 
 
-def profile_decode(eng, step_ms: float, tag: str) -> None:
+def profile_decode(eng, step_ms: float, tag: str, batch: int) -> None:
     """Where a decode step's time goes: device busy time of a replay of the
     engine's decode graph (sum of kernel times under torch.profiler)
     against the step's wall time from the serve run; the rest is the card
@@ -1007,7 +1089,7 @@ def profile_decode(eng, step_ms: float, tag: str) -> None:
     import torch
     g = next(g for (kind, _), g in eng._graphs.graphs.items()
              if kind == "decode")
-    tok = np.zeros((SERVE_B, 1), np.int64)
+    tok = np.zeros((batch, 1), np.int64)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     for _ in range(100):
@@ -1071,6 +1153,25 @@ CONT_SLOTS, CONT_PAGE, CONT_BLOCKS = 16, 32, 12
 CONT_PAGES, CONT_CHUNK = 48, 128
 
 
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """A continuous-serving run: the ``serve/trace.py`` trace (its shared
+    system prompt of ``system_prompt`` tokens, every arrival at 0) and the
+    engine's shape (slots; pages of ``page`` tokens, ``blocks`` a table
+    row, ``pages`` in the full-capacity group's arena; chunks)."""
+    trace: dict
+    system_prompt: int
+    slots: int
+    page: int
+    blocks: int
+    pages: int
+    chunk: int
+
+
+CONT = Cell(CONT_TRACE, 64, CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, CONT_PAGES,
+            CONT_CHUNK)
+
+
 class IterationProbe:
     """The engine's captured steps, with a stamp at the start of every
     replay the engine runs: wall time and launch counts (the replays
@@ -1128,41 +1229,44 @@ class IterationProbe:
                 for (k, t0, c0, r), (_, t1, c1, _) in zip(marks, marks[1:])]
 
 
-def continuous_requests(cfg):
+def continuous_requests(cfg, cell: Cell = CONT):
     """The trace's requests, every arrival at 0."""
     from repro_torch.serve import trace
     reqs = trace.as_requests(trace.generate_trace(trace.TraceConfig(
         vocab=cfg.vocab_size, tenants=(trace.TenantSpec(
-            "default", system_prompt_len=64),), **CONT_TRACE)))
+            "default", system_prompt_len=cell.system_prompt),),
+        **cell.trace)))
     for r in reqs:
         r.arrival_s = 0.0
     return reqs
 
 
-def continuous_config(spec_k=None):
+def continuous_config(spec_k=None, cell: Cell = CONT):
     """The continuous phase's engine: 16 slots, 48 pages of 32 with prefix
-    sharing, chunks of 128; with ``spec_k`` speculative decode by a
-    one-layer draft."""
+    sharing, chunks of 128 (or ``cell``'s shape); with ``spec_k``
+    speculative decode by a one-layer draft."""
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
                                           ServeConfig, SpecConfig)
-    return ServeConfig(num_slots=CONT_SLOTS, cache=CacheConfig(
-        paged=True, page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
-        num_pages=CONT_PAGES, prefix_share=True),
-        policy=PolicyConfig(prefill_chunk=CONT_CHUNK),
+    return ServeConfig(num_slots=cell.slots, cache=CacheConfig(
+        paged=True, page_size=cell.page, max_blocks=cell.blocks,
+        num_pages=cell.pages, prefix_share=True),
+        policy=PolicyConfig(prefill_chunk=cell.chunk),
         spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
 
 
-def phase_continuous(model, dparams, tag: str = "[continuous]"):
-    """Full-width smollm-135m through ``ServeEngine.serve`` on the paged
-    pool; returns the launch counts of the run and its tokens by rid."""
+def phase_continuous(model, dparams, tag: str = "[continuous]",
+                     cell: Cell = CONT):
+    """Full-width smollm-135m (or ``model``) through ``ServeEngine.serve``
+    on the paged pool of ``cell``; returns the launch counts of the run
+    and its tokens by rid."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import ServeEngine
-    cfg = continuous_config()
-    reqs = continuous_requests(model.cfg)
+    cfg = continuous_config(cell=cell)
+    reqs = continuous_requests(model.cfg, cell)
     eng = ServeEngine(model, dparams, cfg)
     t0 = time.perf_counter()
-    first, _ = eng.serve(continuous_requests(model.cfg))  # captures the steps
+    first, _ = eng.serve(continuous_requests(model.cfg, cell))  # captures
     torch.cuda.synchronize()
     log_captures(tag, eng, time.perf_counter() - t0)
     captures = dict(eng._graphs.captures)
@@ -1213,10 +1317,10 @@ def phase_continuous(model, dparams, tag: str = "[continuous]"):
     ms = lambda rows: [m for m, _ in rows]
     prompt = sum(len(r.tokens) for r in reqs)
     log(f"{tag} {len(reqs)} requests ({prompt} prompt tokens, "
-        f"{tokens} generated), {CONT_SLOTS} slots, "
-        f"{CONT_PAGES} pages of {CONT_PAGE} "
-        f"({CONT_PAGES / (CONT_SLOTS * CONT_BLOCKS):.2f} of {CONT_SLOTS} x "
-        f"{CONT_BLOCKS}), chunks of {CONT_CHUNK}: {total:.3f} s, "
+        f"{tokens} generated), {cell.slots} slots, "
+        f"{cell.pages} pages of {cell.page} "
+        f"({cell.pages / (cell.slots * cell.blocks):.2f} of {cell.slots} x "
+        f"{cell.blocks}), chunks of {cell.chunk}: {total:.3f} s, "
         f"{tokens / total:.1f} tok/s; without the profiled iterations "
         f"{total - profiled_s:.3f} s, {tokens / (total - profiled_s):.1f} "
         f"tok/s")
@@ -1245,6 +1349,11 @@ def phase_continuous(model, dparams, tag: str = "[continuous]"):
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, arena and "
         f"tables {rep.total_bytes / 2**20:.2f} MiB, peak mapped pages "
         f"{rep.peak_page_bytes / 2**20:.2f} MiB")
+    log(f"{tag} by ring group (logical ring length: pages, peak used, "
+        f"prefix lookups, hits, COW copies) " + json.dumps({
+            ring: [a.num_pages, a.peak_pages, a.prefix_lookups,
+                   a.share_hits, a.cow_copies]
+            for ring, a in eng.arenas.items()}))
     busy, n_kernels, by_name, _ = probe.profile["mixed"]
     mix_ms = float(np.median(ms(mix)))
     log(f"{tag} mixed replay profile: device busy {busy:.3f} ms of "
@@ -1263,45 +1372,66 @@ def phase_continuous(model, dparams, tag: str = "[continuous]"):
     log(f"{tag} device ms per pure-decode iteration of our kernels "
         f"{json.dumps(our_kernels_ms(by_name))}")
     log_host_ops(tag, host_ops)
-    check_paged_graph(model, dparams, tag)
+    check_paged_graph(model, dparams, tag, cell)
     return launches, res
 
 
-def check_paged_graph(model, dparams, tag: str) -> None:
+def shared_tables(caches):
+    """Per-layer paged caches whose layers of one ring group share one
+    block table (the first layer's of the group), as the engine's do."""
+    tables = {}
+    return [dict(c, attn=c["attn"]._replace(block_table=tables.setdefault(
+        c["attn"].ring_len, c["attn"].block_table))) for c in caches]
+
+
+def set_tables(caches, rng, live: int, pages: int = 4) -> None:
+    """Map ``pages`` distinct random pages to each of the first ``live``
+    rows of every ring group's (shared) table; the other rows stay on
+    the trash page."""
+    import torch
+    done = set()
+    for c in caches:
+        pg = c["attn"]
+        if pg.ring_len in done:
+            continue
+        done.add(pg.ring_len)
+        b, nblk = pg.block_table.shape
+        table = np.zeros((b, nblk), np.int32)
+        n = min(pages, nblk)
+        table[:live, :n] = 1 + rng.permutation(pg.k_pages.shape[0] - 1)[
+            :n * live].reshape(live, n)
+        pg.block_table.copy_(torch.from_numpy(table))
+
+
+def check_paged_graph(model, dparams, tag: str, cell: Cell = CONT) -> None:
     """The unified and pooled decode steps captured as graphs against eager
     steps from the same paged state, at the continuous phase's shapes (16
-    slots, chunks of 128, 12 blocks of 32, 48 pages; 12 live rows with 4
-    pages each, 4 inactive rows on the trash page): equal tokens and
-    bitwise-equal logits on the live rows, equal pages 1.. and lengths.
-    The trash page takes colliding writes in an order no version fixes,
-    so the inactive rows' logits are not compared."""
+    slots, chunks of 128, 12 blocks of 32, 48 pages; or ``cell``'s): 3/4
+    of the rows live with 4 pages each in every ring group, the others
+    inactive on the trash page: equal tokens and bitwise-equal logits on
+    the live rows, equal pages 1.. and lengths.  The trash page takes
+    colliding writes in an order no version fixes, so the inactive rows'
+    logits are not compared."""
     import torch
     from repro_torch.models.attention import PageSpec
     from repro_torch.serve import graphs
     dev = torch.device("cuda")
-    spec = PageSpec(page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
-                    num_pages=CONT_PAGES)
-    b, live = CONT_SLOTS, 12
-
-    def shared_table(caches):
-        t = caches[0]["attn"].block_table
-        return [dict(c, attn=c["attn"]._replace(block_table=t))
-                for c in caches]
+    spec = PageSpec(page_size=cell.page, max_blocks=cell.blocks,
+                    num_pages=cell.pages)
+    b = cell.slots
+    live = 3 * b // 4
 
     rng = np.random.default_rng(SEED + 4)
     with torch.inference_mode():
-        eager = shared_table(model.init_caches(b, 0, dev, paged=spec))
-        table = np.zeros((b, CONT_BLOCKS), np.int32)
-        table[:live, :4] = 1 + rng.permutation(CONT_PAGES)[:4 * live].reshape(
-            live, 4)
-        eager[0]["attn"].block_table.copy_(torch.from_numpy(table))
-        caches = shared_table(clone_caches(eager))
+        eager = shared_tables(model.init_caches(b, 0, dev, paged=spec))
+        set_tables(eager, rng, live)
+        caches = shared_tables(clone_caches(eager))
         state = graphs.cache_tensors(caches)
 
         def unified(tokens, start, valid):
             return model.prefill_with_cache(dparams, tokens, caches=caches,
                                             start=start, seq_lens=valid)[0]
-        uni = graphs.StepGraph(unified, {"tokens": (b, CONT_CHUNK),
+        uni = graphs.StepGraph(unified, {"tokens": (b, cell.chunk),
                                          "start": (b,), "valid": (b,)},
                                device=dev, state=state)
         dec = graphs.StepGraph(
@@ -1309,7 +1439,7 @@ def check_paged_graph(model, dparams, tag: str) -> None:
             {"tokens": (b, 1)}, device=dev, state=state)
         valid = np.zeros(b, np.int64)
         valid[:live] = rng.integers(1, 121, live)
-        toks = rng.integers(0, model.cfg.vocab_size, (b, CONT_CHUNK))
+        toks = rng.integers(0, model.cfg.vocab_size, (b, cell.chunk))
         start = np.zeros(b, np.int64)
         steps = [("unified", dict(tokens=toks, start=start, valid=valid))]
         steps += [("decode", None)] * 6
@@ -1337,7 +1467,7 @@ def check_paged_graph(model, dparams, tag: str) -> None:
                     raise AssertionError(f"{tag} graph check: paged {kind} "
                                          f"step {i}: pages or lengths differ")
             tok = want[:, -1:].argmax(-1).cpu()
-    log(f"{tag} graph == eager: a unified chunk of {CONT_CHUNK} "
+    log(f"{tag} graph == eager: a unified chunk of {cell.chunk} "
         f"(valid {valid[:live].min()}..{valid[:live].max()}, "
         f"{b - live} inactive rows) and 6 pooled decode steps from the same "
         f"paged state: live rows' logits bitwise equal, pages and lengths "
@@ -1641,12 +1771,12 @@ CROSS_B, CROSS_S, CROSS_NEW = 2, 32, 4
 CROSS_ATOL = 2e-3   # float32 logits; sums differ in order between devices
 
 
-def _greedy_run(model, dparams, prompts, device):
+def _greedy_run(model, dparams, prompts, device,
+                max_len: int = CROSS_S + CROSS_NEW):
     """prefill + greedy decode; returns (tokens (B, NEW), logits list)."""
     import torch
     toks = torch.as_tensor(prompts, device=device)
-    logits, caches = model.prefill_with_cache(
-        dparams, toks, max_len=CROSS_S + CROSS_NEW)
+    logits, caches = model.prefill_with_cache(dparams, toks, max_len=max_len)
     out, lgs = [], [logits.float().cpu()]
     for _ in range(CROSS_NEW):
         token = logits[:, -1:].argmax(-1)
@@ -1714,23 +1844,37 @@ CROSS_SPEC_COUNTERS = ("spec_steps", "spec_drafted", "spec_accepted",
                        "engine_compiles")
 
 
-def crosscheck_continuous(model, dparams, on_cpu, spec_k=None):
+def cross_prompts(vocab: int, shared_len: int, with_shared, alone,
+                  seed: int = SEED + 2):
+    """Prompts of the continuous card-vs-CPU checks: a shared prefix of
+    ``shared_len`` tokens followed by each of ``with_shared`` tokens, then
+    prompts of ``alone`` tokens."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, shared_len)
+    return [np.concatenate([shared, rng.integers(0, vocab, n)])
+            for n in with_shared] + [rng.integers(0, vocab, n)
+                                     for n in alone]
+
+
+def crosscheck_continuous(model, dparams, on_cpu, spec_k=None, prompts=None,
+                          blocks: int = 2, pages: int = 3, chunk: int = 32,
+                          tag: str = "[crosscheck]"):
     """The same 4 requests on the card and on the CPU (plain versions),
     served plainly or, with ``spec_k``, speculatively by a one-layer draft:
-    equal tokens by rid and equal counters (the spec group's too).
-    Returns the card's tokens by rid."""
+    equal tokens by rid and equal counters (the spec group's too).  By
+    default two requests share a 32-token page and two fit one page at
+    admission and outgrow it on a 3-page arena; ``prompts``, ``blocks``,
+    ``pages`` and ``chunk`` size another run.  Returns the card's tokens
+    by rid."""
     import torch
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
                                           Request, ServeConfig, ServeEngine,
                                           SpecConfig)
-    rng = np.random.default_rng(SEED + 2)
-    shared = rng.integers(0, model.cfg.vocab_size, 32)
-    prompts = [np.concatenate([shared, rng.integers(
-        0, model.cfg.vocab_size, n)]) for n in (2, 8)] + [
-        rng.integers(0, model.cfg.vocab_size, n) for n in (30, 29)]
+    if prompts is None:
+        prompts = cross_prompts(model.cfg.vocab_size, 32, (2, 8), (30, 29))
     cfg = ServeConfig(num_slots=2, cache=CacheConfig(
-        paged=True, page_size=32, max_blocks=2, num_pages=3),
-        policy=PolicyConfig(prefill_chunk=32),
+        paged=True, page_size=32, max_blocks=blocks, num_pages=pages),
+        policy=PolicyConfig(prefill_chunk=chunk),
         spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
     runs = {}
     for dev, params in (("cuda", dparams), ("cpu", on_cpu)):
@@ -1745,7 +1889,7 @@ def crosscheck_continuous(model, dparams, on_cpu, spec_k=None):
            if not np.array_equal(res_card[rid], res_cpu[rid])]
     names = CROSS_CONT_COUNTERS + (CROSS_SPEC_COUNTERS if spec_k else ())
     counters = {k: (rep_card[k], rep_cpu[k]) for k in names}
-    tag = f"speculative k={spec_k}" if spec_k else "plain"
+    label, tag = tag, f"speculative k={spec_k}" if spec_k else "plain"
     if bad or sorted(res_card) != sorted(res_cpu) or \
             any(a != b for a, b in counters.values()):
         raise AssertionError(f"crosscheck continuous ({tag}): tokens differ "
@@ -1754,8 +1898,9 @@ def crosscheck_continuous(model, dparams, on_cpu, spec_k=None):
     if rep_cpu.preemptions < 1 or rep_cpu.prefix_hits < 1:
         raise AssertionError(f"crosscheck continuous ({tag}): expected a "
                              f"preemption and a prefix hit: {counters}")
-    log(f"[crosscheck] float32 continuous, {tag}, 4 requests on 2 slots and "
-        f"3 pages: card == CPU tokens by rid "
+    log(f"{label} float32 continuous, {tag}, {len(prompts)} requests of "
+        f"{[len(p) for p in prompts]} tokens on 2 slots and {pages} pages: "
+        f"card == CPU tokens by rid "
         f"{ {rid: res_cpu[rid].tolist() for rid in sorted(res_cpu)} }; "
         f"equal counters "
         f"{json.dumps({k: a for k, (a, _) in counters.items()})}")
@@ -1770,11 +1915,7 @@ def crosscheck_full_depth_draft(model, dparams, plain) -> None:
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
                                           Request, ServeConfig, ServeEngine,
                                           SpecConfig)
-    rng = np.random.default_rng(SEED + 2)
-    shared = rng.integers(0, model.cfg.vocab_size, 32)
-    prompts = [np.concatenate([shared, rng.integers(
-        0, model.cfg.vocab_size, n)]) for n in (2, 8)] + [
-        rng.integers(0, model.cfg.vocab_size, n) for n in (30, 29)]
+    prompts = cross_prompts(model.cfg.vocab_size, 32, (2, 8), (30, 29))
     cfg = ServeConfig(num_slots=2, cache=CacheConfig(
         paged=True, page_size=32, max_blocks=2, num_pages=3),
         policy=PolicyConfig(prefill_chunk=32),
@@ -1953,18 +2094,22 @@ def phase_dense_arch(arch: str, tag: str, num_layers: int = 0) -> dict:
     return {n: launches[n] + paged[n] for n in launches}
 
 
-def check_ragged_prefill(model, dparams, tag: str) -> None:
+def check_ragged_prefill(model, dparams, tag: str, lens=RAGGED_LENS,
+                         shape=(SERVE_S, SERVE_NEW)) -> None:
     """``prefill_with_cache(..., seq_lens=...)`` on 8 right-padded rows of
-    ``RAGGED_LENS`` tokens: one ``sps_attention`` per layer (with its
-    ``lens``); each row's ring cache (160 slots) bitwise equal to that
-    row's own unpadded prefill, its logits within ``RAGGED_ATOL``."""
+    ``lens`` tokens, padded to S (``shape``: S, new tokens): one
+    ``sps_attention`` per layer (with its ``lens``, and a windowed
+    layer's window); each row's ring caches (S + new tokens slots, a
+    windowed layer's: its window) bitwise equal to that row's own
+    unpadded prefill's, its logits within ``RAGGED_ATOL``."""
     import torch
     from repro_torch import kernels
-    lens = np.asarray(RAGGED_LENS, np.int32)
-    width = SERVE_S + SERVE_NEW
+    n_s, n_new = shape
+    lens = np.asarray(lens, np.int32)
+    width = n_s + n_new
     toks = np.random.default_rng(SEED + 5).integers(
-        0, model.cfg.vocab_size, (len(lens), SERVE_S))
-    toks = np.where(np.arange(SERVE_S) < lens[:, None], toks, 0)
+        0, model.cfg.vocab_size, (len(lens), n_s))
+    toks = np.where(np.arange(n_s) < lens[:, None], toks, 0)
     with torch.inference_mode():
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1995,9 +2140,10 @@ def check_ragged_prefill(model, dparams, tag: str) -> None:
                              f"rows' own prefills at (row, length, layer) "
                              f"{bad[:12]} ({len(bad)} in all); max |logit "
                              f"diff| {diff} (tol {RAGGED_ATOL})")
+    rings = sorted({c["attn"].k_bits.shape[2] for c in caches})
     log(f"{tag} ragged whole-prompt prefill, 8 rows of lengths "
-        f"{list(RAGGED_LENS)} padded to {SERVE_S}: {ms:.1f} ms, launches "
-        f"{json.dumps(launches)}; every row's ring ({width} slots, "
+        f"{lens.tolist()} padded to {n_s}: {ms:.1f} ms, launches "
+        f"{json.dumps(launches)}; every row's rings ({rings} slots, "
         f"{model.cfg.num_layers} layers) bitwise equal to its own unpadded "
         f"prefill, max |logit diff| {diff:.3g} <= {RAGGED_ATOL}")
 
@@ -2049,6 +2195,253 @@ def phase_crosscheck_qwen() -> None:
         f"{CROSS_ATOL}")
 
 
+# -- phase 11: gemma3-27b --------------------------------------------------------
+
+# 12 of 62 layers, two 5:1 local:global periods (layers 5 and 11 global):
+# the full depth's float32 masters (27.0 B parameters, 108 GB) exceed the
+# card
+GEMMA_LAYERS = 12
+# static: B = 4 prompts of 1,536 tokens, 32 greedy tokens, rings of 1,568:
+# the local layers' rings of 1,024 wrap
+GEMMA_STATIC = (4, 1536, 32)
+# the ragged prefill's rows: the window (1,024) and the 64-row query and
+# 128-key tile edges among them
+GEMMA_RAGGED = (1, 2, 64, 1023, 1024, 1025, 1100, 1536)
+# continuous: 16 requests, 8 slots, 68 blocks of 32 (capacity 2,176), 208
+# pages in the global group, chunks of 512 (the local group is fully
+# provisioned at 8 x 32).  The trace's own peak is 236 global pages (the
+# engine's schedule on the CPU, which no model output changes: no EOS is
+# set), so half of 8 x 68 (272) would never preempt; 208 preempts twice
+GEMMA_CONT = Cell(dict(n_requests=16, mean_prompt=768, max_prompt=2048,
+                       mean_new=24, max_new=48, seed=SEED), 64, 8, 32, 68,
+                  208, 512)
+
+
+def phase_gemma() -> dict:
+    """gemma3-27b at full width and 12 layers, bf16, random weights from
+    ``SEED``: static serving (``GEMMA_STATIC``, graph == eager), the
+    ragged windowed prefill (``GEMMA_RAGGED``), continuous paged serving
+    of ``GEMMA_CONT`` on two ring groups, then the same speculatively.
+    Returns the launch counts of the serves."""
+    import torch
+    model, dparams = load_model("gemma3-27b", "[gemma]", GEMMA_LAYERS)
+    launches = serve_static(model, dparams, "[gemma]", GEMMA_STATIC)
+    check_ragged_prefill(model, dparams, "[gemma]", GEMMA_RAGGED,
+                         GEMMA_STATIC[1:])
+    paged, _ = phase_continuous(model, dparams, "[gemma continuous]",
+                                GEMMA_CONT)
+    spec = phase_gemma_speculative(model, dparams)
+    del model, dparams
+    torch.cuda.empty_cache()
+    return {n: launches[n] + paged[n] + spec[n] for n in launches}
+
+
+def phase_gemma_speculative(model, dparams) -> dict:
+    """``GEMMA_CONT`` with ``SpecConfig(k=4, draft_layers=1)``: the draft is
+    local layer 0, whose ring of 1,024 wraps on the long requests.  Served
+    twice on one engine (the first serve captures one unified and one spec
+    graph), every budget served; acceptance, tokens per step, ms per spec
+    iteration; then ``check_gemma_spec_graph``.  Returns the launch counts
+    of the timed serve."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve.engine import ServeEngine
+    tag = "[gemma speculative]"
+    eng = ServeEngine(model, dparams, continuous_config(SPEC_K, GEMMA_CONT))
+    t0 = time.perf_counter()
+    first, _ = eng.serve(continuous_requests(model.cfg, GEMMA_CONT))
+    torch.cuda.synchronize()
+    log_captures(tag, eng, time.perf_counter() - t0)
+    captures = dict(eng._graphs.captures)
+    probe = IterationProbe(eng)
+    reqs = continuous_requests(model.cfg, GEMMA_CONT)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rep = eng.serve(reqs)
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    its = probe.iterations(t0 + total, launches)
+    if eng._graphs.captures != captures or \
+            captures != {"unified": 1, "decode": 0, "spec": 1}:
+        raise AssertionError(f"{tag} captures {eng._graphs.captures} after "
+                             f"the first serve's {captures}")
+    changed = _differ(res, first)
+    short = [r.rid for r in reqs if len(res[r.rid]) != r.max_new_tokens]
+    idle = [n for n in SPEC_PATH if launches[n] == 0]
+    if changed or short or idle or rep.spec_steps < 1:
+        raise AssertionError(f"{tag} the second serve's tokens differ for "
+                             f"rids {changed}; budgets not served {short}; "
+                             f"kernels never launched {idle}; spec_steps "
+                             f"{rep.spec_steps}")
+    spec = [ms for k, ms, _, _ in its if k == "spec"]
+    mix = [ms for k, ms, _, _ in its if k == "mixed"]
+    tokens = sum(len(t) for t in res.values())
+    by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
+    log(f"{tag} tokens by rid, digest {digest(by_rid)}")
+    log(f"{tag} k={SPEC_K}, a {SPEC_DRAFT}-layer draft (local layer 0, a "
+        f"ring of {model.cfg.window_size}): spec_steps {rep.spec_steps:.0f},"
+        f" spec_accept_rate {rep.spec_accept_rate:.4f}, "
+        f"spec_tokens_per_step {rep.spec_tokens_per_step:.4f}, "
+        f"pages_freed_rollback {rep.pages_freed_rollback:.0f}, preemptions "
+        f"{rep.preemptions:.0f}, prefix hits {rep.prefix_hits:.0f}")
+    log(f"{tag} {len(reqs)} requests, {tokens} tokens: {total:.3f} s, "
+        f"{tokens / total:.1f} tok/s; {len(spec)} spec iterations, median "
+        f"{np.median(spec):.2f} ms, mean {np.mean(spec):.2f} ms; {len(mix)} "
+        f"mixed, median {np.median(mix):.2f} ms; launches per spec "
+        f"iteration {json.dumps(next(c for k, _, c, _ in its if k == 'spec'))}")
+    check_gemma_spec_graph(model, dparams, eng)
+    return launches
+
+
+def check_gemma_spec_graph(model, dparams, eng) -> None:
+    """The engine's spec graph against ``spec_forward`` run eagerly from
+    the same state, on the engine's own pool shape: 3 live rows of 1,022,
+    1,021 and 700 tokens (chunks of 512 into the paged trunk and the
+    draft's rings), 5 inactive; ``SPEC_CHECK_ITERS`` greedy iterations.
+    The draft's ring of 1,024 wraps during the first iteration's 5 steps
+    on the two long rows.  Live rows' outputs, the trunk's pages 1.. and
+    lengths and every draft ring bitwise equal."""
+    import torch
+    from repro_torch.serve import graphs
+    dev = torch.device("cuda")
+    spec = eng.cfg.page_spec()
+    b, lens = GEMMA_CONT.slots, np.array([1022, 1021, 700])
+    live, k = len(lens), SPEC_K
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+    rng = np.random.default_rng(SEED + 7)
+
+    def same(a, c, trash):
+        for x, y in zip(a, c):
+            x, y = x["attn"], y["attn"]
+            pairs = ((x.k_pages[1:], y.k_pages[1:]),
+                     (x.vt_pages[1:], y.vt_pages[1:]),
+                     (x.length, y.length)) if trash else tuple(zip(x, y))
+            if not all(torch.equal(p, q) for p, q in pairs):
+                return False
+        return True
+
+    with torch.inference_mode():
+        key, caches = eng._pool_caches(b, spec)
+        draft = eng._draft_caches(b, spec.capacity)
+        for x in graphs.cache_tensors(caches) + graphs.cache_tensors(
+                draft[1]):
+            x.zero_()
+        set_tables(caches, rng, live, pages=-(-(lens.max() + 3 * (k + 1))
+                                              // spec.page_size))
+        done = np.zeros(b, np.int64)
+        while (done[:live] < lens).any():
+            valid = np.zeros(b, np.int64)
+            valid[:live] = np.minimum(lens - done[:live], GEMMA_CONT.chunk)
+            toks = t(rng.integers(0, model.cfg.vocab_size,
+                                  (b, GEMMA_CONT.chunk)))
+            for m, p, c in ((model, dparams, caches),
+                            (eng.draft_model, eng.draft_dparams, draft[1])):
+                logits, _ = m.prefill_with_cache(p, toks, caches=c,
+                                                 start=t(done),
+                                                 seq_lens=t(valid))
+                if m is model:
+                    pending = logits[:, -1].argmax(-1, keepdim=True).cpu()
+            done += valid
+        eager = shared_tables(clone_caches(caches))
+        deager = clone_caches(draft[1])
+        graph = eng._spec_graph(key, caches, draft)
+        step = eng.spec_forward(eager, deager)
+        start, active = done.copy(), (done > 0) * 1
+        for i in range(SPEC_CHECK_ITERS):
+            inputs = dict(tokens=pending.numpy(), start=start, active=active)
+            res_g = graph(**inputs).cpu()
+            res_e = step(**{n: t(v) for n, v in inputs.items()}).cpu()
+            if not (torch.equal(res_g[:live], res_e[:live]) and
+                    same(caches, eager, True) and
+                    same(draft[1], deager, False)):
+                raise AssertionError(f"[gemma speculative] graph check: "
+                                     f"iteration {i} replayed differs from "
+                                     f"eager")
+            n_acc = res_e[:, k + 1].numpy()
+            start = start + active * (n_acc + 1)
+            pending = res_e[torch.arange(b), res_e[:, k + 1]][:, None]
+        dlen = draft[1][0]["attn"].length.cpu().numpy()
+    if not (dlen[:2] > model.cfg.window_size).all():
+        raise AssertionError(f"[gemma speculative] graph check: the draft's "
+                             f"rings did not wrap (lengths {dlen})")
+    log(f"[gemma speculative] graph == eager: {SPEC_CHECK_ITERS} spec "
+        f"iterations from rows of {lens.tolist()} tokens ({b - live} "
+        f"inactive), the draft's ring of {model.cfg.window_size} wrapped "
+        f"(lengths now {dlen[:live].tolist()}): live rows' outputs, trunk "
+        f"pages and lengths and every draft ring bitwise equal")
+
+
+# -- phase 12: card vs CPU, narrow gemma-shaped and row configs -----------------
+
+# gemma's head shape (G = 2, d_h = 128), the GELU GLU and a 5:1 plan of 6
+# layers with a window of 64 at a size the CPU runs; prompts of 100-200
+# tokens wrap the local rings
+NARROW_GEMMA = dict(num_layers=6, d_model=256, num_heads=2, num_kv_heads=1,
+                    head_dim=128, d_ff=512, window_size=64,
+                    compute_dtype="float32")
+# smollm's widths with the row granularity, 2 layers; prompts cross 511
+NARROW_ROW = dict(num_layers=2, compute_dtype="float32")
+
+
+def phase_crosscheck_narrow(tag: str, arch: str, kw: dict, static_s: int,
+                            cont: tuple, row: bool = False) -> None:
+    """A narrow config in float32 on the card and on the CPU (plain
+    versions): static greedy tokens equal and logits within
+    ``CROSS_ATOL`` (B = 2 prompts of ``static_s`` tokens); then 4
+    requests (``cont``: shared prefix, lengths after it, lengths alone,
+    blocks, pages, chunk) continuously on 2 slots, plainly and
+    speculatively (k = 4, one-layer draft), tokens by rid and counters
+    equal, the speculative tokens equal to the plain ones.  With ``row``
+    the config takes the ``row`` granularity and each layer a seeded,
+    non-zero (H, 512) lambda table."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    cfg = get_config(arch).with_(**kw)
+    if row:
+        cfg = cfg.with_(binary=dc.replace(cfg.binary, sps_granularity="row"))
+    model = build_model(cfg)
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        qat = model.init(gen)
+        if row:
+            for bp in qat["blocks"]:
+                lam = bp["attn"]["sps_lambda"]
+                lam.copy_(0.4 * torch.randn(lam.shape, generator=gen,
+                                            device="cuda"))
+        dparams = model.convert(qat)
+        on_cpu = to_device(dparams, "cpu")
+        prompts = np.random.default_rng(SEED + 8).integers(
+            0, cfg.vocab_size, (CROSS_B, static_s))
+        tok_card, lg_card = _greedy_run(model, dparams, prompts, "cuda",
+                                        static_s + CROSS_NEW)
+        tok_cpu, lg_cpu = _greedy_run(model, on_cpu, prompts, "cpu",
+                                      static_s + CROSS_NEW)
+    diff = max((a - b).abs().max().item() for a, b in zip(lg_card, lg_cpu))
+    if not np.array_equal(tok_card, tok_cpu) or diff > CROSS_ATOL:
+        raise AssertionError(f"{tag} card tokens {tok_card.tolist()} vs CPU "
+                             f"{tok_cpu.tolist()}, max |logit diff| {diff} "
+                             f"(tol {CROSS_ATOL})")
+    log(f"{tag} float32 {cfg.num_layers} layers (plan "
+        f"{[w for _, w in model.plan]}), d={cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of d_h="
+        f"{cfg.resolved_head_dim}, {cfg.act} GLU, SPS "
+        f"{cfg.binary.sps_granularity}; static B={CROSS_B} S={static_s} "
+        f"{CROSS_NEW} tokens: card == CPU tokens {tok_card.tolist()}, max "
+        f"|logit diff| {diff:.3g} <= {CROSS_ATOL}")
+    shared, with_shared, alone, blocks, pages, chunk = cont
+    prompts = cross_prompts(cfg.vocab_size, shared, with_shared, alone)
+    runs = [crosscheck_continuous(model, dparams, on_cpu, spec_k, prompts,
+                                  blocks, pages, chunk, tag)
+            for spec_k in (None, SPEC_K)]
+    differ = _differ(runs[1], runs[0])
+    if differ:
+        raise AssertionError(f"{tag} speculative tokens differ from plain "
+                             f"ones for rids {differ}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2072,8 +2465,15 @@ def main() -> int:
     granite = phase_dense_arch("granite-3-2b", "[granite]")
     qwen = phase_dense_arch("qwen1.5-32b", "[qwen]", QWEN_LAYERS)
     phase_crosscheck_qwen()
+    gemma = phase_gemma()
+    phase_crosscheck_narrow("[gemma card==cpu]", "gemma3-27b", NARROW_GEMMA,
+                            150, (64, (40, 100), (150, 190), 7, 8, 32))
+    phase_crosscheck_narrow("[row card==cpu]", "smollm-135m", NARROW_ROW,
+                            520, (64, (451, 460), (520, 530), 17, 20, 128),
+                            row=True)
     for name in rows:
-        rows[name]["launches"] += encode[name] + granite[name] + qwen[name]
+        rows[name]["launches"] += (encode[name] + granite[name] +
+                                   qwen[name] + gemma[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,6 +162,7 @@ _MODULE_FOR: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "granite-3-2b": "granite_3_2b",
     "qwen1.5-32b": "qwen15_32b",
+    "gemma3-27b": "gemma3_27b",
     "bert-base-cobra": "bert_base_cobra",
 }
 

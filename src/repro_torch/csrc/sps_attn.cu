@@ -5,6 +5,7 @@
 // sps_attention (_kernel_vpu, _kernel_mxu, _probs_tile, _pack_cols):
 //   score  c = 2*popcount(~(q ^ k)) - (d_h + 2*pad)       (Eq. 7, pad-0)
 //   prob   p = (c >= theta[h]) & (key < L_b) & (key <= row if causal)
+//              & (key > row - window if window > 0)
 //   ctx[row, d] = sum_key p * v[key, d] = 2*popcount(P & V^T[d]) - nnz(P)
 // with no softmax state, so key tiles combine by plain integer addition
 // and the L x L score matrix never leaves the registers and one shared
@@ -15,6 +16,14 @@
 // right-padded batch: the JAX model's ragged prefill masks keys at columns
 // >= seq_lens[b] in every row; the TPU kernel masks one global length
 // only).  lens is read once per block, and key tiles past L_b are skipped.
+// A causal sliding window (window > 0: key c visible from row r iff
+// r - window < c <= r, as the JAX model's windowed prefill masks in its
+// jnp body) skips the key tiles wholly before the block's first visible
+// key, row i0's i0 - window + 1, so a windowed prefill costs O(L * window)
+// tiles instead of O(L^2).  theta is one threshold per query head, or a
+// row table (H, T), the `row` SPS granularity: row r reads column
+// min(r, T - 1).  Neither operand is the TPU kernel's; with window = 0 and
+// T = 0 the kernel is the one before them.
 //
 // Both products are int8 matrix products with exact int32 sums:
 //   * the score is the ±1 dot product of q and k over all 32 * dhp bits,
@@ -145,9 +154,9 @@ __global__ void __launch_bounds__(kMaxWG * 128)
                          const uint32_t* __restrict__ vt,
                          const int32_t* __restrict__ theta,
                          const int32_t* __restrict__ lens, int h_q,
-                         int h_kv, int len, int dh, int lw, int causal,
-                         int nwg, int head_groups,
-                         int32_t* __restrict__ out) {
+                         int h_kv, int len, int dh, int lw, int window,
+                         int theta_cols, int causal, int nwg,
+                         int head_groups, int32_t* __restrict__ out) {
   constexpr int npan = kDhp > kPanelWords ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) &
@@ -177,11 +186,18 @@ __global__ void __launch_bounds__(kMaxWG * 128)
                                kDhp;
   const uint32_t* vb = vt + (b * h_kv + hk) * static_cast<long long>(dh) *
                                 lw;
+  // the key tiles this block reads: from the one holding its first
+  // visible key to the one holding its last; at least one tile, because
+  // its first wgmma clears the context accumulator
+  const int last_key = causal ? min(len_b - 1, i0 + kBM - 1) : len_b - 1;
+  const int tiles = max(last_key, 0) / kBK + 1;
+  const int jt0 = window > 0 ? min(max(i0 - window + 1, 0) / kBK, tiles - 1)
+                             : 0;
 
   // this warpgroup's Q rows (zero past L), unpacked once; their words
-  // and key tile 0's are loaded together
+  // and key tile jt0's are loaded together
   Staged<kDhp> st;
-  load_tile(st, kb, vb, 0, 0, len, dh, lw, tid, nthreads);
+  load_tile(st, kb, vb, jt0, 0, len, dh, lw, tid, nthreads);
   {
     constexpr int kQPer = (kBM * kDhp + 127) / 128;
     const uint32_t* qb = q + (b * h_q + h) * static_cast<long long>(len) *
@@ -201,16 +217,20 @@ __global__ void __launch_bounds__(kMaxWG * 128)
                     2 * (i % kDhp % kPanelWords), qw[u]);
     }
   }
-  // c >= theta  <=>  dot >= theta + pad
-  const int thp = theta[h] + (kDhp * 32 - dh);
-  // at least one tile: its first wgmma clears the context accumulator
-  const int last_key = causal ? min(len_b - 1, i0 + kBM - 1) : len_b - 1;
-  const int tiles = max(last_key, 0) / kBK + 1;
   const int passes = (dh + kBD - 1) / kBD;
 
   // the accumulator fragment: rows wr and wr + 8, columns 8j + 2 tig + e
   const int wr = 16 * ((tid / 32) & 3) + (lane >> 2);
   const int tig = lane & 3;
+  // the thresholds of those two rows; c >= theta  <=>  dot >= theta + pad
+  int thp[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    thp[hh] = (theta_cols > 0
+                   ? theta[static_cast<long long>(h) * theta_cols +
+                           min(i0 + wr + 8 * hh, theta_cols - 1)]
+                   : theta[h]) +
+              (kDhp * 32 - dh);
   const uint8_t* qt = t.q + wg * npan * kQBytes;
   uint8_t* pt = t.p + wg * kPBytes;
   int32_t s_acc[kBK / 2];
@@ -221,12 +241,12 @@ __global__ void __launch_bounds__(kMaxWG * 128)
   for (int i = 0; i < kBD / 2; ++i) ctx[i] = 0;
 
   for (int dc = 0; dc < passes; ++dc) {
-    if (dc > 0) load_tile(st, kb, vb, 0, dc, len, dh, lw, tid, nthreads);
+    if (dc > 0) load_tile(st, kb, vb, jt0, dc, len, dh, lw, tid, nthreads);
     store_tile(st, t.k, t.v, tid, nthreads);
     tc::fence_proxy_async();
     __syncthreads();
-    for (int jt = 0; jt < tiles; ++jt) {
-      const int buf = jt & 1;
+    for (int jt = jt0; jt < tiles; ++jt) {
+      const int buf = (jt - jt0) & 1;
       const uint8_t* kt = t.k + buf * npan * kKBytes;
       const uint8_t* vtile = t.v + buf * kVBytes;
       tc::wgmma_fence();
@@ -251,12 +271,16 @@ __global__ void __launch_bounds__(kMaxWG * 128)
           const int rl = wr + 8 * hh;
           const int row = i0 + rl;
           const int lim = (causal ? min(len_b, row + 1) : len_b) - jt * kBK;
+          // the window's first visible column of the tile (every column
+          // when there is no window)
+          const int lo = window > 0 ? row - window + 1 - jt * kBK : 0;
 #pragma unroll
           for (int j = 0; j < kBK / 8; ++j) {
             const int col = 8 * j + 2 * tig;
-            const uint32_t b0 = col < lim && s_acc[4 * j + 2 * hh] >= thp;
-            const uint32_t b1 =
-                col + 1 < lim && s_acc[4 * j + 2 * hh + 1] >= thp;
+            const uint32_t b0 = col >= lo && col < lim &&
+                                s_acc[4 * j + 2 * hh] >= thp[hh];
+            const uint32_t b1 = col + 1 >= lo && col + 1 < lim &&
+                                s_acc[4 * j + 2 * hh + 1] >= thp[hh];
             *reinterpret_cast<uint16_t*>(pt + tc::swz(rl, j >> 1) +
                                          8 * (j & 1) + 2 * tig) =
                 static_cast<uint16_t>(b0 | (b1 << 8));
@@ -268,7 +292,7 @@ __global__ void __launch_bounds__(kMaxWG * 128)
 #pragma unroll
         for (int kk = 0; kk < kBK / 32; ++kk)
           tc::wgmma_s8(ctx, tc::desc_b128(pt + 32 * kk),
-                       tc::desc_b128(vtile + 32 * kk), jt > 0 || kk > 0);
+                       tc::desc_b128(vtile + 32 * kk), jt > jt0 || kk > 0);
         tc::wgmma_commit();
       }
       if (next) {
@@ -305,7 +329,7 @@ template <int kDhp>
 int launch(const uint32_t* q, const uint32_t* k, const uint32_t* vt,
            const int32_t* theta, const int32_t* lens, long long batch,
            long long h_q, long long h_kv, long long len, long long dh,
-           int causal,
+           long long window, long long theta_cols, int causal,
            int32_t* out, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
@@ -329,7 +353,8 @@ int launch(const uint32_t* q, const uint32_t* k, const uint32_t* vt,
   sps_attention_kernel<kDhp><<<grid, nwg * 128, smem, stream>>>(
       q, k, vt, theta, lens, static_cast<int>(h_q), static_cast<int>(h_kv),
       static_cast<int>(len), static_cast<int>(dh),
-      static_cast<int>((len + 31) / 32), causal, nwg,
+      static_cast<int>((len + 31) / 32), static_cast<int>(window),
+      static_cast<int>(theta_cols), causal, nwg,
       static_cast<int>(head_groups), out);
   return cobra_launch_status();
 }
@@ -340,11 +365,13 @@ COBRA_API int cobra_sps_attention(const void* q, const void* k,
                                   const void* vt, const void* theta,
                                   const void* lens, long long batch,
                                   long long h_q, long long h_kv,
-                                  long long len, long long dh, int causal,
-                                  void* out, void* stream) {
+                                  long long len, long long dh,
+                                  long long window, long long theta_cols,
+                                  int causal, void* out, void* stream) {
   if (batch * h_q * len == 0) return 0;
   const long long dhp = (dh + 31) / 32;
-  if (dh <= 0 || dhp > kMaxDhp || h_kv <= 0 || h_q % h_kv)
+  if (dh <= 0 || dhp > kMaxDhp || h_kv <= 0 || h_q % h_kv || window < 0 ||
+      (window > 0 && !causal) || theta_cols < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto qu = static_cast<const uint32_t*>(q);
   auto ku = static_cast<const uint32_t*>(k);
@@ -357,7 +384,7 @@ COBRA_API int cobra_sps_attention(const void* q, const void* k,
 #define COBRA_SPS(DHP)                                                    \
   case DHP:                                                               \
     return launch<DHP>(qu, ku, vu, th, ln, batch, h_q, h_kv, len, dh,     \
-                       causal, o, s)
+                       window, theta_cols, causal, o, s)
     COBRA_SPS(1); COBRA_SPS(2); COBRA_SPS(3); COBRA_SPS(4);
     COBRA_SPS(5); COBRA_SPS(6); COBRA_SPS(7); COBRA_SPS(8);
 #undef COBRA_SPS

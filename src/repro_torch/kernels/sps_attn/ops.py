@@ -13,10 +13,19 @@ same, so one kernel serves both).  ``sps_attention_gqa`` is the batched
 entry the model calls: q ``(B, H, L, dhp)``, k ``(B, Hkv, L, dhp)``, V^T
 ``(B, Hkv, d_h, ceil(L/32))``; query head h reads KV head ``h // (H/Hkv)``.
 
-A ragged, right-padded batch passes ``lens`` (B,) int32: keys at columns
->= lens[b] are masked out of every row of sequence b, as the JAX model's
-ragged prefill masks them in its jnp body (the TPU kernel masks one global
-length only; this operand is the port's own).
+Three operands are the port's own (the TPU kernel has none of them; the
+JAX model applies each in its jnp prefill body, ``repro.models.attention``
+``deploy_prefill``):
+  * ``lens`` (B,) int32, a ragged, right-padded batch: keys at columns
+    >= lens[b] are masked out of every row of sequence b;
+  * ``window`` > 0, a causal sliding window: key c is visible from query
+    row r iff ``r - window < c <= r``; the kernel skips the key tiles that
+    lie wholly before its query block's first visible key, so a windowed
+    prefill costs O(L * window);
+  * ``theta`` either (H,) or an (H, T) row table (the ``row`` SPS
+    granularity): query row r reads column ``min(r, T - 1)``.
+With ``lens=None``, ``window=0`` and an (H,) theta the kernel is the one
+before these operands.
 
 Padding contract: operands carry exactly ``ceil(d_h/32)`` words with zero
 pad bits; the wrappers check the word count and raise.
@@ -37,7 +46,7 @@ from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.sps_attn import ref
 
 MAX_DH = 256  # the kernel unpacks Q and K rows of at most 256 bits
-_ARGTYPES = [kernels.PTR] * 5 + [kernels.I64] * 5 + [kernels.INT,
+_ARGTYPES = [kernels.PTR] * 5 + [kernels.I64] * 7 + [kernels.INT,
                                                      kernels.PTR]
 
 
@@ -51,7 +60,7 @@ def _validate(q_bits: torch.Tensor, k_bits: torch.Tensor, d_h: int) -> None:
             f"(pad bits must be 0)")
 
 
-def _check_gqa(q, k, vt, theta, d_h, lens) -> None:
+def _check_gqa(q, k, vt, theta, d_h, lens, causal, window) -> None:
     _validate(q, k, d_h)
     for name, t in (("q_bits", q), ("k_bits", k), ("vt_bits", vt),
                     ("theta", theta), ("lens", lens)):
@@ -69,8 +78,13 @@ def _check_gqa(q, k, vt, theta, d_h, lens) -> None:
     want = (b, hkv, d_h, packing.packed_len(length))
     if tuple(vt.shape) != want:
         raise ValueError(f"vt_bits must be {want}, got {tuple(vt.shape)}")
-    if tuple(theta.shape) != (h,):
-        raise ValueError(f"theta must be ({h},), got {tuple(theta.shape)}")
+    if theta.dim() not in (1, 2) or theta.shape[0] != h or \
+            0 in theta.shape:
+        raise ValueError(f"theta must be ({h},) or a row table ({h}, T), "
+                         f"got {tuple(theta.shape)}")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window must be >= 0 and takes causal attention "
+                         f"only, got window={window} causal={causal}")
     if lens is not None and tuple(lens.shape) != (b,):
         raise ValueError(f"lens must be ({b},), got {tuple(lens.shape)}")
 
@@ -78,11 +92,14 @@ def _check_gqa(q, k, vt, theta, d_h, lens) -> None:
 def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
                       vt_bits: torch.Tensor, theta: torch.Tensor, *,
                       d_h: int, causal: bool = True,
-                      lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    _check_gqa(q_bits, k_bits, vt_bits, theta, d_h, lens)
+                      lens: Optional[torch.Tensor] = None,
+                      window: int = 0) -> torch.Tensor:
+    window = int(window or 0)
+    _check_gqa(q_bits, k_bits, vt_bits, theta, d_h, lens, causal, window)
     if not kernels.use_kernel(q_bits, k_bits, vt_bits, theta, lens):
         return ref.sps_attention_gqa(q_bits, k_bits, vt_bits, theta,
-                                     d_h=d_h, causal=causal, lens=lens)
+                                     d_h=d_h, causal=causal, lens=lens,
+                                     window=window)
     if d_h > MAX_DH:
         raise ValueError(f"sps_attention: the kernel takes d_h <= {MAX_DH}"
                          f", got {d_h}")
@@ -94,7 +111,8 @@ def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
     kernels.launch("cobra_sps_attention", _ARGTYPES, q_bits.device,
                    q_bits.data_ptr(), k_bits.data_ptr(), vt_bits.data_ptr(),
                    theta.data_ptr(), kernels.ptr(lens), b, h,
-                   k_bits.shape[1], length, d_h, int(causal),
+                   k_bits.shape[1], length, d_h, window,
+                   theta.shape[1] if theta.dim() == 2 else 0, int(causal),
                    out.data_ptr())
     sps_attention_gqa.launches += 1
     return out

@@ -26,7 +26,11 @@ call of the speculative iteration (``SPEC_CALLS``, rows named ``... spec
 ...``, each with its launches per iteration, ``spec_launches``); every
 call of granite-3-2b's and qwen1.5-32b's serve paths at full width
 (``ARCH_CALLS``, rows named by the arch, each with its launches per layer
-of its step, ``layer_launches``).  Where the
+of its step, ``layer_launches``); every call of gemma3-27b's serve paths
+at full width and 12 of its 62 layers (``GEMMA_CALLS``, rows named
+``... gemma ...``, each with its launches per 12-layer step,
+``step_launches``: the windowed and full-attention prefills, the row
+table, the 1,024-slot rings and both paged ring groups).  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
 each tensor-core kernel and of the decode route at wq and w2 under
@@ -38,7 +42,9 @@ kernel at every decode call for the tiles around its rule.
 It calls the wrappers' public signatures, so run by path under another
 checkout's ``src`` (``PYTHONPATH=<checkout>/src python
 <this file>``) it times that checkout's kernels at this file's shapes,
-which is how two versions are compared inside one call on one card.
+which is how two versions are compared inside one call on one card (the
+``window`` and row-table calls of ``sps_attention`` need a checkout whose
+wrapper takes them).
 """
 from __future__ import annotations
 
@@ -293,15 +299,21 @@ def pack_shapes(seed: int = 0) -> Dict[str, Dict]:
     }
 
 
-def sps_bound(q, k, vt, theta, out, causal: bool):
+def sps_bound(q, k, vt, theta, out, causal: bool, window: int = 0):
     """The bound of one sps_attention call: the bytes of its operands and
     output against the faster of two ways to do the work, the score and
     context words on the ALUs (3 operations a word pair) or their
-    multiply-adds on the int8 tensor cores."""
+    multiply-adds on the int8 tensor cores, over the (query, key) pairs
+    its mask lets through (a causal window: min(row + 1, window) a row)."""
     b, h, length, dhp = q.shape
     dh = vt.shape[2]
-    pairs = b * h * (length * (length + 1) // 2 if causal else
-                     length * length)
+    if causal and 0 < window < length:
+        per_seq = window * (window + 1) // 2 + (length - window) * window
+    elif causal:
+        per_seq = length * (length + 1) // 2
+    else:
+        per_seq = length * length
+    pairs = b * h * per_seq
     moved = nbytes(q, k, vt, theta, out)
     return min(bound(moved, 3 * pairs * dhp + 3 * pairs * dh // 32,
                      SCALAR32_OPS),
@@ -528,32 +540,42 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
                          lambda a=a, wv=wv: torch.matmul(a, wv.T),
                          bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
         elif kernel == "sps_attention":
-            b, h, hkv, length, dh, causal, lens = spec
+            b, h, hkv, length, dh, causal, lens, window, rows = spec
             q, k = words(b, h, length, k=dh), words(b, hkv, length, k=dh)
             vt = words(b, hkv, dh, k=length)
-            th = ints(h, lo=-dh // 8, hi=dh // 8 + 1)
+            th = ints(*((h, rows) if rows else (h,)), lo=-dh // 8,
+                      hi=dh // 8 + 1)
             ln = None if lens is None else torch.tensor(
                 lens, dtype=torch.int32, device="cuda")
-            res = sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=causal,
-                                        lens=ln)
+            kw = dict(d_h=dh, causal=causal, lens=ln, window=window)
+            res = sps.sps_attention_gqa(q, k, vt, th, **kw)
             out[name] = (
                 kernel,
-                lambda q=q, k=k, vt=vt, th=th, dh=dh, c=causal, ln=ln:
-                sps.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=c,
-                                      lens=ln),
-                lambda q=q, k=k, vt=vt, th=th, dh=dh, c=causal, ln=ln:
-                sps_ref.sps_attention_gqa(q, k, vt, th, d_h=dh, causal=c,
-                                          lens=ln),
-                None, sps_bound(q, k, vt, th, res, causal))
+                lambda q=q, k=k, vt=vt, th=th, kw=kw:
+                sps.sps_attention_gqa(q, k, vt, th, **kw),
+                # the plain version one sequence at a time: its L x L
+                # words stay a few GB at gemma's prefill
+                lambda q=q, k=k, vt=vt, th=th, kw=kw: torch.cat([
+                    sps_ref.sps_attention_gqa(
+                        q[i:i + 1], k[i:i + 1], vt[i:i + 1], th,
+                        **dict(kw, lens=None if kw["lens"] is None
+                               else kw["lens"][i:i + 1]))
+                    for i in range(q.shape[0])]),
+                None, sps_bound(q, k, vt, th, res, causal, window))
         elif kernel == "paged_gather_decode":
-            b, h, hkv, dh, page, nblk, pages = spec
-            ring = nblk * page
+            # lengths in [lo, hi) (default: within the ring); a row table
+            # of thresholds (rows > 0) is gathered at each row's position,
+            # as the ``row`` face passes it
+            b, h, hkv, dh, page, nblk, pages, *extra = spec
+            ring, lo, hi, rows = extra or (nblk * page, 0, nblk * page, 0)
             lens = torch.from_numpy(np.random.default_rng(seed).integers(
-                0, ring, (b,)).astype(np.int32)).cuda()
+                lo, hi, (b,)).astype(np.int32)).cuda()
+            th = ints(h, rows, lo=-dh // 6, hi=dh // 6 + 1)[
+                :, lens.long().clamp(max=rows - 1)].T.contiguous() \
+                if rows else ints(b, h, lo=-dh // 6, hi=dh // 6 + 1)
             args = (words(b, h, k=dh), words(pages + 1, hkv, page, k=dh),
                     words(pages + 1, hkv, dh, k=page),
-                    ints(b, nblk, lo=0, hi=pages + 1), lens, ring,
-                    ints(b, h, lo=-dh // 6, hi=dh // 6 + 1))
+                    ints(b, nblk, lo=0, hi=pages + 1), lens, ring, th)
             res = paged.paged_gather_decode(*args, d_h=dh)
             out[name] = (
                 kernel,
@@ -660,11 +682,13 @@ def _arch_calls() -> Dict[str, tuple]:
             out[f"sps_attention {arch} prefill B={ARCH_B} L={ARCH_S} "
                 f"H={h}/{hkv} d_h={dh} {mode}"] = (
                 "sps_attention",
-                (ARCH_B, h, hkv, ARCH_S, dh, causal, None), int(causal))
+                (ARCH_B, h, hkv, ARCH_S, dh, causal, None, 0, 0),
+                int(causal))
         lens = (1, ARCH_S, 63, 64, 65, 127, 100, 2)
         out[f"sps_attention {arch} ragged prefill B={ARCH_B} L={ARCH_S} "
             f"H={h}/{hkv} d_h={dh} causal, lens {lens}"] = (
-            "sps_attention", (ARCH_B, h, hkv, ARCH_S, dh, True, lens), 0)
+            "sps_attention", (ARCH_B, h, hkv, ARCH_S, dh, True, lens, 0, 0),
+            0)
         out[f"paged_gather_decode {arch} {ARCH_SLOTS} slots H={h}/{hkv} "
             f"d_h={dh}, 12 blocks of 32, seeded lengths"] = (
             "paged_gather_decode", (ARCH_SLOTS, h, hkv, dh, 32, 12, 96), 1)
@@ -672,6 +696,94 @@ def _arch_calls() -> Dict[str, tuple]:
 
 
 ARCH_CALLS = _arch_calls()
+
+# gemma3-27b at full width and 12 of its 62 layers (two 5:1 local:global
+# periods: layers 5 and 11 are global; local layers attend within a
+# window of 1,024): d_model, query heads, KV heads, d_h, d_ff, window.
+# The static path's shapes: B = 4 prompts of 1,536 tokens (6,144 rows at
+# prefill), rings of 1,024 (local, wrapped) and 1,568 (global); the
+# continuous path's: 8 slots, pages of 32, the local ring group of 32
+# blocks fully provisioned (256 pages), the global one of 68 blocks over
+# 208 pages.
+GEMMA = (5376, 32, 16, 128, 21504, 1024)
+GEMMA_LAYERS, GEMMA_GLOBAL = 12, 2
+GEMMA_B, GEMMA_S, GEMMA_NEW, GEMMA_SLOTS = 4, 1536, 32, 8
+GEMMA_ROW_TABLE = 512
+
+
+def _gemma_calls() -> Dict[str, tuple]:
+    """Every call gemma3-27b's serve paths make, at its own shapes:
+    (kernel, operands, launches per 12-layer step of its path: a static
+    decode step at M = 4, a pure-decode iteration at M = 8, the static
+    prefill; M = 16 and the row table are timed beside them, launched by
+    no gemma path)."""
+    d, h, hkv, dh, ff, win = GEMMA
+    g, q_dim, local = h // hkv, h * dh, GEMMA_LAYERS - GEMMA_GLOBAL
+    out = {}
+    proj = {"wq": (q_dim, d, 1), "wo": (d, q_dim, 1),
+            "wk/wv": (hkv * dh, d, 2), "w1/w3": (ff, d, 2), "w2": (d, ff, 1)}
+    for n in (GEMMA_B, GEMMA_SLOTS, 16):
+        for call, (p, k, per) in proj.items():
+            scheme = "and_dc" if call == "w2" else "xnor"
+            tail = ", dc derived" if scheme == "and_dc" else ""
+            out[f"rbmm_int gemma decode {call} ({n}x{k})x({p}x{k}) "
+                f"{scheme}{tail}"] = ("rbmm_int", ((), n, p, k, scheme),
+                                      per * GEMMA_LAYERS * (n != 16))
+    dhp = (dh + 31) // 32
+    for ring, layers in ((win, local), (GEMMA_S + GEMMA_NEW, GEMMA_GLOBAL)):
+        lead = f"{GEMMA_B},{hkv}"
+        out[f"rbmm_int gemma decode ring score ({lead},{g},{dhp})x({lead},"
+            f"{ring},{dhp}) xnor"] = (
+            "rbmm_int", ((GEMMA_B, hkv), g, ring, dh, "xnor"), layers)
+        out[f"rbmm_int gemma decode ring context ({lead},{g},"
+            f"{-(-ring // 32)})x({lead},{dh},{-(-ring // 32)}) and_dc, dc "
+            f"derived"] = ("rbmm_int", ((GEMMA_B, hkv), g, dh, ring,
+                                        "and_dc"), layers)
+    m = GEMMA_B * GEMMA_S
+    for call, (p, k, per) in proj.items():
+        out[f"rbmm_mxu gemma prefill {call} ({m}x{k})x({p}x{k})"
+            f"{' {0,1}' if call == 'w2' else ''}"] = (
+            "rbmm_mxu", (m, k, p, call == "w2"), per * GEMMA_LAYERS)
+    for shape, dtype, th, strided, per in (
+            ((m, d), "bfloat16", (), False, 2),          # x, attn and FFN
+            ((m, q_dim), "float32", (), False, 1),       # ctx
+            ((m, ff), "float32", (), False, 1),          # h
+            ((GEMMA_B, GEMMA_S, h, dh), "bfloat16", (h, 1), False, 1),
+            ((GEMMA_B, GEMMA_S, hkv, dh), "bfloat16", (hkv, 1), False, 1),
+            ((GEMMA_B, hkv, dh, GEMMA_S), "bfloat16", (hkv, 1, 1), True, 1),
+            ((GEMMA_SLOTS, 1, d), "float32", (), False, 2),
+            ((GEMMA_SLOTS, 1, q_dim), "float32", (), False, 1),
+            ((GEMMA_SLOTS, 1, ff), "float32", (), False, 1),
+            ((GEMMA_SLOTS, 1, h, dh), "bfloat16", (h, 1), False, 1),
+            ((GEMMA_SLOTS, 1, hkv, dh), "bfloat16", (hkv, 1), False, 1)):
+        name = (f"pack gemma ({','.join(map(str, shape))}) "
+                f"{DTYPE_TAGS[dtype]}{' strided' if strided else ''}, "
+                f"{'one' if th == () else 'per-head'} theta")
+        out[name] = ("pack_threshold", (shape, dtype, th, strided),
+                     per * GEMMA_LAYERS)
+    for tag, window, rows, layers in (
+            (f"window {win}", win, 0, local), ("full", 0, 0, GEMMA_GLOBAL),
+            (f"row table of {GEMMA_ROW_TABLE}", 0, GEMMA_ROW_TABLE, 0)):
+        out[f"sps_attention gemma prefill B={GEMMA_B} L={GEMMA_S} "
+            f"H={h}/{hkv} d_h={dh} causal, {tag}"] = (
+            "sps_attention",
+            (GEMMA_B, h, hkv, GEMMA_S, dh, True, None, window, rows), layers)
+    cap_blocks = 68
+    for tag, ring, nblk, pages, lo, layers, rows in (
+            (f"local ring {win}, lengths {win}..{cap_blocks * 32}", win,
+             win // 32, GEMMA_SLOTS * win // 32, win, local, 0),
+            (f"global ring {cap_blocks * 32} over 208 pages", cap_blocks * 32,
+             cap_blocks, 208, 0, GEMMA_GLOBAL, 0),
+            (f"local ring {win}, a row table gathered by position", win,
+             win // 32, GEMMA_SLOTS * win // 32, win, 0, GEMMA_ROW_TABLE)):
+        out[f"paged_gather_decode gemma {GEMMA_SLOTS} slots H={h}/{hkv} "
+            f"d_h={dh}, pages of 32, {tag}"] = (
+            "paged_gather_decode", (GEMMA_SLOTS, h, hkv, dh, 32, nblk, pages,
+                                    ring, lo, cap_blocks * 32, rows), layers)
+    return out
+
+
+GEMMA_CALLS = _gemma_calls()
 
 
 def shapes(seed: int = 0) -> Dict[str, Dict]:
@@ -686,6 +798,10 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
                                                       seed).items():
         out[name] = dict(kernel=call, library=lib, bound=bnd,
                          layer_launches=ARCH_CALLS[name][2])
+    for name, (_, call, _, lib, bnd) in call_operands(GEMMA_CALLS,
+                                                      seed).items():
+        out[name] = dict(kernel=call, library=lib, bound=bnd,
+                         step_launches=GEMMA_CALLS[name][2])
     for name, (x, th) in pack_shapes(seed).items():
         res = pack.pack_threshold(x, th)
         out[name] = dict(
@@ -713,8 +829,8 @@ def time_all(seed: int = 0, only: str = "") -> List[Dict]:
                      "bound_ms": b_ms, "bound_by": by,
                      "library_ms": None if lib is None else device_ms(lib),
                      "library_eager_ms": eager[name][1],
-                     **{k: s[k] for k in ("spec_launches",
-                                          "layer_launches") if k in s}})
+                     **{k: s[k] for k in ("spec_launches", "layer_launches",
+                                          "step_launches") if k in s}})
     return rows
 
 

@@ -5,11 +5,13 @@ generation on the card (or, with ``--device cpu``, the plain versions).
       --batch 4 --prompt-len 16 --new-tokens 32
 
 Flags mirror ``repro.launch.serve`` (smoke-size config of ``--arch``),
-plus ``--device``.
+plus ``--device`` and ``--sps-granularity`` (the config's by default;
+``row`` reads a 512-column threshold table per head at each position).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -36,6 +38,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--sps-granularity", default=None,
+                   choices=["layer", "head", "row"],
+                   help="SPS threshold granularity (default: the config's)")
     args = p.parse_args(argv)
 
     try:
@@ -43,6 +48,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}")
     cfg = base.get_smoke_config(args.arch)
+    if args.sps_granularity:
+        cfg = cfg.with_(binary=dataclasses.replace(
+            cfg.binary, sps_granularity=args.sps_granularity))
     if cfg.skip_decode:
         raise SystemExit(f"{args.arch} is encoder-only: no decode face")
     model = build_model(cfg)

@@ -27,9 +27,13 @@ Attention reads caches grouped by KV head (the query heads of one group
 are the rows of one RBMM against their KV head's ring) — the same integers
 as repeating K/V to every head, without the copy.  Caches, their lengths
 included, are updated IN PLACE (the JAX package returns new arrays), so a
-cache keeps its addresses from step to step.  Supports GQA, RoPE and the
-``layer`` / ``head`` SPS threshold granularities; ``row``, sliding
-windows and cross-attention are not ported yet.
+cache keeps its addresses from step to step.  Supports GQA, RoPE, the
+three SPS threshold granularities (``layer``, ``head``, and ``row``: a
+(H, 512) table read at each query's absolute position, clamped to 511)
+and causal sliding windows: a layer's ``window`` masks prefill and chunk
+keys at positions <= p - window, and its decode ring holds exactly the
+window (gemma's 5:1 local:global stacks pass each layer's own).
+Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from repro_torch.models.linear import BinaryDense, act_bits_packed
 Params = Dict[str, Any]
 
 SCORE_IMPLS = ("auto", "popcount", "mxu", "dense")
-GRANULARITIES = ("layer", "head")
+GRANULARITIES = ("layer", "head", "row")
+ROW_TABLE = 512  # row-granularity lambda table (the paper's l = 512)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -164,7 +169,7 @@ class SPSAttention:
     use_rope: bool = True
     rope_theta: float = 10_000.0
     qkv_bias: bool = False
-    sps_granularity: str = "head"   # layer | head
+    sps_granularity: str = "head"   # layer | head | row
     dtype: torch.dtype = torch.float32
     impl: str = "auto"              # projection route (core.rbmm)
     score_impl: str = "auto"        # decode score route; auto = popcount
@@ -210,8 +215,9 @@ class SPSAttention:
                  k_alpha=ones(hkv), k_beta=zeros(hkv),
                  v_alpha=ones(hkv), v_beta=zeros(hkv),
                  ctx_alpha=ones(), ctx_beta=zeros(),
-                 sps_lambda=zeros() if self.sps_granularity == "layer"
-                 else zeros(h),
+                 sps_lambda={"layer": zeros(), "head": zeros(h),
+                             "row": zeros(h, ROW_TABLE)}[
+                                 self.sps_granularity],
                  bit_alpha=0.5 * ones(h))
         return p
 
@@ -239,11 +245,26 @@ class SPSAttention:
             self.num_heads)
 
     def _theta_int(self, params: Params) -> torch.Tensor:
-        """Integer SPS thresholds per query head, (H,) int32."""
+        """Integer SPS thresholds per query head, (H,) int32; for the
+        ``row`` granularity a table (H, ROW_TABLE)."""
         ak = self._per_query_head(params["k_alpha"])
         scale = (params["q_alpha"] * ak) / math.sqrt(self.head_dim)
-        lam = params["sps_lambda"].expand(self.num_heads)
+        lam = params["sps_lambda"]
+        if self.sps_granularity == "row":
+            return torch.ceil(lam / scale[:, None].clamp_min(1e-12)).to(
+                torch.int32)
+        lam = lam.expand(self.num_heads)
         return torch.ceil(lam / scale.clamp_min(1e-12)).to(torch.int32)
+
+    def _theta_at(self, theta: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        """Thresholds of queries at absolute ``positions`` (...):
+        (..., H), each row table read at min(position, ROW_TABLE - 1),
+        or the (H,) thresholds broadcast."""
+        if self.sps_granularity != "row":
+            return theta.expand(positions.shape + theta.shape)
+        col = positions.long().clamp(0, ROW_TABLE - 1)
+        return theta[:, col].movedim(0, -1)
 
     def _project_qkv_deploy(self, params: Params, x: torch.Tensor,
                             positions: torch.Tensor
@@ -289,11 +310,16 @@ class SPSAttention:
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions: Optional[torch.Tensor] = None,
-                       cache_size: int = 0,
+                       window: int = 0, cache_size: int = 0,
                        seq_lens: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Full-sequence deploy forward.  Returns (out, cache); the ring
         cache (W = cache_size) is built when cache_size > 0.
+
+        ``window`` > 0 masks the keys at positions <= p - window out of
+        query p (the kernel's ``window`` operand, which also skips the
+        key tiles no query of a block sees).  The query rows are the
+        positions 0..S-1 (the ``row`` granularity reads its table there).
 
         ``seq_lens`` (B,) takes a ragged, right-padded batch: keys at
         columns >= seq_lens[b] are masked out of every row of sequence b
@@ -312,7 +338,8 @@ class SPSAttention:
         ctx = sps_ops.sps_attention_gqa(q_bits, k_bits, vt_bits,
                                         self._theta_int(params),
                                         d_h=self.head_dim,
-                                        causal=self.causal, lens=lens)
+                                        causal=self.causal, lens=lens,
+                                        window=window if self.causal else 0)
         out = self._output_deploy(params, ctx)
         cache = None
         if cache_size:
@@ -359,30 +386,47 @@ class SPSAttention:
                       k_bits: torch.Tensor, v_bits: torch.Tensor,
                       kc_old: torch.Tensor, vc_old: torch.Tensor,
                       start: torch.Tensor, valid: torch.Tensor,
-                      ring: int) -> torch.Tensor:
+                      ring: int, window: int = 0) -> torch.Tensor:
         """A chunk of queries (B,H,C,dhp) over the cached prefix plus the
         chunk's own keys.  kc_old/vc_old is the packed K / V^T ring view
         holding the first ``start[b]`` tokens (ring slot s holds token
         ``start-1 - ((start-1-s) mod ring)``); k_bits (B,Hkv,C,dhp) and
         v_bits (B,Hkv,C,dh) bool are the chunk's own.  SPS has no softmax
         state, so the two blocks add as integers.  Chunk rows at/after
-        ``valid[b]`` are pad: masked out of every real row."""
+        ``valid[b]`` are pad: masked out of every real row.  ``window`` >
+        0 hides the tokens at positions <= p - window from the query at
+        position p, in the prefix and in the chunk."""
         b, h, c_len, _ = q_bits.shape
         hkv, g, dh = self.num_kv_heads, self.groups, self.head_dim
         w = kc_old.shape[2]
         dev = q_bits.device
-        th = self._theta_int(params).reshape(hkv, g, 1, 1)
+        positions = start[:, None] + torch.arange(c_len, device=dev)  # (B,C)
+        theta = self._theta_int(params)
+        if self.sps_granularity == "row":
+            # each query's threshold at its own position, (B, Hkv, G, C, 1)
+            th = self._theta_at(theta, positions).transpose(1, 2).reshape(
+                b, hkv, g, c_len, 1)
+        else:
+            th = theta.reshape(hkv, g, 1, 1)
+        th_rows = th.expand(th.shape[:-3] + (g, c_len, 1)).reshape(
+            th.shape[:-3] + (g * c_len, 1))
         qg = self._grouped(q_bits)                           # (B,Hkv,G*C,dhp)
         # cached prefix: which token each ring slot holds
         s_idx = torch.arange(w, device=dev)[None, :]
         st = start[:, None]
         t_old = st - 1 - torch.remainder(st - 1 - s_idx, ring)   # (B, W)
         m_pre = (t_old >= 0) & (s_idx < ring)
+        if window:
+            # per query: the cached tokens inside its window, (B, 1, G*C, W)
+            m_pre = (m_pre[:, None, :] &
+                     (t_old[:, None, :] > positions[:, :, None] - window))
+            m_words = packing.pack_bits(m_pre)[:, None, None].expand(
+                b, 1, g, c_len, -1).reshape(b, 1, g * c_len, -1)
+        else:
+            m_words = packing.pack_bits(m_pre)[:, None, None, :]
         c_pre = rbmm.rbmm_int(qg, kc_old, dh, scheme="xnor",
                               impl=self._score_impl())      # (B,Hkv,G*C,W)
-        th_rows = th.expand(hkv, g, c_len, 1).reshape(hkv, g * c_len, 1)
-        probs_p = (pack_ops.pack_threshold(c_pre, th_rows) &
-                   packing.pack_bits(m_pre)[:, None, None, :])
+        probs_p = pack_ops.pack_threshold(c_pre, th_rows) & m_words
         # context = 2*popcount(P & V^T) - nnz(P): the and_dc RBMM with
         # k = W, whose derived dc = W - nnz cancels the -W
         ctx = rbmm.rbmm_int(probs_p, vc_old, w, scheme="and_dc",
@@ -393,6 +437,8 @@ class SPSAttention:
         i_idx = torch.arange(c_len, device=dev)
         m_in = ((i_idx[:, None] >= i_idx[None, :])[None] &
                 (i_idx[None, None, :] < valid[:, None, None]))  # (B,C,C)
+        if window:
+            m_in = m_in & (i_idx[None, :] > i_idx[:, None] - window)[None]
         probs_in = ((c_in.reshape(b, hkv, g, c_len, c_len) >= th) &
                     m_in[:, None, None])
         s_v = torch.where(v_bits, 1.0, -1.0)                 # (B,Hkv,C,dh)
@@ -474,14 +520,18 @@ class SPSAttention:
         return cache
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor, cache,
-                             *, start: Optional[torch.Tensor] = None,
+                             *, window: int = 0,
+                             start: Optional[torch.Tensor] = None,
                              valid_len: Optional[torch.Tensor] = None):
         """Cache-resuming chunk prefill: x (B, C, d) continues sequences
         whose first ``start[b]`` tokens (default: ``cache.length``) live in
         ``cache``, a ``KVCache`` ring or a ``PagedKVCache`` whose pages
         covering the chunk are mapped.  ``valid_len`` (B,) marks the real
         chunk rows; pad rows never write and never leak into real rows.
-        The attend reads the prefix BEFORE the chunk is written (in place).
+        ``window`` is the layer's (0: full attention).  The attend reads
+        the prefix BEFORE the chunk is written (in place): a wrapping
+        chunk would otherwise overwrite prefix tokens still inside earlier
+        rows' windows.
         Returns (out (B, C, d), the same cache, its ``length`` set in place
         to ``start + valid_len`` on the rows that wrote)."""
         b, c_len, _ = x.shape
@@ -497,7 +547,7 @@ class SPSAttention:
         v_bits = self._v_bits(params, v).transpose(1, 2)       # (B,Hkv,C,dh)
         kc_old, vc_old, ring = self._cache_ring_view(cache)
         ctx = self._chunk_attend(params, q_bits, k_bits, v_bits, kc_old,
-                                 vc_old, start, valid, ring)
+                                 vc_old, start, valid, ring, window)
         out = self._output_deploy(params, ctx)
         return out, self._write_chunk(cache, k_bits, v_bits, start, valid,
                                       vc_old)
@@ -505,6 +555,7 @@ class SPSAttention:
     # -- speculative verify (attend only) and the deferred commit -------------
 
     def deploy_verify_chunk(self, params: Params, x: torch.Tensor, cache, *,
+                            window: int = 0,
                             start: Optional[torch.Tensor] = None,
                             valid: Optional[torch.Tensor] = None):
         """Score a candidate chunk WITHOUT writing the cache: the attend of
@@ -526,7 +577,7 @@ class SPSAttention:
         v_bits = self._v_bits(params, v).transpose(1, 2)       # (B,Hkv,C,dh)
         kc_old, vc_old, ring = self._cache_ring_view(cache)
         ctx = self._chunk_attend(params, q_bits, k_bits, v_bits, kc_old,
-                                 vc_old, start, valid, ring)
+                                 vc_old, start, valid, ring, window)
         return self._output_deploy(params, ctx), (k_bits, v_bits)
 
     def commit_chunk(self, cache, proj: Tuple[torch.Tensor, torch.Tensor],
@@ -599,10 +650,11 @@ class SPSAttention:
         vt_store[row, :, :, word] = (old & ~mask) | (v_bit * mask)
 
     def _attend_cache(self, params: Params, q_bits: torch.Tensor,
-                      kc: torch.Tensor, vc: torch.Tensor,
+                      kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
-        """One query token per sequence (B,H,1,dhp) against the packed
-        K (B,Hkv,W,dhp) / V^T (B,Hkv,dh,W/32) ring; ``valid`` (B, W)."""
+        """One query token per sequence (B,H,1,dhp) at positions ``pos``
+        (B,) against the packed K (B,Hkv,W,dhp) / V^T (B,Hkv,dh,W/32)
+        ring; ``valid`` (B, W)."""
         b = q_bits.shape[0]
         h, hkv, dh, g = (self.num_heads, self.num_kv_heads, self.head_dim,
                          self.groups)
@@ -611,7 +663,7 @@ class SPSAttention:
         qg = q_bits.reshape(b, hkv, g, q_bits.shape[-1])
         c = rbmm.rbmm_int(qg, kc, dh, scheme="xnor",
                           impl=self._score_impl()).reshape(b, h, 1, w)
-        th = self._theta_int(params)[None, :, None, None]
+        th = self._theta_at(self._theta_int(params), pos)[:, :, None, None]
         probs = (c >= th) & valid[:, None, None, :]
         probs_p = packing.pack_bits(probs).reshape(b, hkv, g, -1)
         # context = 2*popcount(P & V^T) - nnz(P): the and_dc RBMM over the
@@ -624,7 +676,10 @@ class SPSAttention:
                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """x: (B, 1, d) one new token per sequence.  Every sequence
         advances from its own ``cache.length``.  A ``PagedKVCache`` takes
-        the paged path.  The cache tensors, ``length`` included, are
+        the paged path.  A windowed layer's ring (or ring group) is its
+        window, so the ring itself enforces the window: once it has
+        wrapped, every slot holds one of the last W tokens.  The cache
+        tensors, ``length`` included, are
         updated IN PLACE (the JAX package returns new arrays), and the
         same cache is returned: a captured CUDA graph of the step keeps
         reading the addresses it was captured with."""
@@ -640,7 +695,7 @@ class SPSAttention:
                           torch.remainder(pos, w).long(), k_new, v)
         valid = torch.arange(w, device=x.device)[None, :] <= pos[:, None]
         out = self._attend_cache(params, q_bits, cache.k_bits,
-                                 cache.vt_bits, valid)
+                                 cache.vt_bits, pos, valid)
         cache.length.add_(1)      # pos aliases it: every reader comes first
         return out, cache
 
@@ -663,7 +718,7 @@ class SPSAttention:
                                  slot // page].long()
         self._write_token(params, cache.k_pages, cache.vt_pages, phys,
                           slot % page, k_new, v)
-        theta = self._theta_int(params).expand(b, self.num_heads)
+        theta = self._theta_at(self._theta_int(params), pos)     # (B, H)
         ctx = paged_ops.paged_gather_decode(
             q_bits[:, :, 0], cache.k_pages, cache.vt_pages,
             cache.block_table, pos, cache.ring_len, theta.contiguous(),

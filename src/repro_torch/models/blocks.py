@@ -1,8 +1,11 @@
 """Attention block, deploy faces (port of ``repro.models.blocks.Block`` for
 ``kind="attn"``; the other kinds are not ported yet).  The residual
 stream stays fp (BiT convention).  The norm is ``cfg.norm`` (RMSNorm or
-LayerNorm) and the FFN the SiLU GLU or the ReLU FFN (Eq. 11 blocked when
-``cfg.binary.ffn_block_r`` is set)."""
+LayerNorm) and the FFN the SiLU or GELU GLU or the ReLU FFN (Eq. 11
+blocked when ``cfg.binary.ffn_block_r`` is set).  A block's ``window`` (0:
+full attention) masks its attention and sizes its decode ring, as in the
+JAX package: gemma's local:global stacks build blocks that differ in it
+only."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import PageSpec, SPSAttention
-from repro_torch.models.ffn import BinaryFFN
+from repro_torch.models.ffn import PORTED, BinaryFFN
 
 Params = Dict[str, Any]
 
@@ -26,18 +29,17 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 class Block:
     """One layer: norm, SPS attention, norm, binary FFN."""
     cfg: ModelConfig
+    window: int = 0
 
     def __post_init__(self):
         cfg = self.cfg
-        ffn_ported = (cfg.glu, cfg.act) in ((True, "silu"), (False, "relu"))
-        if (cfg.window_size or cfg.local_global_ratio or cfg.moe.num_experts
-                or cfg.ssm is not None
+        if (cfg.moe.num_experts or cfg.ssm is not None
                 or cfg.norm not in ("rmsnorm", "layernorm")
-                or not cfg.d_ff or not ffn_ported):
+                or not cfg.d_ff or (cfg.act, cfg.glu) not in PORTED):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs full-attention blocks with "
-                f"RMSNorm or LayerNorm and a SiLU-GLU or ReLU FFN only; the "
-                f"rest is not ported yet")
+                f"{cfg.name}: the port runs attention blocks with RMSNorm "
+                f"or LayerNorm and a SiLU or GELU GLU or a ReLU FFN only; "
+                f"the rest is not ported yet")
 
     def _attn(self) -> SPSAttention:
         cfg = self.cfg
@@ -78,8 +80,8 @@ class Block:
         norm = self._norm()
         h = norm.apply(params["norm1"], x)
         a_out, kv = self._attn().deploy_prefill(
-            params["attn"], h, positions=positions, cache_size=cache_size,
-            seq_lens=seq_lens)
+            params["attn"], h, positions=positions, window=self.window,
+            cache_size=cache_size, seq_lens=seq_lens)
         x = x + a_out
         x = x + self._ffn().apply_deploy(params["ffn"],
                                          norm.apply(params["norm2"], x))
@@ -96,8 +98,8 @@ class Block:
         norm = self._norm()
         h = norm.apply(params["norm1"], x)
         a_out, kv = self._attn().deploy_prefill_chunk(
-            params["attn"], h, cache["attn"], start=start,
-            valid_len=valid_len)
+            params["attn"], h, cache["attn"], window=self.window,
+            start=start, valid_len=valid_len)
         x = x + a_out
         x = x + self._ffn().apply_deploy(params["ffn"],
                                          norm.apply(params["norm2"], x))
@@ -112,7 +114,8 @@ class Block:
         norm = self._norm()
         h = norm.apply(params["norm1"], x)
         a_out, proj = self._attn().deploy_verify_chunk(
-            params["attn"], h, cache["attn"], start=start, valid=valid)
+            params["attn"], h, cache["attn"], window=self.window,
+            start=start, valid=valid)
         x = x + a_out
         x = x + self._ffn().apply_deploy(params["ffn"],
                                          norm.apply(params["norm2"], x))
@@ -127,13 +130,16 @@ class Block:
 
     def init_cache(self, batch: int, max_len: int, device,
                    paged: Optional[PageSpec] = None) -> Dict[str, Any]:
-        """Empty decode cache: a contiguous ring of ``max_len``, or with
-        ``paged`` a page arena of ``paged.arena_pages`` pages and block
-        tables covering ``paged.capacity`` (full attention)."""
+        """Empty decode cache: a contiguous ring of min(window or
+        max_len, max_len), or with ``paged`` a page arena of
+        ``paged.arena_pages`` pages and block tables covering the layer's
+        logical ring, ``paged.ring_for(window)`` (windowed groups are
+        fully provisioned: they are bounded by the window)."""
         attn = self._attn()
         if paged is None:
-            return {"attn": attn.init_cache(batch, max_len, device)}
-        ring = paged.ring_for(0)
+            return {"attn": attn.init_cache(
+                batch, min(self.window or max_len, max_len), device)}
+        ring = paged.ring_for(self.window)
         return {"attn": attn.init_paged_cache(
             batch, ring_len=ring, page_size=paged.page_size,
             num_blocks=paged.blocks_for_ring(ring),

@@ -8,10 +8,12 @@ ReLU FFN (BERT family, the paper's exact target):
   ``blocked_r`` runs the Eq. 11 blocked form: R chunks of FF, two l x d
   live buffers.
 
-GLU FFN (llama family): gate and up projections are binary RBMMs sharing
-one input binarization; ``silu(u) * g`` stays fp, is unsigned-binarized
-and packed (pack kernel), and meets the binary down projection through the
-and_dc scheme (F2).  ``BinaryMoE`` is not ported yet.
+GLU FFN (llama family, and gemma's GELU GLU): gate and up projections are
+binary RBMMs sharing one input binarization; ``act(u) * g`` (SiLU, or the
+tanh-approximated GELU that ``jax.nn.gelu`` computes by default) stays fp,
+is unsigned-binarized and packed (pack kernel), and meets the binary down
+projection through the and_dc scheme (F2).  ``BinaryMoE`` is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -27,22 +29,34 @@ from repro_torch.models.linear import BinaryDense, act_bits_packed
 
 Params = Dict[str, Any]
 
+# (act, glu) pairs the port runs
+PORTED = (("silu", True), ("gelu", True), ("relu", False))
+
+
+def glu_act(act: str, u: torch.Tensor) -> torch.Tensor:
+    """The GLU's activation of the float32 ``u``: SiLU, or GELU in its
+    tanh form (``jax.nn.gelu``'s default, ``approximate=True``)."""
+    if act == "gelu":
+        return F.gelu(u, approximate="tanh")
+    return F.silu(u)
+
 
 @dataclasses.dataclass(frozen=True)
 class BinaryFFN:
     d_model: int
     d_ff: int
-    act: str = "silu"               # silu (GLU) | relu (paper)
+    act: str = "silu"               # silu | gelu (GLU) | relu (paper)
     glu: bool = True
     blocked_r: int = 0              # Eq. 11 R (relu path only); 0 = unblocked
     dtype: torch.dtype = torch.float32
     impl: str = "auto"
 
     def __post_init__(self):
-        if (self.act, self.glu) not in (("silu", True), ("relu", False)):
+        if (self.act, self.glu) not in PORTED:
             raise NotImplementedError(
                 f"BinaryFFN act={self.act!r} glu={self.glu} is not ported "
-                f"yet; the port runs the SiLU GLU and the ReLU FFN")
+                f"yet; the port runs the SiLU and GELU GLUs and the ReLU "
+                f"FFN")
 
     def _w1(self) -> BinaryDense:
         return BinaryDense(self.d_model, self.d_ff, external_act=True,
@@ -141,7 +155,7 @@ class BinaryFFN:
         aa = params["act_alpha"]
         u = c_u.to(torch.float32) * scale1 * aa
         g = c_g.to(torch.float32) * scale3 * aa
-        h = F.silu(u) * g                              # fp elementwise
+        h = glu_act(self.act, u) * g                   # fp elementwise
         h_bits = pack_ops.pack_threshold(
             h, params["h_beta"] + 0.5 * params["h_alpha"])
         # the and_dc RBMM derives dc = d_ff - popcount(h_bits) from the

@@ -15,7 +15,11 @@
                       draft on the trunk's own weights
 
 Blocks are a plain list of per-layer param dicts (the JAX package stacks
-them for ``scan``; ``repro_torch.bridge`` unstacks).  As in the JAX
+them for ``scan``; ``repro_torch.bridge`` unstacks).  The layer plan is the
+JAX package's: every layer has ``cfg.window_size``, except in a
+local:global stack (``cfg.local_global_ratio`` r), where layer i is global
+(full attention) when i % (r + 1) == r.  Each layer's window masks its
+attention and sizes its ring.  As in the JAX
 package, prefill runs the residual stream in ``compute_dtype`` while
 decode keeps the float32 embedding (projection outputs are still rounded
 to ``compute_dtype``).
@@ -51,6 +55,19 @@ def _sqrt_rounded(d: int, dtype: torch.dtype) -> float:
     return torch.tensor(d, dtype=torch.float32).sqrt().to(dtype).item()
 
 
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """[(block kind, window)] of the decoder stack (JAX ``_layer_plan``;
+    the port's blocks are all attention)."""
+    plan = []
+    for i in range(cfg.num_layers):
+        w = cfg.window_size
+        if cfg.local_global_ratio:
+            r = cfg.local_global_ratio
+            w = 0 if i % (r + 1) == r else cfg.window_size
+        plan.append(("attn", w))
+    return plan
+
+
 @dataclasses.dataclass(frozen=True)
 class LMModel:
     cfg: ModelConfig
@@ -62,14 +79,16 @@ class LMModel:
                 "token-only models")
         self._block()   # raises for block kinds not ported yet
 
-    def _block(self) -> Block:
-        return Block(self.cfg)
+    def _block(self, window: int = 0) -> Block:
+        return Block(self.cfg, window=window)
 
     @property
     def plan(self) -> List[Tuple[str, int]]:
-        """(block kind, window) per layer, as the JAX package's: every
-        ported block is full attention."""
-        return [("attn", 0)] * self.cfg.num_layers
+        """(block kind, window) per layer, as the JAX package's."""
+        return layer_plan(self.cfg)
+
+    def _blocks(self) -> List[Block]:
+        return [self._block(w) for _, w in self.plan]
 
     def _embed(self) -> nn.Embedding:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
@@ -151,8 +170,8 @@ class LMModel:
                              f"params lie on {on}; build them there or "
                              f"move them with repro_torch.to_device")
         x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev))
-        for bp in dparams["blocks"]:
-            x, _ = self._block().deploy_prefill(bp, x)
+        for blk, bp in zip(self._blocks(), dparams["blocks"]):
+            x, _ = blk.deploy_prefill(bp, x)
         return self._logits(dparams, x)
 
     def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,
@@ -162,11 +181,12 @@ class LMModel:
                            start: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """tokens (B, S) -> (logits (B, 1, V) at the last token, per-layer
-        caches with rings of ``max_len``).
+        caches with rings of min(window or max_len, max_len): a windowed
+        layer keeps its last ``window`` tokens).
 
         ``seq_lens`` (B,) takes a ragged, right-padded batch: attention
         masks the keys past each sequence's length, each ring holds its
-        sequence's own last min(len, max_len) tokens and length, and the
+        sequence's own last min(len, ring) tokens and length, and the
         logits come at each sequence's last real token.
 
         Continuation mode (chunked prefill): with ``caches`` the tokens are
@@ -185,9 +205,10 @@ class LMModel:
         sl = None if seq_lens is None else torch.as_tensor(
             seq_lens, device=x.device).to(torch.int32)
         caches_out: List[Dict[str, Any]] = []
-        for bp in dparams["blocks"]:
-            x, cache = self._block().deploy_prefill(
-                bp, x, cache_size=max_len, seq_lens=sl)
+        for blk, bp in zip(self._blocks(), dparams["blocks"]):
+            x, cache = blk.deploy_prefill(
+                bp, x, cache_size=min(blk.window or max_len, max_len),
+                seq_lens=sl)
             caches_out.append(cache)
         return self._logits(dparams, self._last_real(x, sl)), caches_out
 
@@ -199,8 +220,8 @@ class LMModel:
         """One chunk of a cache-resuming prefill (see prefill_with_cache):
         the caches given, updated in place, come back."""
         x = self._embed_tokens(dparams, tokens)
-        for bp, cache in zip(dparams["blocks"], caches):
-            x, _ = self._block().deploy_prefill_chunk(
+        for blk, bp, cache in zip(self._blocks(), dparams["blocks"], caches):
+            x, _ = blk.deploy_prefill_chunk(
                 bp, x, cache, start=start, valid_len=seq_lens)
         return self._logits(dparams, self._last_real(x, seq_lens)), caches
 
@@ -223,8 +244,8 @@ class LMModel:
         bf16 too.  In float32 the two are the same function."""
         x = self._scale(self._embed().apply(dparams["embed"], tokens))
         projs: List[Any] = []
-        for bp, cache in zip(dparams["blocks"], caches):
-            x, proj = self._block().deploy_verify_chunk(
+        for blk, bp, cache in zip(self._blocks(), dparams["blocks"], caches):
+            x, proj = blk.deploy_verify_chunk(
                 bp, x, cache, start=start, valid=valid)
             projs.append(proj)
         return self._logits(dparams, x), projs
@@ -236,8 +257,8 @@ class LMModel:
         ``start[b]`` into every layer's cache, in place; rows with
         n_commit == 0 keep their content and length.  Returns the caches
         given."""
-        for cache, proj in zip(caches, projs):
-            self._block().commit_chunk(cache, proj, start, n_commit)
+        for blk, cache, proj in zip(self._blocks(), caches, projs):
+            blk.commit_chunk(cache, proj, start, n_commit)
         return caches
 
     def truncate_deploy(self, dparams: Params, num_layers: int
@@ -260,10 +281,10 @@ class LMModel:
                     ) -> List[Dict[str, Any]]:
         """Empty per-layer decode caches for a pool of ``batch`` slots;
         ``paged`` switches them to the page-arena layout (``max_len`` is
-        then superseded by ``paged.capacity``)."""
-        return [self._block().init_cache(batch, max_len, device,
-                                         paged=paged)
-                for _ in range(self.cfg.num_layers)]
+        then superseded by ``paged.capacity``; a windowed layer's ring is
+        its window either way)."""
+        return [blk.init_cache(batch, max_len, device, paged=paged)
+                for blk in self._blocks()]
 
     def reset_recurrent_rows(self, caches: List[Dict[str, Any]],
                              fresh: torch.Tensor) -> List[Dict[str, Any]]:
@@ -280,8 +301,8 @@ class LMModel:
         given, their tensors (lengths included) updated in place, so a
         captured graph of the step and its caller hold the same caches."""
         x = self._scale(self._embed().apply(dparams["embed"], token))
-        for bp, cache in zip(dparams["blocks"], caches):
-            x, _ = self._block().deploy_decode(bp, x, cache)
+        for blk, bp, cache in zip(self._blocks(), dparams["blocks"], caches):
+            x, _ = blk.deploy_decode(bp, x, cache)
         return self._logits(dparams, x), caches
 
 

@@ -338,28 +338,32 @@ def _attention_only(model) -> bool:
 
 
 def _rollback_draft(cache: KVCache, k0: torch.Tensor, vt0: torch.Tensor,
-                    len0: torch.Tensor, n_commit: torch.Tensor,
+                    len0: torch.Tensor, start: torch.Tensor,
+                    n_commit: torch.Tensor, active: torch.Tensor,
                     span: int) -> None:
-    """Put a draft ring back to its committed state, in place.  The draft
-    steps wrote positions len0 .. len0+span-1 of each row; every ring slot
-    whose last writer among them lies at or past len0 + n_commit (every
-    one the steps wrote, where n_commit is 0) takes its content from
-    before the steps (``k0``, ``vt0``), and the length becomes
-    len0 + n_commit.  Same last-writer slot map as
-    ``SPSAttention._write_chunk``."""
+    """Put a draft ring back to its committed state, in place (the JAX
+    engine's ``rollback_draft``).  The draft steps wrote positions start
+    .. start+span-1 of each active row; every ring slot whose last writer
+    among them lies at or past start + n_commit takes its content from
+    before the steps (``k0``, ``vt0``): on a windowed ring that the steps
+    wrapped, the slots of tokens still inside the committed window too.
+    An active row's length becomes start + n_commit, an inactive row's
+    goes back to ``len0`` (its n_commit is 0, so it restores the slots of
+    positions start.. with start as the engine passes it; a free slot's
+    next request starts at 0 and reads none of its old slots).  Same
+    last-writer slot map as ``SPSAttention._write_chunk``."""
     w = cache.k_bits.shape[2]
     s_all = torch.arange(w, device=k0.device)
-    l0 = len0.to(torch.int64)
-    lv = l0 + span                             # end of the steps' writes
+    lv = start + span                          # end of the steps' writes
     t_new = lv[:, None] - 1 - torch.remainder(
         lv[:, None] - 1 - s_all[None, :], w)                    # (B, W)
-    rejected = t_new >= (l0 + n_commit)[:, None]
+    rejected = t_new >= (start + n_commit)[:, None]
     cache.k_bits.copy_(torch.where(rejected[:, None, :, None], k0,
                                    cache.k_bits))
     rej_w = packing.pack_bits(rejected)
     cache.vt_bits.copy_((cache.vt_bits & ~rej_w[:, None, None, :]) |
                         (vt0 & rej_w[:, None, None, :]))
-    cache.length.copy_(l0 + n_commit)
+    cache.length.copy_(torch.where(active != 0, start + n_commit, len0))
 
 
 class ServeEngine:
@@ -390,6 +394,9 @@ class ServeEngine:
         # None); the draft's contiguous rings by (batch, ring length)
         self._graphs = graphs_lib.StepGraphs(self.device)
         self._pools: Dict[tuple, list] = {}
+        # the last serve's page arenas by logical ring length (one per
+        # ring group), kept for their per-group statistics
+        self.arenas: Dict[int, kvcache.PageArena] = {}
         self._draft_pools: Dict[tuple, list] = {}
         self._sample = {
             "greedy": lambda lg, g: sampler_lib.greedy(lg),
@@ -492,14 +499,14 @@ class ServeEngine:
           4. exactly the accepted prefix (nothing for inactive rows)
              commits to the trunk, and the draft rolls back: every ring
              slot whose last writer was a rejected position takes its
-             content from before step 1, and the length follows.
+             content from before step 1, and the length follows
+             (``_rollback_draft``, the JAX engine's rollback).
 
         The draft's caches update in place, so step 1 overwrites what
         the rollback needs: their rings and lengths are copied first.
-        The slots restored are those the draft steps wrote, counted from
-        each row's own length (the JAX engine counts from ``start``,
-        which is the same for active rows; on an inactive row it leaves
-        the steps' writes in slots no later read reaches)."""
+        On a windowed draft layer the ring is the window, so the steps
+        may wrap it and overwrite tokens still in the committed window:
+        the restore brings those back too."""
         k = self.cfg.spec_decode
         smp = self.cfg.sampler
         stochastic = smp != "greedy"
@@ -532,7 +539,8 @@ class ServeEngine:
             n_commit = torch.where(active != 0, n_acc.to(torch.int64) + 1, 0)
             self.model.commit_chunks(caches, projs, start, n_commit)
             for c, (k0, vt0, len0) in zip(dcaches, saved):
-                _rollback_draft(c["attn"], k0, vt0, len0, n_commit, k + 1)
+                _rollback_draft(c["attn"], k0, vt0, len0, start, n_commit,
+                                active, k + 1)
             return torch.cat([out.to(torch.int64),
                               n_acc.to(torch.int64)[:, None]], dim=1)
 
@@ -637,9 +645,11 @@ class ServeEngine:
             self.dparams, n)
 
     def _layer_rings(self, spec: PageSpec) -> List[Optional[int]]:
-        """Per-layer logical ring length of the paged attention caches
-        (every ported block is full attention)."""
-        return [spec.ring_for(0)] * self.model.cfg.num_layers
+        """Per-layer logical ring length of the paged attention caches:
+        the layer's window, or the capacity for full attention.  Layers of
+        one ring length form a ring group: one arena's bookkeeping and
+        one device block table."""
+        return [spec.ring_for(w) for _, w in self.model.plan]
 
     def _sync_tables(self, caches, arenas, rings) -> None:
         """Copy dirty host block tables into the device table of their ring
@@ -699,6 +709,11 @@ class ServeEngine:
         chunk+decode forward while any prefill is in flight and the pooled
         decode (or speculative draft-verify-commit) step otherwise."""
         spec = self.cfg.page_spec() if self.cfg.paged else None
+        # full-attention layers cap a request at the ring (contiguous:
+        # max_len) or the block-table capacity (paged): past it the ring
+        # would wrap over the request's own oldest K/V.  Windowed layers
+        # wrap by design (their ring is the window).
+        full_attn = any(not w for _, w in self.model.plan)
         for r in requests:
             if len(r.tokens) == 0:
                 raise ValueError(f"request {r.rid}: empty prompt "
@@ -706,7 +721,7 @@ class ServeEngine:
             if r.max_new_tokens <= 0:
                 raise ValueError(f"request {r.rid}: max_new_tokens must "
                                  "be positive")
-            if len(r.tokens) + r.max_new_tokens > (
+            if full_attn and len(r.tokens) + r.max_new_tokens > (
                     spec.capacity if spec else self.cfg.max_len):
                 if spec:
                     raise ValueError(
@@ -1069,6 +1084,7 @@ class ServeEngine:
                     if emit(st, int(toks[slot, 0])):
                         retire(slot)
 
+        self.arenas = arenas
         report = kvcache.cache_report(
             caches,
             seq_len=spec.capacity if spec else self.cfg.max_len,

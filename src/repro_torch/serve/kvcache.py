@@ -261,9 +261,11 @@ def _insert_paged(pg: PagedKVCache, ring: KVCache,
                   idx: torch.Tensor) -> None:
     """Scatter per-request contiguous rings into a paged pool's pages.
 
-    The ring must be wrap-free (its slot s holds token s), so slot s maps
-    to logical page ``s // page_size``, offset ``s % page_size``, resolved
-    through the pool's block-table rows at ``idx``.  Positions past a
+    Ring slot s becomes logical slot s: page ``s // page_size``, offset
+    ``s % page_size``, resolved through the pool's block-table rows at
+    ``idx``.  So the ring is wrap-free (its slot s holds token s), or as
+    long as the pool's ring group (a windowed layer's ring of the window,
+    wrapped: both place token t at slot t % ring).  Positions past a
     slot's table (or past its mapped pages) go to the trash page 0."""
     n, _, w_r, _ = ring.k_bits.shape
     dev = pg.k_pages.device

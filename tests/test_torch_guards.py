@@ -193,10 +193,22 @@ def test_not_ported_yet_boundaries():
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
             cfg.compute_dtype) == (30, 576, 9, 3, 64, 1536, 49152,
                                    "bfloat16")
-    with pytest.raises(NotImplementedError, match="row"):
-        SPSAttention(96, 3, 1, 32, sps_granularity="row")
+    # windows, the GELU GLU and the row granularity are ported; MoE, the
+    # recurrent and encoder-decoder families and frontends are not
+    assert SPSAttention(96, 3, 1, 32, sps_granularity="row").init(
+        torch.Generator(), "cpu")["sps_lambda"].shape == (3, 512)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(base.get_smoke_config("granite-3-2b").with_(act="gelu"))
+        build_model(base.get_smoke_config("granite-3-2b").with_(
+            moe=base.MoEConfig(num_experts=4), window_size=16))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(base.get_smoke_config("smollm-135m").with_(
-            window_size=16))
+            family="ssm", ssm=base.SSMConfig()))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(base.get_smoke_config("smollm-135m").with_(
+            frontend_tokens=4))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(base.get_smoke_config("smollm-135m").with_(
+            family="encdec", num_encoder_layers=2))
+    for arch in ("seamless-m4t-large-v2", "hymba-1.5b", "internvl2-76b"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            base.get_config(arch)
