@@ -30,7 +30,16 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 600; ``paged_gather_decode`` with a row table's
                 thresholds gathered by position on wrapped rings of
                 1,024; integer and float32 outputs
-                must be bitwise equal; CUDA-event timings of kernel, plain
+                must be bitwise equal; every expert-batched call of
+                mixtral-8x22b's and arctic-480b's serve paths at full
+                width (``kernel_times.MOE_CALLS``: ``rbmm_int``'s decode
+                route over 8 and 128 experts, ``rbmm_mxu`` batched over
+                experts at M = 2,048, 20 and 32 per expert,
+                ``pack_threshold`` on (E, C, d) buffers; arctic's dense
+                residual), one call's operands at a time, bitwise, with
+                device and per-call times, the bound, the library's
+                batched matmul and the launches per step; CUDA-event
+                timings of kernel, plain
                 version and (where one exists) the one PyTorch call
                 computing the same function; then
                 ``repro_torch.launch.kernel_times`` at the main-path shapes
@@ -139,6 +148,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 logits within a stated tolerance), continuously and
                 speculatively (tokens by rid and counters equal)
 
+  13. mixtral  mixtral-8x22b at full width (d = 6,144, 48/8 heads of
+                d_h = 128, d_ff = 16,384, 8 experts top-2 at capacity
+                factor 2, a window of 4,096, the untied head over 32,768)
+                and 4 of its 56 layers (bf16, random weights from a
+                seed): static serving of 8 prompts of 512 tokens
+                (``[mixtral]``, graph == eager) and the expert weights'
+                share of a decode step; continuous paged serving of
+                phase 11's trace and engine shape (``[mixtral
+                continuous]``: each pure-decode iteration launches 7
+                ``rbmm_int`` a layer and no ``rbmm_mxu``, each mixed one 7
+                ``rbmm_mxu`` a layer; graphs == eager) and the same
+                speculatively (``[mixtral speculative]``: k = 4, a
+                one-layer draft, graph == eager); the claims dropped in
+                the eager runs of each iteration kind
+  14. arctic   arctic-480b at full width (d = 7,168, 56/8 heads, d_ff =
+                4,864, 128 experts top-2 and the dense residual FFN) and
+                1 of its 35 layers: static serving of 8 prompts of 128
+                tokens (``[arctic]``, graph == eager), the expert
+                weights' share of a decode step, the drops
+  15. crosscheck
+                the mixtral and arctic smoke configs (float32, dropless)
+                on the card and on the CPU: static tokens equal and
+                logits within a stated tolerance, continuous and
+                speculative tokens by rid and counters equal,
+                speculative == plain; then the smoke mixtral at capacity
+                factor 0.5 statically (claims dropped): tokens, logits
+                and the drops equal
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -159,9 +196,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    ARCH_CALLS, BF16_FLOPS, GEMMA_CALLS, INT8_OPS, SCALAR32_OPS, bound,
-    call_operands, decode_calls, device_ms, eager_ms, nbytes, paged_bound,
-    spec_launches, spec_operands, sps_bound, time_all)
+    ARCH_CALLS, BF16_FLOPS, GEMMA_CALLS, HBM_BYTES_PER_S, INT8_OPS,
+    MOE_CALLS, SCALAR32_OPS, bound, call_operands, decode_calls,
+    device_ms, eager_ms, moe_rows, nbytes, paged_bound, spec_launches,
+    spec_operands, sps_bound, time_all)
 
 SEED = 0
 
@@ -866,11 +904,42 @@ def check_arch_calls() -> None:
             f"{json.dumps(by_kernel)} equal their plain versions bitwise")
 
 
+def check_moe_calls() -> dict:
+    """Every expert-batched call of mixtral-8x22b's and arctic-480b's serve
+    paths at full width (``kernel_times.MOE_CALLS``: ``rbmm_int``'s
+    decode route over 8 and 128 experts, ``rbmm_mxu`` batched over
+    experts, ``pack_threshold`` on (E, C, d) buffers; arctic's dense
+    residual beside them), one call's operands on the card at a time:
+    kernel against plain version, bitwise; device µs of the kernel and of
+    the library's batched matmul of the unpacked bf16 operands, per-call
+    ms, the bound and the launches per step.  Returns the rows by
+    name."""
+    rows, by_kernel = {}, {}
+    for row in moe_rows(SEED):
+        if not row["equal"]:
+            raise AssertionError(f"[kernels] {row['shape']}: the kernel "
+                                 f"differs from its plain version")
+        rows[row["shape"]] = row
+        by_kernel[row["kernel"]] = by_kernel.get(row["kernel"], 0) + 1
+        lib = row["library_ms"]
+        log(f"[kernels] {row['shape']}: equal to its plain version; device "
+            f"us kernel {1e3 * row['ms']:.2f}, library "
+            f"{'none' if lib is None else f'{1e3 * lib:.2f}'}, bound "
+            f"{1e3 * row['bound_ms']:.2f} ({row['bound_by']}); per call "
+            f"with host work: kernel {row['eager_ms']:.4f} ms, library "
+            f"{row['library_eager_ms']}; {row['step_launches']} launches "
+            f"per step of its path")
+    log(f"[kernels] the MoE archs' {len(rows)} expert-batched calls "
+        f"{json.dumps(by_kernel)} equal their plain versions bitwise")
+    return rows
+
+
 def phase_kernels():
     """Each kernel against its plain version; its row of the kernels line
     (``ms``, ``plain_ms`` and ``library_ms`` are device times from the
     profiler, the ``*eager_ms`` keys CUDA-event times per call with the
-    host work included)."""
+    host work included).  Returns (the rows by kernel, the MoE calls' rows
+    of ``check_moe_calls``)."""
     import torch
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -897,6 +966,7 @@ def phase_kernels():
             f"library {row['library_eager_ms']}")
     check_spec_calls()
     check_arch_calls()
+    moe = check_moe_calls()
     for t in time_all(SEED):
         per_layer = (f"; {t['layer_launches']} launches per layer of its "
                      f"step" if "layer_launches" in t else "")
@@ -905,7 +975,7 @@ def phase_kernels():
             f"({t['bound_by']}); per call with host work: kernel "
             f"{t['eager_ms']:.4f}, library {t['library_eager_ms']}"
             f"{per_layer}")
-    return rows
+    return rows, moe
 
 
 # -- phase 4: serve -----------------------------------------------------------
@@ -935,19 +1005,33 @@ def load_model(arch: str, tag: str, num_layers: int = 0):
         f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"d_h={cfg.resolved_head_dim}, d_ff={cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, qkv bias {cfg.attn_bias}, tied head "
-        f"{cfg.tie_embeddings}, {cfg.compute_dtype}; "
+        f"{cfg.tie_embeddings}, {cfg.compute_dtype}"
+        f"{moe_text(cfg)}; "
         f"{cfg.param_count() / 1e9:.3f} B parameters; init+convert "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return model, dparams
 
 
+def moe_text(cfg) -> str:
+    """A MoE config's routing and its active parameters, for the logs."""
+    if not cfg.moe.num_experts:
+        return ""
+    m = cfg.moe
+    residual = ", a dense residual FFN" if m.dense_residual else ""
+    return (f", {m.num_experts} experts top-{m.top_k} at capacity factor "
+            f"{m.capacity_factor}{residual}, window "
+            f"{cfg.window_size or 'full'}; "
+            f"{cfg.active_param_count() / 1e9:.3f} B active")
+
+
 def serve_static(model, dparams, tag: str,
-                 shape=(SERVE_B, SERVE_S, SERVE_NEW)) -> dict:
+                 shape=(SERVE_B, SERVE_S, SERVE_NEW)) -> tuple:
     """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
     (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
     rings of S + new tokens (a windowed layer's: its window), the decode
-    step a replayed graph; returns the launch counts of the run."""
+    step a replayed graph; returns the launch counts of the run and the
+    wall ms per decode step."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
@@ -1020,7 +1104,7 @@ def serve_static(model, dparams, tag: str,
         f"the replay (median, mean) {np.median(host):.2f}, "
         f"{np.mean(host):.2f} ms")
     profile_decode(eng, step_ms, tag, n_b)
-    return launches
+    return launches, step_ms
 
 
 GRAPH_CHECK_STEPS = 8
@@ -1255,10 +1339,11 @@ def continuous_config(spec_k=None, cell: Cell = CONT):
 
 
 def phase_continuous(model, dparams, tag: str = "[continuous]",
-                     cell: Cell = CONT):
+                     cell: Cell = CONT, expect=None):
     """Full-width smollm-135m (or ``model``) through ``ServeEngine.serve``
-    on the paged pool of ``cell``; returns the launch counts of the run
-    and its tokens by rid."""
+    on the paged pool of ``cell``; ``expect`` ({iteration kind: {kernel:
+    launches}}) holds every iteration of a kind to those counts.  Returns
+    the launch counts of the run and its tokens by rid."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import ServeEngine
@@ -1305,6 +1390,7 @@ def phase_continuous(model, dparams, tag: str = "[continuous]",
             for kind in ("decode", "mixed")}
     replay = {kind: [r for k, _, _, r in its if k == kind]
               for kind in ("decode", "mixed")}
+    check_iterations(tag, its, expect)
     per_layer = {c["paged_gather_decode"] for _, c in dec}
     if per_layer != {model.cfg.num_layers}:
         raise AssertionError(f"{tag} paged_gather_decode launches "
@@ -1374,6 +1460,19 @@ def phase_continuous(model, dparams, tag: str = "[continuous]",
     log_host_ops(tag, host_ops)
     check_paged_graph(model, dparams, tag, cell)
     return launches, res
+
+
+def check_iterations(tag: str, its, expect) -> None:
+    """Every iteration of a kind in ``expect`` ({kind: {kernel:
+    launches}}) launched those counts (the replays credit them)."""
+    for kind, want in (expect or {}).items():
+        got = [{n: c[n] for n in want} for k, _, c, _ in its if k == kind]
+        bad = [g for g in got if g != want]
+        if not got or bad:
+            raise AssertionError(f"{tag} launches per {kind} iteration "
+                                 f"{bad[:1] or got}, expected {want}")
+        log(f"{tag} each of {len(got)} {kind} iterations launched "
+            f"{json.dumps(want)}")
 
 
 def shared_tables(caches):
@@ -1858,14 +1957,15 @@ def cross_prompts(vocab: int, shared_len: int, with_shared, alone,
 
 def crosscheck_continuous(model, dparams, on_cpu, spec_k=None, prompts=None,
                           blocks: int = 2, pages: int = 3, chunk: int = 32,
-                          tag: str = "[crosscheck]"):
+                          tag: str = "[crosscheck]", pressure: bool = True):
     """The same 4 requests on the card and on the CPU (plain versions),
     served plainly or, with ``spec_k``, speculatively by a one-layer draft:
     equal tokens by rid and equal counters (the spec group's too).  By
     default two requests share a 32-token page and two fit one page at
     admission and outgrow it on a 3-page arena; ``prompts``, ``blocks``,
-    ``pages`` and ``chunk`` size another run.  Returns the card's tokens
-    by rid."""
+    ``pages`` and ``chunk`` size another run; ``pressure`` False drops the
+    demand for a preemption and a prefix hit (a stack of windows shorter
+    than a page has neither).  Returns the card's tokens by rid."""
     import torch
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
                                           Request, ServeConfig, ServeEngine,
@@ -1895,7 +1995,7 @@ def crosscheck_continuous(model, dparams, on_cpu, spec_k=None, prompts=None,
         raise AssertionError(f"crosscheck continuous ({tag}): tokens differ "
                              f"for rids {bad}, counters (card, CPU) "
                              f"{counters}")
-    if rep_cpu.preemptions < 1 or rep_cpu.prefix_hits < 1:
+    if pressure and (rep_cpu.preemptions < 1 or rep_cpu.prefix_hits < 1):
         raise AssertionError(f"crosscheck continuous ({tag}): expected a "
                              f"preemption and a prefix hit: {counters}")
     log(f"{label} float32 continuous, {tag}, {len(prompts)} requests of "
@@ -2086,7 +2186,7 @@ def phase_dense_arch(arch: str, tag: str, num_layers: int = 0) -> dict:
     Returns the launch counts of the two serves."""
     import torch
     model, dparams = load_model(arch, tag, num_layers)
-    launches = serve_static(model, dparams, tag)
+    launches, _ = serve_static(model, dparams, tag)
     check_ragged_prefill(model, dparams, tag)
     paged, _ = phase_continuous(model, dparams, f"{tag[:-1]} continuous]")
     del model, dparams
@@ -2225,36 +2325,38 @@ def phase_gemma() -> dict:
     Returns the launch counts of the serves."""
     import torch
     model, dparams = load_model("gemma3-27b", "[gemma]", GEMMA_LAYERS)
-    launches = serve_static(model, dparams, "[gemma]", GEMMA_STATIC)
+    launches, _ = serve_static(model, dparams, "[gemma]", GEMMA_STATIC)
     check_ragged_prefill(model, dparams, "[gemma]", GEMMA_RAGGED,
                          GEMMA_STATIC[1:])
     paged, _ = phase_continuous(model, dparams, "[gemma continuous]",
                                 GEMMA_CONT)
-    spec = phase_gemma_speculative(model, dparams)
+    spec = phase_cell_speculative(model, dparams, "[gemma speculative]",
+                                  GEMMA_CONT)
     del model, dparams
     torch.cuda.empty_cache()
     return {n: launches[n] + paged[n] + spec[n] for n in launches}
 
 
-def phase_gemma_speculative(model, dparams) -> dict:
-    """``GEMMA_CONT`` with ``SpecConfig(k=4, draft_layers=1)``: the draft is
-    local layer 0, whose ring of 1,024 wraps on the long requests.  Served
-    twice on one engine (the first serve captures one unified and one spec
-    graph), every budget served; acceptance, tokens per step, ms per spec
-    iteration; then ``check_gemma_spec_graph``.  Returns the launch counts
-    of the timed serve."""
+def phase_cell_speculative(model, dparams, tag: str, cell: Cell,
+                           expect=None) -> dict:
+    """``cell`` with ``SpecConfig(k=4, draft_layers=1)``: the draft is layer
+    0 (gemma's: local, its ring of 1,024 wraps on the long requests).
+    Served twice on one engine (the first serve captures one unified and
+    one spec graph), every budget served; acceptance, tokens per step, ms
+    per spec iteration; ``expect`` as ``phase_continuous`` takes it; then
+    ``check_cell_spec_graph``.  Returns the launch counts of the timed
+    serve."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import ServeEngine
-    tag = "[gemma speculative]"
-    eng = ServeEngine(model, dparams, continuous_config(SPEC_K, GEMMA_CONT))
+    eng = ServeEngine(model, dparams, continuous_config(SPEC_K, cell))
     t0 = time.perf_counter()
-    first, _ = eng.serve(continuous_requests(model.cfg, GEMMA_CONT))
+    first, _ = eng.serve(continuous_requests(model.cfg, cell))
     torch.cuda.synchronize()
     log_captures(tag, eng, time.perf_counter() - t0)
     captures = dict(eng._graphs.captures)
     probe = IterationProbe(eng)
-    reqs = continuous_requests(model.cfg, GEMMA_CONT)
+    reqs = continuous_requests(model.cfg, cell)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res, rep = eng.serve(reqs)
@@ -2273,13 +2375,16 @@ def phase_gemma_speculative(model, dparams) -> dict:
                              f"rids {changed}; budgets not served {short}; "
                              f"kernels never launched {idle}; spec_steps "
                              f"{rep.spec_steps}")
+    check_iterations(tag, its, expect)
     spec = [ms for k, ms, _, _ in its if k == "spec"]
     mix = [ms for k, ms, _, _ in its if k == "mixed"]
     tokens = sum(len(t) for t in res.values())
     by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
     log(f"{tag} tokens by rid, digest {digest(by_rid)}")
-    log(f"{tag} k={SPEC_K}, a {SPEC_DRAFT}-layer draft (local layer 0, a "
-        f"ring of {model.cfg.window_size}): spec_steps {rep.spec_steps:.0f},"
+    window = model.plan[0][1]
+    log(f"{tag} k={SPEC_K}, a {SPEC_DRAFT}-layer draft (layer 0, "
+        f"{f'a window of {window}' if window else 'full attention'}): "
+        f"spec_steps {rep.spec_steps:.0f},"
         f" spec_accept_rate {rep.spec_accept_rate:.4f}, "
         f"spec_tokens_per_step {rep.spec_tokens_per_step:.4f}, "
         f"pages_freed_rollback {rep.pages_freed_rollback:.0f}, preemptions "
@@ -2289,23 +2394,24 @@ def phase_gemma_speculative(model, dparams) -> dict:
         f"{np.median(spec):.2f} ms, mean {np.mean(spec):.2f} ms; {len(mix)} "
         f"mixed, median {np.median(mix):.2f} ms; launches per spec "
         f"iteration {json.dumps(next(c for k, _, c, _ in its if k == 'spec'))}")
-    check_gemma_spec_graph(model, dparams, eng)
+    check_cell_spec_graph(model, dparams, eng, tag, cell)
     return launches
 
 
-def check_gemma_spec_graph(model, dparams, eng) -> None:
+def check_cell_spec_graph(model, dparams, eng, tag: str, cell: Cell) -> None:
     """The engine's spec graph against ``spec_forward`` run eagerly from
     the same state, on the engine's own pool shape: 3 live rows of 1,022,
-    1,021 and 700 tokens (chunks of 512 into the paged trunk and the
-    draft's rings), 5 inactive; ``SPEC_CHECK_ITERS`` greedy iterations.
-    The draft's ring of 1,024 wraps during the first iteration's 5 steps
-    on the two long rows.  Live rows' outputs, the trunk's pages 1.. and
-    lengths and every draft ring bitwise equal."""
+    1,021 and 700 tokens (chunks of ``cell.chunk`` into the paged trunk
+    and the draft's rings), the rest inactive; ``SPEC_CHECK_ITERS``
+    greedy iterations.  A draft window of 1,024 (gemma's) wraps during the
+    first iteration's 5 steps on the two long rows.  Live rows' outputs,
+    the trunk's pages 1.. and lengths and every draft ring bitwise
+    equal."""
     import torch
     from repro_torch.serve import graphs
     dev = torch.device("cuda")
     spec = eng.cfg.page_spec()
-    b, lens = GEMMA_CONT.slots, np.array([1022, 1021, 700])
+    b, lens = cell.slots, np.array([1022, 1021, 700])
     live, k = len(lens), SPEC_K
     t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
     rng = np.random.default_rng(SEED + 7)
@@ -2331,9 +2437,9 @@ def check_gemma_spec_graph(model, dparams, eng) -> None:
         done = np.zeros(b, np.int64)
         while (done[:live] < lens).any():
             valid = np.zeros(b, np.int64)
-            valid[:live] = np.minimum(lens - done[:live], GEMMA_CONT.chunk)
+            valid[:live] = np.minimum(lens - done[:live], cell.chunk)
             toks = t(rng.integers(0, model.cfg.vocab_size,
-                                  (b, GEMMA_CONT.chunk)))
+                                  (b, cell.chunk)))
             for m, p, c in ((model, dparams, caches),
                             (eng.draft_model, eng.draft_dparams, draft[1])):
                 logits, _ = m.prefill_with_cache(p, toks, caches=c,
@@ -2354,21 +2460,24 @@ def check_gemma_spec_graph(model, dparams, eng) -> None:
             if not (torch.equal(res_g[:live], res_e[:live]) and
                     same(caches, eager, True) and
                     same(draft[1], deager, False)):
-                raise AssertionError(f"[gemma speculative] graph check: "
-                                     f"iteration {i} replayed differs from "
-                                     f"eager")
+                raise AssertionError(f"{tag} graph check: iteration {i} "
+                                     f"replayed differs from eager")
             n_acc = res_e[:, k + 1].numpy()
             start = start + active * (n_acc + 1)
             pending = res_e[torch.arange(b), res_e[:, k + 1]][:, None]
         dlen = draft[1][0]["attn"].length.cpu().numpy()
-    if not (dlen[:2] > model.cfg.window_size).all():
-        raise AssertionError(f"[gemma speculative] graph check: the draft's "
-                             f"rings did not wrap (lengths {dlen})")
-    log(f"[gemma speculative] graph == eager: {SPEC_CHECK_ITERS} spec "
-        f"iterations from rows of {lens.tolist()} tokens ({b - live} "
-        f"inactive), the draft's ring of {model.cfg.window_size} wrapped "
-        f"(lengths now {dlen[:live].tolist()}): live rows' outputs, trunk "
-        f"pages and lengths and every draft ring bitwise equal")
+    ring = draft[1][0]["attn"].k_bits.shape[2]
+    # the first iteration's k + 1 steps take the two long rows past the ring
+    must_wrap = ring < lens[:2].min() + k + 1
+    wrapped = bool((dlen[:2] > ring).all())
+    if must_wrap and not wrapped:
+        raise AssertionError(f"{tag} graph check: the draft's rings did not "
+                             f"wrap (lengths {dlen})")
+    log(f"{tag} graph == eager: {SPEC_CHECK_ITERS} spec iterations from "
+        f"rows of {lens.tolist()} tokens ({b - live} inactive), the draft's "
+        f"ring of {ring} {'wrapped' if wrapped else 'not wrapped'} (lengths "
+        f"now {dlen[:live].tolist()}): live rows' outputs, trunk pages and "
+        f"lengths and every draft ring bitwise equal")
 
 
 # -- phase 12: card vs CPU, narrow gemma-shaped and row configs -----------------
@@ -2384,7 +2493,9 @@ NARROW_ROW = dict(num_layers=2, compute_dtype="float32")
 
 
 def phase_crosscheck_narrow(tag: str, arch: str, kw: dict, static_s: int,
-                            cont: tuple, row: bool = False) -> None:
+                            cont: tuple, row: bool = False,
+                            smoke: bool = False,
+                            pressure: bool = True) -> None:
     """A narrow config in float32 on the card and on the CPU (plain
     versions): static greedy tokens equal and logits within
     ``CROSS_ATOL`` (B = 2 prompts of ``static_s`` tokens); then 4
@@ -2393,13 +2504,15 @@ def phase_crosscheck_narrow(tag: str, arch: str, kw: dict, static_s: int,
     speculatively (k = 4, one-layer draft), tokens by rid and counters
     equal, the speculative tokens equal to the plain ones.  With ``row``
     the config takes the ``row`` granularity and each layer a seeded,
-    non-zero (H, 512) lambda table."""
+    non-zero (H, 512) lambda table.  With ``smoke`` ``kw`` changes the
+    arch's smoke config; ``pressure`` as ``crosscheck_continuous`` takes
+    it."""
     import dataclasses as dc
     import torch
     from repro_torch import to_device
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.lm import build_model
-    cfg = get_config(arch).with_(**kw)
+    cfg = (get_smoke_config if smoke else get_config)(arch).with_(**kw)
     if row:
         cfg = cfg.with_(binary=dc.replace(cfg.binary, sps_granularity="row"))
     model = build_model(cfg)
@@ -2427,19 +2540,214 @@ def phase_crosscheck_narrow(tag: str, arch: str, kw: dict, static_s: int,
     log(f"{tag} float32 {cfg.num_layers} layers (plan "
         f"{[w for _, w in model.plan]}), d={cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of d_h="
-        f"{cfg.resolved_head_dim}, {cfg.act} GLU, SPS "
+        f"{cfg.resolved_head_dim}, {cfg.act} GLU{moe_text(cfg)}, SPS "
         f"{cfg.binary.sps_granularity}; static B={CROSS_B} S={static_s} "
         f"{CROSS_NEW} tokens: card == CPU tokens {tok_card.tolist()}, max "
         f"|logit diff| {diff:.3g} <= {CROSS_ATOL}")
     shared, with_shared, alone, blocks, pages, chunk = cont
     prompts = cross_prompts(cfg.vocab_size, shared, with_shared, alone)
     runs = [crosscheck_continuous(model, dparams, on_cpu, spec_k, prompts,
-                                  blocks, pages, chunk, tag)
+                                  blocks, pages, chunk, tag, pressure)
             for spec_k in (None, SPEC_K)]
     differ = _differ(runs[1], runs[0])
     if differ:
         raise AssertionError(f"{tag} speculative tokens differ from plain "
                              f"ones for rids {differ}")
+
+
+# -- phase 13: mixtral-8x22b; phase 14: arctic-480b ---------------------------
+
+# 4 of 56 layers: the full depth's float32 masters (~560 GB) exceed the
+# card; 4 layers and the untied embedding and head are ~10.4 B parameters
+MIXTRAL_LAYERS = 4
+# static: B = 8 prompts of 512 tokens, 32 greedy tokens (n = 4,096 rows at
+# prefill, capacity 2,048 per expert; 8 at a decode step, capacity 4)
+MIXTRAL_STATIC = (8, 512, 32)
+# continuous and speculative: gemma's trace and engine shape (16 requests,
+# 8 slots, chunks of 512, 68 blocks of 32 on 208 pages).  The window of
+# 4,096 covers the capacity (2,176), so every layer's ring is the
+# capacity: one ring group, with preemptions and prefix sharing
+MIXTRAL_CONT = GEMMA_CONT
+# 1 of 35 layers: one layer's float32 masters are ~56 GB (128 experts of
+# 3 x 7,168 x 4,864); B = 8 prompts of 128 tokens, 16 greedy tokens
+# (capacity 32 per expert at prefill, 1 at a decode step)
+ARCTIC_LAYERS = 1
+ARCTIC_STATIC = (8, 128, 16)
+
+
+class DropCounter:
+    """While active, counts the claims and drops of every eager
+    ``BinaryMoE._route`` call (a replay runs no Python; a capture is
+    skipped) by (``label``, routed rows n, capacity): the static prefill,
+    the graphs' warm-ups and the graph checks' eager steps of each kind.
+    Each count reads the keep mask on the host, so the eager steps it
+    watches wait for the card once per layer."""
+
+    def __init__(self):
+        self.counts = {}
+        self.label = ""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import ffn
+        orig = self._orig = ffn.BinaryMoE._route
+
+        def route(moe, params, x2):
+            out = orig(moe, params, x2)
+            if not torch.cuda.is_current_stream_capturing():
+                keep = out[3]
+                c = self.counts.setdefault(
+                    (self.label, x2.shape[0], out[4]), [0, 0, 0])
+                c[0] += 1
+                c[1] += keep.numel()
+                c[2] += int((~keep).sum())
+            return out
+        ffn.BinaryMoE._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+        ffn.BinaryMoE._route = self._orig
+
+    def log(self, tag: str) -> None:
+        for (label, n, cap), (calls, claims, dropped) in sorted(
+                self.counts.items()):
+            log(f"{tag} drops, {label}: {calls} routings of n = {n} rows "
+                f"(capacity {cap} per expert): {dropped} of {claims} claims "
+                f"dropped ({dropped / claims:.4f})")
+
+
+def log_expert_share(tag: str, cfg, step_ms: float, moe: dict) -> None:
+    """How much of a decode step the expert weights take: capacity
+    dispatch runs every expert at its capacity each step, whichever the
+    tokens chose, so the step reads all L x E x 3 x d x d_ff weight bits;
+    their calls' device time from phase 3 (``MOE_CALLS``, kernel µs times
+    launches per step)."""
+    e, d, ff, layers = (cfg.moe.num_experts, cfg.d_model, cfg.d_ff,
+                        cfg.num_layers)
+    gb = layers * e * 3 * d * ff / 8 / 1e9
+    arch = cfg.name.split("-")[0]
+    calls = {n: r for n, r in moe.items()
+             if f"moe {arch} decode experts" in n}
+    dev = sum(r["ms"] * r["step_launches"] for r in calls.values())
+    log(f"{tag} expert weights per decode step: {layers} layers x {e} "
+        f"experts x 3 x {d} x {ff} bits = {gb:.3f} GB, "
+        f"{gb * 1e12 / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; their "
+        f"{len(calls)} calls' device time per step (phase 3's MoE rows, "
+        f"us x launches) {dev:.3f} ms of the {step_ms:.2f} ms decode step "
+        f"({dev / step_ms:.3f})")
+
+
+def phase_mixtral(moe: dict) -> dict:
+    """mixtral-8x22b at full width and 4 layers, bf16, random weights from
+    ``SEED``: static serving (``MIXTRAL_STATIC``, graph == eager), the
+    expert weights' share of a decode step, continuous paged serving of
+    ``MIXTRAL_CONT`` (each pure-decode iteration launches 7 ``rbmm_int``
+    a layer, 4 projections and 3 expert products, and no ``rbmm_mxu``;
+    each mixed iteration 7 ``rbmm_mxu`` a layer), then the same
+    speculatively (7 ``rbmm_mxu`` a layer in each spec iteration's
+    verify); the drops by iteration kind.  Returns the launch counts of
+    the serves."""
+    import torch
+    tag, n = "[mixtral]", MIXTRAL_LAYERS
+    model, dparams = load_model("mixtral-8x22b", tag, n)
+    with DropCounter() as drops:
+        drops.label = "static"
+        launches, step_ms = serve_static(model, dparams, tag,
+                                         MIXTRAL_STATIC)
+        log_expert_share(tag, model.cfg, step_ms, moe)
+        drops.label = "continuous"
+        paged, _ = phase_continuous(
+            model, dparams, "[mixtral continuous]", MIXTRAL_CONT,
+            expect={"decode": {"rbmm_int": 7 * n, "rbmm_mxu": 0},
+                    "mixed": {"rbmm_mxu": 7 * n}})
+        drops.label = "speculative"
+        spec = phase_cell_speculative(
+            model, dparams, "[mixtral speculative]", MIXTRAL_CONT,
+            expect={"spec": {"rbmm_mxu": 7 * n}})
+    drops.log(tag)
+    del model, dparams
+    torch.cuda.empty_cache()
+    return {k: launches[k] + paged[k] + spec[k] for k in launches}
+
+
+def phase_arctic(moe: dict) -> dict:
+    """arctic-480b at full width and 1 layer (128 experts and the dense
+    residual FFN), bf16, random weights from ``SEED``: static serving
+    (``ARCTIC_STATIC``, graph == eager), the expert weights' share of a
+    decode step, the drops.  Returns the launch counts of the serve."""
+    import torch
+    tag = "[arctic]"
+    model, dparams = load_model("arctic-480b", tag, ARCTIC_LAYERS)
+    with DropCounter() as drops:
+        drops.label = "static"
+        launches, step_ms = serve_static(model, dparams, tag,
+                                         ARCTIC_STATIC)
+        log_expert_share(tag, model.cfg, step_ms, moe)
+    drops.log(tag)
+    del model, dparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 15: card vs CPU, the narrow MoE configs ----------------------------
+
+# the smoke configs' continuous check: two requests share a 32-token page,
+# two fit one page and outgrow it (arctic's full attention on a 3-page
+# arena preempts; mixtral's windows of 16 fit one page a slot: neither a
+# preemption nor a shared page)
+MOE_CROSS_CONT = (32, (2, 8), (30, 29), 2, 3, 32)
+MOE_CROSS_S = 40
+MOE_DROP_CF = 0.5
+
+
+def phase_crosscheck_moe() -> None:
+    """The mixtral and arctic smoke configs (float32, dropless) on the card
+    and on the CPU through ``phase_crosscheck_narrow`` (static tokens and
+    logits; continuous and speculative tokens by rid and counters;
+    speculative == plain); then the narrow mixtral at capacity factor 0.5,
+    statically: tokens dropped, card == CPU."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import build_model
+    phase_crosscheck_narrow("[mixtral card==cpu]", "mixtral-8x22b", {},
+                            MOE_CROSS_S, MOE_CROSS_CONT, smoke=True,
+                            pressure=False)
+    phase_crosscheck_narrow("[arctic card==cpu]", "arctic-480b", {},
+                            MOE_CROSS_S, MOE_CROSS_CONT, smoke=True)
+    cfg = get_smoke_config("mixtral-8x22b")
+    cfg = cfg.with_(moe=dc.replace(cfg.moe, capacity_factor=MOE_DROP_CF))
+    model = build_model(cfg)
+    prompts = np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, (CROSS_B, MOE_CROSS_S))
+    with torch.inference_mode(), DropCounter() as drops:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        dparams = model.convert(model.init(gen))
+        drops.label = "card"
+        tok_card, lg_card = _greedy_run(model, dparams, prompts, "cuda",
+                                        MOE_CROSS_S + CROSS_NEW)
+        drops.label = "cpu"
+        tok_cpu, lg_cpu = _greedy_run(model, to_device(dparams, "cpu"),
+                                      prompts, "cpu",
+                                      MOE_CROSS_S + CROSS_NEW)
+    diff = max((a - b).abs().max().item() for a, b in zip(lg_card, lg_cpu))
+    # (n, capacity, claims dropped) of each device's routings
+    by = {dev: [(k[1], k[2], v[2]) for k, v in sorted(drops.counts.items())
+                if k[0] == dev] for dev in ("card", "cpu")}
+    if not np.array_equal(tok_card, tok_cpu) or diff > CROSS_ATOL or \
+            sum(d for *_, d in by["card"]) < 1 or by["card"] != by["cpu"]:
+        raise AssertionError(f"[mixtral card==cpu] capacity factor "
+                             f"{MOE_DROP_CF}: card tokens "
+                             f"{tok_card.tolist()} vs CPU "
+                             f"{tok_cpu.tolist()}, max |logit diff| {diff} "
+                             f"(tol {CROSS_ATOL}); drops {by}")
+    log(f"[mixtral card==cpu] float32 smoke config at capacity factor "
+        f"{MOE_DROP_CF}: static B={CROSS_B} S={MOE_CROSS_S} {CROSS_NEW} "
+        f"tokens: card == CPU tokens {tok_card.tolist()}, max |logit diff| "
+        f"{diff:.3g} <= {CROSS_ATOL}; the same claims dropped on both")
+    drops.log("[mixtral card==cpu]")
 
 
 def main() -> int:
@@ -2452,9 +2760,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows, moe = phase_kernels()
     model, dparams = load_model("smollm-135m", "[serve]")
-    static = serve_static(model, dparams, "[serve]")
+    static, _ = serve_static(model, dparams, "[serve]")
     paged, plain = phase_continuous(model, dparams)
     spec = phase_speculative(model, dparams, plain)
     for name in rows:
@@ -2471,9 +2779,13 @@ def main() -> int:
     phase_crosscheck_narrow("[row card==cpu]", "smollm-135m", NARROW_ROW,
                             520, (64, (451, 460), (520, 530), 17, 20, 128),
                             row=True)
+    mixtral = phase_mixtral(moe)
+    arctic = phase_arctic(moe)
+    phase_crosscheck_moe()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
-                                   qwen[name] + gemma[name])
+                                   qwen[name] + gemma[name] + mixtral[name] +
+                                   arctic[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

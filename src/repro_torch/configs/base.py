@@ -163,6 +163,8 @@ _MODULE_FOR: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "qwen1.5-32b": "qwen15_32b",
     "gemma3-27b": "gemma3_27b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "arctic-480b": "arctic_480b",
     "bert-base-cobra": "bert_base_cobra",
 }
 

@@ -6,6 +6,7 @@ main paths give them, on one CUDA card.
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --ksteps
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --tiles
     PYTHONPATH=src python -m repro_torch.launch.kernel_times --only 'sps_|paged_'
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times --moe
 
 For each shape it prints one JSON object: the device time of one call
 (``ms``: every CUDA kernel the call launches, under torch.profiler), the
@@ -30,7 +31,12 @@ of its step, ``layer_launches``); every call of gemma3-27b's serve paths
 at full width and 12 of its 62 layers (``GEMMA_CALLS``, rows named
 ``... gemma ...``, each with its launches per 12-layer step,
 ``step_launches``: the windowed and full-attention prefills, the row
-table, the 1,024-slot rings and both paged ring groups).  Where the
+table, the 1,024-slot rings and both paged ring groups).  ``--moe``
+instead checks and times every expert-batched call of mixtral-8x22b's
+and arctic-480b's serve paths at full width (``MOE_CALLS``, rows named
+``... moe ...``, one call's operands on the card at a time: each row
+says whether the kernel equals its plain version, and its launches per
+step).  Where the
 checkout's ``rbmm_int`` has two routes, each is timed on its own too (rows
 ending in ``[route ...]``).  ``--trace`` instead traces a loop of calls of
 each tensor-core kernel and of the decode route at wq and w2 under
@@ -529,16 +535,22 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
                 lambda xv=xv, yv=yv: torch.matmul(xv, yv.transpose(-1, -2)),
                 word_or_mac(batch * m, p, k, x, y, res))
         elif kernel == "rbmm_mxu":
-            m, k, p, unsigned = spec
-            bits = torch.randint(0, 2, (m, k), generator=gen, device="cuda")
+            # an optional fifth entry: leading (batch) dims, e.g. experts
+            m, k, p, unsigned, *lead = spec
+            lead = tuple(lead[0]) if lead else ()
+            bits = torch.randint(0, 2, lead + (m, k), generator=gen,
+                                 device="cuda")
             a = (bits if unsigned else 2 * bits - 1).to(torch.bfloat16)
-            w = words(p, k=k)
+            del bits
+            w = words(*lead, p, k=k)
             wv = packing.unpack_signs(w, k, torch.bfloat16)
             res = mxu.rbmm_mxu(a, w)
+            macs = int(np.prod(lead, dtype=np.int64)) * m * k * p
             out[name] = (kernel, lambda a=a, w=w: mxu.rbmm_mxu(a, w),
                          lambda a=a, w=w: mxu_ref.rbmm_mxu(a, w),
-                         lambda a=a, wv=wv: torch.matmul(a, wv.T),
-                         bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
+                         lambda a=a, wv=wv: torch.matmul(
+                             a, wv.transpose(-1, -2)),
+                         bound(nbytes(a, w, res), 2 * macs, BF16_FLOPS))
         elif kernel == "sps_attention":
             b, h, hkv, length, dh, causal, lens, window, rows = spec
             q, k = words(b, h, length, k=dh), words(b, hkv, length, k=dh)
@@ -786,6 +798,109 @@ def _gemma_calls() -> Dict[str, tuple]:
 GEMMA_CALLS = _gemma_calls()
 
 
+# the MoE archs at full width (repro_torch/configs) and the layers their
+# card runs take: mixtral-8x22b (4 of 56 layers) serves 8 prompts of 512
+# tokens statically and 8 slots with chunks of 512 continuously and
+# speculatively (k = 4: a verify of 8 x 5 rows); arctic-480b (1 of 35
+# layers, a dense residual FFN beside its experts) 8 prompts of 128 tokens
+# statically.  Capacity dispatch runs every expert at its capacity
+# (``BinaryMoE.capacity``): mixtral 4 rows at a decode step (n = 8), 2,048
+# at a prefill or a mixed iteration (n = 4,096), 20 at a verify (n = 40);
+# arctic 1 and 32.
+MOE_LAYERS = {"mixtral-8x22b": 4, "arctic-480b": 1}
+MOE_B, MOE_VERIFY = 8, 5
+MOE_PREFILL = {"mixtral-8x22b": 512, "arctic-480b": 128}
+
+
+def _moe_calls() -> Dict[str, tuple]:
+    """Every expert-batched kernel call of the two MoE archs' serve paths
+    (and arctic's dense residual FFN) at full width: (kernel, operands,
+    launches per step of its path: a decode step, a prefill, a verify)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import Block
+    out = {}
+    for arch, layers in MOE_LAYERS.items():
+        cfg = get_config(arch)
+        moe = Block(cfg)._ffn()
+        d, ff, e, name = cfg.d_model, cfg.d_ff, moe.num_experts, \
+            arch.split("-")[0]
+        steps = {"decode": MOE_B, "prefill": MOE_B * MOE_PREFILL[arch]}
+        if name == "mixtral":
+            steps["verify"] = MOE_B * MOE_VERIFY
+        for step, n in steps.items():
+            c = moe.capacity(n)
+            proj = {"w1/w3": (ff, d, 2), "w2": (d, ff, 1)}
+            for call, (p, kk, per) in proj.items():
+                dims = (f"({e},{c},{(kk + 31) // 32})x({e},{p},"
+                        f"{(kk + 31) // 32})")
+                if c <= 16:     # the decode route of rbmm_int
+                    scheme = "and_dc" if call == "w2" else "xnor"
+                    tail = ", dc derived" if scheme == "and_dc" else ""
+                    out[f"rbmm_int moe {name} {step} experts {call} {dims} "
+                        f"{scheme}{tail}"] = (
+                        "rbmm_int", ((e,), c, p, kk, scheme), per * layers)
+                else:
+                    out[f"rbmm_mxu moe {name} {step} experts {call} "
+                        f"({e},{c},{kk})x({e},{p},{kk})"
+                        f"{' {0,1}' if call == 'w2' else ''}"] = (
+                        "rbmm_mxu", (c, kk, p, call == "w2", (e,)),
+                        per * layers)
+            for shape, dtype in (((e, c, d), "bfloat16"),
+                                 ((e, c, ff), "float32")):
+                out[f"pack moe {name} {step} experts "
+                    f"({','.join(map(str, shape))}) {DTYPE_TAGS[dtype]}, one "
+                    f"theta"] = ("pack_threshold", (shape, dtype, (), False),
+                                 layers)
+            if moe.dense_residual:  # the dense residual FFN on all n rows
+                for call, (p, kk, per) in proj.items():
+                    if n <= 16:
+                        scheme = "and_dc" if call == "w2" else "xnor"
+                        tail = ", dc derived" if scheme == "and_dc" else ""
+                        out[f"rbmm_int moe {name} {step} residual {call} "
+                            f"({n}x{kk})x({p}x{kk}) {scheme}{tail}"] = (
+                            "rbmm_int", ((), n, p, kk, scheme), per * layers)
+                    else:
+                        out[f"rbmm_mxu moe {name} {step} residual {call} "
+                            f"({n}x{kk})x({p}x{kk})"
+                            f"{' {0,1}' if call == 'w2' else ''}"] = (
+                            "rbmm_mxu", (n, kk, p, call == "w2"),
+                            per * layers)
+    return out
+
+
+MOE_CALLS = _moe_calls()
+
+
+def moe_rows(seed: int = 0, only: str = ""):
+    """Each ``MOE_CALLS`` call (whose name matches ``only``), one at a time
+    so the card holds one call's operands (arctic's experts unpacked to
+    bf16 for the library's batched matmul take 8.9 GB): the kernel
+    against its plain version (``equal``: bitwise), the kernel's and the
+    library's device ms (``torch.bmm``/``matmul`` of the unpacked bf16
+    operands; none for pack) and per-call ms with the host work, the
+    bound, and the launches per step of its path.  Yields one row per
+    call."""
+    for name, spec in MOE_CALLS.items():
+        if not re.search(only, name):
+            continue
+        (kernel, call, plain, lib, (b_ms, by)), = call_operands(
+            {name: spec}, seed).values()
+        got, want = call(), plain()
+        equal = got.dtype == want.dtype and torch.equal(got, want)
+        del got, want
+        row = {"shape": name, "kernel": kernel, "equal": bool(equal),
+               "step_launches": spec[2], "eager_ms": eager_ms(call, iters=10),
+               "library_eager_ms": None if lib is None else eager_ms(
+                   lib, iters=10),
+               "ms": device_ms(call, iters=5),
+               "library_ms": None if lib is None else device_ms(lib,
+                                                                iters=5),
+               "bound_ms": b_ms, "bound_by": by}
+        del call, plain, lib
+        torch.cuda.empty_cache()
+        yield row
+
+
 def shapes(seed: int = 0) -> Dict[str, Dict]:
     """Each shape: the kernel's call, the library call and the bound (and,
     for the speculative iteration's calls, the launches per iteration)."""
@@ -943,6 +1058,9 @@ def main() -> int:
                     help="time the int8 mainloop against its K-steps")
     ap.add_argument("--tiles", action="store_true",
                     help="time the decode kernel's tiles around its rule")
+    ap.add_argument("--moe", action="store_true",
+                    help="check and time the MoE archs' expert-batched "
+                    "calls (MOE_CALLS), one at a time")
     ap.add_argument("--only", default="",
                     help="time only the shapes whose name matches this "
                     "regular expression")
@@ -962,6 +1080,10 @@ def main() -> int:
             if name.startswith(TRACED):
                 print(json.dumps({"shape": name, **host_trace(s["kernel"])}),
                       flush=True)
+        return 0
+    if args.moe:
+        for row in moe_rows(only=args.only):
+            print(json.dumps(row), flush=True)
         return 0
     for row in time_all(only=args.only):
         print(json.dumps(row), flush=True)

@@ -80,13 +80,29 @@ class KVCache(NamedTuple):
     length: torch.Tensor
 
 
+def _last_writer(key: torch.Tensor, writes: torch.Tensor, rows: torch.Tensor,
+                 n_keys: int) -> torch.Tensor:
+    """(B, N) bool: True where row b is the highest row that writes
+    ``key[b, n]`` (``writes`` marks the writes; ``rows`` (B, 1) the row
+    indices).  The max is order-free, so the result is the same on every
+    run and device."""
+    who = torch.where(writes, rows, -1).expand_as(key)
+    last = torch.full((n_keys,), -1, dtype=who.dtype, device=key.device)
+    last.scatter_reduce_(0, key.reshape(-1), who.reshape(-1), reduce="amax")
+    return last[key] == who
+
+
 class PagedKVCache(NamedTuple):
     """Paged binary KV cache: a page arena plus per-sequence block tables.
 
     Token position t occupies logical ring slot s = t % ring_len, which
     resolves to page ``block_table[b, s // page_size]``, offset
     ``s % page_size``.  Physical page 0 is the trash page: unmapped table
-    entries are 0, so decode writes of free pool slots land there.
+    entries are 0, so decode writes of free pool slots land there.  Every
+    write routed there writes zeros, so the trash page stays all zero and
+    a free row that reads it reads a fixed state (colliding writes of
+    other values would leave it in an order no run fixes; a MoE routes
+    free rows, and their claims take capacity from the live rows').
 
       k_pages:     (P+1, Hkv, page_size, ceil(dh/32)) int32 words
       vt_pages:    (P+1, Hkv, dh, page_size/32) int32 words
@@ -507,16 +523,33 @@ class SPSAttention:
             cache.vt_bits.copy_(merged)
             return cache
         # scatter written slots / words through the block table; unwritten
-        # positions route to the trash page 0 (page_size % 32 keeps whole
-        # V^T words inside one page)
+        # positions route to the trash page 0 and write zeros there
+        # (page_size % 32 keeps whole V^T words inside one page).  A
+        # physical slot or word that several rows write (a prefix page
+        # shared by rows that prefill it in one chunk) takes the last
+        # (highest) row's bits only: their bits agree wherever a
+        # position's K/V depends on its prefix alone, but a MoE's drops
+        # depend on the whole batch, and colliding writes of different
+        # values would land in an order no run fixes
         bt = cache.block_table.long()
+        rows = torch.arange(b, device=dev)[:, None]
         phys = torch.where(wr, bt[:, s_all // page], 0)        # (B, W)
         off = (s_all % page).expand(b, w)
-        cache.k_pages[phys, :, off] = kg.transpose(1, 2)
+        wr = wr & _last_writer(phys * page + off, wr, rows,
+                               cache.k_pages.shape[0] * page)
+        phys = torch.where(wr, phys, 0)
+        cache.k_pages[phys, :, off] = torch.where(
+            wr[:, :, None, None], kg.transpose(1, 2), 0)
         j32 = torch.arange(w // packing.WORD, device=dev) * packing.WORD
-        physw = torch.where(wr_words != 0, bt[:, j32 // page], 0)
+        wpp = page // packing.WORD
+        hit = wr_words != 0
+        physw = torch.where(hit, bt[:, j32 // page], 0)
         wj = ((j32 % page) // packing.WORD).expand(b, -1)
-        cache.vt_pages[physw, :, :, wj] = merged.permute(0, 3, 1, 2)
+        hit = hit & _last_writer(physw * wpp + wj, hit, rows,
+                                 cache.vt_pages.shape[0] * wpp)
+        physw = torch.where(hit, physw, 0)
+        cache.vt_pages[physw, :, :, wj] = torch.where(
+            hit[:, :, None, None], merged.permute(0, 3, 1, 2), 0)
         return cache
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor, cache,
@@ -636,18 +669,25 @@ class SPSAttention:
     def _write_token(self, params: Params, k_store: torch.Tensor,
                      vt_store: torch.Tensor, row: torch.Tensor,
                      col: torch.Tensor, k_new: torch.Tensor,
-                     v: torch.Tensor) -> None:
+                     v: torch.Tensor,
+                     keep: Optional[torch.Tensor] = None) -> None:
         """Write one decode token per sequence in place: K words at
         ``k_store[row, :, col]`` and the V^T bit (col % 32) of word
         (col // 32) in ``vt_store[row, :, :, ...]``.  ``row`` is the
         sequence of a ring or the physical page of an arena, ``col`` the
-        ring slot or the in-page offset."""
-        k_store[row, :, col] = k_new[:, :, 0]
+        ring slot or the in-page offset.  Sequences where ``keep`` (B,) is
+        False write zeros (the trash page's rows)."""
+        k_row = k_new[:, :, 0]
         word = col // packing.WORD
         mask = packing.bit_mask(col % packing.WORD)[:, None, None]
         v_bit = self._v_bits(params, v[:, 0]).to(torch.int32)  # (B,Hkv,dh)
         old = vt_store[row, :, :, word]
-        vt_store[row, :, :, word] = (old & ~mask) | (v_bit * mask)
+        new = (old & ~mask) | (v_bit * mask)
+        if keep is not None:
+            k_row = torch.where(keep[:, None, None], k_row, 0)
+            new = torch.where(keep[:, None, None], new, 0)
+        k_store[row, :, col] = k_row
+        vt_store[row, :, :, word] = new
 
     def _attend_cache(self, params: Params, q_bits: torch.Tensor,
                       kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
@@ -703,8 +743,8 @@ class SPSAttention:
                              cache: PagedKVCache
                              ) -> Tuple[torch.Tensor, PagedKVCache]:
         """Paged decode step: write the new K/V^T bits through the block
-        table (free pool rows have table rows of 0 and write the trash
-        page), then attend over the pages with the paged_gather_decode
+        table (free pool rows have table rows of 0 and write zeros to the
+        trash page), then attend over the pages with the paged_gather_decode
         kernel; the gathered ring view is never built.  ``ring_len`` is
         a host int, so a captured graph of the step bakes it in: that is
         right, because it is fixed for the arena's life."""
@@ -717,7 +757,7 @@ class SPSAttention:
         phys = cache.block_table[torch.arange(b, device=x.device),
                                  slot // page].long()
         self._write_token(params, cache.k_pages, cache.vt_pages, phys,
-                          slot % page, k_new, v)
+                          slot % page, k_new, v, keep=phys != 0)
         theta = self._theta_at(self._theta_int(params), pos)     # (B, H)
         ctx = paged_ops.paged_gather_decode(
             q_bits[:, :, 0], cache.k_pages, cache.vt_pages,

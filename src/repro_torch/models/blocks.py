@@ -2,10 +2,12 @@
 ``kind="attn"``; the other kinds are not ported yet).  The residual
 stream stays fp (BiT convention).  The norm is ``cfg.norm`` (RMSNorm or
 LayerNorm) and the FFN the SiLU or GELU GLU or the ReLU FFN (Eq. 11
-blocked when ``cfg.binary.ffn_block_r`` is set).  A block's ``window`` (0:
-full attention) masks its attention and sizes its decode ring, as in the
-JAX package: gemma's local:global stacks build blocks that differ in it
-only."""
+blocked when ``cfg.binary.ffn_block_r`` is set), or, with
+``cfg.moe.num_experts``, a ``BinaryMoE`` of such experts, which every
+deploy face applies to the whole (pooled) input, as the JAX package's
+do.  A block's ``window`` (0: full attention) masks its attention and
+sizes its decode ring, as in the JAX package: gemma's local:global stacks
+build blocks that differ in it only."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,13 +18,28 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import PageSpec, SPSAttention
-from repro_torch.models.ffn import PORTED, BinaryFFN
+from repro_torch.models.ffn import PORTED, BinaryFFN, BinaryMoE
 
 Params = Dict[str, Any]
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+def _ffn_from_cfg(cfg: ModelConfig):
+    if cfg.moe.num_experts:
+        return BinaryMoE(
+            d_model=cfg.d_model, d_ff=cfg.d_ff,
+            num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor,
+            dense_residual=cfg.moe.dense_residual,
+            act=cfg.act, glu=cfg.glu, dtype=compute_dtype(cfg),
+            impl=cfg.binary.impl,
+            dispatch_bits=cfg.binary.moe_dispatch_bits)
+    return BinaryFFN(cfg.d_model, cfg.d_ff, act=cfg.act, glu=cfg.glu,
+                     blocked_r=cfg.binary.ffn_block_r,
+                     dtype=compute_dtype(cfg), impl=cfg.binary.impl)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,13 +50,13 @@ class Block:
 
     def __post_init__(self):
         cfg = self.cfg
-        if (cfg.moe.num_experts or cfg.ssm is not None
+        if (cfg.ssm is not None
                 or cfg.norm not in ("rmsnorm", "layernorm")
                 or not cfg.d_ff or (cfg.act, cfg.glu) not in PORTED):
             raise NotImplementedError(
                 f"{cfg.name}: the port runs attention blocks with RMSNorm "
-                f"or LayerNorm and a SiLU or GELU GLU or a ReLU FFN only; "
-                f"the rest is not ported yet")
+                f"or LayerNorm and a SiLU or GELU GLU or a ReLU FFN (or a "
+                f"mixture of them) only; the rest is not ported yet")
 
     def _attn(self) -> SPSAttention:
         cfg = self.cfg
@@ -52,11 +69,8 @@ class Block:
             dtype=compute_dtype(cfg), impl=cfg.binary.impl,
             score_impl=cfg.binary.score_impl)
 
-    def _ffn(self) -> BinaryFFN:
-        cfg = self.cfg
-        return BinaryFFN(cfg.d_model, cfg.d_ff, act=cfg.act, glu=cfg.glu,
-                         blocked_r=cfg.binary.ffn_block_r,
-                         dtype=compute_dtype(cfg), impl=cfg.binary.impl)
+    def _ffn(self):
+        return _ffn_from_cfg(self.cfg)
 
     def _norm(self):
         return nn.make_norm(self.cfg.norm, self.cfg.d_model)

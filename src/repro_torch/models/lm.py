@@ -307,8 +307,8 @@ class LMModel:
 
 
 def build_model(cfg: ModelConfig) -> LMModel:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port builds "
-            f"dense models")
+            f"dense and MoE models")
     return LMModel(cfg)

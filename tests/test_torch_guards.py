@@ -185,7 +185,7 @@ def test_bridge_keeps_word_bits_and_splits_stacked_blocks():
 
 def test_not_ported_yet_boundaries():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        base.get_config("mixtral-8x22b")
+        base.get_config("xlstm-350m")
     with pytest.raises(KeyError):
         base.get_config("gpt-2")
     cfg = base.get_config("smollm-135m")
@@ -193,13 +193,15 @@ def test_not_ported_yet_boundaries():
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
             cfg.compute_dtype) == (30, 576, 9, 3, 64, 1536, 49152,
                                    "bfloat16")
-    # windows, the GELU GLU and the row granularity are ported; MoE, the
-    # recurrent and encoder-decoder families and frontends are not
+    # windows, the GELU GLU, the row granularity and MoE's deploy face are
+    # ported; MoE's QAT face, the recurrent and encoder-decoder families
+    # and frontends are not
     assert SPSAttention(96, 3, 1, 32, sps_granularity="row").init(
         torch.Generator(), "cpu")["sps_lambda"].shape == (3, 512)
+    moe = build_model(base.get_smoke_config("granite-3-2b").with_(
+        family="moe", moe=base.MoEConfig(num_experts=4), window_size=16))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(base.get_smoke_config("granite-3-2b").with_(
-            moe=base.MoEConfig(num_experts=4), window_size=16))
+        moe._block()._ffn().apply({}, torch.zeros(2, 64))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(base.get_smoke_config("smollm-135m").with_(
             family="ssm", ssm=base.SSMConfig()))
