@@ -38,7 +38,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 ``pack_threshold`` on (E, C, d) buffers; arctic's dense
                 residual), one call's operands at a time, bitwise, with
                 device and per-call times, the bound, the library's
-                batched matmul and the launches per step; CUDA-event
+                batched matmul and the launches per step; every call of
+                hymba-1.5b's and xlstm-350m's serve paths at full width
+                (``kernel_times.RECURRENT_CALLS``), bitwise; CUDA-event
                 timings of kernel, plain
                 version and (where one exists) the one PyTorch call
                 computing the same function; then
@@ -175,6 +177,32 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 speculative == plain; then the smoke mixtral at capacity
                 factor 0.5 statically (claims dropped): tokens, logits
                 and the drops equal
+  16. hymba    hymba-1.5b at full width and full depth (32 layers, each an
+                attention with a 1,024-token window and a Mamba branch of
+                state 16, averaged, then the SiLU GLU; bf16, random
+                weights from a seed): static serving of 4 prompts of
+                1,536 tokens (``[hymba]``: the rings wrap, graph ==
+                eager, the prefill's and each decode step's launches
+                equal ``kernel_times.RECURRENT_CALLS``'), continuous paged
+                serving of phase 5's trace and engine shape (``[hymba
+                continuous]``: every pure-decode and mixed iteration at
+                the table's launches, graphs == eager with the carries
+                and an inactive row's frozen, a second serve equal) and
+                the same with ``spec_decode=4`` requested (``[hymba
+                speculative]``: plain decode, the same tokens, no spec
+                iteration); the recurrences' device ms, kernels and
+                capture seconds alone within a decode step and a mixed
+                iteration (``recurrence_ms``)
+  17. xlstm    xlstm-350m at full width and depth (20 mLSTM and 4 sLSTM
+                layers, no attention): static B=8 x 512 (``[xlstm]``),
+                continuous on the paged pool (no arena) and on contiguous
+                rings (``[xlstm continuous paged|contiguous]``, equal
+                tokens), ``spec_decode=4`` requested, the same checks
+  18. crosscheck
+                the hymba and xlstm smoke configs (float32) on the card
+                and on the CPU: static tokens equal and logits within a
+                stated tolerance, continuous tokens by rid and counters
+                equal, plainly and with ``spec_decode=4`` requested
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -197,8 +225,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
     ARCH_CALLS, BF16_FLOPS, GEMMA_CALLS, HBM_BYTES_PER_S, INT8_OPS,
-    MOE_CALLS, SCALAR32_OPS, bound, call_operands, decode_calls,
-    device_ms, eager_ms, moe_rows, nbytes, paged_bound, spec_launches,
+    MOE_CALLS, RECURRENT_CALLS, RECURRENT_CELL, RECURRENT_STATIC,
+    SCALAR32_OPS, bound, call_operands, decode_calls, device_ms, eager_ms,
+    moe_rows, nbytes, paged_bound, path_launches, spec_launches,
     spec_operands, sps_bound, time_all)
 
 SEED = 0
@@ -891,9 +920,15 @@ def check_arch_calls() -> None:
     decode projections at M = 4, 8 and 16 up to Kp = 672, the rings of
     1,024 and 1,568, the prefill projections at M = 6,144, the prefill
     attention windowed, full and with a row table, both paged ring
-    groups), kernel against plain version, bitwise."""
+    groups), and of hymba-1.5b's and xlstm-350m's at full width
+    (``kernel_times.RECURRENT_CALLS``: the projections at K = 1,600 /
+    3,200 / 5,504 and 1,024 / 2,048, ``sps_attention`` at H = 25/5 with a
+    window of 1,024, ``paged_gather_decode`` at G = 5, the chunk attend
+    at M = 640), kernel against plain version, bitwise."""
     for label, table in (("granite-3-2b's and qwen1.5-32b's", ARCH_CALLS),
-                         ("gemma3-27b's", GEMMA_CALLS)):
+                         ("gemma3-27b's", GEMMA_CALLS),
+                         ("hymba-1.5b's and xlstm-350m's",
+                          RECURRENT_CALLS)):
         calls = call_operands(table, SEED)
         by_kernel = {}
         for name, (kernel, call, plain, _, _) in calls.items():
@@ -969,7 +1004,9 @@ def phase_kernels():
     moe = check_moe_calls()
     for t in time_all(SEED):
         per_layer = (f"; {t['layer_launches']} launches per layer of its "
-                     f"step" if "layer_launches" in t else "")
+                     f"step" if "layer_launches" in t else
+                     f"; {t['step_launches']} launches per step of its path"
+                     if "step_launches" in t else "")
         log(f"[kernels] {t['shape']}: device ms kernel {t['ms']:.5f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
             f"({t['bound_by']}); per call with host work: kernel "
@@ -1026,12 +1063,15 @@ def moe_text(cfg) -> str:
 
 
 def serve_static(model, dparams, tag: str,
-                 shape=(SERVE_B, SERVE_S, SERVE_NEW)) -> tuple:
+                 shape=(SERVE_B, SERVE_S, SERVE_NEW), path=STATIC_PATH,
+                 expect=None) -> tuple:
     """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
     (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
     rings of S + new tokens (a windowed layer's: its window), the decode
-    step a replayed graph; returns the launch counts of the run and the
-    wall ms per decode step."""
+    step a replayed graph; every kernel of ``path`` must launch, and with
+    ``expect`` ({"prefill" / "decode": {kernel: launches}}) the prefill
+    and each decode step launch exactly those.  Returns the launch counts
+    of the run and the wall ms per decode step."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
@@ -1066,7 +1106,7 @@ def serve_static(model, dparams, tag: str,
             toks.max() >= cfg.vocab_size:
         raise AssertionError(f"{tag} bad tokens {toks.shape} "
                              f"[{toks.min()}, {toks.max()}]")
-    idle = [n for n in STATIC_PATH if launches[n] == 0]
+    idle = [n for n in path if launches[n] == 0]
     if idle:
         raise AssertionError(f"{tag} kernels {idle} never launched on the "
                              f"static path: {launches}")
@@ -1081,6 +1121,11 @@ def serve_static(model, dparams, tag: str,
     if per_step != {n: float(c) for n, c in eager_step.items()}:
         raise AssertionError(f"{tag} launches per replayed decode step "
                              f"{per_step}, per eager step {eager_step}")
+    for kind, got in (("prefill", c_pre), ("decode", per_step)):
+        want = (expect or {}).get(kind)
+        if want is not None and {n: c for n, c in got.items() if c} != want:
+            raise AssertionError(f"{tag} launches per {kind} {got}, "
+                                 f"expected {want}")
     log(f"{tag} launches per prefill {json.dumps(c_pre)}")
     log(f"{tag} launches per decode step (credited by the replays, equal "
         f"to the eager step's) {json.dumps(per_step)}")
@@ -1092,7 +1137,8 @@ def serve_static(model, dparams, tag: str,
         f"{n_b * steps / (t_end - t_pre):.1f} tok/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; KV cache "
         f"{report['total_bytes'] / 2**20:.2f} MiB "
-        f"({report['compression_vs_bf16']:.1f}x below bf16)")
+        f"({report['compression_vs_bf16']:.2f}x below its bf16 "
+        f"equivalent, {report['bf16_equivalent_bytes'] / 2**20:.2f} MiB)")
     log(f"{tag} sample tokens {toks[0, :8].tolist()}; all {toks.size} "
         f"tokens' digest {digest(toks.tolist())}")
     step_ms = 1e3 * (t_end - t_pre) / steps
@@ -1250,6 +1296,7 @@ class Cell:
     blocks: int
     pages: int
     chunk: int
+    paged: bool = True
 
 
 CONT = Cell(CONT_TRACE, 64, CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, CONT_PAGES,
@@ -1332,18 +1379,25 @@ def continuous_config(spec_k=None, cell: Cell = CONT):
     from repro_torch.serve.engine import (CacheConfig, PolicyConfig,
                                           ServeConfig, SpecConfig)
     return ServeConfig(num_slots=cell.slots, cache=CacheConfig(
-        paged=True, page_size=cell.page, max_blocks=cell.blocks,
+        max_len=cell.blocks * cell.page, paged=cell.paged,
+        page_size=cell.page, max_blocks=cell.blocks,
         num_pages=cell.pages, prefix_share=True),
         policy=PolicyConfig(prefill_chunk=cell.chunk),
         spec=SpecConfig(k=spec_k, draft_layers=SPEC_DRAFT))
 
 
 def phase_continuous(model, dparams, tag: str = "[continuous]",
-                     cell: Cell = CONT, expect=None):
+                     cell: Cell = CONT, expect=None, path=PAGED_PATH,
+                     pressure: bool = True, stats=None):
     """Full-width smollm-135m (or ``model``) through ``ServeEngine.serve``
-    on the paged pool of ``cell``; ``expect`` ({iteration kind: {kernel:
-    launches}}) holds every iteration of a kind to those counts.  Returns
-    the launch counts of the run and its tokens by rid."""
+    on the pool of ``cell`` (paged, or contiguous rings); ``expect``
+    ({iteration kind: {kernel: launches}}) holds every iteration of a kind
+    to those counts; every kernel of ``path`` must launch; ``pressure``
+    demands a preemption and a prefix hit (a stack without attention has
+    no page arena).  Each pure-decode iteration launches one
+    ``paged_gather_decode`` per attention layer of a paged pool.  A dict
+    ``stats`` takes the median ms per iteration by kind.  Returns the
+    launch counts of the run and its tokens by rid."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import ServeEngine
@@ -1376,11 +1430,11 @@ def phase_continuous(model, dparams, tag: str = "[continuous]",
     if short:
         raise AssertionError(f"{tag} requests {short} did not get "
                              f"their budget (no EOS is set)")
-    if rep.preemptions < 1 or rep.prefix_hits < 1:
+    if pressure and (rep.preemptions < 1 or rep.prefix_hits < 1):
         raise AssertionError(f"{tag} expected a preemption and a "
                              f"prefix hit, got {rep.preemptions} and "
                              f"{rep.prefix_hits}")
-    idle = [n for n in PAGED_PATH if launches[n] == 0]
+    idle = [n for n in path if launches[n] == 0]
     if idle:
         raise AssertionError(f"{tag} kernels {idle} never launched "
                              f"on the paged path: {launches}")
@@ -1392,21 +1446,28 @@ def phase_continuous(model, dparams, tag: str = "[continuous]",
               for kind in ("decode", "mixed")}
     check_iterations(tag, its, expect)
     per_layer = {c["paged_gather_decode"] for _, c in dec}
-    if per_layer != {model.cfg.num_layers}:
+    n_attn = sum(k in ("attn", "hybrid") for k, _ in model.plan) \
+        if cell.paged else 0
+    if per_layer != {n_attn}:
         raise AssertionError(f"{tag} paged_gather_decode launches "
                              f"per pure-decode iteration {per_layer}, not "
-                             f"{model.cfg.num_layers}")
+                             f"{n_attn}")
     tokens = sum(len(t) for t in res.values())
     profiled_s = sum(ms for k, ms, _, _ in its if k == "profiled") / 1e3
     by_rid = sorted((rid, [int(x) for x in t]) for rid, t in res.items())
     log(f"{tag} tokens by rid, digest {digest(by_rid)}")
     ms = lambda rows: [m for m, _ in rows]
+    if stats is not None:
+        stats.update(decode=float(np.median(ms(dec))),
+                     mixed=float(np.median(ms(mix))))
     prompt = sum(len(r.tokens) for r in reqs)
+    pool = (f"{cell.pages} pages of {cell.page} "
+            f"({cell.pages / (cell.slots * cell.blocks):.2f} of "
+            f"{cell.slots} x {cell.blocks})" if cell.paged else
+            f"contiguous rings of {cell.blocks * cell.page}")
     log(f"{tag} {len(reqs)} requests ({prompt} prompt tokens, "
-        f"{tokens} generated), {cell.slots} slots, "
-        f"{cell.pages} pages of {cell.page} "
-        f"({cell.pages / (cell.slots * cell.blocks):.2f} of {cell.slots} x "
-        f"{cell.blocks}), chunks of {cell.chunk}: {total:.3f} s, "
+        f"{tokens} generated), {cell.slots} slots, {pool}, chunks of "
+        f"{cell.chunk}: {total:.3f} s, "
         f"{tokens / total:.1f} tok/s; without the profiled iterations "
         f"{total - profiled_s:.3f} s, {tokens / (total - profiled_s):.1f} "
         f"tok/s")
@@ -1427,14 +1488,18 @@ def phase_continuous(model, dparams, tag: str = "[continuous]",
     log(f"{tag} launches per pure-decode iteration "
         f"{json.dumps(dec[0][1])}; per mixed iteration (mean) "
         f"{json.dumps(mix_mean)}")
-    log(f"{tag} preemptions {rep.preemptions:.0f}, peak page "
-        f"utilization {rep.peak_page_utilization:.3f}, prefix hit rate "
-        f"{rep.prefix_hit_rate:.3f} ({rep.prefix_hits:.0f} of "
-        f"{rep.prefix_lookups:.0f}), COW copies {rep.cow_copies:.0f}, "
-        f"pages freed {rep.pages_freed_retire:.0f}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, arena and "
-        f"tables {rep.total_bytes / 2**20:.2f} MiB, peak mapped pages "
-        f"{rep.peak_page_bytes / 2**20:.2f} MiB")
+    if eng.arenas:
+        log(f"{tag} preemptions {rep.preemptions:.0f}, peak page "
+            f"utilization {rep.peak_page_utilization:.3f}, prefix hit rate "
+            f"{rep.prefix_hit_rate:.3f} ({rep.prefix_hits:.0f} of "
+            f"{rep.prefix_lookups:.0f}), COW copies {rep.cow_copies:.0f}, "
+            f"pages freed {rep.pages_freed_retire:.0f}, peak mapped pages "
+            f"{rep.peak_page_bytes / 2**20:.2f} MiB")
+    log(f"{tag} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; caches "
+        f"(pages, rings, tables, carries) {rep.total_bytes / 2**20:.2f} "
+        f"MiB against {rep.bf16_equivalent_bytes / 2**20:.2f} MiB in bf16 "
+        f"({rep.compression_vs_bf16:.2f}x)")
     log(f"{tag} by ring group (logical ring length: pages, peak used, "
         f"prefix lookups, hits, COW copies) " + json.dumps({
             ring: [a.num_pages, a.peak_pages, a.prefix_lookups,
@@ -1480,7 +1545,8 @@ def shared_tables(caches):
     block table (the first layer's of the group), as the engine's do."""
     tables = {}
     return [dict(c, attn=c["attn"]._replace(block_table=tables.setdefault(
-        c["attn"].ring_len, c["attn"].block_table))) for c in caches]
+        c["attn"].ring_len, c["attn"].block_table))) if "attn" in c else c
+        for c in caches]
 
 
 def set_tables(caches, rng, live: int, pages: int = 4) -> None:
@@ -1490,8 +1556,8 @@ def set_tables(caches, rng, live: int, pages: int = 4) -> None:
     import torch
     done = set()
     for c in caches:
-        pg = c["attn"]
-        if pg.ring_len in done:
+        pg = c.get("attn")
+        if pg is None or pg.ring_len in done:
             continue
         done.add(pg.ring_len)
         b, nblk = pg.block_table.shape
@@ -1508,9 +1574,11 @@ def check_paged_graph(model, dparams, tag: str, cell: Cell = CONT) -> None:
     slots, chunks of 128, 12 blocks of 32, 48 pages; or ``cell``'s): 3/4
     of the rows live with 4 pages each in every ring group, the others
     inactive on the trash page: equal tokens and bitwise-equal logits on
-    the live rows, equal pages 1.. and lengths.  The trash page takes
-    colliding writes in an order no version fixes, so the inactive rows'
-    logits are not compared."""
+    the live rows, equal pages 1.., lengths and recurrent carries (every
+    row's; after the unified step the inactive rows' carries still hold
+    their init values bit for bit).  The trash page takes colliding
+    writes in an order no version fixes, so the inactive rows' logits are
+    not compared."""
     import torch
     from repro_torch.models.attention import PageSpec
     from repro_torch.serve import graphs
@@ -1536,6 +1604,7 @@ def check_paged_graph(model, dparams, tag: str, cell: Cell = CONT) -> None:
         dec = graphs.StepGraph(
             lambda tokens: model.decode_step(dparams, tokens, caches)[0],
             {"tokens": (b, 1)}, device=dev, state=state)
+        init = clone_caches(eager)
         valid = np.zeros(b, np.int64)
         valid[:live] = rng.integers(1, 121, live)
         toks = rng.integers(0, model.cfg.vocab_size, (b, cell.chunk))
@@ -1558,19 +1627,34 @@ def check_paged_graph(model, dparams, tag: str, cell: Cell = CONT) -> None:
                     f"{tag} graph check: paged {kind} step {i} replayed "
                     f"differs from eager, max |logit diff| "
                     f"{(got[:live] - want[:live]).abs().max().item()}")
-            for e, c in zip(eager, caches):
-                e, c = e["attn"], c["attn"]
-                if not (torch.equal(e.k_pages[1:], c.k_pages[1:]) and
-                        torch.equal(e.vt_pages[1:], c.vt_pages[1:]) and
-                        torch.equal(e.length, c.length)):
-                    raise AssertionError(f"{tag} graph check: paged {kind} "
-                                         f"step {i}: pages or lengths differ")
+            for e, c, z in zip(eager, caches, init):
+                if "attn" in e:
+                    e1, c1 = e["attn"], c["attn"]
+                    if not (torch.equal(e1.k_pages[1:], c1.k_pages[1:]) and
+                            torch.equal(e1.vt_pages[1:], c1.vt_pages[1:])
+                            and torch.equal(e1.length, c1.length)):
+                        raise AssertionError(f"{tag} graph check: paged "
+                                             f"{kind} step {i}: pages or "
+                                             f"lengths differ")
+                for name in set(e) & {"mamba", "cell"}:
+                    same = all(torch.equal(a, g)
+                               for a, g in zip(e[name], c[name]))
+                    frozen = kind != "unified" or all(
+                        torch.equal(g[live:], i0[live:])
+                        for g, i0 in zip(c[name], z[name]))
+                    if not (same and frozen):
+                        raise AssertionError(
+                            f"{tag} graph check: {kind} step {i}: the "
+                            f"{name} carries differ from eager ({not same}) "
+                            f"or an inactive row's moved ({not frozen})")
             tok = want[:, -1:].argmax(-1).cpu()
+    carries = ("; recurrent carries bitwise equal, inactive rows frozen"
+               if any("mamba" in c or "cell" in c for c in caches) else "")
     log(f"{tag} graph == eager: a unified chunk of {cell.chunk} "
         f"(valid {valid[:live].min()}..{valid[:live].max()}, "
         f"{b - live} inactive rows) and 6 pooled decode steps from the same "
         f"paged state: live rows' logits bitwise equal, pages and lengths "
-        f"equal")
+        f"equal{carries}")
 
 
 # -- phase 5b: speculative ----------------------------------------------------
@@ -1988,7 +2072,7 @@ def crosscheck_continuous(model, dparams, on_cpu, spec_k=None, prompts=None,
     bad = [rid for rid in res_cpu
            if not np.array_equal(res_card[rid], res_cpu[rid])]
     names = CROSS_CONT_COUNTERS + (CROSS_SPEC_COUNTERS if spec_k else ())
-    counters = {k: (rep_card[k], rep_cpu[k]) for k in names}
+    counters = {k: (rep_card.get(k), rep_cpu.get(k)) for k in names}
     label, tag = tag, f"speculative k={spec_k}" if spec_k else "plain"
     if bad or sorted(res_card) != sorted(res_cpu) or \
             any(a != b for a, b in counters.values()):
@@ -2750,6 +2834,227 @@ def phase_crosscheck_moe() -> None:
     drops.log("[mixtral card==cpu]")
 
 
+# -- phase 16: hymba-1.5b; phase 17: xlstm-350m; phase 18: card vs CPU ----
+
+# both at full width and full depth: hymba 32 hybrid layers (~1.6 B
+# parameters, ~6 GB of float32 masters), xlstm 24 layers (20 mLSTM, 4
+# sLSTM).  Static: hymba B = 4 prompts of 1,536 tokens and 32 new (its
+# rings of the window, 1,024, wrap), xlstm B = 8 x 512.  Continuous:
+# phase 5's trace and engine shape (16 slots, chunks of 128, 12 blocks of
+# 32 over 48 pages); hymba's windows exceed the capacity of 384, so its
+# one ring group is the capacity; xlstm has no attention, so its paged
+# pool has no arena (served contiguously too)
+RECURRENT_CONT = Cell(CONT_TRACE, 64, **RECURRENT_CELL)
+RECURRENT_PATH = ("pack_threshold", "rbmm_int", "rbmm_mxu")
+
+
+def _graph(fn):
+    """``fn`` captured as a CUDA graph after a warm-up on a side stream;
+    returns (graph, capture seconds)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph, time.perf_counter() - t0
+
+
+def recurrence_ms(model, dparams, tag: str, label: str, batch: int,
+                  width: int, step_ms: float) -> float:
+    """The recurrences' share of a step of ``batch`` rows at chunk width
+    ``width`` (1: a decode step, whose scan freezes nothing; else a
+    unified chunk with every row's valid length): each recurrent kind's
+    fp recurrence alone (Mamba: the depthwise conv and the selective
+    scan, ``MambaBlock._conv`` and ``_scan``; xLSTM: ``_scan_cells`` of
+    its cell) on seeded random inputs, captured as a graph as the engine
+    captures its steps; its device ms per replay (torch.profiler) and
+    CUDA kernels times the layers of that kind, and the capture seconds,
+    against the step's ``step_ms``.  Returns the device ms."""
+    import torch
+    from repro_torch.models.blocks import compute_dtype
+    from repro_torch.models.ssm import _scan_cells
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    kinds = {}
+    for i, (kind, _) in enumerate(model.plan):
+        kinds.setdefault(kind, [i, 0])[1] += 1
+    total = kernels = cap = 0.0
+    with torch.inference_mode():
+        for kind, (first, n) in kinds.items():
+            name = "mamba" if kind == "hybrid" else "cell"
+            part = model._block(kind)._parts()[name]
+            params = dparams["blocks"][first][name]
+            lens = None if width == 1 else torch.full(
+                (batch,), width, device=dev)
+            live = None if lens is None else torch.ones(
+                (batch, width), dtype=torch.bool, device=dev)
+            if kind == "hybrid":
+                dt = torch.float32 if width == 1 else compute_dtype(
+                    model.cfg)
+                u_p = torch.randn(
+                    (batch, width + part.conv_width - 1, part.d_inner),
+                    generator=gen, device=dev).to(dt)
+                h0 = part.init_cache(batch, dev).h
+
+                def fn(part=part, params=params, u_p=u_p, h0=h0, lens=lens):
+                    part._scan(params, part._conv(params, u_p, width), h0,
+                               lens)
+            else:
+                carry = part.init_cache(batch, dev)
+                shapes = ([carry.n.shape[1:]] * 3 + [carry.m.shape[1:]] * 2
+                          if kind == "mlstm" else [carry.c.shape[1:]] * 4)
+                seqs = [torch.randn((batch, width) + tuple(sh),
+                                    generator=gen, device=dev)
+                        for sh in shapes]
+
+                def fn(part=part, carry=carry, seqs=seqs, live=live):
+                    _scan_cells(part._cell, carry, seqs, live)
+            graph, secs = _graph(fn)
+            busy, launches, _ = device_profile(graph.replay, iters=3)
+            total += n * busy
+            kernels += n * launches
+            cap += n * secs
+            del graph
+    layers = {k: n for k, (_, n) in kinds.items()}
+    log(f"{tag} the recurrences of {label} (B={batch}, width {width}): "
+        f"{total:.3f} device ms of the step's {step_ms:.2f} ms wall "
+        f"({total / step_ms:.3f}), {kernels:.0f} CUDA kernels; their own "
+        f"capture {cap:.3f} s (layers {json.dumps(layers)})")
+    return total
+
+
+def check_spec_ignored(model, dparams, tag: str, cell: Cell,
+                       plain: dict) -> None:
+    """``SpecConfig(k=4)`` requested on a recurrent stack: the engine
+    decodes plainly, as the JAX engine does (a verify cannot leave
+    recurrent carries unwritten): the plain serve's tokens by rid, no
+    speculative iteration, no spec capture."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(model, dparams, continuous_config(SPEC_K, cell))
+    with torch.inference_mode():
+        res, rep = eng.serve(continuous_requests(model.cfg, cell))
+    differ = _differ(res, plain)
+    if differ or rep.spec_steps != 0 or rep.spec_drafted is not None or \
+            eng._graphs.captures["spec"] != 0:
+        raise AssertionError(f"{tag} spec_decode={SPEC_K} on a recurrent "
+                             f"stack: tokens differ for rids {differ}, "
+                             f"spec steps {rep.spec_steps}, captures "
+                             f"{eng._graphs.captures}")
+    log(f"{tag} spec_decode={SPEC_K} requested: plain decode, the plain "
+        f"serve's tokens for all {len(res)} rids, 0 speculative iterations, "
+        f"captures {json.dumps(eng._graphs.captures)}")
+
+
+def phase_hymba() -> dict:
+    """hymba-1.5b at full width and depth, bf16, random weights from
+    ``SEED``: static serving (``RECURRENT_STATIC``: the rings of 1,024
+    wrap; graph == eager; the prefill and every decode step launch
+    ``kernel_times.RECURRENT_CALLS``' counts) and the recurrences' share
+    of a decode step; continuous paged serving of ``RECURRENT_CONT``
+    (every pure-decode and mixed iteration at the table's counts, graphs
+    == eager with the carries, a second serve equal) and the
+    recurrences' share of a mixed iteration; ``spec_decode=4`` requested
+    decodes plainly.  Returns the launch counts of the serves."""
+    import torch
+    tag, arch = "[hymba]", "hymba-1.5b"
+    model, dparams = load_model(arch, tag)
+    expect = {p: path_launches(RECURRENT_CALLS, "hymba", p)
+              for p in ("prefill", "decode", "pure-decode", "mixed")}
+    shape = RECURRENT_STATIC[arch]
+    launches, step_ms = serve_static(model, dparams, tag, shape,
+                                     expect=expect)
+    recurrence_ms(model, dparams, tag, "a static decode step", shape[0], 1,
+                  step_ms)
+    ctag, cell, stats = "[hymba continuous]", RECURRENT_CONT, {}
+    paged, plain = phase_continuous(
+        model, dparams, ctag, cell,
+        expect={"decode": expect["pure-decode"], "mixed": expect["mixed"]},
+        stats=stats)
+    recurrence_ms(model, dparams, ctag, "a pure-decode iteration",
+                  cell.slots, 1, stats["decode"])
+    recurrence_ms(model, dparams, ctag, "a mixed iteration", cell.slots,
+                  cell.chunk, stats["mixed"])
+    check_spec_ignored(model, dparams, "[hymba speculative]", cell, plain)
+    del model, dparams
+    torch.cuda.empty_cache()
+    return {n: launches[n] + paged[n] for n in launches}
+
+
+def phase_xlstm() -> dict:
+    """xlstm-350m at full width and depth (20 mLSTM and 4 sLSTM layers,
+    no attention), bf16, random weights from ``SEED``: static serving
+    (``RECURRENT_STATIC``, graph == eager, the table's counts) and the
+    recurrences' share of a decode step; ``RECURRENT_CONT`` served on the
+    paged pool (no arena: no layer has attention) and on contiguous
+    rings, each twice with equal tokens, graphs == eager with the
+    carries, each the same tokens; the recurrences' share of a mixed
+    iteration; ``spec_decode=4`` requested decodes plainly.  Returns the
+    launch counts of the serves."""
+    import torch
+    tag, arch = "[xlstm]", "xlstm-350m"
+    model, dparams = load_model(arch, tag)
+    expect = {p: path_launches(RECURRENT_CALLS, "xlstm", p)
+              for p in ("prefill", "decode", "pure-decode", "mixed")}
+    shape = RECURRENT_STATIC[arch]
+    launches, step_ms = serve_static(model, dparams, tag, shape,
+                                     path=RECURRENT_PATH, expect=expect)
+    recurrence_ms(model, dparams, tag, "a static decode step", shape[0], 1,
+                  step_ms)
+    runs, total, stats = {}, dict(launches), {}
+    for paged in (True, False):
+        ctag = f"[xlstm continuous {'paged' if paged else 'contiguous'}]"
+        cell = dataclasses.replace(RECURRENT_CONT, paged=paged)
+        got, runs[paged] = phase_continuous(
+            model, dparams, ctag, cell,
+            expect={"decode": expect["pure-decode"],
+                    "mixed": expect["mixed"]},
+            path=RECURRENT_PATH, pressure=False,
+            stats=stats if paged else None)
+        total = {n: total[n] + got[n] for n in total}
+    differ = _differ(runs[True], runs[False])
+    if differ:
+        raise AssertionError(f"[xlstm continuous] paged and contiguous "
+                             f"pools give other tokens for rids {differ}")
+    log(f"[xlstm continuous] paged (no arena) == contiguous tokens for all "
+        f"{len(runs[True])} rids")
+    cell, ctag = RECURRENT_CONT, "[xlstm continuous paged]"
+    recurrence_ms(model, dparams, ctag, "a pure-decode iteration",
+                  cell.slots, 1, stats["decode"])
+    recurrence_ms(model, dparams, ctag, "a mixed iteration", cell.slots,
+                  cell.chunk, stats["mixed"])
+    check_spec_ignored(model, dparams, "[xlstm speculative]", cell,
+                       runs[True])
+    del model, dparams
+    torch.cuda.empty_cache()
+    return total
+
+
+# the smoke configs' continuous check (float32): two requests share a
+# 32-token page, two fit one page and outgrow it; hymba's windows of 16
+# fit one page a slot and xlstm has no arena: neither preempts nor shares
+RECURRENT_CROSS_CONT = (32, (2, 8), (30, 29), 2, 3, 32)
+RECURRENT_CROSS_S = 40
+
+
+def phase_crosscheck_recurrent() -> None:
+    """The hymba and xlstm smoke configs (float32) on the card and on the
+    CPU through ``phase_crosscheck_narrow``: static tokens equal and
+    logits within ``CROSS_ATOL``, continuous tokens by rid and counters
+    equal, plainly and with ``spec_decode=4`` requested (plain decode:
+    the same tokens)."""
+    for arch in ("hymba-1.5b", "xlstm-350m"):
+        phase_crosscheck_narrow(f"[{arch.split('-')[0]} card==cpu]", arch,
+                                {}, RECURRENT_CROSS_S, RECURRENT_CROSS_CONT,
+                                smoke=True, pressure=False)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2782,10 +3087,13 @@ def main() -> int:
     mixtral = phase_mixtral(moe)
     arctic = phase_arctic(moe)
     phase_crosscheck_moe()
+    hymba = phase_hymba()
+    xlstm = phase_xlstm()
+    phase_crosscheck_recurrent()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
-                                   arctic[name])
+                                   arctic[name] + hymba[name] + xlstm[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ numpy arrays (the caller converts, e.g. with ``jax.tree.map(np.asarray,
   * every array becomes a tensor on ``device``;
   * ``uint32`` packed words become ``int32`` tensors with the same bits;
   * the stacked ``blocks`` subtree (leading layer axis, as the JAX package
-    keeps it for ``scan``) becomes a list of per-layer dicts.
+    keeps a uniform stack for ``scan``: hymba's hybrid layers) becomes a
+    list of per-layer dicts; a list (a stack of mixed kinds, as xlstm's
+    mLSTM and sLSTM layers) stays one, layer by layer.
 """
 from __future__ import annotations
 

@@ -165,6 +165,8 @@ _MODULE_FOR: Dict[str, str] = {
     "gemma3-27b": "gemma3_27b",
     "mixtral-8x22b": "mixtral_8x22b",
     "arctic-480b": "arctic_480b",
+    "hymba-1.5b": "hymba_15b",
+    "xlstm-350m": "xlstm_350m",
     "bert-base-cobra": "bert_base_cobra",
 }
 

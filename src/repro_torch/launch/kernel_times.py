@@ -31,7 +31,11 @@ of its step, ``layer_launches``); every call of gemma3-27b's serve paths
 at full width and 12 of its 62 layers (``GEMMA_CALLS``, rows named
 ``... gemma ...``, each with its launches per 12-layer step,
 ``step_launches``: the windowed and full-attention prefills, the row
-table, the 1,024-slot rings and both paged ring groups).  ``--moe``
+table, the 1,024-slot rings and both paged ring groups); every call of
+hymba-1.5b's and xlstm-350m's serve paths at full width and depth
+(``RECURRENT_CALLS``, rows named ``... hymba ...`` / ``... xlstm ...``
+by path, each with its launches per step of that path,
+``step_launches``; ``recurrent_calls`` sizes them from a config).  ``--moe``
 instead checks and times every expert-batched call of mixtral-8x22b's
 and arctic-480b's serve paths at full width (``MOE_CALLS``, rows named
 ``... moe ...``, one call's operands on the card at a time: each row
@@ -871,6 +875,189 @@ def _moe_calls() -> Dict[str, tuple]:
 MOE_CALLS = _moe_calls()
 
 
+# hymba-1.5b and xlstm-350m at full width and full depth
+# (repro_torch/configs) and the shapes of their card runs: the static path
+# (B prompts of S tokens, then decode steps at M = B on contiguous rings of
+# min(window, S + new)) and the continuous path (16 slots, chunks of 128,
+# pages of 32: 12 blocks over 48 pages, smollm's cell).
+RECURRENT_STATIC = {"hymba-1.5b": (4, 1536, 32), "xlstm-350m": (8, 512, 32)}
+RECURRENT_CELL = dict(slots=16, chunk=128, page=32, blocks=12, pages=48)
+
+
+def _merge(rows: List[tuple]) -> List[tuple]:
+    """[(call name, spec, launches)] with equal specs merged: the names
+    joined by "/", the launches summed (in first-seen order)."""
+    out: Dict[tuple, list] = {}
+    for name, spec, n in rows:
+        if spec in out:
+            if name not in out[spec][0].split("/"):
+                out[spec][0] += f"/{name}"
+            out[spec][1] += n
+        else:
+            out[spec] = [name, n]
+    return [(name, spec, n) for spec, (name, n) in out.items()]
+
+
+def recurrent_calls(cfg, static, slots: int, chunk: int, page: int,
+                    blocks: int, pages: int) -> Dict[str, tuple]:
+    """Every kernel call of a hybrid or SSM arch's serve paths at ``cfg``'s
+    widths: {name: (kernel, operands, launches per step of its path)}.
+    The paths: ``prefill``, the static prefill of B = ``static[0]``
+    prompts of S = ``static[1]`` tokens; ``decode``, a static decode step
+    at M = B on contiguous rings of min(window, S + new); ``pure-decode``,
+    a pooled decode iteration of ``slots`` rows on the paged pool (pages
+    of ``page``, ``blocks`` a table row, ``pages`` in the arena);
+    ``mixed``, a unified iteration at chunk width ``chunk``.  Names read
+    ``"<kernel> <arch> <path> <calls> <dims>"``.  The recurrences
+    themselves run no kernel of ours."""
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.models.lm import layer_plan
+    arch = cfg.name.split("-")[0]
+    b, s, new = static
+    d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    ff, g, qd, kvd = cfg.d_ff, h // hkv, cfg.q_dim, cfg.kv_dim
+    di = cfg.ssm.expand * d
+    cdt = cfg.compute_dtype
+    kinds = [k for k, _ in layer_plan(cfg)]
+    window = cfg.window_size
+    ring_static = min(window or s + new, s + new)
+    spec = PageSpec(page_size=page, max_blocks=blocks, num_pages=pages)
+    ring_paged = spec.ring_for(window)
+    nblk = spec.blocks_for_ring(ring_paged)
+    arena = spec.arena_pages(ring_paged, slots)
+    paths = {"prefill": (b, s), "decode": (b, 1), "pure-decode": (slots, 1),
+             "mixed": (slots, chunk)}
+    out: Dict[str, tuple] = {}
+
+    def put(kernel, path, rows):
+        for call, spec, n in _merge(rows):
+            tag = DTYPE_TAGS
+            if kernel == "rbmm_int":
+                lead, m, p, k, scheme = spec
+                dims = (f"({','.join(map(str, lead + (m,)))},{-(-k // 32)})"
+                        f"x({','.join(map(str, lead + (p,)))},"
+                        f"{-(-k // 32)}) {scheme}")
+            elif kernel == "rbmm_mxu":
+                m, k, p, unsigned = spec
+                dims = f"({m}x{k})x({p}x{k}){' {0,1}' if unsigned else ''}"
+            elif kernel == "pack_threshold":
+                shape, dtype, th, strided = spec
+                per = {0: "one", 2: "per-head", 3: "per-row"}[len(th)]
+                dims = (f"({','.join(map(str, shape))}) {tag[dtype]}"
+                        f"{' strided' if strided else ''}, {per} theta")
+            elif kernel == "sps_attention":
+                dims = (f"B={b} L={s} H={h}/{hkv} d_h={dh} causal, window "
+                        f"{window or 'full'}")
+            else:
+                dims = (f"{slots} slots H={h}/{hkv} d_h={dh}, {nblk} blocks "
+                        f"of {page} over {arena} pages")
+            out[f"{kernel} {arch} {path} {call} {dims}".rstrip()] = (
+                kernel, spec, n)
+
+    for path, (n, width) in paths.items():
+        m = n * width
+        decode = width == 1
+        xdt = "float32" if decode else cdt   # decode keeps f32 residuals
+        proj, packs, attn = [], [], []
+        for kind in kinds:
+            dense = []
+            if kind == "hybrid":
+                dense += [("wq", qd, d), ("wk", kvd, d), ("wv", kvd, d),
+                          ("wo", d, qd), ("in_proj", 2 * di, d),
+                          ("out_proj", d, di), ("w1", ff, d),
+                          ("w3", ff, d), ("w2", d, ff)]
+                packs += [("x", ((n, width, d), xdt, (), False), 3),
+                          ("ctx", ((n, width, qd), "float32", (), False),
+                           1),
+                          ("y", ((n, width, di), cdt, (), False), 1),
+                          ("h", ((n, width, ff), "float32", (), False), 1),
+                          ("q", ((n, width, h, dh), cdt, (h, 1), False), 1),
+                          ("k", ((n, width, hkv, dh), cdt, (hkv, 1), False),
+                           1)]
+                if path == "prefill":
+                    packs.append(("V^T", ((n, hkv, dh, width), cdt,
+                                          (hkv, 1, 1), True), 1))
+                    attn.append(("sps_attention", "attention", (
+                        n, h, hkv, width, dh, True, None, window, 0)))
+                elif path == "decode":
+                    attn += [("rbmm_int", "ring score", (
+                        (n, hkv), g, ring_static, dh, "xnor")),
+                             ("rbmm_int", "ring context", (
+                                 (n, hkv), g, dh, ring_static, "and_dc"))]
+                elif path == "pure-decode":
+                    attn.append(("paged_gather_decode", "attention", (
+                        n, h, hkv, dh, page, nblk, arena, ring_paged, 0,
+                        ring_paged, 0)))
+                else:
+                    w = nblk * page
+                    attn += [("rbmm_int", "prefix score", (
+                        (n, hkv), g * width, w, dh, "xnor")),
+                             ("rbmm_int", "prefix context", (
+                                 (n, hkv), g * width, dh, w, "and_dc")),
+                             ("rbmm_int", "intra score", (
+                                 (n, hkv), g * width, width, dh, "xnor"))]
+                    packs += [("probs", ((n, hkv, g * width, w), "int32",
+                                         (hkv, g * width, 1), False), 1),
+                              ("V^T words", ((n, hkv, dh, width), "int32",
+                                             (), True), 1)]
+            elif kind == "mlstm":
+                dense += [("qkv", 3 * di, d), ("out", d, di)]
+            else:
+                dense += [("in", 4 * di, d), ("out", d, di)]
+            if kind != "hybrid":
+                packs += [("x", ((n, width, d), xdt, (), False), 1),
+                          ("hs", ((n, width, di), cdt, (), False), 1)]
+            for call, p, k in dense:
+                unsigned = call == "w2"
+                if m <= 16:
+                    proj.append((call, ((), m, p, k,
+                                        "and_dc" if unsigned else "xnor"),
+                                 1))
+                else:
+                    proj.append((call, (m, k, p, unsigned), 1))
+        put("rbmm_int" if m <= 16 else "rbmm_mxu", path, proj)
+        put("pack_threshold", path, packs)
+        for kernel in ("rbmm_int", "sps_attention", "paged_gather_decode"):
+            put(kernel, path, [(call, spec, 1) for kn, call, spec in attn
+                               if kn == kernel])
+    return out
+
+
+def _recurrent_table() -> Dict[str, tuple]:
+    """``recurrent_calls`` of both archs at full width and depth, and the
+    paged decode on rings of the window (1,024; lengths past it, so
+    wrapped), which no counted path of the card run takes (0 launches)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, static in RECURRENT_STATIC.items():
+        out.update(recurrent_calls(get_config(arch), static,
+                                   **RECURRENT_CELL))
+    cfg = get_config("hymba-1.5b")
+    h, hkv, dh, w = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                     cfg.window_size)
+    slots, page = RECURRENT_CELL["slots"], RECURRENT_CELL["page"]
+    out[f"paged_gather_decode hymba {slots} slots H={h}/{hkv} d_h={dh}, "
+        f"a window ring of {w}, lengths {w}..{2 * w}"] = (
+            "paged_gather_decode", (slots, h, hkv, dh, page, w // page,
+                                    slots * w // page, w, w, 2 * w, 0), 0)
+    return out
+
+
+RECURRENT_CALLS = _recurrent_table()
+
+
+def path_launches(calls: Dict[str, tuple], arch: str,
+                  path: str) -> Dict[str, int]:
+    """Launches of each kernel per step of one path of a
+    ``recurrent_calls`` table."""
+    out: Dict[str, int] = {}
+    for name, (kernel, _, n) in calls.items():
+        if name.startswith(f"{kernel} {arch} {path} "):
+            out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
 def moe_rows(seed: int = 0, only: str = ""):
     """Each ``MOE_CALLS`` call (whose name matches ``only``), one at a time
     so the card holds one call's operands (arctic's experts unpacked to
@@ -917,6 +1104,10 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
                                                       seed).items():
         out[name] = dict(kernel=call, library=lib, bound=bnd,
                          step_launches=GEMMA_CALLS[name][2])
+    for name, (_, call, _, lib, bnd) in call_operands(RECURRENT_CALLS,
+                                                      seed).items():
+        out[name] = dict(kernel=call, library=lib, bound=bnd,
+                         step_launches=RECURRENT_CALLS[name][2])
     for name, (x, th) in pack_shapes(seed).items():
         res = pack.pack_threshold(x, th)
         out[name] = dict(

@@ -1,13 +1,22 @@
-"""Attention block, deploy faces (port of ``repro.models.blocks.Block`` for
-``kind="attn"``; the other kinds are not ported yet).  The residual
-stream stays fp (BiT convention).  The norm is ``cfg.norm`` (RMSNorm or
-LayerNorm) and the FFN the SiLU or GELU GLU or the ReLU FFN (Eq. 11
-blocked when ``cfg.binary.ffn_block_r`` is set), or, with
+"""Decoder blocks, deploy faces (port of ``repro.models.blocks.Block``):
+``kind`` "attn" (norm, SPS attention, norm, binary FFN), "hybrid" (the
+attention and a Mamba branch in parallel on the same normed input, their
+outputs averaged, then the FFN) and the xLSTM cells "mlstm" / "slstm" (norm
+and the cell, no FFN); the encoder-decoder kind "dec" is not ported yet.
+The residual stream stays fp (BiT convention).  The norm is ``cfg.norm``
+(RMSNorm or LayerNorm) and the FFN the SiLU or GELU GLU or the ReLU FFN
+(Eq. 11 blocked when ``cfg.binary.ffn_block_r`` is set), or, with
 ``cfg.moe.num_experts``, a ``BinaryMoE`` of such experts, which every
 deploy face applies to the whole (pooled) input, as the JAX package's
 do.  A block's ``window`` (0: full attention) masks its attention and
 sizes its decode ring, as in the JAX package: gemma's local:global stacks
-build blocks that differ in it only."""
+build blocks that differ in it only.
+
+Caches are per-layer dicts: "attn" a ``KVCache`` ring or ``PagedKVCache``,
+"mamba" a ``MambaCache``, "cell" an ``XLSTMCache``.  The chunk and decode
+faces update every part IN PLACE (the recurrent carries by ``copy_``) and
+return the cache they were given, so a captured graph of a step and the
+engine hold the same tensors."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,8 +28,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import PageSpec, SPSAttention
 from repro_torch.models.ffn import PORTED, BinaryFFN, BinaryMoE
+from repro_torch.models.ssm import MambaBlock, MLSTMBlock, SLSTMBlock
 
 Params = Dict[str, Any]
+
+KINDS = ("attn", "hybrid", "mlstm", "slstm")
+RECURRENT = ("mamba", "cell")   # the cache parts that hold carries
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -42,21 +55,40 @@ def _ffn_from_cfg(cfg: ModelConfig):
                      dtype=compute_dtype(cfg), impl=cfg.binary.impl)
 
 
+def _store(dst, src) -> None:
+    """Copy a new carry into the cache's carry tensors, in place."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
 @dataclasses.dataclass(frozen=True)
 class Block:
-    """One layer: norm, SPS attention, norm, binary FFN."""
+    """One layer of ``kind`` (see the module docstring)."""
     cfg: ModelConfig
+    kind: str = "attn"
     window: int = 0
 
     def __post_init__(self):
         cfg = self.cfg
-        if (cfg.ssm is not None
-                or cfg.norm not in ("rmsnorm", "layernorm")
-                or not cfg.d_ff or (cfg.act, cfg.glu) not in PORTED):
+        if self.kind not in KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs attention blocks with RMSNorm "
-                f"or LayerNorm and a SiLU or GELU GLU or a ReLU FFN (or a "
-                f"mixture of them) only; the rest is not ported yet")
+                f"{cfg.name}: block kind {self.kind!r} is not ported yet; "
+                f"the port runs {KINDS}")
+        if self.kind != "attn" and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a {self.kind!r} block needs "
+                             f"cfg.ssm")
+        if cfg.norm not in ("rmsnorm", "layernorm") or (
+                self._has_ffn and (not cfg.d_ff or
+                                   (cfg.act, cfg.glu) not in PORTED)):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs blocks with RMSNorm or "
+                f"LayerNorm, and attention blocks with a SiLU or GELU GLU "
+                f"or a ReLU FFN (or a mixture of them); the rest is not "
+                f"ported yet")
+
+    @property
+    def _has_ffn(self) -> bool:
+        return self.kind in ("attn", "hybrid")
 
     def _attn(self) -> SPSAttention:
         cfg = self.cfg
@@ -75,31 +107,83 @@ class Block:
     def _norm(self):
         return nn.make_norm(self.cfg.norm, self.cfg.d_model)
 
+    def _parts(self) -> Dict[str, Any]:
+        """The block's submodules by param key, as the JAX ``_parts``."""
+        cfg, dt = self.cfg, compute_dtype(self.cfg)
+        parts: Dict[str, Any] = {}
+        if self.kind in ("attn", "hybrid"):
+            parts["attn"] = self._attn()
+        if self.kind == "hybrid":
+            parts["mamba"] = MambaBlock(
+                cfg.d_model, state_size=cfg.ssm.state_size,
+                conv_width=cfg.ssm.conv_width, expand=cfg.ssm.expand,
+                dtype=dt)
+        if self.kind == "mlstm":
+            parts["cell"] = MLSTMBlock(cfg.d_model, cfg.num_heads,
+                                       expand=cfg.ssm.expand, dtype=dt)
+        if self.kind == "slstm":
+            parts["cell"] = SLSTMBlock(cfg.d_model, expand=cfg.ssm.expand,
+                                       dtype=dt)
+        if self._has_ffn:
+            parts["ffn"] = self._ffn()
+        return parts
+
     def init(self, gen: torch.Generator, device) -> Params:
-        return {"attn": self._attn().init(gen, device),
-                "ffn": self._ffn().init(gen, device),
-                "norm1": self._norm().init(device),
-                "norm2": self._norm().init(device)}
+        p = {name: mod.init(gen, device)
+             for name, mod in self._parts().items()}
+        p["norm1"] = self._norm().init(device)
+        if self._has_ffn:
+            p["norm2"] = self._norm().init(device)
+        return p
 
     def convert(self, params: Params) -> Params:
-        return {"attn": self._attn().convert(params["attn"]),
-                "ffn": self._ffn().convert(params["ffn"]),
-                "norm1": params["norm1"], "norm2": params["norm2"]}
+        out = {name: mod.convert(params[name])
+               for name, mod in self._parts().items()}
+        for name in ("norm1", "norm2"):
+            if name in params:
+                out[name] = params[name]
+        return out
+
+    def _ffn_residual(self, params: Params,
+                      x: torch.Tensor) -> torch.Tensor:
+        if not self._has_ffn:
+            return x
+        return x + self._ffn().apply_deploy(
+            params["ffn"], self._norm().apply(params["norm2"], x))
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions=None, cache_size: int = 0,
                        seq_lens=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Whole-sequence forward; ``seq_lens`` (B,) takes a ragged,
-        right-padded batch (see ``SPSAttention.deploy_prefill``)."""
-        norm = self._norm()
-        h = norm.apply(params["norm1"], x)
-        a_out, kv = self._attn().deploy_prefill(
-            params["attn"], h, positions=positions, window=self.window,
-            cache_size=cache_size, seq_lens=seq_lens)
-        x = x + a_out
-        x = x + self._ffn().apply_deploy(params["ffn"],
-                                         norm.apply(params["norm2"], x))
-        return x, ({"attn": kv} if kv is not None else {})
+        right-padded batch (see ``SPSAttention.deploy_prefill``; the
+        recurrent carries freeze past each length).  With ``cache_size``
+        the decode cache: the attention ring and the carries at each
+        sequence's end."""
+        parts = self._parts()
+        h = self._norm().apply(params["norm1"], x)
+        cache: Dict[str, Any] = {}
+        if self.kind in ("attn", "hybrid"):
+            a_out, kv = parts["attn"].deploy_prefill(
+                params["attn"], h, positions=positions, window=self.window,
+                cache_size=cache_size, seq_lens=seq_lens)
+            if kv is not None:
+                cache["attn"] = kv
+            if self.kind == "hybrid":
+                m = parts["mamba"].apply(
+                    params["mamba"], h, deploy=True,
+                    return_state=bool(cache_size), seq_lens=seq_lens)
+                if cache_size:
+                    m, cache["mamba"] = m
+                a_out = 0.5 * (a_out + m)
+            x = x + a_out
+        else:
+            out = parts["cell"].apply(
+                params["cell"], h, deploy=True,
+                return_state=bool(cache_size), seq_lens=seq_lens)
+            if cache_size:
+                out, cache["cell"] = out
+            x = x + out
+        return self._ffn_residual(params, x), cache
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor,
                              cache: Dict[str, Any], *, start=None,
@@ -107,66 +191,117 @@ class Block:
                              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Cache-resuming chunk prefill: x (B, C, d) continues sequences
         whose first ``start`` tokens already live in ``cache`` (see
-        ``SPSAttention.deploy_prefill_chunk``); rows with ``valid_len == 0``
-        write nothing."""
-        norm = self._norm()
-        h = norm.apply(params["norm1"], x)
-        a_out, kv = self._attn().deploy_prefill_chunk(
-            params["attn"], h, cache["attn"], window=self.window,
-            start=start, valid_len=valid_len)
-        x = x + a_out
-        x = x + self._ffn().apply_deploy(params["ffn"],
-                                         norm.apply(params["norm2"], x))
-        return x, dict(cache, attn=kv)
+        ``SPSAttention.deploy_prefill_chunk``); the recurrent carries
+        resume from the cache (``state=``) and the new ones are copied
+        back in place.  Rows with ``valid_len == 0`` write no attention
+        bits and keep every carry bit for bit."""
+        parts = self._parts()
+        h = self._norm().apply(params["norm1"], x)
+        if self.kind in ("attn", "hybrid"):
+            a_out, _ = parts["attn"].deploy_prefill_chunk(
+                params["attn"], h, cache["attn"], window=self.window,
+                start=start, valid_len=valid_len)
+            if self.kind == "hybrid":
+                m_out, mc = parts["mamba"].apply(
+                    params["mamba"], h, deploy=True, return_state=True,
+                    seq_lens=valid_len, state=cache["mamba"])
+                _store(cache["mamba"], mc)
+                a_out = 0.5 * (a_out + m_out)
+            x = x + a_out
+        else:
+            out, cc = parts["cell"].apply(
+                params["cell"], h, deploy=True, return_state=True,
+                seq_lens=valid_len, state=cache["cell"])
+            _store(cache["cell"], cc)
+            x = x + out
+        return self._ffn_residual(params, x), cache
+
+    def _attention_only(self, face: str) -> None:
+        if self.kind != "attn":
+            raise ValueError(
+                f"{face} resumes attention caches only, not kind="
+                f"{self.kind!r} (recurrent families decode "
+                f"non-speculatively)")
 
     def deploy_verify_chunk(self, params: Params, x: torch.Tensor,
                             cache: Dict[str, Any], *, start=None,
                             valid=None) -> Tuple[torch.Tensor, Any]:
         """Speculative verify: the block over a candidate chunk WITHOUT
         writing the cache; returns (out, the attention's projections) for
-        ``commit_chunk`` (see ``SPSAttention.deploy_verify_chunk``)."""
-        norm = self._norm()
-        h = norm.apply(params["norm1"], x)
+        ``commit_chunk`` (see ``SPSAttention.deploy_verify_chunk``).
+        Attention blocks only."""
+        self._attention_only("speculative verify")
+        h = self._norm().apply(params["norm1"], x)
         a_out, proj = self._attn().deploy_verify_chunk(
             params["attn"], h, cache["attn"], window=self.window,
             start=start, valid=valid)
-        x = x + a_out
-        x = x + self._ffn().apply_deploy(params["ffn"],
-                                         norm.apply(params["norm2"], x))
-        return x, proj
+        return self._ffn_residual(params, x + a_out), proj
 
     def commit_chunk(self, cache: Dict[str, Any], proj, start,
                      n_commit) -> Dict[str, Any]:
         """Write the accepted prefix of a verified chunk into this block's
         attention cache, in place (rows with n_commit == 0 untouched)."""
+        self._attention_only("the speculative commit")
         self._attn().commit_chunk(cache["attn"], proj, start, n_commit)
         return cache
 
     def init_cache(self, batch: int, max_len: int, device,
                    paged: Optional[PageSpec] = None) -> Dict[str, Any]:
-        """Empty decode cache: a contiguous ring of min(window or
-        max_len, max_len), or with ``paged`` a page arena of
-        ``paged.arena_pages`` pages and block tables covering the layer's
-        logical ring, ``paged.ring_for(window)`` (windowed groups are
-        fully provisioned: they are bounded by the window)."""
-        attn = self._attn()
-        if paged is None:
-            return {"attn": attn.init_cache(
-                batch, min(self.window or max_len, max_len), device)}
-        ring = paged.ring_for(self.window)
-        return {"attn": attn.init_paged_cache(
-            batch, ring_len=ring, page_size=paged.page_size,
-            num_blocks=paged.blocks_for_ring(ring),
-            num_pages=paged.arena_pages(ring, batch), device=device)}
+        """Empty decode cache: the attention part a contiguous ring of
+        min(window or max_len, max_len), or with ``paged`` a page arena
+        of ``paged.arena_pages`` pages and block tables covering the
+        layer's logical ring, ``paged.ring_for(window)`` (windowed groups
+        are fully provisioned: they are bounded by the window); the
+        recurrent carries at their init values, dense either way."""
+        parts = self._parts()
+        cache: Dict[str, Any] = {}
+        if "attn" in parts:
+            attn = parts["attn"]
+            if paged is None:
+                cache["attn"] = attn.init_cache(
+                    batch, min(self.window or max_len, max_len), device)
+            else:
+                ring = paged.ring_for(self.window)
+                cache["attn"] = attn.init_paged_cache(
+                    batch, ring_len=ring, page_size=paged.page_size,
+                    num_blocks=paged.blocks_for_ring(ring),
+                    num_pages=paged.arena_pages(ring, batch), device=device)
+        for name in RECURRENT:
+            if name in parts:
+                cache[name] = parts[name].init_cache(batch, device)
+        return cache
+
+    def reset_rows(self, cache: Dict[str, Any],
+                   fresh: torch.Tensor) -> None:
+        """Put the recurrent carries of the rows where ``fresh`` (B,) is
+        True back to their ``init_cache`` values, in place and without a
+        host sync; other rows and the attention part stay as they are."""
+        parts = self._parts()
+        for name in RECURRENT:
+            if name in cache:
+                for t, v in zip(cache[name], parts[name].init_values()):
+                    t.masked_fill_(fresh.reshape((-1,) + (1,) *
+                                                 (t.dim() - 1)), v)
 
     def deploy_decode(self, params: Params, x: torch.Tensor,
                       cache: Dict[str, Any]
                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        norm = self._norm()
-        h = norm.apply(params["norm1"], x)
-        a_out, kv = self._attn().deploy_decode(params["attn"], h,
-                                               cache["attn"])
-        x = x + a_out
-        x = x + self._ffn().apply_deploy(params["ffn"],
-                                         norm.apply(params["norm2"], x))
-        return x, dict(cache, attn=kv)
+        """One token per sequence: the attention cache and the carries
+        advance in place."""
+        parts = self._parts()
+        h = self._norm().apply(params["norm1"], x)
+        if self.kind in ("attn", "hybrid"):
+            a_out, _ = parts["attn"].deploy_decode(params["attn"], h,
+                                                   cache["attn"])
+            if self.kind == "hybrid":
+                m_out, mc = parts["mamba"].decode_step(
+                    params["mamba"], h, cache["mamba"])
+                _store(cache["mamba"], mc)
+                a_out = 0.5 * (a_out + m_out)
+            x = x + a_out
+        else:
+            out, cc = parts["cell"].decode_step(params["cell"], h,
+                                                cache["cell"])
+            _store(cache["cell"], cc)
+            x = x + out
+        return self._ffn_residual(params, x), cache

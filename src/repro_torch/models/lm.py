@@ -15,11 +15,15 @@
                       draft on the trunk's own weights
 
 Blocks are a plain list of per-layer param dicts (the JAX package stacks
-them for ``scan``; ``repro_torch.bridge`` unstacks).  The layer plan is the
-JAX package's: every layer has ``cfg.window_size``, except in a
-local:global stack (``cfg.local_global_ratio`` r), where layer i is global
-(full attention) when i % (r + 1) == r.  Each layer's window masks its
-attention and sizes its ring.  As in the JAX
+a uniform stack for ``scan``; ``repro_torch.bridge`` unstacks).  The layer
+plan is the JAX package's: a block kind per layer ("attn"; "hybrid" for
+``family="hybrid"``; for ``family="ssm"`` "slstm" at every
+``cfg.ssm.slstm_every``-th layer, "mlstm" elsewhere) and a window: every
+layer has ``cfg.window_size``, except in a local:global stack
+(``cfg.local_global_ratio`` r), where layer i is global (full attention)
+when i % (r + 1) == r.  Each layer's window masks its attention and sizes
+its ring.  Recurrent layers carry their state in the caches beside (or,
+for xLSTM, instead of) the rings.  As in the JAX
 package, prefill runs the residual stream in ``compute_dtype`` while
 decode keeps the float32 embedding (projection outputs are still rounded
 to ``compute_dtype``).
@@ -56,15 +60,21 @@ def _sqrt_rounded(d: int, dtype: torch.dtype) -> float:
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """[(block kind, window)] of the decoder stack (JAX ``_layer_plan``;
-    the port's blocks are all attention)."""
+    """[(block kind, window)] of the decoder stack (JAX ``_layer_plan``)."""
     plan = []
     for i in range(cfg.num_layers):
+        if cfg.family == "hybrid":
+            kind = "hybrid"
+        elif cfg.family == "ssm":
+            every = cfg.ssm.slstm_every if cfg.ssm else 0
+            kind = "slstm" if (every and (i + 1) % every == 0) else "mlstm"
+        else:
+            kind = "attn"
         w = cfg.window_size
         if cfg.local_global_ratio:
             r = cfg.local_global_ratio
             w = 0 if i % (r + 1) == r else cfg.window_size
-        plan.append(("attn", w))
+        plan.append((kind, w))
     return plan
 
 
@@ -77,10 +87,11 @@ class LMModel:
             raise NotImplementedError(
                 "frontend stubs are not ported yet; the port runs "
                 "token-only models")
-        self._block()   # raises for block kinds not ported yet
+        for kind, w in set(self.plan):
+            self._block(kind, w)   # raises for what is not ported yet
 
-    def _block(self, window: int = 0) -> Block:
-        return Block(self.cfg, window=window)
+    def _block(self, kind: str = "attn", window: int = 0) -> Block:
+        return Block(self.cfg, kind=kind, window=window)
 
     @property
     def plan(self) -> List[Tuple[str, int]]:
@@ -88,7 +99,7 @@ class LMModel:
         return layer_plan(self.cfg)
 
     def _blocks(self) -> List[Block]:
-        return [self._block(w) for _, w in self.plan]
+        return [self._block(k, w) for k, w in self.plan]
 
     def _embed(self) -> nn.Embedding:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
@@ -113,14 +124,13 @@ class LMModel:
         head = self._head()
         if head is not None:
             p["head"] = head.init(gen, dev)
-        p["blocks"] = [self._block().init(gen, dev)
-                       for _ in range(self.cfg.num_layers)]
+        p["blocks"] = [blk.init(gen, dev) for blk in self._blocks()]
         return p
 
     def convert(self, params: Params) -> Params:
         out = {k: v for k, v in params.items() if k != "blocks"}
-        out["blocks"] = [self._block().convert(bp)
-                         for bp in params["blocks"]]
+        out["blocks"] = [blk.convert(bp) for blk, bp
+                         in zip(self._blocks(), params["blocks"])]
         return out
 
     # -- embedding / head -----------------------------------------------------
@@ -288,10 +298,17 @@ class LMModel:
 
     def reset_recurrent_rows(self, caches: List[Dict[str, Any]],
                              fresh: torch.Tensor) -> List[Dict[str, Any]]:
-        """Reset the recurrent carries of the pool rows marked ``fresh``.
-        Attention rings need no per-row reset (a chunk starting at 0 masks
-        every stale slot), so for the attention-only stacks the port runs
-        this is the identity; recurrent blocks are not ported yet."""
+        """Put the recurrent carries (mamba conv/h, xLSTM c/n/m) of the
+        pool rows marked by ``fresh`` (B,) bool back to their
+        ``init_cache`` values (not plain zeros: sLSTM's normalizer and the
+        max-gate stabilizers init off zero), in place and without a host
+        sync (the unified step's graph runs it), leaving other rows
+        untouched.  Attention rings need no per-row reset: a chunk
+        starting at 0 masks every stale slot and its first write sets the
+        length.  Returns the caches given."""
+        fresh = torch.as_tensor(fresh).to(torch.bool)
+        for blk, cache in zip(self._blocks(), caches):
+            blk.reset_rows(cache, fresh)
         return caches
 
     def decode_step(self, dparams: Params, token: torch.Tensor,
@@ -307,8 +324,8 @@ class LMModel:
 
 
 def build_model(cfg: ModelConfig) -> LMModel:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port builds "
-            f"dense and MoE models")
+            f"dense, MoE, hybrid and SSM models")
     return LMModel(cfg)

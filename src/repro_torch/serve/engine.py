@@ -38,6 +38,15 @@ copied into each graph's static buffers.  Sampling runs eagerly on the
 replayed logits.  Prefill of the static batch, the copy-on-write page
 copies and all host bookkeeping run between replays.
 
+Recurrent families (hymba's hybrid blocks, xlstm's cells) ride the same
+steps: a prefill chunk resumes each row's carries from the pool (rows
+starting a prompt are first put back to the carries' init values, inside
+the unified graph), inactive rows keep theirs, and the carries update in
+place as the rings do.  A layer without attention has no ring group, so
+a pure-xLSTM stack has no page arena; its requests are not capped by the
+cache length.  Speculative decode needs an attention-only stack: a
+recurrent one decodes plainly, as in the JAX package.
+
 ``SpecConfig.k`` adds speculative decode on the pure-decode iterations: a
 draft (the first ``draft_layers`` blocks of the trunk on its own weights,
 or an independent draft passed to the engine) proposes k tokens per slot
@@ -646,10 +655,12 @@ class ServeEngine:
 
     def _layer_rings(self, spec: PageSpec) -> List[Optional[int]]:
         """Per-layer logical ring length of the paged attention caches:
-        the layer's window, or the capacity for full attention.  Layers of
-        one ring length form a ring group: one arena's bookkeeping and
-        one device block table."""
-        return [spec.ring_for(w) for _, w in self.model.plan]
+        the layer's window, or the capacity for full attention; None for
+        a layer without attention (xLSTM cells).  Layers of one ring
+        length form a ring group: one arena's bookkeeping and one device
+        block table."""
+        return [spec.ring_for(w) if kind in ("attn", "hybrid") else None
+                for kind, w in self.model.plan]
 
     def _sync_tables(self, caches, arenas, rings) -> None:
         """Copy dirty host block tables into the device table of their ring
@@ -712,8 +723,10 @@ class ServeEngine:
         # full-attention layers cap a request at the ring (contiguous:
         # max_len) or the block-table capacity (paged): past it the ring
         # would wrap over the request's own oldest K/V.  Windowed layers
-        # wrap by design (their ring is the window).
-        full_attn = any(not w for _, w in self.model.plan)
+        # wrap by design (their ring is the window); recurrent carries
+        # have no length.
+        full_attn = any(k in ("attn", "hybrid") and not w
+                        for k, w in self.model.plan)
         for r in requests:
             if len(r.tokens) == 0:
                 raise ValueError(f"request {r.rid}: empty prompt "
@@ -766,7 +779,8 @@ class ServeEngine:
                     spec.arena_pages(ring, pool.num_slots), spec.page_size,
                     pool.num_slots, spec.blocks_for_ring(ring), ring)
         # the pool's caches, kept by the engine for its captured steps and
-        # cleared as the JAX engine's fresh init_caches
+        # cleared as the JAX engine's fresh init_caches (recurrent
+        # carries back to their init values)
         key, caches = self._pool_caches(pool.num_slots, spec)
         draft = None         # (key, caches) of the draft's ring pool
         if spec_k:
@@ -776,6 +790,9 @@ class ServeEngine:
         for t in graphs_lib.cache_tensors(caches) + (
                 graphs_lib.cache_tensors(draft[1]) if draft else []):
             t.zero_()
+        self.model.reset_recurrent_rows(
+            caches, torch.ones(pool.num_slots, dtype=torch.bool,
+                               device=self.device))
         token_buf = np.zeros((pool.num_slots, 1), np.int32)
         states: Dict[int, _SlotState] = {}
         inflight: Dict[int, _PrefillState] = {}

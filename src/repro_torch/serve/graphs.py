@@ -49,7 +49,10 @@ KINDS = ("unified", "decode", "spec")   # the JAX engine's ``_compiles`` keys
 
 def cache_tensors(caches) -> List[torch.Tensor]:
     """Every tensor of per-layer caches (``KVCache`` / ``PagedKVCache``
-    parts): the state an engine step updates in place."""
+    parts and the recurrent carries, ``MambaCache`` / ``XLSTMCache``):
+    the state an engine step updates in place.  Every step updates each
+    of them in place (``copy_``, indexed stores, ``masked_fill_``), so a
+    replay reads and writes the engine's own tensors."""
     return [t for layer in caches for part in layer.values()
             for t in part if isinstance(t, torch.Tensor)]
 

@@ -2,7 +2,8 @@
 ``repro.serve.kvcache``).
 
 The cache tensors live in the model layers (``KVCache`` rings or
-``PagedKVCache`` page arenas); a slot pool is those caches with
+``PagedKVCache`` page arenas, and the recurrent layers' carries,
+``MambaCache`` / ``XLSTMCache``); a slot pool is those caches with
 batch == num_slots plus the host-side bookkeeping here: ``SlotPool``
 (which rows are live) and ``PageArena`` (refcounted pages, hash-consed
 prompt-prefix keys, copy-on-write).  ``cache_report`` builds the typed
@@ -21,19 +22,21 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.ssm import MambaCache, XLSTMCache
 
 Caches = List[Dict[str, Any]]
 
 _PACKED_FIELDS = ("k_bits", "vt_bits", "k_pages", "vt_pages")
+_PARTS = (KVCache, PagedKVCache, MambaCache, XLSTMCache)
 
 
 def _leaves(caches: Caches) -> Iterator[Tuple[str, int, int]]:
-    """(field name, elements, bytes per element) of every cache leaf.  A
-    paged cache's host-int ``ring_len`` counts as the 0-d int32 the JAX
-    package holds."""
+    """(field name, elements, bytes per element) of every cache leaf, the
+    recurrent carries' too.  A paged cache's host-int ``ring_len`` counts
+    as the 0-d int32 the JAX package holds."""
     for layer in caches:
         for part in layer.values():
-            if not isinstance(part, (KVCache, PagedKVCache)):
+            if not isinstance(part, _PARTS):
                 raise TypeError(f"cannot size cache part {type(part)}")
             for name, t in zip(part._fields, part):
                 if isinstance(t, torch.Tensor):
@@ -246,8 +249,9 @@ def cache_report(caches: Caches, *, seq_len: int, batch: int,
 # it returns the pool given.
 
 
-def _slot_index(slots, device) -> torch.Tensor:
-    return torch.as_tensor(slots, device=device).long()
+def _slot_index(slots, part) -> torch.Tensor:
+    """``slots`` as an index on the device of the cache ``part``."""
+    return torch.as_tensor(slots, device=part[0].device).long()
 
 
 def _parts(*pools: Caches) -> Iterator[Tuple[Any, ...]]:
@@ -294,9 +298,10 @@ def insert_slots(pool: Caches, seq_caches: Caches, slots) -> Caches:
     """Write per-request caches (leading batch n == len(slots), from a
     prefill: contiguous rings) into pool rows ``slots``.  A ring pool
     takes whole rows; a paged pool takes the rings page by page through
-    its block-table rows (``_insert_paged``), which the caller mapped."""
+    its block-table rows (``_insert_paged``), which the caller mapped.
+    Ring rows and recurrent carries are written row by row."""
     for p, s in _parts(pool, seq_caches):
-        idx = _slot_index(slots, p.length.device)
+        idx = _slot_index(slots, p)
         if isinstance(p, PagedKVCache):
             _insert_paged(p, s, idx)
         else:
@@ -310,12 +315,13 @@ def extract_slots(pool: Caches, slots) -> Caches:
     side of ``insert_slots``.  Ring rows are copied out; a paged cache
     keeps the pool's page arenas themselves (shared, not copied) with the
     rows' block tables and lengths, so a chunk prefill on the view writes
-    straight into the pool's pages.  ``writeback_slots`` commits it."""
+    straight into the pool's pages.  Recurrent carries are copied out as
+    ring rows are.  ``writeback_slots`` commits it."""
     out = []
     for layer in pool:
         view = {}
         for name, p in layer.items():
-            idx = _slot_index(slots, p.length.device)
+            idx = _slot_index(slots, p)
             if isinstance(p, PagedKVCache):
                 view[name] = p._replace(block_table=p.block_table[idx],
                                         length=p.length[idx])
@@ -326,13 +332,13 @@ def extract_slots(pool: Caches, slots) -> Caches:
 
 
 def writeback_slots(pool: Caches, sub: Caches, slots) -> Caches:
-    """Commit an ``extract_slots`` view back into the pool: ring rows are
-    written back; a paged cache takes the view's pages (the pool's own
-    tensors when the view wrote in place) and the rows' lengths, while
-    its block tables stay the pool's (the host's ``PageArena`` owns
-    them)."""
+    """Commit an ``extract_slots`` view back into the pool: ring rows and
+    recurrent carries are written back; a paged cache takes the view's
+    pages (the pool's own tensors when the view wrote in place) and the
+    rows' lengths, while its block tables stay the pool's (the host's
+    ``PageArena`` owns them)."""
     for p, s in _parts(pool, sub):
-        idx = _slot_index(slots, p.length.device)
+        idx = _slot_index(slots, p)
         if isinstance(p, PagedKVCache):
             for dst, src in ((p.k_pages, s.k_pages),
                              (p.vt_pages, s.vt_pages)):
@@ -346,11 +352,14 @@ def writeback_slots(pool: Caches, sub: Caches, slots) -> Caches:
 
 
 def reset_slots(pool: Caches, slots) -> Caches:
-    """Zero the decode state of ``slots``: ring rows and lengths; a paged
-    cache zeroes the rows' block tables (unmapping their pages, whose
-    contents stay for the next owner to overwrite) and lengths."""
+    """Zero the decode state of ``slots``: ring rows, lengths and
+    recurrent carries (zeros, as the JAX package's, not the carries' init
+    values: a slot's next request starts fresh through
+    ``LMModel.reset_recurrent_rows``); a paged cache zeroes the rows'
+    block tables (unmapping their pages, whose contents stay for the next
+    owner to overwrite) and lengths."""
     for (p,) in _parts(pool):
-        idx = _slot_index(slots, p.length.device)
+        idx = _slot_index(slots, p)
         if isinstance(p, PagedKVCache):
             p.block_table[idx] = 0
             p.length[idx] = 0
@@ -362,10 +371,14 @@ def reset_slots(pool: Caches, slots) -> Caches:
 
 def slot_lengths(caches: Caches) -> np.ndarray:
     """Per-slot token counts, read from the first layer's attention cache
-    (every layer advances in lockstep)."""
+    (every layer advances in lockstep); a stack without attention carries
+    no position: zeros of the pool size, as the JAX package reports."""
     for layer in caches:
         if "attn" in layer:
             return layer["attn"].length.cpu().numpy()
+    for layer in caches:
+        for part in layer.values():
+            return np.zeros((part[0].shape[0],), np.int32)
     return np.zeros((0,), np.int32)
 
 

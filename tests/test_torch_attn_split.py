@@ -9,6 +9,7 @@ versions:
     partial context added in a shuffled order.
 
 Outputs are int32 and must be bitwise equal."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

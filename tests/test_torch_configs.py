@@ -3,6 +3,7 @@ full and smoke configs field for field, and ``param_count`` /
 ``active_param_count`` for every arch (an unregistered arch's JAX config is
 rebuilt from its fields in the port's dataclasses, so the MoE, hybrid and
 SSM branches of the count are held too)."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import pytest

@@ -5,6 +5,7 @@ reduce-scatter of their partials, ``k - 2 X`` and ``popc(b) - X``) emulated
 word by word and held to the plain version, and the plain version held
 bitwise to the JAX package (its oracle, and its Pallas kernel in
 interpret mode) at the decode calls' word shapes with pad bits set."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ rid and reports equal.  Words, caches and lengths bitwise; logits within
 ATOL (the frameworks sum RMSNorm, RoPE and the head in other orders).
 Params are the JAX package's, with scales, thresholds and the QKV bias
 moved off their init values, bridged through numpy."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -7,6 +7,7 @@ LayerNorm, the fp head, bidirectional attention, one block, the bridge and
 Packed words, bits and integers must be bitwise equal.  Floats must agree
 within ATOL: the frameworks sum LayerNorm and the head in different orders,
 which moves float32 results by a few ulps, never the integer parts."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

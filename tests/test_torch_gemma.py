@@ -13,6 +13,7 @@ Words, caches and lengths bitwise; logits within ATOL (the frameworks sum
 RMSNorm, RoPE and the head in other orders).  Params are the JAX
 package's, scales and thresholds moved off their init values, bridged
 through numpy."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

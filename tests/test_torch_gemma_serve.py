@@ -15,6 +15,7 @@ request); the slot-surgery functions on a pool of two ring groups.
 Tokens by rid and reports equal; caches and lengths bitwise.  Params are
 the JAX package's, scales and thresholds moved off their init values,
 bridged through numpy."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -7,6 +7,7 @@ a fixture, so every worker collects the same tests).  On a card:
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  Integer and float32 outputs must be bitwise equal."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ a fixture, so every worker collects the same tests).  On a card:
 
 This file imports no JAX.  Outputs are int32 and must be bitwise equal;
 every call must be exactly one launch of its kernel."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

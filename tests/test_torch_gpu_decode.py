@@ -10,6 +10,7 @@ a fixture, so every worker collects the same tests).  On a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_decode.py
 
 This file imports no JAX.  Outputs are int32 and must be bitwise equal."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

@@ -19,6 +19,7 @@ a fixture, so every worker collects the same tests).  On a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_moe.py
 
 This file imports no JAX."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ a fixture, so every worker collects the same tests).  On a card:
 
 This file imports no JAX.  Outputs are int32 words and must be bitwise
 equal."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

@@ -21,6 +21,7 @@ a fixture, so every worker collects the same tests).  On a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_windows.py
 
 This file imports no JAX."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

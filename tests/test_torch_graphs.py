@@ -9,6 +9,7 @@ addresses while their values follow JAX's, the captures counted by kind
 as JAX counts its traces, and launch counts that a replay credits.  The
 replays themselves are held to the eager steps on the card by
 ``test_torch_gpu_graphs.py``."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import math
 
 import jax

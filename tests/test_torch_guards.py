@@ -2,6 +2,7 @@
 device handling of the entry points, dispatch and launch counting,
 sampler invariants, the bridge's word format and the "not ported yet"
 boundaries."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 from pathlib import Path
 
@@ -16,6 +17,7 @@ from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.rbmm_mxu import ops as mxu_ops, ref as mxu_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.attention import SPSAttention
+from repro_torch.models.blocks import Block
 from repro_torch.models.lm import build_model
 from repro_torch.serve import engine, sampler
 
@@ -185,7 +187,7 @@ def test_bridge_keeps_word_bits_and_splits_stacked_blocks():
 
 def test_not_ported_yet_boundaries():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        base.get_config("xlstm-350m")
+        base.get_config("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         base.get_config("gpt-2")
     cfg = base.get_config("smollm-135m")
@@ -193,8 +195,9 @@ def test_not_ported_yet_boundaries():
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
             cfg.compute_dtype) == (30, 576, 9, 3, 64, 1536, 49152,
                                    "bfloat16")
-    # windows, the GELU GLU, the row granularity and MoE's deploy face are
-    # ported; MoE's QAT face, the recurrent and encoder-decoder families
+    # windows, the GELU GLU, the row granularity, MoE's deploy face and
+    # the recurrent families' deploy faces are ported; the QAT faces (MoE's,
+    # the recurrent blocks'), the encoder-decoder family ("dec" blocks)
     # and frontends are not
     assert SPSAttention(96, 3, 1, 32, sps_granularity="row").init(
         torch.Generator(), "cpu")["sps_lambda"].shape == (3, 512)
@@ -202,15 +205,19 @@ def test_not_ported_yet_boundaries():
         family="moe", moe=base.MoEConfig(num_experts=4), window_size=16))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         moe._block()._ffn().apply({}, torch.zeros(2, 64))
+    ssm = build_model(base.get_smoke_config("xlstm-350m"))
+    cell = ssm._block("mlstm")._parts()["cell"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(base.get_smoke_config("smollm-135m").with_(
-            family="ssm", ssm=base.SSMConfig()))
+        cell.apply(cell.init(torch.Generator(), "cpu"),
+                   torch.zeros(1, 2, 128))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Block(base.get_smoke_config("smollm-135m"), kind="dec")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(base.get_smoke_config("smollm-135m").with_(
             frontend_tokens=4))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(base.get_smoke_config("smollm-135m").with_(
             family="encdec", num_encoder_layers=2))
-    for arch in ("seamless-m4t-large-v2", "hymba-1.5b", "internvl2-76b"):
+    for arch in ("seamless-m4t-large-v2", "internvl2-76b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             base.get_config(arch)

@@ -3,6 +3,7 @@ attention kernels, and ``repro_torch.core.rbmm``, against the JAX package's
 Pallas kernels (interpret mode, through their ``ops.py``) and oracles.
 Integer and packed outputs must be bitwise equal, ragged shapes included
 (K % 32 != 0, L % 32 != 0, d_h = 48)."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

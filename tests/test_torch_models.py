@@ -12,6 +12,7 @@ Shapes keep B*S > 16 at prefill (the mxu route) and B <= 16 at decode
 
 Every test draws its inputs from its own seeded rng, so no test's inputs
 depend on which tests ran before it."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

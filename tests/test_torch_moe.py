@@ -11,6 +11,7 @@ bf16; the expert-by-expert ``convert`` (packed words bitwise); router ties
 ReLU experts; the bridge's (L, E, ...) expert leaves.  Params
 are the JAX package's, scales and thresholds moved off their init values,
 bridged through numpy."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ Words, caches and lengths bitwise; logits within ATOL (the frameworks sum
 RMSNorm, RoPE, the router and the head in other orders).  Params are the
 JAX package's, scales and thresholds moved off their init values, bridged
 through numpy."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

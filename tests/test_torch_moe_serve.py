@@ -17,6 +17,7 @@ numpy.  The static engine is held in ``test_torch_moe_lm.py`` (its tokens
 against JAX's jitted greedy decode, its report against JAX's
 ``cache_report``): the JAX engine's static path prefills op by op, ~20 s
 on a CPU for these stacks."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -2,6 +2,7 @@
 version against the JAX package (its Pallas kernel in interpret mode and
 its oracle).  Packed words must be bitwise equal: the port's int32 words
 viewed as uint32 are the JAX package's words."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

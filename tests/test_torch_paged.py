@@ -8,6 +8,7 @@ agree within ATOL (float32 sums in another order, see
 ``test_torch_models.py``).  Caches are compared on pages 1..P and on
 live rows only: the trash page 0 takes the writes of unmapped rows, in an
 order neither framework fixes."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -17,6 +17,7 @@ against the JAX package on the CPU.
 
 float32 smoke configs (smollm-135m, and qwen1.5-32b for the QKV bias and
 G = 1); the JAX side runs jitted, as its own tests run it."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -13,6 +13,7 @@ the per-(sequence, head) thresholds gathered by position), the verify and
 commit; at the model: smollm-135m's smoke config with ``row``, prefill
 then greedy decode.  Words, caches and lengths bitwise; fp outputs within
 ATOL."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

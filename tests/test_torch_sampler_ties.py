@@ -6,6 +6,7 @@ k-th place, the port must draw from exactly that set: the support of many
 draws equals ``lax.top_k``'s indices (and the support of the port's own
 ``sampling_probs``, which the speculative path draws from).  float32
 logits on the CPU; the card's twin is in ``test_torch_gpu_dense.py``."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ schemas, and ``ServeEngine.serve`` against the JAX engine on the smoke
 config (greedy, every arrival at 0, so the schedule depends on tokens
 only): contiguous continuous batching, and a paged pool with prefix
 sharing, chunked prefill and an arena small enough to preempt."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -15,6 +15,7 @@ rollback frees, captures); a full-depth draft that accepts everything;
 an independent draft that rejects and frees pages; the draft's rings
 after the rollback equal to a draft that ingested only the committed
 tokens; and ``ServeConfig``'s flat keywords."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import warnings
 

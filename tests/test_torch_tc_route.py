@@ -4,6 +4,7 @@ the card, against the JAX package: ``ref.rbmm_int`` on words whose pad bits
 are set (the tensor-core route unpacks every bit and corrects by integers,
 so the plain version must give the JAX answer for any words), and
 ``ref.pack_threshold`` on int32 x and on a strided per-head view."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

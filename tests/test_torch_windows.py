@@ -16,6 +16,7 @@ heads over 2 KV heads of d_h = 32, window 8, RoPE at theta 1e6):
   * the speculative verify and commit on a wrapped windowed ring.
 Words, caches and lengths bitwise; fp outputs within ATOL (the frameworks
 sum RoPE and the output scale in other orders)."""
+import test_torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax
