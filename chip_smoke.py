@@ -203,6 +203,28 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 and on the CPU: static tokens equal and logits within a
                 stated tolerance, continuous tokens by rid and counters
                 equal, plainly and with ``spec_decode=4`` requested
+  19. seamless seamless-m4t-large-v2 at full width and depth (24
+                bidirectional encoder layers over 1,024 frames, 24 decoder
+                layers with cross-attention over the binary memory, the
+                ReLU FFN; bf16, random weights from a seed): static
+                serving of B=4 x 64 prompt tokens with (4, 1,024, 1,024)
+                frame embeddings from the seed, 32 new (``[seamless]``:
+                the prefill's and each decode step's launches equal
+                ``kernel_times.ENCDEC_CALLS``', the fused F1
+                ``rbmm_binary`` among them; the decode step a replayed
+                graph, bitwise equal to the eager step, caches included);
+                ``prefill_logits`` as one graph equal to the eager
+                forward; the encoder's ms alone; the memories' bytes
+                against bf16
+  20. internvl2
+                internvl2-76b at full width and 4 of its 80 layers, 1,024
+                patch embeddings before each prompt (``[internvl2]``), the
+                same checks
+  21. crosscheck
+                both smoke configs (float32) on the card and on the CPU:
+                greedy tokens equal, logits within a stated tolerance, the
+                static engines' tokens equal; seamless over memories of 8
+                and 40 frames
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -224,7 +246,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    ARCH_CALLS, BF16_FLOPS, GEMMA_CALLS, HBM_BYTES_PER_S, INT8_OPS,
+    ARCH_CALLS, BF16_FLOPS, ENCDEC_CALLS, ENCDEC_LAYERS, ENCDEC_STATIC,
+    GEMMA_CALLS, HBM_BYTES_PER_S, INT8_OPS,
     MOE_CALLS, RECURRENT_CALLS, RECURRENT_CELL, RECURRENT_STATIC,
     SCALAR32_OPS, bound, call_operands, decode_calls, device_ms, eager_ms,
     moe_rows, nbytes, paged_bound, path_launches, spec_launches,
@@ -352,6 +375,16 @@ def _same(name: str, case: str, got, want) -> float:
         raise AssertionError(f"{name} [{case}]: kernel differs from its "
                              f"plain version, max |diff| {err}")
     return err
+
+
+def _same_call(name: str, case: str, got, want) -> None:
+    """``_same`` of a call's result, element by element where the call
+    returns a tuple (``rbmm_binary``: the bits and the DC RETURN)."""
+    if isinstance(got, tuple):
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same(name, f"{case} [{i}]", a, b)
+    else:
+        _same(name, case, got, want)
 
 
 def check_pack(rng):
@@ -924,15 +957,23 @@ def check_arch_calls() -> None:
     (``kernel_times.RECURRENT_CALLS``: the projections at K = 1,600 /
     3,200 / 5,504 and 1,024 / 2,048, ``sps_attention`` at H = 25/5 with a
     window of 1,024, ``paged_gather_decode`` at G = 5, the chunk attend
-    at M = 640), kernel against plain version, bitwise."""
+    at M = 640), and of seamless-m4t-large-v2's and internvl2-76b's static
+    paths at full width (``kernel_times.ENCDEC_CALLS``: the encoder's
+    bidirectional attention at L = 1,024, the cross score and context
+    over memories of 1,024 frames at M = 1 and 64 a KV head, the fused F1
+    ``rbmm_binary`` at M = 4, internvl2's prefill of 1,088 positions and
+    its decode projections up to Kp = 896), kernel against plain version,
+    bitwise."""
     for label, table in (("granite-3-2b's and qwen1.5-32b's", ARCH_CALLS),
                          ("gemma3-27b's", GEMMA_CALLS),
                          ("hymba-1.5b's and xlstm-350m's",
-                          RECURRENT_CALLS)):
+                          RECURRENT_CALLS),
+                         ("seamless-m4t-large-v2's and internvl2-76b's",
+                          ENCDEC_CALLS)):
         calls = call_operands(table, SEED)
         by_kernel = {}
         for name, (kernel, call, plain, _, _) in calls.items():
-            _same(kernel, name, call(), plain())
+            _same_call(kernel, name, call(), plain())
             by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
         del calls
         log(f"[kernels] {label} {sum(by_kernel.values())} calls "
@@ -1038,7 +1079,8 @@ def load_model(arch: str, tag: str, num_layers: int = 0):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"{tag} {cfg.name}: {cfg.num_layers} layers"
-        f"{f' (of {get_config(arch).num_layers})' if num_layers else ''}, "
+        f"{f' (of {get_config(arch).num_layers})' if num_layers else ''}"
+        f"{f' and {cfg.num_encoder_layers} encoder layers' if cfg.num_encoder_layers else ''}, "
         f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"d_h={cfg.resolved_head_dim}, d_ff={cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, qkv bias {cfg.attn_bias}, tied head "
@@ -1064,13 +1106,16 @@ def moe_text(cfg) -> str:
 
 def serve_static(model, dparams, tag: str,
                  shape=(SERVE_B, SERVE_S, SERVE_NEW), path=STATIC_PATH,
-                 expect=None) -> tuple:
+                 expect=None, frontend=None, caches_equal=False) -> tuple:
     """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
     (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
     rings of S + new tokens (a windowed layer's: its window), the decode
     step a replayed graph; every kernel of ``path`` must launch, and with
     ``expect`` ({"prefill" / "decode": {kernel: launches}}) the prefill
-    and each decode step launch exactly those.  Returns the launch counts
+    and each decode step launch exactly those.  ``frontend`` passes the
+    frontend embeddings (a decoder-only model's rings then hold them
+    too); ``caches_equal`` also holds the graph's caches to the eager
+    steps' bitwise (``check_static_graph``).  Returns the launch counts
     of the run and the wall ms per decode step."""
     import torch
     from repro_torch import kernels
@@ -1080,10 +1125,12 @@ def serve_static(model, dparams, tag: str,
     n_b, n_s, n_new = shape
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (n_b, n_s)).astype(np.int32)
+    fe = {} if frontend is None else {"frontend_embeds": frontend}
+    max_len = n_s + n_new + ring_prefix(model, frontend)
     eng = ServeEngine(model, dparams, ServeConfig(
-        cache=CacheConfig(max_len=n_s + n_new)))
+        cache=CacheConfig(max_len=max_len)))
     t0 = time.perf_counter()
-    eng.generate(prompts, max_new_tokens=2)     # warm-up: captures the step
+    eng.generate(prompts, max_new_tokens=2, **fe)   # warm-up: captures
     torch.cuda.synchronize()
     log_captures(tag, eng, time.perf_counter() - t0)
     captures = dict(eng._graphs.captures)
@@ -1099,7 +1146,7 @@ def serve_static(model, dparams, tag: str,
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     toks, report = eng.generate(prompts, max_new_tokens=n_new,
-                                stream_cb=on_token)
+                                stream_cb=on_token, **fe)
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
     if toks.shape != (n_b, n_new) or toks.min() < 0 or \
@@ -1117,7 +1164,7 @@ def serve_static(model, dparams, tag: str,
     steps = n_new - 1
     per_step = {n: (c_end[n] - c_pre[n]) / steps for n in launches}
     eager_step = check_static_graph(model, dparams, prompts, tag,
-                                    n_s + n_new)
+                                    max_len, frontend, caches_equal)
     if per_step != {n: float(c) for n, c in eager_step.items()}:
         raise AssertionError(f"{tag} launches per replayed decode step "
                              f"{per_step}, per eager step {eager_step}")
@@ -1156,21 +1203,35 @@ def serve_static(model, dparams, tag: str,
 GRAPH_CHECK_STEPS = 8
 
 
+def ring_prefix(model, frontend) -> int:
+    """Positions a decoder-only model's rings hold before the prompt: its
+    frontend embeddings (an encoder-decoder's rings hold the prompt
+    only)."""
+    if frontend is None or not hasattr(model, "plan"):
+        return 0
+    return frontend.shape[1]
+
+
 def check_static_graph(model, dparams, prompts, tag: str,
-                       max_len: int = SERVE_S + SERVE_NEW) -> dict:
+                       max_len: int = SERVE_S + SERVE_NEW, frontend=None,
+                       caches_equal: bool = False) -> dict:
     """The decode step captured as a graph against a test-local eager loop
     of ``decode_step`` from the same prefilled state: equal tokens and
     bitwise-equal logits at every step (the first call captures), the
-    same launches per step; each step's wall time (ending in the tokens'
+    same launches per step (with ``caches_equal`` also every cache tensor
+    bitwise after the steps); each step's wall time (ending in the tokens'
     copy to the host, as the engine's) in turns, eager then graph.
+    ``frontend`` passes the frontend embeddings to the prefill.
     Returns the eager step's launch counts."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve import graphs
+    fe = {} if frontend is None else {
+        "frontend_embeds": torch.as_tensor(frontend, device="cuda")}
     with torch.inference_mode():
         logits, eager = model.prefill_with_cache(
             dparams, torch.as_tensor(prompts, device="cuda"),
-            max_len=max_len)
+            max_len=max_len, **fe)
         caches = clone_caches(eager)
         g = graphs.StepGraph(
             lambda tokens: model.decode_step(dparams, tokens, caches)[0],
@@ -1203,11 +1264,19 @@ def check_static_graph(model, dparams, prompts, tag: str,
                     f"differs from eager, max |logit diff| "
                     f"{(got - want).abs().max().item()}")
             tok = tok_e
+        if caches_equal:
+            pairs = list(zip(graphs.cache_tensors(caches),
+                             graphs.cache_tensors(eager)))
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{tag} graph check: the replayed "
+                                     f"steps' caches differ from the eager "
+                                     f"steps'")
     out = {k: float(np.median(v)) for k, v in ms.items()}
     log(f"{tag} graph == eager: {GRAPH_CHECK_STEPS} decode steps from the "
-        f"same prefill, equal tokens, logits bitwise equal; median ms per "
-        f"step (tokens on the host), in turns: eager {out['eager']:.2f}, "
-        f"graph replay {out['graph']:.2f}")
+        f"same prefill, equal tokens, logits bitwise equal"
+        f"{f', all {len(pairs)} cache tensors bitwise equal' if caches_equal else ''}"
+        f"; median ms per step (tokens on the host), in turns: eager "
+        f"{out['eager']:.2f}, graph replay {out['graph']:.2f}")
     return counted
 
 
@@ -1955,11 +2024,15 @@ CROSS_ATOL = 2e-3   # float32 logits; sums differ in order between devices
 
 
 def _greedy_run(model, dparams, prompts, device,
-                max_len: int = CROSS_S + CROSS_NEW):
-    """prefill + greedy decode; returns (tokens (B, NEW), logits list)."""
+                max_len: int = CROSS_S + CROSS_NEW, frontend=None):
+    """prefill + greedy decode; returns (tokens (B, NEW), logits list).
+    ``frontend`` passes frontend embeddings to the prefill."""
     import torch
     toks = torch.as_tensor(prompts, device=device)
-    logits, caches = model.prefill_with_cache(dparams, toks, max_len=max_len)
+    fe = {} if frontend is None else {
+        "frontend_embeds": torch.as_tensor(frontend, device=device)}
+    logits, caches = model.prefill_with_cache(dparams, toks, max_len=max_len,
+                                              **fe)
     out, lgs = [], [logits.float().cpu()]
     for _ in range(CROSS_NEW):
         token = logits[:, -1:].argmax(-1)
@@ -3055,6 +3128,210 @@ def phase_crosscheck_recurrent() -> None:
                                 smoke=True, pressure=False)
 
 
+# -- phase 19: seamless-m4t-large-v2; phase 20: internvl2-76b; phase 21 ---
+
+# seamless at full width and depth (24 encoder and 24 decoder layers,
+# ~1.63 B parameters, ~6.5 GB of float32 masters); internvl2 at full width
+# and 4 of its 80 layers (the full depth's float32 masters, ~282 GB,
+# exceed the card; 4 layers and the untied embedding and head are ~22 GB).
+# Static serving only, as in the JAX package: B = 4 prompts of 64 tokens
+# after 1,024 frontend embeddings each (seamless' frames through the
+# encoder; internvl2's patches before the prompt), 32 new tokens
+# (``kernel_times.ENCDEC_STATIC``)
+ENCDEC_PATH = ("pack_threshold", "rbmm_int", "rbmm_binary", "rbmm_mxu",
+               "sps_attention")
+FRONTEND_ITERS = 5
+
+
+def frontend_embeds(model, batch: int, frames: int = 0,
+                    seed: int = SEED) -> np.ndarray:
+    """Standard normal frontend embeddings (B, frames, frontend_dim) from
+    ``seed`` (frames: the config's ``frontend_tokens`` by default)."""
+    return np.random.default_rng(seed).standard_normal(
+        (batch, frames or model.cfg.frontend_tokens, model.frontend_dim),
+        dtype=np.float32)
+
+
+def timed(fn, iters: int = FRONTEND_ITERS) -> float:
+    """Wall ms per call of ``fn`` (mean of ``iters``, after one call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def check_prefill_graph(model, dparams, tag: str, shape, fe) -> None:
+    """``prefill_logits`` (tokens and frontend embeddings -> logits at
+    every position) captured as one CUDA graph: the replay bitwise equal
+    to the eager forward, finite logits of the expected shape; ms per
+    replay and per eager forward in turns, the replay's device busy
+    time."""
+    import torch
+    n_b, n_s, _ = shape
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab_size, (n_b, n_s)), device="cuda")
+    fe_dev = torch.as_tensor(fe, device="cuda")
+    out = {}
+
+    def forward():
+        out["logits"] = model.prefill_logits(dparams, toks,
+                                             frontend_embeds=fe_dev)
+
+    with torch.inference_mode():
+        forward()
+        want = out.pop("logits")
+        graph, secs = _graph(forward)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = out["logits"]
+        rows = n_s + ring_prefix(model, fe)
+        if got.shape != (n_b, rows, model.cfg.vocab_size) or \
+                not torch.isfinite(got).all():
+            raise AssertionError(f"{tag} prefill_logits: bad logits "
+                                 f"{tuple(got.shape)} {got.dtype}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} prefill_logits: the replay differs "
+                                 f"from the eager forward, max |logit "
+                                 f"diff| {(got - want).abs().max().item()}")
+        del want
+        walls = [("eager", timed(forward)), ("graph", timed(graph.replay)),
+                 ("graph", timed(graph.replay)), ("eager", timed(forward))]
+        busy, n_kernels, by_name = device_profile(graph.replay, iters=2)
+    wall = min(ms for k, ms in walls if k == "graph")
+    log(f"{tag} prefill_logits (B={n_b}, S={n_s}, {fe.shape[1]} frontend "
+        f"embeddings) as one graph ({secs:.3f} s to capture): the replay "
+        f"bitwise equal to the eager forward, logits {tuple(got.shape)} "
+        f"{got.dtype}, finite; ms per forward in turns "
+        f"{', '.join(f'{k} {ms:.2f}' for k, ms in walls)}; replay device "
+        f"busy {busy:.3f} ms of {wall:.2f} (idle share "
+        f"{1 - busy / wall:.3f}), {n_kernels:.0f} CUDA kernels")
+    log_top_kernels(f"{tag} prefill_logits", by_name)
+    del graph, out
+    torch.cuda.empty_cache()
+
+
+def log_top_kernels(tag: str, by_name, top: int = 6) -> None:
+    """The largest CUDA kernels of a profile ({name: device ms}) and the
+    device ms of each of ours."""
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"{tag}   {ms:.4f} ms  {name[:90]}")
+    log(f"{tag} device ms of our kernels "
+        f"{json.dumps(our_kernels_ms(by_name))}")
+
+
+def log_memory_caches(model, tag: str, batch: int, frames: int) -> None:
+    """The encoder-decoder's static memories ("cross") of a pool of
+    ``batch`` rows over ``frames`` positions: their bytes against their
+    bf16 equivalents."""
+    from repro_torch.serve import kvcache
+    caches = model.init_caches(batch, 1, "cuda", memory_len=frames)
+    cross = [{"cross": c["cross"]} for c in caches]
+    own, bf16 = kvcache.cache_bytes(cross), \
+        kvcache.bf16_equivalent_bytes(cross)
+    log(f"{tag} the decoder's binary memories of {frames} frames, "
+        f"{len(caches)} layers, B={batch}: {own / 2**20:.2f} MiB, "
+        f"{bf16 / own:.2f}x below their bf16 equivalent "
+        f"({bf16 / 2**20:.2f} MiB)")
+
+
+def phase_frontend(arch: str, tag: str, path) -> dict:
+    """``arch`` at full width (``ENCDEC_LAYERS`` of its layers where
+    given), bf16, random weights from ``SEED``: static serving of
+    ``ENCDEC_STATIC`` with seeded frontend embeddings (graph == eager,
+    caches included; the prefill and each decode step launch
+    ``kernel_times.ENCDEC_CALLS``' counts; every kernel of ``path``
+    launches), ``prefill_logits`` as one graph equal to the eager forward;
+    for the encoder-decoder the encoder's ms alone and its memories'
+    bytes.  Returns the launch counts of the serve."""
+    import torch
+    model, dparams = load_model(arch, tag, ENCDEC_LAYERS[arch])
+    shape = ENCDEC_STATIC[arch]
+    fe = frontend_embeds(model, shape[0])
+    short = arch.split("-")[0]
+    expect = {p: path_launches(ENCDEC_CALLS, short, p)
+              for p in ("prefill", "decode")}
+    launches, _ = serve_static(model, dparams, tag, shape, path=path,
+                               expect=expect, frontend=fe,
+                               caches_equal=True)
+    check_prefill_graph(model, dparams, tag, shape, fe)
+    if not hasattr(model, "plan"):           # the encoder-decoder
+        fe_dev = torch.as_tensor(fe, device="cuda")
+        with torch.inference_mode():
+            ms = timed(lambda: model.encode(dparams, fe_dev))
+            busy, n_kernels, by_name = device_profile(
+                lambda: model.encode(dparams, fe_dev), iters=2)
+        log(f"{tag} encoder alone ({model.enc_layers} layers, B={shape[0]} "
+            f"x {fe.shape[1]} frames): {ms:.2f} ms per eager call, device "
+            f"busy {busy:.3f} ms, {n_kernels:.0f} CUDA kernels")
+        log_top_kernels(f"{tag} encoder", by_name)
+        log_memory_caches(model, tag, shape[0], fe.shape[1])
+    del model, dparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the smoke configs in float32, card against CPU: seamless over memories
+# of 8 and 40 frames (the last V^T word's pad bits), internvl2 with its 8
+# patches; B = 2 prompts of 20 tokens, greedy
+FRONTEND_CROSS = {"seamless-m4t-large-v2": (8, 40), "internvl2-76b": (8,)}
+FRONTEND_CROSS_S = 20
+
+
+def phase_crosscheck_frontend() -> None:
+    """Both smoke configs (float32) on the card and on the CPU (plain
+    versions): prefill + greedy decode, tokens equal and logits within
+    ``CROSS_ATOL``; the static engine's tokens equal to the loop's on
+    each device."""
+    import torch
+    from repro_torch import to_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.engine import (CacheConfig, ServeConfig,
+                                          ServeEngine)
+    for arch, frames in FRONTEND_CROSS.items():
+        model = build_model(get_smoke_config(arch))
+        with torch.inference_mode():
+            dparams = model.convert(model.init(
+                torch.Generator(device="cuda").manual_seed(SEED)))
+        on_cpu = to_device(dparams, "cpu")
+        prompts = np.random.default_rng(SEED + 21).integers(
+            0, model.cfg.vocab_size, (CROSS_B, FRONTEND_CROSS_S))
+        for n in frames:
+            fe = frontend_embeds(model, CROSS_B, n, SEED + 22)
+            max_len = FRONTEND_CROSS_S + CROSS_NEW + ring_prefix(model, fe)
+            with torch.inference_mode():
+                tok_card, lg_card = _greedy_run(model, dparams, prompts,
+                                                "cuda", max_len, fe)
+                tok_cpu, lg_cpu = _greedy_run(model, on_cpu, prompts, "cpu",
+                                              max_len, fe)
+            diff = max((a - b).abs().max().item()
+                       for a, b in zip(lg_card, lg_cpu))
+            tag = f"[{arch.split('-')[0]} card==cpu]"
+            if not np.array_equal(tok_card, tok_cpu) or diff > CROSS_ATOL:
+                raise AssertionError(
+                    f"{tag} {n} frontend embeddings: card tokens "
+                    f"{tok_card.tolist()} vs CPU {tok_cpu.tolist()}, max "
+                    f"|logit diff| {diff} (tol {CROSS_ATOL})")
+            cfg = ServeConfig(cache=CacheConfig(max_len=max_len))
+            eng_card, _ = ServeEngine(model, dparams, cfg).generate(
+                prompts, max_new_tokens=CROSS_NEW, frontend_embeds=fe)
+            eng_cpu, _ = ServeEngine(model, on_cpu, cfg,
+                                     device="cpu").generate(
+                prompts, max_new_tokens=CROSS_NEW, frontend_embeds=fe)
+            if not (np.array_equal(eng_card, tok_card) and
+                    np.array_equal(eng_cpu, tok_cpu)):
+                raise AssertionError(f"{tag} ServeEngine tokens differ from "
+                                     f"the prefill/decode loop")
+            log(f"{tag} float32 B={CROSS_B} S={FRONTEND_CROSS_S}, {n} "
+                f"frontend embeddings, {CROSS_NEW} tokens: card == CPU "
+                f"tokens {tok_card.tolist()} (the engines' too), max |logit "
+                f"diff| {diff:.3g} <= {CROSS_ATOL}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3090,10 +3367,15 @@ def main() -> int:
     hymba = phase_hymba()
     xlstm = phase_xlstm()
     phase_crosscheck_recurrent()
+    seamless = phase_frontend("seamless-m4t-large-v2", "[seamless]",
+                              ENCDEC_PATH)
+    internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH)
+    phase_crosscheck_frontend()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
-                                   arctic[name] + hymba[name] + xlstm[name])
+                                   arctic[name] + hymba[name] + xlstm[name] +
+                                   seamless[name] + internvl2[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ numpy arrays (the caller converts, e.g. with ``jax.tree.map(np.asarray,
 
   * every array becomes a tensor on ``device``;
   * ``uint32`` packed words become ``int32`` tensors with the same bits;
-  * the stacked ``blocks`` subtree (leading layer axis, as the JAX package
-    keeps a uniform stack for ``scan``: hymba's hybrid layers) becomes a
-    list of per-layer dicts; a list (a stack of mixed kinds, as xlstm's
-    mLSTM and sLSTM layers) stays one, layer by layer.
+  * the stacked layer subtrees, ``blocks`` and an encoder-decoder's
+    ``encoder`` and ``decoder`` (leading layer axis, as the JAX package
+    keeps a uniform stack for ``scan``: hymba's hybrid layers, seamless'
+    encoder and decoder) become lists of per-layer dicts under the same
+    keys; a list (a stack of mixed kinds, as xlstm's mLSTM and sLSTM
+    layers) stays one, layer by layer.
 """
 from __future__ import annotations
 
@@ -50,15 +52,20 @@ def _num_layers(tree: Any) -> int:
     return np.asarray(tree).shape[0]
 
 
+STACKS = ("blocks", "encoder", "decoder")   # the layer subtrees
+
+
 def from_jax_params(tree: dict, device="cuda") -> dict:
     """Nested numpy tree of the JAX package (a model's, or one module's)
     -> the port's param tree on ``device``."""
     dev = resolve_device(device)
-    out = _convert({k: v for k, v in tree.items() if k != "blocks"}, dev)
-    if "blocks" in tree:
-        blocks = tree["blocks"]
-        if isinstance(blocks, dict):    # stacked for scan: split by layer
-            blocks = [_layer(blocks, i)
-                      for i in range(_num_layers(blocks))]
-        out["blocks"] = [_convert(b, dev) for b in blocks]
+    out = _convert({k: v for k, v in tree.items() if k not in STACKS}, dev)
+    for key in STACKS:
+        if key not in tree:
+            continue
+        layers = tree[key]
+        if isinstance(layers, dict):    # stacked for scan: split by layer
+            layers = [_layer(layers, i)
+                      for i in range(_num_layers(layers))]
+        out[key] = [_convert(b, dev) for b in layers]
     return out

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``repro.configs.base`` dataclasses: the port
 imports nothing of that package, so both are held on the same shapes by the
-parity tests, not by a shared module.  Only the architectures the port can
-run are registered; any other known arch raises "not ported yet".
+parity tests, not by a shared module.  Every architecture of ``ARCH_IDS``
+is registered; an unknown one raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -157,7 +157,7 @@ ARCH_IDS: Sequence[str] = (
     "bert-base-cobra",
 )
 
-# archs the port runs; the rest of ARCH_IDS raise "not ported yet"
+# the config module of every entry of ARCH_IDS
 _MODULE_FOR: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "granite-3-2b": "granite_3_2b",
@@ -167,6 +167,8 @@ _MODULE_FOR: Dict[str, str] = {
     "arctic-480b": "arctic_480b",
     "hymba-1.5b": "hymba_15b",
     "xlstm-350m": "xlstm_350m",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "internvl2-76b": "internvl2_76b",
     "bert-base-cobra": "bert_base_cobra",
 }
 
@@ -174,10 +176,6 @@ _MODULE_FOR: Dict[str, str] = {
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCH_IDS)}")
-    if arch_id not in _MODULE_FOR:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet; the PyTorch port runs "
-            f"{sorted(_MODULE_FOR)}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
 

@@ -35,7 +35,13 @@ table, the 1,024-slot rings and both paged ring groups); every call of
 hymba-1.5b's and xlstm-350m's serve paths at full width and depth
 (``RECURRENT_CALLS``, rows named ``... hymba ...`` / ``... xlstm ...``
 by path, each with its launches per step of that path,
-``step_launches``; ``recurrent_calls`` sizes them from a config).  ``--moe``
+``step_launches``; ``recurrent_calls`` sizes them from a config); every
+call of seamless-m4t-large-v2's (full depth) and internvl2-76b's (4 of
+80 layers) static serve paths at full width (``ENCDEC_CALLS``, rows
+named ``... seamless ...`` / ``... internvl2 ...``, each with its
+launches per step, ``step_launches``; ``encdec_calls`` sizes them from a
+config; the fused F1 ``rbmm_binary`` of seamless' decode among them).
+``--moe``
 instead checks and times every expert-batched call of mixtral-8x22b's
 and arctic-480b's serve paths at full width (``MOE_CALLS``, rows named
 ``... moe ...``, one call's operands on the card at a time: each row
@@ -499,8 +505,9 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
     """{name: (kernel, call, plain, library, bound)} for every call of a
     table of (kernel, operands, launches) (``SPEC_CALLS``, ``ARCH_CALLS``)
     on random operands on the card: ``call`` and ``plain`` run the public
-    wrapper and its plain version (``ref.py``), ``library`` one PyTorch
-    call computing the same function (None for pack and attention)."""
+    wrapper and its plain version (``ref.py``; both return a tuple for
+    ``rbmm_binary``), ``library`` one PyTorch call computing the same
+    function (None for pack and attention)."""
     from repro_torch.core import packing
     from repro_torch.kernels.pack import ops as pack, ref as pack_ref
     from repro_torch.kernels.paged_attn import ops as paged, ref as paged_ref
@@ -538,6 +545,27 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
                     x, y, k, scheme=s),
                 lambda xv=xv, yv=yv: torch.matmul(xv, yv.transpose(-1, -2)),
                 word_or_mac(batch * m, p, k, x, y, res))
+        elif kernel == "rbmm_binary":
+            # the ReLU FFN's fused F1: xnor scores thresholded per column,
+            # the bits packed, with the zeros of each row (DC RETURN); the
+            # call returns (bits, dc)
+            m, p, k = spec
+            x, y = words(m, k=k), words(p, k=k)
+            th = ints(p, lo=-k // 8, hi=k // 8 + 1)
+            xv = packing.unpack_signs(x, k, torch.bfloat16)
+            yv = packing.unpack_signs(y, k, torch.bfloat16)
+            res = rbmm.rbmm_binary(x, y, k, th, pack_output=True)
+
+            def plain(x=x, y=y, k=k, th=th):
+                bits, dc = rbmm_ref.rbmm_binary(x, y, k, th)
+                return packing.pack_bits(bits), dc
+            out[name] = (
+                kernel,
+                lambda x=x, y=y, k=k, th=th: rbmm.rbmm_binary(
+                    x, y, k, th, pack_output=True),
+                plain,
+                lambda xv=xv, yv=yv: torch.matmul(xv, yv.transpose(-1, -2)),
+                word_or_mac(m, p, k, x, y, th, *res))
         elif kernel == "rbmm_mxu":
             # an optional fifth entry: leading (batch) dims, e.g. experts
             m, k, p, unsigned, *lead = spec
@@ -884,6 +912,26 @@ RECURRENT_STATIC = {"hymba-1.5b": (4, 1536, 32), "xlstm-350m": (8, 512, 32)}
 RECURRENT_CELL = dict(slots=16, chunk=128, page=32, blocks=12, pages=48)
 
 
+def _call_dims(kernel: str, spec: tuple) -> str:
+    """The operands of a call of a ``recurrent_calls`` / ``encdec_calls``
+    table, as its name reads them (RBMM and pack kernels)."""
+    if kernel == "rbmm_int":
+        lead, m, p, k, scheme = spec
+        kp = -(-k // 32)
+        return (f"({','.join(map(str, lead + (m,)))},{kp})"
+                f"x({','.join(map(str, lead + (p,)))},{kp}) {scheme}")
+    if kernel == "rbmm_binary":
+        m, p, k = spec
+        return f"({m}x{k})x({p}x{k}) xnor, packed bits and dc"
+    if kernel == "rbmm_mxu":
+        m, k, p, unsigned = spec
+        return f"({m}x{k})x({p}x{k}){' {0,1}' if unsigned else ''}"
+    shape, dtype, th, strided = spec
+    per = {0: "one", 2: "per-head", 3: "per-row"}[len(th)]
+    return (f"({','.join(map(str, shape))}) {DTYPE_TAGS[dtype]}"
+            f"{' strided' if strided else ''}, {per} theta")
+
+
 def _merge(rows: List[tuple]) -> List[tuple]:
     """[(call name, spec, launches)] with equal specs merged: the names
     joined by "/", the launches summed (in first-seen order)."""
@@ -932,20 +980,8 @@ def recurrent_calls(cfg, static, slots: int, chunk: int, page: int,
 
     def put(kernel, path, rows):
         for call, spec, n in _merge(rows):
-            tag = DTYPE_TAGS
-            if kernel == "rbmm_int":
-                lead, m, p, k, scheme = spec
-                dims = (f"({','.join(map(str, lead + (m,)))},{-(-k // 32)})"
-                        f"x({','.join(map(str, lead + (p,)))},"
-                        f"{-(-k // 32)}) {scheme}")
-            elif kernel == "rbmm_mxu":
-                m, k, p, unsigned = spec
-                dims = f"({m}x{k})x({p}x{k}){' {0,1}' if unsigned else ''}"
-            elif kernel == "pack_threshold":
-                shape, dtype, th, strided = spec
-                per = {0: "one", 2: "per-head", 3: "per-row"}[len(th)]
-                dims = (f"({','.join(map(str, shape))}) {tag[dtype]}"
-                        f"{' strided' if strided else ''}, {per} theta")
+            if kernel in ("rbmm_int", "rbmm_mxu", "pack_threshold"):
+                dims = _call_dims(kernel, spec)
             elif kernel == "sps_attention":
                 dims = (f"B={b} L={s} H={h}/{hkv} d_h={dh} causal, window "
                         f"{window or 'full'}")
@@ -1047,6 +1083,183 @@ def _recurrent_table() -> Dict[str, tuple]:
 RECURRENT_CALLS = _recurrent_table()
 
 
+# seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+# decoder layers) and internvl2-76b at full width and 4 of its 80 layers
+# (repro_torch/configs), and the shapes of their card runs: the static
+# path only (B prompts of S tokens after F frontend embeddings, then
+# decode steps at M = B on contiguous rings of S + new tokens, F + S + new
+# for internvl2, whose rings hold the patches too).
+ENCDEC_STATIC = {"seamless-m4t-large-v2": (4, 64, 32),
+                 "internvl2-76b": (4, 64, 32)}
+ENCDEC_LAYERS = {"seamless-m4t-large-v2": 0, "internvl2-76b": 4}
+
+
+def encdec_calls(cfg, static) -> Dict[str, tuple]:
+    """Every kernel call of an encoder-decoder's or a frontend model's
+    static serve path at ``cfg``'s widths: {name: (kernel, operands,
+    launches per step of its path)}.  The paths: ``prefill``, the static
+    prefill of B = ``static[0]`` prompts of S = ``static[1]`` tokens after
+    ``cfg.frontend_tokens`` F embeddings (an encoder-decoder encodes F
+    frames, then its decoder prefills the prompt: causal self-attention,
+    the memory built from the encoder's output, cross-attention over it);
+    ``decode``, a static decode step at M = B (rings of S + new, F + S +
+    new for a frontend model).  The residual stream's dtype follows the
+    models: an encoder runs float32 (its frontend's projection is), a
+    frontend model's prefill too (the patches promote it), the
+    encoder-decoder's decoder runs ``compute_dtype``, a decoder-only
+    decode float32.  Names read ``"<kernel> <arch> <path> <calls>
+    <dims>"``."""
+    from repro_torch.models.lm import build_model
+    arch = cfg.name.split("-")[0]
+    b, s, new = static
+    f = cfg.frontend_tokens
+    d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    ff, g, qd, kvd = cfg.d_ff, h // hkv, cfg.q_dim, cfg.kv_dim
+    cdt = cfg.compute_dtype
+    encdec = type(build_model(cfg)).__name__ == "EncDecModel"
+    rows: Dict[str, List[tuple]] = {}
+
+    def call(kernel, path, name, spec, n=1):
+        rows.setdefault(path, []).append((kernel, name, spec, n))
+
+    def project(path, name, m, p, k, n=1):
+        """A BinaryDense's product: ``rbmm_int``'s decode route at M <=
+        16, ``rbmm_mxu`` above (the ReLU FFN's w2: {0,1} operands)."""
+        unsigned = name == "w2"
+        if m <= 16:
+            call("rbmm_int", path, name, ((), m, p, k, "and_dc" if unsigned
+                                          else "xnor"), n)
+        else:
+            call("rbmm_mxu", path, name, (m, k, p, unsigned), n)
+
+    def pack(path, name, shape, dtype, th=(), strided=False):
+        call("pack_threshold", path, name, (tuple(shape), dtype, th,
+                                            strided))
+
+    def attention(path, n, length, xdt, causal, ring=0):
+        """A self-attention block's calls over n rows of ``length``
+        positions (one, against a ring of ``ring``, at decode)."""
+        pack(path, "x", (n, length, d), xdt)
+        m = n * length
+        for name, p in (("wq", qd), ("wk", kvd), ("wv", kvd)):
+            project(path, name, m, p, d)
+        pack(path, "q", (n, length, h, dh), cdt, (h, 1))
+        pack(path, "k", (n, length, hkv, dh), cdt, (hkv, 1))
+        if ring:
+            call("rbmm_int", path, "ring score",
+                 ((n, hkv), g, ring, dh, "xnor"))
+            call("rbmm_int", path, "ring context",
+                 ((n, hkv), g, dh, ring, "and_dc"))
+        else:
+            pack(path, "V^T", (n, hkv, dh, length), cdt, (hkv, 1, 1), True)
+            call("sps_attention", path, "attention",
+                 (n, h, hkv, length, dh, causal, None, 0, 0))
+        pack(path, "ctx", (n, length, qd), "float32")
+        project(path, "wo", m, d, qd)
+
+    def cross(path, n, length):
+        """A "dec" layer's cross-attention over the memory of f frames
+        (built at prefill from the float32 encoder output)."""
+        if path == "prefill":
+            pack(path, "memory", (n, f, d), "float32")
+            for name in ("wk", "wv"):
+                project(path, f"memory {name}", n * f, kvd, d)
+            pack(path, "memory k", (n, f, hkv, dh), cdt, (hkv, 1))
+            pack(path, "memory V^T", (n, hkv, dh, f), cdt, (hkv, 1, 1),
+                 True)
+        m, rows_ = n * length, g * length
+        pack(path, "cross x", (n, length, d), cdt)
+        project(path, "cross wq", m, qd, d)
+        pack(path, "cross q", (n, length, h, dh), cdt, (h, 1))
+        call("rbmm_int", path, "cross score",
+             ((n, hkv), rows_, f, dh, "xnor"))
+        if rows_ > 16:
+            pack(path, "cross probs", (n, hkv, rows_, f), "int32",
+                 (hkv, rows_, 1))
+        call("rbmm_int", path, "cross context",
+             ((n, hkv), rows_, dh, f, "and_dc"))
+        pack(path, "cross ctx", (n, length, qd), "float32")
+        project(path, "cross wo", m, d, qd)
+
+    def ffn(path, n, length, xdt):
+        m = n * length
+        pack(path, "ffn x", (n, length, d), xdt)
+        if cfg.glu:
+            project(path, "w1", m, ff, d)
+            project(path, "w3", m, ff, d)
+            pack(path, "h", (n, length, ff), "float32")
+        elif m <= 16:      # F1 fused: the bits of ReLU(x W1) >= theta
+            call("rbmm_binary", path, "F1", (m, ff, d))
+        else:              # F1 on the tensor cores, thresholded after
+            project(path, "F1", m, ff, d)
+        project(path, "w2", m, d, ff)
+
+    def layers(fn, count):
+        """Repeat the calls ``fn`` adds ``count`` times (one per layer)."""
+        before = {p: len(r) for p, r in rows.items()}
+        fn()
+        for p, r in rows.items():
+            start = before.get(p, 0)
+            r[start:] = [(k, nm, sp, n * count) for k, nm, sp, n in
+                         r[start:]]
+
+    if encdec:
+        def encoder():
+            attention("prefill", b, f, "float32", causal=False)
+            ffn("prefill", b, f, "float32")
+        layers(encoder, cfg.num_encoder_layers)
+
+        def decoder(path, length, ring=0):
+            attention(path, b, length, cdt, causal=True, ring=ring)
+            cross(path, b, length)
+            ffn(path, b, length, cdt)
+        layers(lambda: decoder("prefill", s), cfg.num_layers)
+        layers(lambda: decoder("decode", 1, s + new), cfg.num_layers)
+    else:
+        length = f + s
+        xdt = "float32" if f else cdt   # the patches promote the stream
+
+        def block(path, length, xdt, ring=0):
+            attention(path, b, length, xdt, causal=True, ring=ring)
+            ffn(path, b, length, xdt)
+        layers(lambda: block("prefill", length, xdt), cfg.num_layers)
+        layers(lambda: block("decode", 1, "float32", length + new),
+               cfg.num_layers)
+
+    out: Dict[str, tuple] = {}
+    for path, entries in rows.items():
+        for kernel in ("rbmm_int", "rbmm_binary", "rbmm_mxu",
+                       "pack_threshold", "sps_attention"):
+            for name, spec, n in _merge([(nm, sp, n) for k, nm, sp, n
+                                         in entries if k == kernel]):
+                if kernel == "sps_attention":
+                    bb, hh, hk, length, dd, causal, *_ = spec
+                    dims = (f"B={bb} L={length} H={hh}/{hk} d_h={dd} "
+                            f"{'causal' if causal else 'bidirectional'}")
+                else:
+                    dims = _call_dims(kernel, spec)
+                out[f"{kernel} {arch} {path} {name} {dims}"] = (kernel, spec,
+                                                                 n)
+    return out
+
+
+def _encdec_table() -> Dict[str, tuple]:
+    """``encdec_calls`` of both archs at full width (internvl2 at
+    ``ENCDEC_LAYERS`` of its layers)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, static in ENCDEC_STATIC.items():
+        cfg = get_config(arch)
+        if ENCDEC_LAYERS[arch]:
+            cfg = cfg.truncated(ENCDEC_LAYERS[arch])
+        out.update(encdec_calls(cfg, static))
+    return out
+
+
+ENCDEC_CALLS = _encdec_table()
+
+
 def path_launches(calls: Dict[str, tuple], arch: str,
                   path: str) -> Dict[str, int]:
     """Launches of each kernel per step of one path of a
@@ -1104,10 +1317,11 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
                                                       seed).items():
         out[name] = dict(kernel=call, library=lib, bound=bnd,
                          step_launches=GEMMA_CALLS[name][2])
-    for name, (_, call, _, lib, bnd) in call_operands(RECURRENT_CALLS,
-                                                      seed).items():
-        out[name] = dict(kernel=call, library=lib, bound=bnd,
-                         step_launches=RECURRENT_CALLS[name][2])
+    for table in (RECURRENT_CALLS, ENCDEC_CALLS):
+        for name, (_, call, _, lib, bnd) in call_operands(table,
+                                                          seed).items():
+            out[name] = dict(kernel=call, library=lib, bound=bnd,
+                             step_launches=table[name][2])
     for name, (x, th) in pack_shapes(seed).items():
         res = pack.pack_threshold(x, th)
         out[name] = dict(

@@ -7,6 +7,10 @@ generation on the card (or, with ``--device cpu``, the plain versions).
 Flags mirror ``repro.launch.serve`` (smoke-size config of ``--arch``),
 plus ``--device`` and ``--sps-granularity`` (the config's by default;
 ``row`` reads a 512-column threshold table per head at each position).
+An arch with a frontend stub (internvl2-76b, seamless-m4t-large-v2) gets
+its ``frontend_embeds`` as standard normals drawn from ``--seed`` after
+the prompts, and ``max_len`` covers its frontend tokens too, as the JAX
+CLI does.
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dparams = model.convert(model.init(gen))
-    max_len = args.max_len or (args.prompt_len + args.new_tokens + 8)
+    max_len = args.max_len or (args.prompt_len + args.new_tokens +
+                               cfg.frontend_tokens + 8)
     eng = ServeEngine(model, dparams,
                       ServeConfig(sampler=args.sampler,
                                   temperature=args.temperature,
@@ -66,8 +71,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    kw = {}
+    if cfg.frontend_tokens:
+        kw["frontend_embeds"] = rng.standard_normal(
+            (args.batch, cfg.frontend_tokens, model.frontend_dim),
+            dtype=np.float32)
     t0 = time.perf_counter()
-    toks, report = eng.generate(prompts, max_new_tokens=args.new_tokens)
+    toks, report = eng.generate(prompts, max_new_tokens=args.new_tokens,
+                                **kw)
     dt = time.perf_counter() - t0
     tps = args.batch * args.new_tokens / dt
     print(f"[serve] {cfg.name} on {dev}: generated {toks.shape} in "

@@ -22,6 +22,13 @@
   deploy_verify_chunk / commit_chunk
                   speculative decode: the chunk attend without the write,
                   then the write of each sequence's accepted prefix only.
+  build_memory_cache / attend_memory
+                  cross-attention (``cross``: no RoPE): an encoder's output
+                  projected once into a static binary memory (K bits, V^T
+                  packed along the memory by the pack kernel), then any
+                  number of queries against it: xnor score and and_dc
+                  context on the rbmm_int kernel, the probabilities packed
+                  in between, no causal mask.
 
 Attention reads caches grouped by KV head (the query heads of one group
 are the rows of one RBMM against their KV head's ring) — the same integers
@@ -33,7 +40,6 @@ three SPS threshold granularities (``layer``, ``head``, and ``row``: a
 and causal sliding windows: a layer's ``window`` masks prefill and chunk
 keys at positions <= p - window, and its decode ring holds exactly the
 window (gemma's 5:1 local:global stacks pass each layer's own).
-Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -189,12 +195,15 @@ class SPSAttention:
     dtype: torch.dtype = torch.float32
     impl: str = "auto"              # projection route (core.rbmm)
     score_impl: str = "auto"        # decode score route; auto = popcount
+    cross: bool = False             # cross-attention (K/V from a memory)
 
     def __post_init__(self):
         if self.sps_granularity not in GRANULARITIES:
             raise NotImplementedError(
                 f"sps_granularity={self.sps_granularity!r} is not ported "
                 f"yet; the port supports {GRANULARITIES}")
+        if self.cross and self.use_rope:
+            raise ValueError("cross-attention takes no RoPE")
 
     @property
     def q_dim(self) -> int:
@@ -283,12 +292,16 @@ class SPSAttention:
         return theta[:, col].movedim(0, -1)
 
     def _project_qkv_deploy(self, params: Params, x: torch.Tensor,
-                            positions: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
+                            positions: torch.Tensor,
+                            parts: Tuple[str, ...] = ("wq", "wk", "wv")
+                            ) -> Tuple[Optional[torch.Tensor],
+                                       Optional[torch.Tensor],
+                                       Optional[torch.Tensor]]:
         """x (B,S,d) -> q_bits (B,H,S,dhp), k_bits (B,Hkv,S,dhp) and the fp
         V projection (B,S,Hkv,dh), which prefill packs along S and decode
-        thresholds per element."""
+        thresholds per element.  Only the projections of ``parts`` run
+        (the others come back None): cross-attention projects its queries
+        and its memory apart."""
         b, s, _ = x.shape
         h, hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
         dense = self._denses()
@@ -296,19 +309,20 @@ class SPSAttention:
         alpha = params["act_alpha"]
         proj = {name: dense[name].apply_deploy(
                     params[name], bits=bits_x, act_alpha=alpha,
-                    impl=self.impl) for name in ("wq", "wk", "wv")}
-        q = proj["wq"].reshape(b, s, h, dh)
-        k = proj["wk"].reshape(b, s, hkv, dh)
-        v = proj["wv"].reshape(b, s, hkv, dh)
+                    impl=self.impl) for name in parts}
+        heads = {"wq": h, "wk": hkv, "wv": hkv}
+        q, k, v = (proj[n].reshape(b, s, heads[n], dh) if n in proj
+                   else None for n in ("wq", "wk", "wv"))
         if self.use_rope:
             q = rope(q, positions, self.rope_theta)
             k = rope(k, positions, self.rope_theta)
         # per-head binarize + pack on the (B,S,H,dh) layout, then move the
         # (32x smaller) words to the head-major layout
-        q_bits = pack_ops.pack_threshold(q, params["q_beta"][:, None])
-        k_bits = pack_ops.pack_threshold(k, params["k_beta"][:, None])
-        return (q_bits.transpose(1, 2).contiguous(),
-                k_bits.transpose(1, 2).contiguous(), v)
+        q_bits, k_bits = (
+            None if t is None else pack_ops.pack_threshold(
+                t, params[beta][:, None]).transpose(1, 2).contiguous()
+            for t, beta in ((q, "q_beta"), (k, "k_beta")))
+        return q_bits, k_bits, v
 
     def _output_deploy(self, params: Params,
                        ctx_int: torch.Tensor) -> torch.Tensor:
@@ -629,6 +643,61 @@ class SPSAttention:
         vc_old = self._cache_ring_view(cache)[1]
         return self._write_chunk(cache, k_bits, v_bits, start, n_commit,
                                  vc_old)
+
+    # -- cross-attention over a static memory ---------------------------------
+
+    def build_memory_cache(self, params: Params,
+                           memory: torch.Tensor) -> KVCache:
+        """Project an encoder's output (B, S_enc, d) once into the binary
+        memory: K bits (B, Hkv, S_enc, dhp) and V^T (B, Hkv, d_h,
+        ceil(S_enc/32)) packed along the memory by the pack kernel's
+        strided route (as ``deploy_prefill`` packs V^T), with length
+        S_enc.  No RoPE: the keys carry no position."""
+        b, s, _ = memory.shape
+        _, k_bits, v = self._project_qkv_deploy(params, memory, None,
+                                                parts=("wk", "wv"))
+        vt_bits = pack_ops.pack_threshold(v.permute(0, 2, 3, 1),
+                                          params["v_beta"][:, None, None])
+        return KVCache(k_bits, vt_bits,
+                       torch.full((b,), s, dtype=torch.int32,
+                                  device=memory.device))
+
+    def attend_memory(self, params: Params, x: torch.Tensor,
+                      mem: KVCache) -> torch.Tensor:
+        """Cross-attention of x (B, S, d), any S, over the static memory
+        ``mem`` (read, never written; no causal mask).  The G*S query rows
+        of each KV head are the M of one xnor ``rbmm_int`` against its
+        memory keys (the decode route at M <= 16, the tensor cores above);
+        the SPS threshold, and the mask of memory columns >= ``mem.length``;
+        the probabilities packed along the memory (by the pack kernel
+        where M > 16); the context 2*popcount(P & V^T) - nnz(P) as the
+        and_dc ``rbmm_int`` over K = S_enc, whose derived dc cancels the
+        -K.  Queries sit at rows 0..S-1 of the ``row`` table, as in the
+        JAX package: a decode step reads row 0."""
+        b, s, _ = x.shape
+        h, hkv, g, dh = (self.num_heads, self.num_kv_heads, self.groups,
+                         self.head_dim)
+        skv = mem.k_bits.shape[2]
+        dev = x.device
+        q_bits, _, _ = self._project_qkv_deploy(params, x, None,
+                                                parts=("wq",))
+        qg = self._grouped(q_bits)                           # (B,Hkv,G*S,dhp)
+        c = rbmm.rbmm_int(qg, mem.k_bits, dh, scheme="xnor",
+                          impl=self._score_impl())          # (B,Hkv,G*S,Skv)
+        th = self._theta_at(self._theta_int(params),
+                            torch.arange(s, device=dev))     # (S, H)
+        th_rows = th.T.reshape(hkv, g * s, 1)
+        valid = (torch.arange(skv, device=dev)[None, :] <
+                 mem.length.reshape(-1, 1))                  # (B, Skv)
+        if g * s > 16:
+            probs_p = (pack_ops.pack_threshold(c, th_rows) &
+                       packing.pack_bits(valid)[:, None, None, :])
+        else:
+            probs_p = packing.pack_bits((c >= th_rows) &
+                                        valid[:, None, None, :])
+        ctx = rbmm.rbmm_int(probs_p, mem.vt_bits, skv, scheme="and_dc",
+                            impl="popcount")                # (B,Hkv,G*S,dh)
+        return self._output_deploy(params, ctx.reshape(b, h, s, dh))
 
     # -- decode ---------------------------------------------------------------
 

@@ -1,8 +1,12 @@
-"""Decoder blocks, deploy faces (port of ``repro.models.blocks.Block``):
+"""Transformer blocks, deploy faces (port of ``repro.models.blocks.Block``):
 ``kind`` "attn" (norm, SPS attention, norm, binary FFN), "hybrid" (the
 attention and a Mamba branch in parallel on the same normed input, their
-outputs averaged, then the FFN) and the xLSTM cells "mlstm" / "slstm" (norm
-and the cell, no FFN); the encoder-decoder kind "dec" is not ported yet.
+outputs averaged, then the FFN), the xLSTM cells "mlstm" / "slstm" (norm
+and the cell, no FFN) and the encoder-decoder's decoder layer "dec"
+(norm, causal self-attention, norm, cross-attention over the encoder's
+output, norm, FFN).  ``causal`` (None: ``cfg.causal``) makes an
+attention block bidirectional, as an encoder's are; RoPE stays on there,
+and only cross-attention takes none.
 The residual stream stays fp (BiT convention).  The norm is ``cfg.norm``
 (RMSNorm or LayerNorm) and the FFN the SiLU or GELU GLU or the ReLU FFN
 (Eq. 11 blocked when ``cfg.binary.ffn_block_r`` is set), or, with
@@ -13,7 +17,9 @@ sizes its decode ring, as in the JAX package: gemma's local:global stacks
 build blocks that differ in it only.
 
 Caches are per-layer dicts: "attn" a ``KVCache`` ring or ``PagedKVCache``,
-"mamba" a ``MambaCache``, "cell" an ``XLSTMCache``.  The chunk and decode
+"mamba" a ``MambaCache``, "cell" an ``XLSTMCache``, "cross" the static
+binary memory of a "dec" layer (a ``KVCache`` that decode reads and never
+writes).  The chunk and decode
 faces update every part IN PLACE (the recurrent carries by ``copy_``) and
 return the cache they were given, so a captured graph of a step and the
 engine hold the same tensors."""
@@ -32,7 +38,7 @@ from repro_torch.models.ssm import MambaBlock, MLSTMBlock, SLSTMBlock
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "hybrid", "mlstm", "slstm")
+KINDS = ("attn", "hybrid", "mlstm", "slstm", "dec")
 RECURRENT = ("mamba", "cell")   # the cache parts that hold carries
 
 
@@ -67,14 +73,14 @@ class Block:
     cfg: ModelConfig
     kind: str = "attn"
     window: int = 0
+    causal: Optional[bool] = None
 
     def __post_init__(self):
         cfg = self.cfg
         if self.kind not in KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {self.kind!r} is not ported yet; "
-                f"the port runs {KINDS}")
-        if self.kind != "attn" and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: unknown block kind "
+                             f"{self.kind!r}; kinds are {KINDS}")
+        if self.kind not in ("attn", "dec") and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a {self.kind!r} block needs "
                              f"cfg.ssm")
         if cfg.norm not in ("rmsnorm", "layernorm") or (
@@ -88,18 +94,19 @@ class Block:
 
     @property
     def _has_ffn(self) -> bool:
-        return self.kind in ("attn", "hybrid")
+        return self.kind in ("attn", "hybrid", "dec")
 
-    def _attn(self) -> SPSAttention:
+    def _attn(self, cross: bool = False) -> SPSAttention:
         cfg = self.cfg
         return SPSAttention(
             d_model=cfg.d_model, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            causal=cfg.causal, use_rope=cfg.rope_theta > 0,
+            causal=cfg.causal if self.causal is None else self.causal,
+            use_rope=cfg.rope_theta > 0 and not cross,
             rope_theta=cfg.rope_theta or 10_000.0, qkv_bias=cfg.attn_bias,
             sps_granularity=cfg.binary.sps_granularity,
             dtype=compute_dtype(cfg), impl=cfg.binary.impl,
-            score_impl=cfg.binary.score_impl)
+            score_impl=cfg.binary.score_impl, cross=cross)
 
     def _ffn(self):
         return _ffn_from_cfg(self.cfg)
@@ -111,8 +118,10 @@ class Block:
         """The block's submodules by param key, as the JAX ``_parts``."""
         cfg, dt = self.cfg, compute_dtype(self.cfg)
         parts: Dict[str, Any] = {}
-        if self.kind in ("attn", "hybrid"):
+        if self.kind in ("attn", "hybrid", "dec"):
             parts["attn"] = self._attn()
+        if self.kind == "dec":
+            parts["cross"] = self._attn(cross=True)
         if self.kind == "hybrid":
             parts["mamba"] = MambaBlock(
                 cfg.d_model, state_size=cfg.ssm.state_size,
@@ -134,12 +143,14 @@ class Block:
         p["norm1"] = self._norm().init(device)
         if self._has_ffn:
             p["norm2"] = self._norm().init(device)
+        if self.kind == "dec":
+            p["norm_x"] = self._norm().init(device)
         return p
 
     def convert(self, params: Params) -> Params:
         out = {name: mod.convert(params[name])
                for name, mod in self._parts().items()}
-        for name in ("norm1", "norm2"):
+        for name in ("norm1", "norm2", "norm_x"):
             if name in params:
                 out[name] = params[name]
         return out
@@ -151,18 +162,31 @@ class Block:
         return x + self._ffn().apply_deploy(
             params["ffn"], self._norm().apply(params["norm2"], x))
 
+    def _cross_residual(self, params: Params, x: torch.Tensor,
+                        mem) -> torch.Tensor:
+        """A "dec" layer's cross-attention over its memory cache."""
+        return x + self._parts()["cross"].attend_memory(
+            params["cross"], self._norm().apply(params["norm_x"], x), mem)
+
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions=None, cache_size: int = 0,
-                       seq_lens=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                       seq_lens=None,
+                       memory: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Whole-sequence forward; ``seq_lens`` (B,) takes a ragged,
         right-padded batch (see ``SPSAttention.deploy_prefill``; the
         recurrent carries freeze past each length).  With ``cache_size``
         the decode cache: the attention ring and the carries at each
-        sequence's end."""
+        sequence's end.  A "dec" layer attends over ``memory`` (B, S_enc,
+        d), the encoder's output, projected here into the binary memory
+        that its cache keeps as "cross"; it takes no ``seq_lens``."""
+        if seq_lens is not None and self.kind == "dec":
+            raise ValueError("ragged prefill (seq_lens) does not support "
+                             "enc-dec decoder blocks")
         parts = self._parts()
         h = self._norm().apply(params["norm1"], x)
         cache: Dict[str, Any] = {}
-        if self.kind in ("attn", "hybrid"):
+        if self.kind in ("attn", "hybrid", "dec"):
             a_out, kv = parts["attn"].deploy_prefill(
                 params["attn"], h, positions=positions, window=self.window,
                 cache_size=cache_size, seq_lens=seq_lens)
@@ -176,6 +200,12 @@ class Block:
                     m, cache["mamba"] = m
                 a_out = 0.5 * (a_out + m)
             x = x + a_out
+            if self.kind == "dec":
+                mem = parts["cross"].build_memory_cache(params["cross"],
+                                                        memory)
+                x = self._cross_residual(params, x, mem)
+                if cache_size:
+                    cache["cross"] = mem
         else:
             out = parts["cell"].apply(
                 params["cell"], h, deploy=True,
@@ -194,7 +224,12 @@ class Block:
         ``SPSAttention.deploy_prefill_chunk``); the recurrent carries
         resume from the cache (``state=``) and the new ones are copied
         back in place.  Rows with ``valid_len == 0`` write no attention
-        bits and keep every carry bit for bit."""
+        bits and keep every carry bit for bit.  Enc-dec decoder layers
+        have no chunk face."""
+        if self.kind == "dec":
+            raise ValueError(
+                "chunked prefill does not support enc-dec decoder blocks "
+                f"(kind={self.kind!r})")
         parts = self._parts()
         h = self._norm().apply(params["norm1"], x)
         if self.kind in ("attn", "hybrid"):
@@ -246,13 +281,15 @@ class Block:
         return cache
 
     def init_cache(self, batch: int, max_len: int, device,
-                   paged: Optional[PageSpec] = None) -> Dict[str, Any]:
+                   paged: Optional[PageSpec] = None,
+                   memory_len: int = 0) -> Dict[str, Any]:
         """Empty decode cache: the attention part a contiguous ring of
         min(window or max_len, max_len), or with ``paged`` a page arena
         of ``paged.arena_pages`` pages and block tables covering the
         layer's logical ring, ``paged.ring_for(window)`` (windowed groups
         are fully provisioned: they are bounded by the window); the
-        recurrent carries at their init values, dense either way."""
+        recurrent carries at their init values, dense either way; a "dec"
+        layer's memory of ``memory_len`` (at least 1) positions."""
         parts = self._parts()
         cache: Dict[str, Any] = {}
         if "attn" in parts:
@@ -266,6 +303,9 @@ class Block:
                     batch, ring_len=ring, page_size=paged.page_size,
                     num_blocks=paged.blocks_for_ring(ring),
                     num_pages=paged.arena_pages(ring, batch), device=device)
+        if "cross" in parts:
+            cache["cross"] = parts["cross"].init_cache(
+                batch, memory_len or 1, device)
         for name in RECURRENT:
             if name in parts:
                 cache[name] = parts[name].init_cache(batch, device)
@@ -287,10 +327,11 @@ class Block:
                       cache: Dict[str, Any]
                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token per sequence: the attention cache and the carries
-        advance in place."""
+        advance in place; a "dec" layer reads its memory ("cross") and
+        never writes it."""
         parts = self._parts()
         h = self._norm().apply(params["norm1"], x)
-        if self.kind in ("attn", "hybrid"):
+        if self.kind in ("attn", "hybrid", "dec"):
             a_out, _ = parts["attn"].deploy_decode(params["attn"], h,
                                                    cache["attn"])
             if self.kind == "hybrid":
@@ -299,6 +340,8 @@ class Block:
                 _store(cache["mamba"], mc)
                 a_out = 0.5 * (a_out + m_out)
             x = x + a_out
+            if self.kind == "dec":
+                x = self._cross_residual(params, x, cache["cross"])
         else:
             out, cc = parts["cell"].decode_step(params["cell"], h,
                                                 cache["cell"])

@@ -1,4 +1,6 @@
-"""LM wrapper, deploy faces (port of ``repro.models.lm.LMModel``).
+"""LM wrappers, deploy faces (port of ``repro.models.lm``): the
+decoder-only ``LMModel`` (every LM family, with the frontend stub of the
+[vlm] archs) and the encoder-decoder ``EncDecModel`` (seamless' backbone).
 
   prefill_logits      deploy full-sequence forward, no cache: the encoder
                       face of bert-base-cobra (bidirectional attention,
@@ -27,6 +29,14 @@ for xLSTM, instead of) the rings.  As in the JAX
 package, prefill runs the residual stream in ``compute_dtype`` while
 decode keeps the float32 embedding (projection outputs are still rounded
 to ``compute_dtype``).
+
+The frontend stub (``cfg.frontend_tokens`` F, as internvl2's InternViT):
+the caller passes precomputed embeddings (B, F, ``frontend_dim``); one fp
+projection maps them to d_model, and they are prepended to the token
+embeddings, so the prefill covers F + S positions and decode continues at
+position F + S.  Frontend models prefill whole prompts only: chunk
+continuation, speculative verify and the truncated draft raise, as they
+serve token-only decoders.
 """
 from __future__ import annotations
 
@@ -59,6 +69,17 @@ def _sqrt_rounded(d: int, dtype: torch.dtype) -> float:
     return torch.tensor(d, dtype=torch.float32).sqrt().to(dtype).item()
 
 
+def _on_device(dparams: Params, device) -> torch.device:
+    """The device an entry point runs on, which must hold ``dparams``."""
+    dev = resolve_device(device)
+    on = dparams["embed"]["embedding"].device
+    if on.type != dev.type or dev.index not in (None, on.index):
+        raise ValueError(f"prefill_logits(device={str(device)!r}): the "
+                         f"params lie on {on}; build them there or move "
+                         f"them with repro_torch.to_device")
+    return dev
+
+
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """[(block kind, window)] of the decoder stack (JAX ``_layer_plan``)."""
     plan = []
@@ -83,10 +104,6 @@ class LMModel:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.frontend_tokens:
-            raise NotImplementedError(
-                "frontend stubs are not ported yet; the port runs "
-                "token-only models")
         for kind, w in set(self.plan):
             self._block(kind, w)   # raises for what is not ported yet
 
@@ -111,6 +128,15 @@ class LMModel:
         return nn.Dense(self.cfg.d_model, padded_vocab(self.cfg.vocab_size),
                         use_bias=False)
 
+    def _frontend(self) -> Optional[nn.Dense]:
+        if not self.cfg.frontend_tokens:
+            return None
+        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False)
+
+    @property
+    def frontend_dim(self) -> int:
+        return min(self.cfg.d_model, 1024)
+
     def _norm(self):
         return nn.make_norm(self.cfg.norm, self.cfg.d_model)
 
@@ -124,6 +150,9 @@ class LMModel:
         head = self._head()
         if head is not None:
             p["head"] = head.init(gen, dev)
+        frontend = self._frontend()
+        if frontend is not None:
+            p["frontend"] = frontend.init(gen, dev)
         p["blocks"] = [blk.init(gen, dev) for blk in self._blocks()]
         return p
 
@@ -140,10 +169,29 @@ class LMModel:
         dtype before the product, as the JAX package does."""
         return x * _sqrt_rounded(self.cfg.d_model, x.dtype)
 
-    def _embed_tokens(self, params: Params,
-                      tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, params: Params, tokens: torch.Tensor,
+                      frontend_embeds=None) -> torch.Tensor:
+        """Token embeddings in ``compute_dtype``, scaled; with the frontend
+        stub the projected ``frontend_embeds`` (cast to ``compute_dtype``
+        first) before them, in the dtype both promote to, as the JAX
+        package concatenates them."""
         x = self._embed().apply(params["embed"], tokens)
-        return self._scale(x.to(compute_dtype(self.cfg)))
+        x = self._scale(x.to(compute_dtype(self.cfg)))
+        if not self.cfg.frontend_tokens:
+            return x
+        if frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name} needs frontend_embeds "
+                             f"(B, {self.cfg.frontend_tokens}, "
+                             f"{self.frontend_dim})")
+        fe = self._frontend().apply(
+            params["frontend"],
+            torch.as_tensor(frontend_embeds, device=x.device).to(x.dtype))
+        dt = torch.promote_types(fe.dtype, x.dtype)
+        return torch.cat([fe.to(dt), x.to(dt)], dim=1)
+
+    def _token_only(self, face: str) -> None:
+        if self.cfg.frontend_tokens:
+            raise ValueError(f"{face} serves token-only decoders")
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = self._norm().apply(params["final_norm"], x)
@@ -167,19 +215,17 @@ class LMModel:
     # -- deploy faces ---------------------------------------------------------
 
     def prefill_logits(self, dparams: Params, tokens, *,
+                       frontend_embeds=None,
                        device="cuda") -> torch.Tensor:
         """Deploy full-sequence forward, no cache: tokens (B, S) -> logits
-        (B, S, V).  Attention is causal or bidirectional as ``cfg.causal``
-        says.  ``dparams`` must already lie on ``device`` (CUDA by default;
-        pass ``device="cpu"`` for the plain versions); ``tokens`` are
-        moved there."""
-        dev = resolve_device(device)
-        on = dparams["embed"]["embedding"].device
-        if on.type != dev.type or dev.index not in (None, on.index):
-            raise ValueError(f"prefill_logits(device={str(device)!r}): the "
-                             f"params lie on {on}; build them there or "
-                             f"move them with repro_torch.to_device")
-        x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev))
+        (B, S, V), or (B, F + S, V) with the frontend stub's
+        ``frontend_embeds`` (B, F, ``frontend_dim``).  Attention is causal
+        or bidirectional as ``cfg.causal`` says.  ``dparams`` must already
+        lie on ``device`` (CUDA by default; pass ``device="cpu"`` for the
+        plain versions); the inputs are moved there."""
+        dev = _on_device(dparams, device)
+        x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev),
+                               frontend_embeds)
         for blk, bp in zip(self._blocks(), dparams["blocks"]):
             x, _ = blk.deploy_prefill(bp, x)
         return self._logits(dparams, x)
@@ -188,7 +234,8 @@ class LMModel:
                            max_len: int = 0,
                            seq_lens: Optional[torch.Tensor] = None,
                            caches: Optional[List[Dict[str, Any]]] = None,
-                           start: Optional[torch.Tensor] = None
+                           start: Optional[torch.Tensor] = None,
+                           frontend_embeds=None
                            ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """tokens (B, S) -> (logits (B, 1, V) at the last token, per-layer
         caches with rings of min(window or max_len, max_len): a windowed
@@ -204,16 +251,25 @@ class LMModel:
         (default: the caches' own lengths) are written; ``seq_lens`` is
         each row's real chunk width, logits come at each row's last real
         token, and ``max_len`` is ignored.  The caches update in place and
-        come back as the same objects."""
+        come back as the same objects.
+
+        With the frontend stub, ``frontend_embeds`` (B, F, ``frontend_dim``)
+        go before the tokens: the rings hold F + S tokens (``max_len``
+        must cover them and the new ones) and ``seq_lens`` count the
+        tokens only.  Frontend models have no continuation mode."""
         if caches is not None:
+            if frontend_embeds is not None or self.cfg.frontend_tokens:
+                raise ValueError("chunked prefill serves token-only "
+                                 "decoders")
             return self._prefill_continue(dparams, tokens, caches,
                                           start=start, seq_lens=seq_lens)
         if max_len <= 0:
             raise ValueError("prefill_with_cache needs max_len > 0 (or "
                              "caches= for chunk continuation)")
-        x = self._embed_tokens(dparams, tokens)
+        x = self._embed_tokens(dparams, tokens, frontend_embeds)
         sl = None if seq_lens is None else torch.as_tensor(
-            seq_lens, device=x.device).to(torch.int32)
+            seq_lens, device=x.device).to(torch.int32) + \
+            self.cfg.frontend_tokens
         caches_out: List[Dict[str, Any]] = []
         for blk, bp in zip(self._blocks(), dparams["blocks"]):
             x, cache = blk.deploy_prefill(
@@ -252,6 +308,7 @@ class LMModel:
         as chunked prefill does), so each position computes what a decode
         step would and greedy speculative decode equals plain decode in
         bf16 too.  In float32 the two are the same function."""
+        self._token_only("speculative verify")
         x = self._scale(self._embed().apply(dparams["embed"], tokens))
         projs: List[Any] = []
         for blk, bp, cache in zip(self._blocks(), dparams["blocks"], caches):
@@ -277,7 +334,9 @@ class LMModel:
         ``num_layers`` blocks of this model, with the embedding, final
         norm and head SHARED.  The draft's params hold the trunk's own
         tensors (nothing is copied); only its caches are its own.
-        Returns (draft_model, draft_dparams)."""
+        Returns (draft_model, draft_dparams).  A frontend model has no
+        draft: its verify raises."""
+        self._token_only("the speculative draft")
         n = num_layers
         if not 1 <= n <= self.cfg.num_layers:
             raise ValueError(f"draft depth {n} outside [1, "
@@ -323,9 +382,175 @@ class LMModel:
         return self._logits(dparams, x), caches
 
 
-def build_model(cfg: ModelConfig) -> LMModel:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port builds "
-            f"dense, MoE, hybrid and SSM models")
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t backbone)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecModel:
+    """The encoder-decoder: the frontend stub's fp projection of the
+    caller's embeddings (B, S_enc, ``frontend_dim``), applied as given (no
+    cast, as in the JAX package), then ``num_encoder_layers``
+    bidirectional attention blocks (RoPE on) and ``enc_norm``: the memory.
+    The decoder: ``num_layers`` "dec" blocks (causal self-attention, then
+    cross-attention over the memory, then the FFN), ``final_norm`` and the
+    untied head.  Its token embedding is cast to ``compute_dtype`` at
+    prefill and at decode alike, as the JAX package casts it (the
+    decoder-only ``LMModel`` keeps it float32 at decode).  Each decoder
+    cache holds the self-attention ring ("attn") and the static binary
+    memory ("cross"), which decode reads and never writes.  Prefill takes
+    whole, equal-length prompts; there is no chunk face."""
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        self._enc_block()
+        self._dec_block()
+
+    @property
+    def enc_layers(self) -> int:
+        return self.cfg.num_encoder_layers
+
+    def _enc_block(self) -> Block:
+        return Block(self.cfg, kind="attn", causal=False)
+
+    def _dec_block(self) -> Block:
+        return Block(self.cfg, kind="dec")
+
+    def _embed(self) -> nn.Embedding:
+        return nn.Embedding(padded_vocab(self.cfg.vocab_size),
+                            self.cfg.d_model)
+
+    def _head(self) -> nn.Dense:
+        return nn.Dense(self.cfg.d_model, padded_vocab(self.cfg.vocab_size),
+                        use_bias=False)
+
+    def _frontend(self) -> nn.Dense:
+        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False)
+
+    @property
+    def frontend_dim(self) -> int:
+        return min(self.cfg.d_model, 1024)
+
+    def _norm(self):
+        return nn.make_norm(self.cfg.norm, self.cfg.d_model)
+
+    # -- params ---------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device."""
+        dev = gen.device
+        enc, dec = self._enc_block(), self._dec_block()
+        return {"embed": self._embed().init(gen, dev),
+                "frontend": self._frontend().init(gen, dev),
+                "head": self._head().init(gen, dev),
+                "enc_norm": self._norm().init(dev),
+                "final_norm": self._norm().init(dev),
+                "encoder": [enc.init(gen, dev)
+                            for _ in range(self.enc_layers)],
+                "decoder": [dec.init(gen, dev)
+                            for _ in range(self.cfg.num_layers)]}
+
+    def convert(self, params: Params) -> Params:
+        out = {k: v for k, v in params.items()
+               if k not in ("encoder", "decoder")}
+        out["encoder"] = [self._enc_block().convert(lp)
+                          for lp in params["encoder"]]
+        out["decoder"] = [self._dec_block().convert(lp)
+                          for lp in params["decoder"]]
+        return out
+
+    # -- deploy faces ---------------------------------------------------------
+
+    def encode(self, dparams: Params,
+               frontend_embeds: torch.Tensor) -> torch.Tensor:
+        """frontend_embeds (B, S_enc, ``frontend_dim``) -> the memory (B,
+        S_enc, d), in the dtype the projection gives them."""
+        x = self._frontend().apply(dparams["frontend"], frontend_embeds)
+        blk = self._enc_block()
+        for lp in dparams["encoder"]:
+            x, _ = blk.deploy_prefill(lp, x)
+        return self._norm().apply(dparams["enc_norm"], x)
+
+    def _embed_tokens(self, params: Params,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        x = self._embed().apply(params["embed"], tokens)
+        x = x.to(compute_dtype(self.cfg))
+        return x * _sqrt_rounded(self.cfg.d_model, x.dtype)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = self._norm().apply(params["final_norm"], x)
+        return self._head().apply(params["head"],
+                                  x)[..., :self.cfg.vocab_size]
+
+    def _decoder(self, dparams: Params, tokens: torch.Tensor,
+                 frontend_embeds, cache_size: int = 0):
+        """Encode, then the decoder stack over the tokens: (hidden (B, S,
+        d), per-layer caches when ``cache_size``)."""
+        dev = tokens.device
+        memory = self.encode(dparams, torch.as_tensor(frontend_embeds,
+                                                      device=dev))
+        x = self._embed_tokens(dparams, tokens)
+        blk, caches = self._dec_block(), []
+        for lp in dparams["decoder"]:
+            x, cache = blk.deploy_prefill(lp, x, memory=memory,
+                                          cache_size=cache_size)
+            caches.append(cache)
+        return x, caches
+
+    def prefill_logits(self, dparams: Params, tokens, *, frontend_embeds,
+                       device="cuda") -> torch.Tensor:
+        """Deploy forward, no cache: tokens (B, S) and frontend_embeds (B,
+        S_enc, ``frontend_dim``) -> logits (B, S, V).  ``dparams`` must
+        already lie on ``device`` (CUDA by default; ``device="cpu"`` for
+        the plain versions); the inputs are moved there."""
+        dev = _on_device(dparams, device)
+        x, _ = self._decoder(dparams, torch.as_tensor(tokens, device=dev),
+                             frontend_embeds)
+        return self._logits(dparams, x)
+
+    def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,
+                           max_len: int, frontend_embeds
+                           ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+        """tokens (B, S) -> (logits (B, 1, V) at the last token, per-layer
+        caches: self-attention rings of ``max_len`` and the memory of
+        S_enc positions)."""
+        if max_len <= 0:
+            raise ValueError("prefill_with_cache needs max_len > 0")
+        x, caches = self._decoder(dparams, tokens, frontend_embeds,
+                                  cache_size=max_len)
+        return self._logits(dparams, x[:, -1:]), caches
+
+    def init_caches(self, batch: int, max_len: int, device,
+                    paged: Optional[PageSpec] = None,
+                    memory_len: int = 0) -> List[Dict[str, Any]]:
+        """Empty per-layer decode caches: rings of ``max_len`` and a memory
+        of ``memory_len`` positions (at least 1).  The decoder serves
+        from contiguous rings only."""
+        if paged is not None:
+            raise ValueError("the encoder-decoder serves contiguous rings "
+                             "only, through the static path")
+        blk = self._dec_block()
+        return [blk.init_cache(batch, max_len, device,
+                               memory_len=memory_len)
+                for _ in range(self.cfg.num_layers)]
+
+    def decode_step(self, dparams: Params, token: torch.Tensor,
+                    caches: List[Dict[str, Any]]
+                    ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+        """token: (B, 1).  Returns (logits (B, 1, V), caches): the caches
+        given, their rings and lengths updated in place (the memory
+        read only)."""
+        x = self._embed_tokens(dparams, token)
+        blk = self._dec_block()
+        for lp, cache in zip(dparams["decoder"], caches):
+            x, _ = blk.deploy_decode(lp, x, cache)
+        return self._logits(dparams, x), caches
+
+
+def build_model(cfg: ModelConfig):
+    """The JAX package's rule: an ``EncDecModel`` for the audio family or
+    any encoder layers, an ``LMModel`` otherwise."""
+    if cfg.family == "audio" or cfg.num_encoder_layers:
+        return EncDecModel(cfg)
     return LMModel(cfg)

@@ -38,6 +38,13 @@ copied into each graph's static buffers.  Sampling runs eagerly on the
 replayed logits.  Prefill of the static batch, the copy-on-write page
 copies and all host bookkeeping run between replays.
 
+Frontend models (internvl2's patch embeddings before the prompt) and the
+encoder-decoder (seamless: the frame embeddings go through the encoder,
+the decoder attends over its binary memory) serve through the static path
+only, ``generate(prompts_2d, frontend_embeds=...)``, as in the JAX
+package: the pool of the decode graph takes the prefilled caches, the
+decoder's static memories included.
+
 Recurrent families (hymba's hybrid blocks, xlstm's cells) ride the same
 steps: a prefill chunk resumes each row's carries from the pool (rows
 starting a prompt are first put back to the carries' init values, inside
@@ -418,17 +425,19 @@ class ServeEngine:
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.cfg.seed)
 
-    def _pool_caches(self, batch: int, spec: Optional[PageSpec]
-                     ) -> Tuple[tuple, list]:
-        """(key, caches): the engine's caches for a pool of ``batch`` rows,
-        built at first use and kept, since a captured step reads them at
-        fixed addresses.  The paged layers of a ring group share one
-        device block table."""
-        key = (batch, self.cfg.max_len, spec)
+    def _pool_caches(self, batch: int, spec: Optional[PageSpec],
+                     memory_len: int = 0) -> Tuple[tuple, list]:
+        """(key, caches): the engine's caches for a pool of ``batch`` rows
+        (and, for an encoder-decoder, memories of ``memory_len``
+        positions), built at first use and kept, since a captured step
+        reads them at fixed addresses.  The paged layers of a ring group
+        share one device block table."""
+        key = (batch, self.cfg.max_len, spec, memory_len)
         caches = self._pools.get(key)
         if caches is None:
+            kw = {"memory_len": memory_len} if memory_len else {}
             caches = self.model.init_caches(batch, self.cfg.max_len,
-                                            self.device, paged=spec)
+                                            self.device, paged=spec, **kw)
             if spec:
                 tables: Dict[int, torch.Tensor] = {}
                 for i, ring in enumerate(self._layer_rings(spec)):
@@ -571,10 +580,13 @@ class ServeEngine:
     # -- public API ---------------------------------------------------------
 
     def generate(self, prompts, *, max_new_tokens: int,
+                 frontend_embeds=None,
                  stream_cb: Optional[Callable] = None):
         """A (B, S) array of prompts -> static batching: (tokens (B,
         max_new_tokens) int32 numpy, EngineReport), ``stream_cb(step,
-        tokens)`` after the prefill and every decode step.
+        tokens)`` after the prefill and every decode step.  A frontend
+        model or an encoder-decoder takes its ``frontend_embeds`` (B, F,
+        ``model.frontend_dim``) here, static batching only.
 
         A list of 1-D prompts -> continuous batching over the slot pool:
         (list of per-prompt token arrays, EngineReport), ``stream_cb(rid,
@@ -582,7 +594,8 @@ class ServeEngine:
         ndim = getattr(prompts, "ndim", None)
         if ndim == 2:
             return self._generate_static(np.asarray(prompts),
-                                         max_new_tokens, stream_cb)
+                                         max_new_tokens, frontend_embeds,
+                                         stream_cb)
         if ndim is not None and ndim != 1:
             raise ValueError(f"prompts array must be (B, S), got "
                              f"{ndim}-D; a single prompt is [prompt] or "
@@ -590,6 +603,9 @@ class ServeEngine:
         if ndim == 1:
             raise ValueError("single 1-D prompt: pass prompt[None, :] for "
                              "static batching or [prompt] for continuous")
+        if frontend_embeds is not None:
+            raise ValueError("frontend models serve via the static path "
+                             "(pass an equal-length (B, S) batch)")
         requests = [Request(rid=i, tokens=np.asarray(p, np.int32),
                             max_new_tokens=max_new_tokens)
                     for i, p in enumerate(prompts)]
@@ -600,8 +616,8 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _generate_static(self, prompts: np.ndarray, max_new_tokens: int,
-                         stream_cb) -> Tuple[np.ndarray,
-                                             kvcache.EngineReport]:
+                         frontend_embeds, stream_cb
+                         ) -> Tuple[np.ndarray, kvcache.EngineReport]:
         if self.cfg.paged:
             raise ValueError(
                 "paged caches serve through the continuous path: pass a "
@@ -610,10 +626,17 @@ class ServeEngine:
         b, s = prompts.shape
         gen = self._generator()
         toks = torch.as_tensor(prompts.astype(np.int64), device=self.device)
+        kw = {}
+        if frontend_embeds is not None:
+            kw["frontend_embeds"] = torch.as_tensor(frontend_embeds,
+                                                    device=self.device)
         logits, prefilled = self.model.prefill_with_cache(
-            self.dparams, toks, max_len=self.cfg.max_len)
-        # the decode graph's caches take the prefilled rings
-        key, caches = self._pool_caches(b, None)
+            self.dparams, toks, max_len=self.cfg.max_len, **kw)
+        # the decode graph's caches take the prefilled rings (and an
+        # encoder-decoder's memories, whose length the prefill fixed)
+        mem = prefilled[0].get("cross")
+        key, caches = self._pool_caches(
+            b, None, 0 if mem is None else mem.k_bits.shape[2])
         for dst, src in zip(graphs_lib.cache_tensors(caches),
                             graphs_lib.cache_tensors(prefilled)):
             dst.copy_(src)
@@ -718,7 +741,13 @@ class ServeEngine:
         admission, paged growth (preempting when the arena runs dry) and
         the copy-on-write sweep, then ONE pooled forward, the unified
         chunk+decode forward while any prefill is in flight and the pooled
-        decode (or speculative draft-verify-commit) step otherwise."""
+        decode (or speculative draft-verify-commit) step otherwise.
+        Decoder-only token models only, as in the JAX package: frontend
+        models and the encoder-decoder serve through the static path."""
+        if (getattr(self.model.cfg, "frontend_tokens", 0)
+                or not hasattr(self.model, "plan")):
+            raise ValueError("continuous batching serves decoder-only "
+                             "token models")
         spec = self.cfg.page_spec() if self.cfg.paged else None
         # full-attention layers cap a request at the ring (contiguous:
         # max_len) or the block-table capacity (paged): past it the ring

@@ -186,8 +186,6 @@ def test_bridge_keeps_word_bits_and_splits_stacked_blocks():
 
 
 def test_not_ported_yet_boundaries():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        base.get_config("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         base.get_config("gpt-2")
     cfg = base.get_config("smollm-135m")
@@ -195,10 +193,13 @@ def test_not_ported_yet_boundaries():
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
             cfg.compute_dtype) == (30, 576, 9, 3, 64, 1536, 49152,
                                    "bfloat16")
-    # windows, the GELU GLU, the row granularity, MoE's deploy face and
-    # the recurrent families' deploy faces are ported; the QAT faces (MoE's,
-    # the recurrent blocks'), the encoder-decoder family ("dec" blocks)
-    # and frontends are not
+    # windows, the GELU GLU, the row granularity, MoE's deploy face, the
+    # recurrent families' deploy faces, the encoder-decoder family and the
+    # frontend stub are ported, and every arch resolves; the QAT faces
+    # (MoE's, the recurrent blocks') are not, and frontend models serve
+    # statically only, as in the JAX package
+    for arch in base.ARCH_IDS:
+        assert base.get_config(arch).name == arch
     assert SPSAttention(96, 3, 1, 32, sps_granularity="row").init(
         torch.Generator(), "cpu")["sps_lambda"].shape == (3, 512)
     moe = build_model(base.get_smoke_config("granite-3-2b").with_(
@@ -210,14 +211,15 @@ def test_not_ported_yet_boundaries():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cell.apply(cell.init(torch.Generator(), "cpu"),
                    torch.zeros(1, 2, 128))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Block(base.get_smoke_config("smollm-135m"), kind="dec")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(base.get_smoke_config("smollm-135m").with_(
-            frontend_tokens=4))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(base.get_smoke_config("smollm-135m").with_(
-            family="encdec", num_encoder_layers=2))
-    for arch in ("seamless-m4t-large-v2", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            base.get_config(arch)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        Block(base.get_smoke_config("smollm-135m"), kind="cross")
+    assert Block(base.get_smoke_config("smollm-135m"), kind="dec"
+                 )._parts()["cross"].cross
+    vlm = build_model(base.get_smoke_config("internvl2-76b"))
+    eng = engine.ServeEngine(vlm, vlm.convert(vlm.init(torch.Generator())),
+                             engine.ServeConfig(), device="cpu")
+    with pytest.raises(ValueError, match="decoder-only token models"):
+        eng.generate([np.arange(4)], max_new_tokens=2)
+    encdec = build_model(base.get_smoke_config("smollm-135m").with_(
+        family="encdec", num_encoder_layers=2))
+    assert type(encdec).__name__ == "EncDecModel"
