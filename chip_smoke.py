@@ -226,6 +226,23 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 static engines' tokens equal; seamless over memories of 8
                 and 40 frames
 
+  22. train    smollm-135m at full width and depth trains through the
+                port's ``launch/train.py`` (``build`` and ``ft.run``:
+                AdamW at lr 3e-3 with warmup-cosine, the synthetic bigram
+                stream of B=16 x 128 tokens, bf16 compute, float32 masters
+                and moments, remat per block), 30 steps with a checkpoint
+                every 10: losses finite and falling, ms per step,
+                tokens/s, peak memory, one profiled step's busy share and
+                top kernels (``[train]``); a fresh trainer restarts from
+                the step-10 checkpoint (restored bitwise against the
+                manifest's sha256) and runs to step 30 with the
+                uninterrupted run's losses (``[train restart]``); a narrow
+                float32 config trains 3 steps on the card and on the CPU
+                from one init (``[train card==cpu]``); the trained
+                full-width params convert and serve 8 prompts of the
+                stream greedily through the Hopper kernels, the decode
+                step a graph replay (``[train serve]``), and the narrow
+                model's QAT logits equal its deploy logits on the card
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -3332,6 +3349,338 @@ def phase_crosscheck_frontend() -> None:
                 f"diff| {diff:.3g} <= {CROSS_ATOL}")
 
 
+# -- phase 22: train ----------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 30, 10
+TRAIN_LOGGED = (0, 10, 20, 29)
+TRAIN_MEDIAN_FROM = 5            # steps 5..29 give the median step time
+TRAIN_TOP = 8
+TRAIN_EAGER_STEPS = 3
+# Restarted run against the uninterrupted one, per step's loss: the
+# restored state is the saved one bitwise and every op of a step is
+# deterministic on one card but for reductions whose order the library
+# may pick per call; a flipped sign in a binary net moves the loss far
+# more than rounding, so the gate is loose and the log says whether the
+# two runs were bitwise equal
+TRAIN_RESTART_RTOL = 1e-3
+# narrow float32 config, card against CPU over 3 steps from one init
+TRAIN_NARROW = dict(remat="block")   # on the smollm smoke config
+TRAIN_NARROW_B, TRAIN_NARROW_S, TRAIN_NARROW_STEPS = 8, 64, 3
+TRAIN_LOSS_RTOL = 1e-5
+# params: Adam's m / sqrt(v) turns a last-bit difference of a near-zero
+# gradient into a step of up to lr, so the largest difference is bounded
+# by 2 lr per step, and almost every element must agree to 1e-5
+TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3
+QAT_DEPLOY_ATOL = 2e-3           # JAX's own QAT == deploy tolerance
+
+
+def _train_args(ckpt_dir: str, extra=()):
+    from repro_torch.launch import train as train_cli
+    return train_cli.parse_args(
+        ["--full", "--steps", str(TRAIN_STEPS), "--ckpt-every",
+         str(TRAIN_CKPT_EVERY), "--ckpt-dir", ckpt_dir, "--seed",
+         str(SEED), *extra])
+
+
+def _run_train(trainer, stream, ckpt, tag: str) -> dict:
+    """``ft.run`` to TRAIN_STEPS; {step: (loss, seconds)}."""
+    from repro_torch.train import ft
+    record = {}
+
+    def on_step(step, metrics, dt):
+        record[step] = (float(metrics["loss"]), dt)
+
+    state = ft.run(trainer, stream, ckpt, steps=TRAIN_STEPS,
+                   ckpt_every=TRAIN_CKPT_EVERY, log_every=TRAIN_CKPT_EVERY,
+                   log_fn=lambda m: log(f"{tag} {m}"), on_step=on_step)
+    return state, record
+
+
+def train_full(tmp: Path):
+    """(a): full-width training through the CLI's ``build`` and
+    ``ft.run``; returns (trainer, stream, final state, {step: (loss,
+    s)})."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    tag = "[train]"
+    trainer, stream, ckpt = train_cli.build(_train_args(str(tmp / "run")))
+    cfg = trainer.model.cfg
+    n = train_cli.param_count(trainer.init_state())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, record = _run_train(trainer, stream, ckpt, tag)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [record[i][0] for i in range(TRAIN_STEPS)]
+    ms = [1e3 * record[i][1] for i in range(TRAIN_MEDIAN_FROM, TRAIN_STEPS)]
+    med = float(np.median(ms))
+    tokens = stream.global_batch * stream.seq_len
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff={cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.compute_dtype} compute, float32 masters, "
+        f"{cfg.optim_moment_dtype} moments, remat {cfg.remat}; {n:,} "
+        f"parameters; B={stream.global_batch} x {stream.seq_len} tokens")
+    log(f"{tag} {TRAIN_STEPS} steps in {total:.1f} s (checkpoints every "
+        f"{TRAIN_CKPT_EVERY} and the step's capture included); ms per step (median of steps "
+        f"{TRAIN_MEDIAN_FROM}-{TRAIN_STEPS - 1}) {med:.2f} (min "
+        f"{min(ms):.2f}, max {max(ms):.2f}), {tokens / med * 1e3:.0f} "
+        f"tokens/s; first step {1e3 * record[0][1]:.1f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"{tag} losses at steps "
+        + ", ".join(f"{i}: {losses[i]:.4f}" for i in TRAIN_LOGGED)
+        + f"; all {json.dumps([round(x, 4) for x in losses])}")
+    if not all(np.isfinite(losses)) or \
+            np.mean(losses[-5:]) >= losses[0]:
+        raise AssertionError(f"{tag} losses not finite or not falling: "
+                             f"{losses}")
+    if trainer.captures != 1:
+        raise AssertionError(f"{tag} {trainer.captures} step captures")
+    return trainer, stream, state, record
+
+
+def train_profile(trainer, stream, state) -> None:
+    """(a), after the serve: the captured step against the eager step
+    from one state (the eager step is functional; the replay then
+    overwrites ``state``), the eager step's time, and a profile of one
+    replay."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.train.trainer import Trainer
+    tag = "[train]"
+    batch = stream.batch_at(TRAIN_STEPS)
+    eager = Trainer(trainer.model, trainer.opt, trainer.cfg, graph=False)
+    walls = []
+    for _ in range(TRAIN_EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_e, m_e = eager.train_step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    p_e = [t.clone() for t in tree.leaves(s_e.params)]
+    loss_e = float(m_e["loss_total"])
+    del s_e
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_g, m_g = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(p_e, tree.leaves(s_g.params)))
+    log(f"{tag} graph replay against the eager step from one state: "
+        f"loss {float(m_g['loss_total'])!r} vs {loss_e!r}, params max "
+        f"|diff| {diff:.3g}; eager step {np.median(walls):.2f} ms "
+        f"(median of {TRAIN_EAGER_STEPS}), replay {wall:.2f} ms")
+    if float(m_g["loss_total"]) != loss_e or diff > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"{tag} the captured step differs from the "
+                             f"eager step")
+    dev, launches, by_name = device_profile(
+        lambda: trainer.train_step(s_g, batch), iters=1)
+    log(f"{tag} one profiled replay: device busy {dev:.2f} ms of a "
+        f"{wall:.2f} ms step ({dev / wall:.3f}), {launches:.0f} kernels; "
+        f"top {TRAIN_TOP} by device time:")
+    log_top_kernels(tag, by_name, TRAIN_TOP)
+    kinds = {"gemm": 0.0, "multi_tensor": 0.0, "copy": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        kind = next((k for k in ("gemm", "multi_tensor", "copy")
+                     if k in name), "other")
+        kinds[kind] += ms
+    log(f"{tag} device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in kinds.items())
+        + " (gemm: the float32 +-1 products and the head; multi_tensor: "
+        "the optimizer's foreach ops; copy: dtype casts and copies)")
+    pm1_product_times(tag, stream.global_batch * stream.seq_len,
+                      trainer.model.cfg)
+
+
+def pm1_product_times(tag: str, m: int, cfg) -> None:
+    """The QAT face's +-1 product at the FFN's w1 shape on float32
+    operands (what the port runs) against bf16 operands with a float32
+    output where this torch offers one (``torch.mm(..., out_dtype=)``;
+    exact too); CUDA-event times, for the record."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = (torch.rand(m, cfg.d_model, device="cuda", generator=gen) > 0.5
+         ).float() * 2 - 1
+    w = (torch.rand(cfg.d_model, cfg.d_ff, device="cuda", generator=gen)
+         > 0.5).float() * 2 - 1
+    f32 = eager_ms(lambda: torch.matmul(a, w), 20)
+    ab, wb = a.bfloat16(), w.bfloat16()
+
+    def mixed():
+        return torch.mm(ab, wb, out_dtype=torch.float32)
+
+    try:
+        exact = torch.equal(mixed(), torch.matmul(a, w))
+        bf16 = f"{eager_ms(mixed, 20) * 1e3:.2f} us (equal: {exact})"
+    except (RuntimeError, TypeError) as e:
+        bf16 = f"not offered ({type(e).__name__})"
+    log(f"{tag} +-1 product ({m} x {cfg.d_model}) x ({cfg.d_model} x "
+        f"{cfg.d_ff}): float32 operands {f32 * 1e3:.2f} us, bf16 operands "
+        f"with a float32 output {bf16}")
+
+
+def train_restart(tmp: Path, record: dict) -> None:
+    """(b): a fresh trainer restores the step-10 checkpoint (bitwise
+    against the manifest) and runs to TRAIN_STEPS."""
+    import shutil
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import ft
+    tag = "[train restart]"
+    name = f"step_{TRAIN_CKPT_EVERY:08d}"
+    shutil.copytree(tmp / "run" / name, tmp / "restart" / name)
+    trainer, stream, ckpt = train_cli.build(_train_args(str(tmp / "restart")))
+    state, data_step, _ = ft.restore_or_init(trainer, ckpt)
+    leaves = ckpt.verify(TRAIN_CKPT_EVERY, state)
+    if int(state.opt.step) != TRAIN_CKPT_EVERY or \
+            data_step != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"{tag} restored step {int(state.opt.step)}, "
+                             f"data step {data_step}")
+    del state
+    _, again = _run_train(trainer, stream, ckpt, tag)
+    steps = range(TRAIN_CKPT_EVERY, TRAIN_STEPS)
+    if sorted(again) != list(steps):
+        raise AssertionError(f"{tag} ran steps {sorted(again)}")
+    diff = [abs(again[i][0] - record[i][0]) / abs(record[i][0])
+            for i in steps]
+    bitwise = all(again[i][0] == record[i][0] for i in steps)
+    log(f"{tag} restored step {TRAIN_CKPT_EVERY}: {leaves} leaves equal to "
+        f"the manifest's sha256; steps {TRAIN_CKPT_EVERY}-"
+        f"{TRAIN_STEPS - 1} losses against the uninterrupted run: max "
+        f"relative difference {max(diff):.3g} (tol {TRAIN_RESTART_RTOL}), "
+        f"bitwise equal: {bitwise}")
+    if max(diff) > TRAIN_RESTART_RTOL:
+        raise AssertionError(f"{tag} losses differ: "
+                             f"{[(again[i][0], record[i][0]) for i in steps]}")
+
+
+def train_narrow():
+    """(c): the narrow float32 config, 3 steps on the card and on the CPU
+    from one init; returns (model, card params after the steps)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tag = "[train card==cpu]"
+    cfg = get_smoke_config("smollm-135m").with_(**TRAIN_NARROW)
+    model = build_model(cfg)
+    opt = AdamW(lr=3e-3, schedule=warmup_cosine(
+        TRAIN_NARROW_STEPS // 10 + 1, TRAIN_NARROW_STEPS))
+    card = Trainer(model, opt, TrainerConfig(seed=SEED))
+    cpu = Trainer(model, opt, TrainerConfig(seed=SEED), device="cpu")
+    s_card = card.init_state()
+    s_cpu = tree.map(lambda t: t.cpu(), s_card)
+    s_eager = tree.map(lambda t: t.clone(), s_card)
+    eager = Trainer(model, opt, TrainerConfig(seed=SEED), graph=False)
+    stream = SyntheticStream(cfg, TRAIN_NARROW_S, TRAIN_NARROW_B, seed=SEED)
+    rel = []
+    for i in range(TRAIN_NARROW_STEPS):
+        batch = stream.batch_at(i)
+        s_card, m_card = card.train_step(s_card, batch)
+        s_cpu, m_cpu = cpu.train_step(s_cpu, batch)
+        s_eager, _ = eager.train_step(s_eager, batch)
+        a, b = float(m_card["loss_total"]), float(m_cpu["loss_total"])
+        rel.append(abs(a - b) / abs(b))
+    diffs = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in zip(
+        tree.leaves(s_card.params), tree.leaves(s_cpu.params))])
+    worst = diffs.max().item()
+    share = (diffs > TRAIN_PARAM_ATOL).double().mean().item()
+    replay_eager = max((a - b).abs().max().item() for a, b in zip(
+        tree.leaves(s_card.params), tree.leaves(s_eager.params)))
+    bound = 2 * opt.lr * TRAIN_NARROW_STEPS
+    log(f"{tag} {cfg.name} smoke ({cfg.num_layers} layers, d="
+        f"{cfg.d_model}, float32, remat {cfg.remat}), B={TRAIN_NARROW_B} x "
+        f"{TRAIN_NARROW_S}, {TRAIN_NARROW_STEPS} steps: loss relative "
+        f"differences {[f'{r:.3g}' for r in rel]} (tol {TRAIN_LOSS_RTOL}); "
+        f"params: max |diff| {worst:.3g} (bound 2 lr x steps = {bound:.3g}),"
+        f" share above {TRAIN_PARAM_ATOL} {share:.3g} (tol "
+        f"{TRAIN_PARAM_SHARE}); the card's graph replays against its eager "
+        f"steps: params max |diff| {replay_eager:.3g}")
+    if max(rel) > TRAIN_LOSS_RTOL or worst > bound or \
+            share > TRAIN_PARAM_SHARE or replay_eager > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"{tag} card and CPU training differ")
+    return model, s_card.params, stream
+
+
+def train_qat_deploy(model, params, stream) -> None:
+    """(d), narrow: the trained model's QAT logits against its deploy
+    logits (our kernels) on the card."""
+    import torch
+    tag = "[train qat==deploy]"
+    toks = stream.batch_at(100)["tokens"]
+    with torch.no_grad():
+        qat = model.qat_logits(params, toks)
+        dparams = model.convert(params)
+        dep = model.prefill_logits(dparams, toks)
+    diff = (qat - dep).abs().max().item()
+    same = bool(torch.equal(qat.argmax(-1), dep.argmax(-1)))
+    log(f"{tag} narrow float32 model after its steps, B={toks.shape[0]} x "
+        f"{toks.shape[1]}: QAT logits against prefill_logits on the card: "
+        f"max |diff| {diff:.3g} (tol {QAT_DEPLOY_ATOL}), argmax equal "
+        f"{same}")
+    if diff > QAT_DEPLOY_ATOL or not same:
+        raise AssertionError(f"{tag} QAT and deploy logits differ")
+
+
+def train_serve(trainer, stream, state) -> dict:
+    """(d): the trained full-width params, converted, serve 8 prompts of
+    the stream greedily through ``ServeEngine.generate`` (the decode step
+    a replayed graph); returns the run's launch counts."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.serve.engine import (CacheConfig, ServeConfig,
+                                          ServeEngine)
+    tag = "[train serve]"
+    model = trainer.model
+    with torch.no_grad():
+        dparams = model.convert(tree.map(lambda t: t.detach(),
+                                         state.params))
+    prompts = stream.batch_at(1000)["tokens"][:SERVE_B]
+    eng = ServeEngine(model, dparams, ServeConfig(
+        cache=CacheConfig(max_len=prompts.shape[1] + SERVE_NEW)))
+    eng.generate(prompts, max_new_tokens=2)            # warm-up: captures
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    idle = [n for n in STATIC_PATH if launches[n] == 0]
+    if idle or eng._graphs.captures["decode"] != 1:
+        raise AssertionError(f"{tag} kernels {idle} idle, captures "
+                             f"{eng._graphs.captures}: {launches}")
+    seq = np.concatenate([prompts[:, -1:], toks], axis=1)
+    succ = stream.successors
+    hits = [int(b) in succ[a] for row in seq for a, b in zip(row, row[1:])]
+    log(f"{tag} trained params converted; B={SERVE_B} stream prompts of "
+        f"{prompts.shape[1]} tokens, {SERVE_NEW} greedy tokens in "
+        f"{total:.3f} s ({SERVE_B * SERVE_NEW / total:.1f} tok/s); "
+        f"launches {json.dumps(launches)}; generated bigrams in the "
+        f"stream's table {np.mean(hits):.3f} ({sum(hits)} of {len(hits)}; "
+        f"chance {stream.branching / model.cfg.vocab_size:.2e}); sample "
+        f"{toks[0, :8].tolist()}")
+    return launches
+
+
+def phase_train() -> dict:
+    """Phase 22 (see the module docstring); returns the serve's launch
+    counts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        trainer, stream, state, record = train_full(tmp)
+        launches = train_serve(trainer, stream, state)
+        train_profile(trainer, stream, state)
+        del trainer, state
+        train_restart(tmp, record)
+    train_qat_deploy(*train_narrow())
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3371,11 +3720,13 @@ def main() -> int:
                               ENCDEC_PATH)
     internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH)
     phase_crosscheck_frontend()
+    train = phase_train()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
                                    arctic[name] + hymba[name] + xlstm[name] +
-                                   seamless[name] + internvl2[name])
+                                   seamless[name] + internvl2[name] +
+                                   train[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

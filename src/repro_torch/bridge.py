@@ -7,13 +7,18 @@ numpy arrays (the caller converts, e.g. with ``jax.tree.map(np.asarray,
 ...)``; this module never imports JAX) and returns the port's tree:
 
   * every array becomes a tensor on ``device``;
-  * ``uint32`` packed words become ``int32`` tensors with the same bits;
+  * ``uint32`` packed words become ``int32`` tensors with the same bits,
+    bfloat16 arrays bfloat16 tensors;
   * the stacked layer subtrees, ``blocks`` and an encoder-decoder's
     ``encoder`` and ``decoder`` (leading layer axis, as the JAX package
     keeps a uniform stack for ``scan``: hymba's hybrid layers, seamless'
     encoder and decoder) become lists of per-layer dicts under the same
     keys; a list (a stack of mixed kinds, as xlstm's mLSTM and sLSTM
     layers) stays one, layer by layer.
+
+The same holds for any tree of the params' structure: gradients, AdamW
+moments, error feedback.  ``from_jax_train_state`` carries a whole JAX
+``TrainState`` (params, opt = (step, mu, nu), ef) into the port's.
 """
 from __future__ import annotations
 
@@ -23,12 +28,17 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.trainer import TrainState
 
 
 def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
     a = np.array(a, copy=True)          # C-contiguous, keeps 0-d shape
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16 (moments)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            dev)
     return torch.from_numpy(a).to(dev)
 
 
@@ -69,3 +79,15 @@ def from_jax_params(tree: dict, device="cuda") -> dict:
                       for i in range(_num_layers(layers))]
         out[key] = [_convert(b, dev) for b in layers]
     return out
+
+
+def from_jax_train_state(state: Any, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)`` keeps its NamedTuples) -> the port's ``TrainState``: params,
+    moments and error feedback on ``device``, the step on the host (where
+    the port's AdamW keeps it)."""
+    conv = lambda t: None if t is None else from_jax_params(t, device)
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32)
+    return TrainState(conv(state.params),
+                      AdamWState(step, conv(state.opt.mu),
+                                 conv(state.opt.nu)), conv(state.ef))

@@ -308,3 +308,17 @@ def mode_f2_ffn2(h_bits, w2, ff: int, dc, *,
     if acc is not None:
         out = out + acc
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dense-simulation twin (QAT forward; the oracle the packed path must match)
+# ---------------------------------------------------------------------------
+
+
+def rbmm_sim(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
+    """Float matmul of already-binarized value matrices: a (..., M, K) in
+    {-1,1} or {0,1}; b (..., P, K) in {-1,1}.  Integer-exact in float32
+    (|acc| <= K < 2^24), so int32 out."""
+    out = torch.matmul(a_vals.to(torch.float32),
+                       b_vals.to(torch.float32).transpose(-1, -2))
+    return out.to(torch.int32)

@@ -1,5 +1,15 @@
-"""SPS binary attention, deploy faces (port of ``repro.models.attention``).
+"""SPS binary attention (port of ``repro.models.attention``): the QAT
+face and the deploy faces.
 
+  qat             the training forward on latent weights: shared input
+                  binarization, Q/K/V projections (``BinaryDense.apply``),
+                  RoPE, per-head sign STEs, float32 +-1 scores, SPS through
+                  ``core.sps.sps_ste`` (or, with ``attn_mode=
+                  "bit_softmax"``, the BiT teacher: softmax and the
+                  unsigned round STE), the +-1 context, its binarization
+                  and the output projection; a dense masked (S, Skv) score
+                  matrix (the JAX package's query chunks and its static
+                  window slice give the same values).
   deploy_prefill  packed-bit forward over a whole prompt: shared input
                   binarization (pack kernel) -> Q/K/V projections (RBMM
                   kernels) -> RoPE -> per-head binarization (pack kernel)
@@ -49,7 +59,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import packing, rbmm
+from repro_torch.core import binarize, packing, rbmm, sps
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn import ref as paged_ref
@@ -60,6 +70,7 @@ Params = Dict[str, Any]
 
 SCORE_IMPLS = ("auto", "popcount", "mxu", "dense")
 GRANULARITIES = ("layer", "head", "row")
+ATTN_MODES = ("sps", "bit_softmax")
 ROW_TABLE = 512  # row-granularity lambda table (the paper's l = 512)
 
 
@@ -196,6 +207,7 @@ class SPSAttention:
     impl: str = "auto"              # projection route (core.rbmm)
     score_impl: str = "auto"        # decode score route; auto = popcount
     cross: bool = False             # cross-attention (K/V from a memory)
+    attn_mode: str = "sps"          # QAT face: sps | bit_softmax (BiT teacher)
 
     def __post_init__(self):
         if self.sps_granularity not in GRANULARITIES:
@@ -204,6 +216,9 @@ class SPSAttention:
                 f"yet; the port supports {GRANULARITIES}")
         if self.cross and self.use_rope:
             raise ValueError("cross-attention takes no RoPE")
+        if self.attn_mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode must be one of {ATTN_MODES}, got "
+                             f"{self.attn_mode!r}")
 
     @property
     def q_dim(self) -> int:
@@ -255,6 +270,113 @@ class SPSAttention:
             d[k] = params[k]
         return d
 
+    # -- QAT face -------------------------------------------------------------
+
+    def _lambda_for_rows(self, lam: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+        """The SPS threshold of query rows ``rows``, broadcastable to (H,
+        rows, cols): the layer's scalar, the heads' (H, 1, 1), or the row
+        table read at each row (clamped to ROW_TABLE - 1), (H, rows, 1)."""
+        if self.sps_granularity == "layer":
+            return lam[None, None, None]
+        if self.sps_granularity == "head":
+            return lam[:, None, None]
+        return lam[:, rows.clamp(0, ROW_TABLE - 1)][:, :, None]
+
+    def _mask(self, rows: torch.Tensor, cols: torch.Tensor, kv_len,
+              window) -> torch.Tensor:
+        """(rows, cols) validity: key below ``kv_len``, and for causal
+        self-attention at or before the row and inside ``window``."""
+        r, c = rows[:, None], cols[None, :]
+        m = c < kv_len
+        if self.causal and not self.cross:
+            m = m & (c <= r)
+            if window is not None:
+                m = m & (c > r - window)
+        return m
+
+    def _repeat_kv(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, Hkv, ...) -> (B, H, ...): each KV head for its G query
+        heads."""
+        if self.groups == 1:
+            return x
+        b, hkv = x.shape[:2]
+        return x[:, :, None].expand(b, hkv, self.groups, *x.shape[2:]
+                                    ).reshape(b, hkv * self.groups,
+                                              *x.shape[2:])
+
+    def qat(self, params: Params, x: torch.Tensor, *, memory=None,
+            positions: Optional[torch.Tensor] = None, window=None,
+            kv_len=None, collect_scores: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """QAT forward: x (B, S, d) -> (out (B, S, d) in ``dtype``, aux).
+        ``window`` masks keys at or before row - window (causal only);
+        ``kv_len`` masks keys from there on; ``collect_scores`` returns the
+        float32 scores and probabilities (B, H, S, S) in aux."""
+        if self.cross or memory is not None:
+            raise NotImplementedError(
+                "the QAT face of cross-attention is not ported yet; the "
+                "port runs build_memory_cache / attend_memory")
+        b, s, _ = x.shape
+        h, hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
+        dev = x.device
+        if positions is None:
+            positions = torch.arange(s, device=dev)[None, :]
+        alpha = params["act_alpha"].clamp_min(1e-6)
+        beta = params["act_beta"]
+        s_x = binarize.sign_ste(
+            (binarize.promote(x, alpha, beta) - beta) / alpha)
+        dense = self._denses()
+        q, k, v = (dense[n].apply(params[n], act_values=s_x,
+                                  act_scale=alpha)
+                   for n in ("wq", "wk", "wv"))
+        q = q.reshape(b, s, h, dh)
+        k = k.reshape(b, s, hkv, dh)
+        v = v.reshape(b, s, hkv, dh)
+        if self.use_rope:
+            q = rope(q, positions, self.rope_theta)
+            k = rope(k, positions[:, :s], self.rope_theta)
+
+        def headwise_sign(t, alpha_h, beta_h):
+            t = t.transpose(1, 2)                       # (B, H*, S, dh)
+            z = (t - beta_h[None, :, None, None]) / \
+                alpha_h[None, :, None, None].clamp_min(1e-6)
+            return binarize.sign_ste(z)
+
+        s_q = headwise_sign(q, params["q_alpha"], params["q_beta"])
+        s_k = self._repeat_kv(headwise_sign(k, params["k_alpha"],
+                                            params["k_beta"]))
+        s_v = self._repeat_kv(headwise_sign(v, params["v_alpha"],
+                                            params["v_beta"]))
+        scale_qk = (params["q_alpha"][:, None, None] *
+                    self._repeat_kv(params["k_alpha"][None])[0][
+                        :, None, None] / math.sqrt(dh))
+        rows = torch.arange(s, device=dev)
+        m = self._mask(rows, rows, s if kv_len is None else kv_len,
+                       window)[None, None]
+        z = torch.matmul(s_q, s_k.transpose(-1, -2)) * scale_qk[None]
+        if self.attn_mode == "bit_softmax":
+            p = torch.softmax(torch.where(m, z, float("-inf")), dim=-1)
+            zp = p / params["bit_alpha"][None, :, None, None].clamp_min(
+                1e-6)
+            probs = binarize.clip(binarize.round_ste(zp), 0.0, 1.0)
+        else:
+            lam = self._lambda_for_rows(params["sps_lambda"], rows)[None]
+            probs = sps.sps_ste(z, lam)
+        probs = torch.where(m, probs, 0.0)
+        ctx = torch.matmul(probs, s_v)
+        aux: Dict[str, torch.Tensor] = {}
+        if collect_scores:
+            aux["scores"], aux["probs"] = z, probs
+        av = self._repeat_kv(params["v_alpha"][None])[0]
+        ctx = ctx * av[None, :, None, None]
+        ca = params["ctx_alpha"].clamp_min(1e-6)
+        s_c = binarize.sign_ste((ctx - params["ctx_beta"]) / ca)
+        s_c = s_c.transpose(1, 2).reshape(b, s, self.q_dim)
+        out = dense["wo"].apply(params["wo"], act_values=s_c,
+                                act_scale=params["ctx_alpha"])
+        return out, aux
+
     # -- shared deploy pieces -------------------------------------------------
 
     def _score_impl(self) -> str:
@@ -272,14 +394,15 @@ class SPSAttention:
     def _theta_int(self, params: Params) -> torch.Tensor:
         """Integer SPS thresholds per query head, (H,) int32; for the
         ``row`` granularity a table (H, ROW_TABLE)."""
+        aq = params["q_alpha"]
         ak = self._per_query_head(params["k_alpha"])
-        scale = (params["q_alpha"] * ak) / math.sqrt(self.head_dim)
         lam = params["sps_lambda"]
         if self.sps_granularity == "row":
-            return torch.ceil(lam / scale[:, None].clamp_min(1e-12)).to(
-                torch.int32)
-        lam = lam.expand(self.num_heads)
-        return torch.ceil(lam / scale.clamp_min(1e-12)).to(torch.int32)
+            aq, ak = aq[:, None], ak[:, None]
+        else:
+            lam = lam.expand(self.num_heads)
+        return sps.integer_threshold(lam, self.head_dim, aq, ak).to(
+            torch.int32)
 
     def _theta_at(self, theta: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:

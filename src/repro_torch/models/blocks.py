@@ -1,4 +1,6 @@
-"""Transformer blocks, deploy faces (port of ``repro.models.blocks.Block``):
+"""Transformer blocks (port of ``repro.models.blocks.Block``): the QAT face
+``qat`` of kind "attn" (the other kinds' QAT faces are not ported yet) and
+the deploy faces of every kind:
 ``kind`` "attn" (norm, SPS attention, norm, binary FFN), "hybrid" (the
 attention and a Mamba branch in parallel on the same normed input, their
 outputs averaged, then the FFN), the xLSTM cells "mlstm" / "slstm" (norm
@@ -106,7 +108,8 @@ class Block:
             rope_theta=cfg.rope_theta or 10_000.0, qkv_bias=cfg.attn_bias,
             sps_granularity=cfg.binary.sps_granularity,
             dtype=compute_dtype(cfg), impl=cfg.binary.impl,
-            score_impl=cfg.binary.score_impl, cross=cross)
+            score_impl=cfg.binary.score_impl, cross=cross,
+            attn_mode=cfg.binary.attn_mode)
 
     def _ffn(self):
         return _ffn_from_cfg(self.cfg)
@@ -154,6 +157,29 @@ class Block:
             if name in params:
                 out[name] = params[name]
         return out
+
+    def qat(self, params: Params, x: torch.Tensor, *, positions=None,
+            window=None, memory=None, collect_scores: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """QAT forward of an "attn" block: x + attn(norm1(x)), then + the
+        FFN of norm2 of that; the block's own ``window`` unless one is
+        given.  Returns (x, aux) with the attention's aux keys prefixed
+        "attn_"."""
+        if self.kind != "attn" or memory is not None:
+            raise NotImplementedError(
+                f"the QAT face of a {self.kind!r} block is not ported yet; "
+                f"the port trains attention blocks")
+        if window is None and self.window:
+            window = self.window
+        parts = self._parts()
+        h = self._norm().apply(params["norm1"], x)
+        a_out, a_aux = parts["attn"].qat(
+            params["attn"], h, positions=positions, window=window,
+            collect_scores=collect_scores)
+        x = x + a_out
+        h2 = self._norm().apply(params["norm2"], x)
+        x = x + parts["ffn"].apply(params["ffn"], h2)
+        return x, {f"attn_{k}": v for k, v in a_aux.items()}
 
     def _ffn_residual(self, params: Params,
                       x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,7 @@
-"""Binary FFN, deploy face (port of ``repro.models.ffn.BinaryFFN``).
+"""Binary FFN (port of ``repro.models.ffn.BinaryFFN``): the QAT face
+``apply`` (latent weights through sign STEs, float32 +-1 products, the
+hidden layer through the unsigned round STE; dense FFNs only) and the
+deploy face.
 
 ReLU FFN (BERT family, the paper's exact target):
   F1: the first RBMM with the ReLU and the unsigned binarization fused into
@@ -31,10 +34,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import packing, rbmm
+from repro_torch.core import binarize, packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.models import nn
-from repro_torch.models.linear import BinaryDense, act_bits_packed
+from repro_torch.models.linear import BinaryDense, act_bits_packed, pm1_matmul
 
 Params = Dict[str, Any]
 
@@ -148,6 +151,33 @@ class BinaryFFN:
         for k in ("act_alpha", "act_beta", "h_alpha", "h_beta"):
             d[k] = params[k]
         return d
+
+    def _act_fn(self, u: torch.Tensor) -> torch.Tensor:
+        return F.relu(u) if self.act == "relu" else glu_act(self.act, u)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """QAT forward: x (..., d) -> (..., d) in ``dtype``."""
+        if self.num_experts:
+            raise NotImplementedError(
+                "the QAT face of an expert-stacked FFN is not ported yet; "
+                "the port runs apply_deploy")
+        alpha = params["act_alpha"].clamp_min(1e-6)
+        beta = params["act_beta"]
+        s_x = binarize.sign_ste(
+            (binarize.promote(x, alpha, beta) - beta) / alpha)
+
+        def mm(wp, a, a_scale):
+            y = pm1_matmul(a, binarize.sign_ste(wp["w_latent"]), self.dtype)
+            return y * wp["alpha_w"] * a_scale
+
+        u = mm(params["w1"], s_x, params["act_alpha"])
+        h = self._act_fn(u)
+        if self.glu:
+            h = h * mm(params["w3"], s_x, params["act_alpha"])
+        ha = params["h_alpha"].clamp_min(1e-6)
+        h_vals = binarize.clip(binarize.round_ste(
+            (h - params["h_beta"]) / ha), 0.0, 1.0)
+        return mm(params["w2"], h_vals, params["h_alpha"]).to(self.dtype)
 
     def apply_deploy(self, params: Params, x: Optional[torch.Tensor] = None,
                      *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:

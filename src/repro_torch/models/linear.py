@@ -1,5 +1,13 @@
 """BinaryDense: the COBRA linear layer (port of ``repro.models.linear``).
 
+QAT face — latent fp weights, BiT-style (``apply``):
+    y = alpha_a * alpha_w,j * (s_a . s_w,j) + bias_j
+with s_a = sign((x - beta_a)/alpha_a) and s_w = sign(w_latent) through
+straight-through estimators.  The +-1 dot product is a float32 matmul of
++-1 operands (exact: |acc| <= K < 2^24), as the JAX package's einsum with
+``preferred_element_type=float32``; like every +-1 product of the JAX
+package's training path it lies outside any Pallas kernel.
+
 Deploy face — packed int32 weights (1 bit per value), Eq. 7 RBMM:
     bits_a = (x >= beta_a)                 (the pack kernel)
     c      = RBMM(bits_a, w_packed)        (rbmm_int or rbmm_mxu kernel)
@@ -31,6 +39,18 @@ def act_bits_packed(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     return pack_ops.pack_threshold(x, beta.to(torch.float32))
 
 
+def pm1_matmul(a: torch.Tensor, wb: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(..., K) +-1 / {0,1} values times (K, P) +-1 weights, summed in
+    float32.  Both operands are rounded to ``dtype`` first (exact for
+    these values), where the JAX package's einsum takes them, so the
+    backward rounds their gradients to ``dtype`` as JAX's does; the
+    product itself runs on float32 operands, exact on every device (a
+    bfloat16 product would round sums above 256 to bfloat16)."""
+    return torch.matmul(a.to(dtype).to(torch.float32),
+                        wb.to(dtype).to(torch.float32))
+
+
 @dataclasses.dataclass(frozen=True)
 class BinaryDense:
     in_dim: int
@@ -51,6 +71,36 @@ class BinaryDense:
         if self.use_bias:
             p["bias"] = torch.zeros(self.out_dim, device=device)
         return p
+
+    def apply(self, params: Params, x: Optional[torch.Tensor] = None, *,
+              act_values: Optional[torch.Tensor] = None,
+              act_scale=1.0) -> torch.Tensor:
+        """QAT forward -> compute-dtype output.  Either fp ``x`` (..., in),
+        which this layer binarizes with its own scales, or ``act_values``
+        (+-1 / {0,1} unscaled values: a shared QKV binarization, attention
+        probabilities) with ``act_scale``.  The scales multiply after the
+        +-1 accumulation, so the integer part is the deploy RBMM's."""
+        if self.external_act:
+            if act_values is None:
+                raise ValueError("a layer with external_act takes "
+                                 "act_values")
+            a, a_scale = act_values, act_scale
+        else:
+            if x is None:
+                raise ValueError("apply needs x for a layer with its own "
+                                 "activation scales")
+            alpha = params["act_alpha"].clamp_min(1e-6)
+            beta = params["act_beta"]
+            a = binarize.sign_ste(
+                (binarize.promote(x, alpha, beta) - beta) / alpha)
+            a_scale = params["act_alpha"]
+        wb = binarize.sign_ste(params["w_latent"])
+        y = pm1_matmul(a, wb, self.dtype)
+        y = y * (params["alpha_w"].to(torch.float32) * torch.as_tensor(
+            a_scale, dtype=torch.float32, device=y.device))
+        if self.use_bias:
+            y = y + params["bias"]
+        return y.to(self.dtype)
 
     def convert(self, params: Params) -> Params:
         """QAT params -> deploy params: (out, ceil(in/32)) packed columns."""

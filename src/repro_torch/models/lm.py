@@ -1,7 +1,14 @@
-"""LM wrappers, deploy faces (port of ``repro.models.lm``): the
-decoder-only ``LMModel`` (every LM family, with the frontend stub of the
-[vlm] archs) and the encoder-decoder ``EncDecModel`` (seamless' backbone).
+"""LM wrappers (port of ``repro.models.lm``): the decoder-only ``LMModel``
+(every LM family, with the frontend stub of the [vlm] archs) and the
+encoder-decoder ``EncDecModel`` (seamless' backbone).
 
+  train_loss / qat_logits / qat_hidden
+                      QAT forward of an attention stack (the dense family,
+                      gemma's windows, bert's encoder, the frontend stub),
+                      each block under ``torch.utils.checkpoint`` unless
+                      ``cfg.remat`` is "none"; the other families' QAT
+                      faces and ``EncDecModel.train_loss`` are not ported
+                      yet
   prefill_logits      deploy full-sequence forward, no cache: the encoder
                       face of bert-base-cobra (bidirectional attention,
                       untied head), and any decoder's whole-prompt logits
@@ -45,6 +52,8 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -117,6 +126,12 @@ class LMModel:
 
     def _blocks(self) -> List[Block]:
         return [self._block(k, w) for k, w in self.plan]
+
+    @property
+    def uniform(self) -> bool:
+        """One block kind throughout (the JAX package stacks such a stack
+        for ``scan``; a mixed one, xlstm's, stays a list there too)."""
+        return len({k for k, _ in self.plan}) == 1
 
     def _embed(self) -> nn.Embedding:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
@@ -211,6 +226,67 @@ class LMModel:
             return x[:, -1:]
         idx = (sl.long() - 1).clamp(0, x.shape[1] - 1)
         return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+    # -- QAT face -------------------------------------------------------------
+
+    def qat_hidden(self, params: Params, tokens: torch.Tensor, *,
+                   frontend_embeds=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens (B, S) -> (hidden (B, F + S, d) before the final norm,
+        {"moe_aux_loss": 0}: the dense family has no load-balance loss).
+        Runs on the device of ``params``.  With ``cfg.remat`` other than
+        "none" each block is a ``torch.utils.checkpoint`` (its activations
+        recomputed in the backward), as the JAX package wraps each block
+        in ``jax.checkpoint``."""
+        dev = params["embed"]["embedding"].device
+        x = self._embed_tokens(params, torch.as_tensor(tokens, device=dev),
+                               frontend_embeds)
+        for blk, bp in zip(self._blocks(), params["blocks"]):
+            def run(xx, blk=blk, bp=bp):
+                return blk.qat(bp, xx)[0]
+
+            if self.cfg.remat != "none" and torch.is_grad_enabled():
+                # the QAT forward draws no random numbers: no RNG state to
+                # keep (reading it is not allowed in a captured step)
+                x = checkpoint(run, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = run(x)
+        return x, {"moe_aux_loss": torch.zeros((), device=dev)}
+
+    def qat_logits(self, params: Params, tokens: torch.Tensor, *,
+                   frontend_embeds=None) -> torch.Tensor:
+        """QAT forward -> logits (B, F + S, V), float32."""
+        x, _ = self.qat_hidden(params, tokens,
+                               frontend_embeds=frontend_embeds)
+        return self._logits(params, x)
+
+    def train_loss(self, params: Params, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B, S), labels (B, S) with -1 = ignore, and the
+        frontend stub's frontend_embeds.  Returns (loss_total, metrics):
+        the mean next-token NLL over valid labels plus the z-loss
+        1e-4 * logsumexp^2 over them (plus 0.01 * the MoE aux loss, 0
+        here); metrics "loss" (the NLL alone), "moe_aux", "tokens"."""
+        x, aux = self.qat_hidden(params, batch["tokens"],
+                                 frontend_embeds=batch.get(
+                                     "frontend_embeds"))
+        if self.cfg.frontend_tokens:
+            x = x[:, self.cfg.frontend_tokens:]
+        logits = self._logits(params, x).to(torch.float32)
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        valid = labels >= 0
+        lab = torch.where(valid, labels, 0).long()
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+        denom = valid.sum().clamp_min(1)
+        loss = torch.where(valid, nll, 0.0).sum() / denom
+        zl = 1e-4 * torch.logsumexp(logits, dim=-1) ** 2
+        loss_total = (loss + torch.where(valid, zl, 0.0).sum() / denom +
+                      0.01 * aux["moe_aux_loss"])
+        metrics = {"loss": loss, "moe_aux": aux["moe_aux_loss"],
+                   "tokens": valid.sum()}
+        return loss_total, metrics
 
     # -- deploy faces ---------------------------------------------------------
 
@@ -410,6 +486,11 @@ class EncDecModel:
     @property
     def enc_layers(self) -> int:
         return self.cfg.num_encoder_layers
+
+    def train_loss(self, params: Params, batch: Dict[str, Any]):
+        raise NotImplementedError(
+            "EncDecModel's QAT face (train_loss) is not ported yet; the "
+            "port runs its deploy faces")
 
     def _enc_block(self) -> Block:
         return Block(self.cfg, kind="attn", causal=False)

@@ -16,7 +16,8 @@ Each block is functional, as in the JAX package: ``apply`` and
 in place.  ``seq_lens`` (B,) freezes each sequence's carry past its true
 length (a masked scan), so a right-padded ragged batch, a resumed chunk
 (``state=``) and an inactive pool row (length 0) keep exact carries.
-The QAT face (``deploy=False``) is not ported yet.
+Their QAT face (``deploy=False``) is not ported yet: the port trains
+attention stacks (``Block.qat`` of kind "attn").
 """
 from __future__ import annotations
 
