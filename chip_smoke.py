@@ -242,7 +242,30 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 full-width params convert and serve 8 prompts of the
                 stream greedily through the Hopper kernels, the decode
                 step a graph replay (``[train serve]``), and the narrow
-                model's QAT logits equal its deploy logits on the card
+                model's QAT logits equal its deploy logits on the card;
+                the captured step donates its state (peak memory logged)
+  23. train families
+                one cell per family trains 10 steps at full width
+                through ``ft.run`` with the CLI's optimizer, one captured
+                step that donates its state (``[train-mixtral]``:
+                mixtral-8x22b, 1 of 56 layers, B=4 x 128;
+                ``[train-hymba]`` and ``[train-xlstm]`` at full depth, B=8
+                x 64; ``[train-seamless]`` at full depth, B=4 x 128 after
+                1,024 frames): losses finite, one capture, the new leaves'
+                gradients (router, experts, a_log, dt_bias, f_bias,
+                w_gates, cross-attention's wq, the encoder's lambdas)
+                finite and nonzero after the first step; ms per step,
+                tokens/s, peak memory, kernels in the captured step; then
+                each cell's params convert and serve 4 prompts of its
+                stream, 16 greedy tokens, through the Hopper kernels (the
+                ``[... serve]`` lines, as phase 4's); the smoke configs of
+                mixtral (capacity factor 1.25: claims drop), arctic,
+                hymba, xlstm and seamless (float32) train 3 steps on the
+                card and on the CPU from one init and the card on to 20
+                (``[train-families card==cpu]``: losses, params, the loss
+                falling), and mixtral's, hymba's and xlstm's QAT logits
+                equal their deploy logits on the card
+                (``[train-families qat==deploy]``)
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -1123,7 +1146,8 @@ def moe_text(cfg) -> str:
 
 def serve_static(model, dparams, tag: str,
                  shape=(SERVE_B, SERVE_S, SERVE_NEW), path=STATIC_PATH,
-                 expect=None, frontend=None, caches_equal=False) -> tuple:
+                 expect=None, frontend=None, caches_equal=False,
+                 prompts=None) -> tuple:
     """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
     (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
     rings of S + new tokens (a windowed layer's: its window), the decode
@@ -1132,16 +1156,18 @@ def serve_static(model, dparams, tag: str,
     and each decode step launch exactly those.  ``frontend`` passes the
     frontend embeddings (a decoder-only model's rings then hold them
     too); ``caches_equal`` also holds the graph's caches to the eager
-    steps' bitwise (``check_static_graph``).  Returns the launch counts
-    of the run and the wall ms per decode step."""
+    steps' bitwise (``check_static_graph``).  ``prompts`` (B, S) replace
+    the ones drawn from ``SEED``.  Returns the launch counts of the run
+    and the wall ms per decode step."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
                                           ServeEngine)
     cfg = model.cfg
     n_b, n_s, n_new = shape
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (n_b, n_s)).astype(np.int32)
+    if prompts is None:
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (n_b, n_s)).astype(np.int32)
     fe = {} if frontend is None else {"frontend_embeds": frontend}
     max_len = n_s + n_new + ring_prefix(model, frontend)
     eng = ServeEngine(model, dparams, ServeConfig(
@@ -3426,7 +3452,8 @@ def train_full(tmp: Path):
         f"{TRAIN_MEDIAN_FROM}-{TRAIN_STEPS - 1}) {med:.2f} (min "
         f"{min(ms):.2f}, max {max(ms):.2f}), {tokens / med * 1e3:.0f} "
         f"tokens/s; first step {1e3 * record[0][1]:.1f} ms; peak memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB (the step donates its state; before the "
+        f"donating step, PR 26: 8.27 GiB)")
     log(f"{tag} losses at steps "
         + ", ".join(f"{i}: {losses[i]:.4f}" for i in TRAIN_LOGGED)
         + f"; all {json.dumps([round(x, 4) for x in losses])}")
@@ -3606,11 +3633,11 @@ def train_narrow():
     return model, s_card.params, stream
 
 
-def train_qat_deploy(model, params, stream) -> None:
+def train_qat_deploy(model, params, stream,
+                     tag: str = "[train qat==deploy]") -> None:
     """(d), narrow: the trained model's QAT logits against its deploy
     logits (our kernels) on the card."""
     import torch
-    tag = "[train qat==deploy]"
     toks = stream.batch_at(100)["tokens"]
     with torch.no_grad():
         qat = model.qat_logits(params, toks)
@@ -3681,6 +3708,278 @@ def phase_train() -> dict:
     return launches
 
 
+# -- phase 23: train families ------------------------------------------------
+
+# (tag, arch, layers (0: full depth), batch, seq_len): one chip each
+FAMILY_CELLS = (("[train-mixtral]", "mixtral-8x22b", 1, 4, 128),
+                ("[train-hymba]", "hymba-1.5b", 0, 8, 64),
+                ("[train-xlstm]", "xlstm-350m", 0, 8, 64),
+                ("[train-seamless]", "seamless-m4t-large-v2", 0, 4, 128))
+FAMILY_STEPS, FAMILY_MEDIAN_FROM = 10, 3     # median over steps 3..9
+# the leaves this slice made trainable, by path: after the first step
+# each must have a finite, nonzero gradient, read from its first moment
+# (after one step from zero moments, (1 - b1) * clip scale * gradient)
+FAMILY_NEW_LEAVES = {
+    "mixtral-8x22b": (r"/ffn/router/kernel$",
+                      r"/ffn/experts/w[123]/w_latent$"),
+    "hymba-1.5b": (r"/mamba/a_log$", r"/mamba/dt_bias$"),
+    "xlstm-350m": (r"/cell/f_bias$", r"/cell/w_gates$"),
+    "seamless-m4t-large-v2": (r"^decoder/\d+/cross/wq/w_latent$",
+                              r"^encoder/\d+/attn/sps_lambda$")}
+FAMILY_PATHS = {"mixtral-8x22b": STATIC_PATH, "hymba-1.5b": STATIC_PATH,
+                "xlstm-350m": RECURRENT_PATH,
+                "seamless-m4t-large-v2": ENCDEC_PATH}
+FAMILY_SERVE_B, FAMILY_SERVE_NEW = 4, 16
+# (b): the smoke configs (float32, remat per block) card against CPU;
+# mixtral at its full config's capacity factor 1.25, so claims drop
+FAMILY_NARROW = ("mixtral-8x22b", "arctic-480b", "hymba-1.5b",
+                 "xlstm-350m", "seamless-m4t-large-v2")
+FAMILY_NARROW_CF = 1.25
+FAMILY_NARROW_B, FAMILY_NARROW_S = 8, 64
+FAMILY_NARROW_CPU_STEPS, FAMILY_NARROW_STEPS = 3, 20
+# (c): JAX's QAT == deploy list (``tests/test_models_deploy.py``)
+FAMILY_QAT_DEPLOY = ("mixtral-8x22b", "hymba-1.5b", "xlstm-350m")
+
+
+class NoCheckpoint:
+    """``ft.run``'s checkpointer for the family cells: nothing to restore
+    and nothing written (phase 22 holds checkpoints and restarts;
+    mixtral's layer alone would write 35 GB of state)."""
+
+    def latest_step(self):
+        return None
+
+    def save(self, *args, **kwargs) -> None:
+        pass
+
+
+def _optimizer(cfg, steps: int):
+    """``launch/train.build``'s optimizer for ``steps`` steps."""
+    import torch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    return AdamW(lr=3e-3, schedule=warmup_cosine(steps // 10 + 1, steps),
+                 moment_dtype=getattr(torch, cfg.optim_moment_dtype))
+
+
+def first_step_gradients(tag: str, state, patterns) -> None:
+    """Gate: every leaf whose path matches one of ``patterns`` has a
+    finite, nonzero first moment after the first step (so a finite,
+    nonzero gradient)."""
+    import re
+    import torch
+    from repro_torch import tree
+    report = []
+    for pat in patterns:
+        hits = [(n, m) for n, m in tree.leaves_with_paths(state.opt.mu)
+                if re.search(pat, n)]
+        bad = [n for n, m in hits if not (bool(torch.isfinite(m).all())
+                                          and bool((m != 0).any()))]
+        report.append(f"{pat} {len(hits)} leaves, {len(bad)} zero or "
+                      f"not finite")
+        if not hits or bad:
+            raise AssertionError(f"{tag} gradients after the first step: "
+                                 f"{pat}: {len(hits)} leaves, bad {bad[:4]}")
+    log(f"{tag} after the first step, the new leaves' gradients are finite "
+        f"and nonzero (read from the first moments): " + "; ".join(report))
+
+
+def family_cell(tag: str, arch: str, layers: int, batch: int,
+                seq_len: int) -> dict:
+    """(a) and (d) of one cell: ``arch`` at full width (``layers`` of its
+    depth when given) trains FAMILY_STEPS steps of the seeded stream
+    through ``ft.run`` as ``launch/train.build`` builds the trainer, one
+    captured step that donates its state; then its params convert and
+    serve FAMILY_SERVE_B prompts of the stream through the Hopper
+    kernels.  Returns the serve's launch counts."""
+    import gc
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import ft
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
+    model = build_model(cfg)
+    trainer = Trainer(model, _optimizer(cfg, FAMILY_STEPS),
+                      TrainerConfig(seed=SEED))
+    stream = SyntheticStream(cfg, seq_len, batch, seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record, aux, gnorms = {}, [], []
+
+    def on_step(step, metrics, dt):
+        record[step] = (float(metrics["loss"]), dt)
+        aux.append(float(metrics["moe_aux"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if step == 0:
+            graph = next(iter(trainer._graphs.values()))
+            first_step_gradients(tag, graph.state, FAMILY_NEW_LEAVES[arch])
+
+    drops = DropCounter()
+    drops.label = "the step's eager warm-ups"
+    t0 = time.perf_counter()
+    with drops:
+        state = ft.run(trainer, stream, NoCheckpoint(), steps=FAMILY_STEPS,
+                       ckpt_every=0, log_every=FAMILY_STEPS,
+                       log_fn=lambda m: log(f"{tag} {m}"), on_step=on_step)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in tree.leaves(state.params))
+    state_gib = sum(t.numel() * t.element_size() for t in tree.leaves(
+        (state.params, state.opt.mu, state.opt.nu))) / 2**30
+    losses = [record[i][0] for i in range(FAMILY_STEPS)]
+    ms = [1e3 * record[i][1] for i in range(FAMILY_MEDIAN_FROM,
+                                               FAMILY_STEPS)]
+    med = float(np.median(ms))
+    tokens = batch * seq_len
+    depth = (f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+             if layers else f"{cfg.num_layers} layers")
+    if cfg.num_encoder_layers:
+        depth += f" + {cfg.num_encoder_layers} encoder layers"
+    log(f"{tag} {arch}: {depth}, d={cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, d_ff={cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}{moe_text(cfg)}; {cfg.compute_dtype} compute, "
+        f"float32 masters, {cfg.optim_moment_dtype} moments, remat "
+        f"{cfg.remat}; {n:,} parameters; B={batch} x {seq_len} tokens"
+        + (f" after {cfg.frontend_tokens} frames" if cfg.frontend_tokens
+           else ""))
+    log(f"{tag} {FAMILY_STEPS} steps in {total:.1f} s; ms per step (median "
+        f"of steps {FAMILY_MEDIAN_FROM}-{FAMILY_STEPS - 1}) {med:.2f} (min "
+        f"{min(ms):.2f}, max {max(ms):.2f}), {tokens / med * 1e3:.0f} "
+        f"tokens/s; first step (warm-ups and capture) "
+        f"{record[0][1]:.2f} s; peak memory {peak / 2**30:.2f} GiB "
+        f"(params and moments {state_gib:.2f} GiB)")
+    log(f"{tag} losses {json.dumps([round(x, 4) for x in losses])}"
+        + (f"; load-balance losses {json.dumps([round(x, 4) for x in aux])}"
+           if cfg.moe.num_experts else "")
+        + f"; gradient norms {[f'{g:.4g}' for g in gnorms]} (inf: the "
+        f"float32 sum of squares overflows, as JAX's global_norm would, "
+        f"and the clip then zeroes the step's gradients)")
+    if cfg.moe.num_experts:
+        drops.log(tag)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    if trainer.captures != 1:
+        raise AssertionError(f"{tag} {trainer.captures} step captures")
+    batch_np = stream.batch_at(FAMILY_STEPS)
+    dev, launches, by_name = device_profile(
+        lambda: trainer.train_step(state, batch_np), iters=1, warm=False)
+    log(f"{tag} one profiled replay (an 11th step): device busy {dev:.2f} "
+        f"ms, {launches:.0f} kernels in the captured step; top by device "
+        f"time:")
+    log_top_kernels(tag, by_name, 5)
+    params = state.params
+    del state
+    trainer._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        dparams = model.convert(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = stream.batch_at(1000)
+    prompts = serve["tokens"][:FAMILY_SERVE_B]
+    fe = serve.get("frontend_embeds")
+    launches, _ = serve_static(
+        model, dparams, f"{tag[:-1]} serve]",
+        (FAMILY_SERVE_B, prompts.shape[1], FAMILY_SERVE_NEW),
+        path=FAMILY_PATHS[arch], prompts=prompts,
+        frontend=None if fe is None else fe[:FAMILY_SERVE_B])
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_narrow(arch: str):
+    """(b) of one arch: its smoke config (float32, remat per block) trains
+    FAMILY_NARROW_CPU_STEPS steps on the card and on the CPU from one
+    init, then the card runs on to FAMILY_NARROW_STEPS; returns (model,
+    the card's params)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tag = f"[train-families card==cpu] {arch}:"
+    cfg = get_smoke_config(arch).with_(remat="block")
+    if arch == "mixtral-8x22b":
+        cfg = cfg.with_(moe=MoEConfig(
+            num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+            capacity_factor=FAMILY_NARROW_CF))
+    model = build_model(cfg)
+    opt = _optimizer(cfg, FAMILY_NARROW_STEPS)
+    card = Trainer(model, opt, TrainerConfig(seed=SEED))
+    cpu = Trainer(model, opt, TrainerConfig(seed=SEED), device="cpu")
+    s_card = card.init_state()
+    s_cpu = tree.map(lambda t: t.cpu(), s_card)
+    stream = SyntheticStream(cfg, FAMILY_NARROW_S, FAMILY_NARROW_B,
+                             seed=SEED)
+    rel, losses = [], []
+    drops = DropCounter()
+    drops.label = "the CPU's steps"
+    for i in range(FAMILY_NARROW_STEPS):
+        batch = stream.batch_at(i)
+        s_card, m_card = card.train_step(s_card, batch)
+        losses.append(float(m_card["loss_total"]))
+        if i < FAMILY_NARROW_CPU_STEPS:
+            with drops:
+                s_cpu, m_cpu = cpu.train_step(s_cpu, batch)
+            b = float(m_cpu["loss_total"])
+            rel.append(abs(losses[-1] - b) / abs(b))
+        if i == FAMILY_NARROW_CPU_STEPS - 1:
+            diffs = torch.cat([(a.cpu() - b).abs().reshape(-1)
+                               for a, b in zip(tree.leaves(s_card.params),
+                                               tree.leaves(s_cpu.params))])
+    worst = diffs.max().item()
+    share = (diffs > TRAIN_PARAM_ATOL).double().mean().item()
+    bound = 2 * opt.lr * FAMILY_NARROW_CPU_STEPS
+    log(f"{tag} smoke ({cfg.num_layers} layers, d={cfg.d_model}, float32, "
+        f"remat {cfg.remat}{moe_text(cfg)}), B={FAMILY_NARROW_B} x "
+        f"{FAMILY_NARROW_S}, {FAMILY_NARROW_CPU_STEPS} steps: loss "
+        f"relative differences {[f'{r:.3g}' for r in rel]} (tol "
+        f"{TRAIN_LOSS_RTOL}); params: max |diff| {worst:.3g} (bound 2 lr x "
+        f"steps = {bound:.3g}), share above {TRAIN_PARAM_ATOL} {share:.3g} "
+        f"(tol {TRAIN_PARAM_SHARE}; the embedding's and index_put's "
+        f"backward add with atomics on the card); the card's losses over "
+        f"{FAMILY_NARROW_STEPS} steps {json.dumps([round(x, 4) for x in losses])}")
+    if cfg.moe.num_experts:
+        drops.log(tag)
+    if max(rel) > TRAIN_LOSS_RTOL or worst > bound or \
+            share > TRAIN_PARAM_SHARE:
+        raise AssertionError(f"{tag} card and CPU training differ")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag} the loss did not fall over "
+                             f"{FAMILY_NARROW_STEPS} steps: {losses}")
+    if card.captures != 1:
+        raise AssertionError(f"{tag} {card.captures} step captures")
+    return model, s_card.params, stream
+
+
+def phase_train_families() -> dict:
+    """Phase 23 (see the module docstring); returns the serves' launch
+    counts."""
+    t0 = time.perf_counter()
+    total = {}
+    for cell in FAMILY_CELLS:
+        for name, n in family_cell(*cell).items():
+            total[name] = total.get(name, 0) + n
+    for arch in FAMILY_NARROW:
+        model, params, stream = family_narrow(arch)
+        if arch in FAMILY_QAT_DEPLOY:
+            train_qat_deploy(model, params, stream,
+                             f"[train-families qat==deploy] {arch}:")
+    log(f"[train-families] phase 23 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3721,12 +4020,13 @@ def main() -> int:
     internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH)
     phase_crosscheck_frontend()
     train = phase_train()
+    families = phase_train_families()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
                                    arctic[name] + hymba[name] + xlstm[name] +
                                    seamless[name] + internvl2[name] +
-                                   train[name])
+                                   train[name] + families.get(name, 0))
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

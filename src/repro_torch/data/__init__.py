@@ -1,1 +1,1 @@
-"""Deterministic synthetic training data."""
+"""Deterministic synthetic training data and calibration sampling."""

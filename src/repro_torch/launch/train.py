@@ -4,12 +4,13 @@ plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 200 \
       --seq-len 128 --batch 16 --ckpt-dir ckpt
 
-trains the arch (smollm-135m by default) at full width on the card;
-without ``--full`` the smoke (reduced) config.  ``--device cpu`` runs the
-same loop on the CPU; without a card and without it the CLI exits with a
-clear error.  Rerun with the same ``--ckpt-dir`` to resume from its newest
-committed step.  ``--model-parallel`` other than 1 needs a mesh, which is
-not ported yet.
+trains the arch (smollm-135m by default; every arch of ``ARCH_IDS``: the
+dense, MoE, hybrid, xLSTM and encoder-decoder families) at full width on
+the card; without ``--full`` the smoke (reduced) config.  ``--device
+cpu`` runs the same loop on the CPU; without a card and without it the
+CLI exits with a clear error.  Rerun with the same ``--ckpt-dir`` to
+resume from its newest committed step.  ``--model-parallel`` other than
+1 needs a mesh, which is not ported yet.
 """
 from __future__ import annotations
 

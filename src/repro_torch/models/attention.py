@@ -310,30 +310,38 @@ class SPSAttention:
             kv_len=None, collect_scores: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """QAT forward: x (B, S, d) -> (out (B, S, d) in ``dtype``, aux).
+        Cross-attention takes its keys and values from ``memory`` (B,
+        S_kv, d), binarized with this block's own ``act_alpha`` and
+        ``act_beta``; its mask is the key length alone, and RoPE is off.
         ``window`` masks keys at or before row - window (causal only);
         ``kv_len`` masks keys from there on; ``collect_scores`` returns the
-        float32 scores and probabilities (B, H, S, S) in aux."""
-        if self.cross or memory is not None:
-            raise NotImplementedError(
-                "the QAT face of cross-attention is not ported yet; the "
-                "port runs build_memory_cache / attend_memory")
+        float32 scores and probabilities (B, H, S, S_kv) in aux."""
+        if self.cross and memory is None:
+            raise ValueError("cross-attention's QAT face needs memory")
         b, s, _ = x.shape
         h, hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
         dev = x.device
+        xkv = memory if self.cross else x
+        skv = xkv.shape[1]
         if positions is None:
             positions = torch.arange(s, device=dev)[None, :]
         alpha = params["act_alpha"].clamp_min(1e-6)
         beta = params["act_beta"]
-        s_x = binarize.sign_ste(
-            (binarize.promote(x, alpha, beta) - beta) / alpha)
+
+        def signs(t):
+            return binarize.sign_ste(
+                (binarize.promote(t, alpha, beta) - beta) / alpha)
+
+        s_x = signs(x)
+        s_kv = signs(xkv) if self.cross else s_x
         dense = self._denses()
-        q, k, v = (dense[n].apply(params[n], act_values=s_x,
-                                  act_scale=alpha)
-                   for n in ("wq", "wk", "wv"))
+        q = dense["wq"].apply(params["wq"], act_values=s_x, act_scale=alpha)
+        k, v = (dense[n].apply(params[n], act_values=s_kv, act_scale=alpha)
+                for n in ("wk", "wv"))
         q = q.reshape(b, s, h, dh)
-        k = k.reshape(b, s, hkv, dh)
-        v = v.reshape(b, s, hkv, dh)
-        if self.use_rope:
+        k = k.reshape(b, skv, hkv, dh)
+        v = v.reshape(b, skv, hkv, dh)
+        if self.use_rope and not self.cross:
             q = rope(q, positions, self.rope_theta)
             k = rope(k, positions[:, :s], self.rope_theta)
 
@@ -352,8 +360,8 @@ class SPSAttention:
                     self._repeat_kv(params["k_alpha"][None])[0][
                         :, None, None] / math.sqrt(dh))
         rows = torch.arange(s, device=dev)
-        m = self._mask(rows, rows, s if kv_len is None else kv_len,
-                       window)[None, None]
+        m = self._mask(rows, torch.arange(skv, device=dev),
+                       skv if kv_len is None else kv_len, window)[None, None]
         z = torch.matmul(s_q, s_k.transpose(-1, -2)) * scale_qk[None]
         if self.attn_mode == "bit_softmax":
             p = torch.softmax(torch.where(m, z, float("-inf")), dim=-1)

@@ -1,6 +1,5 @@
 """Transformer blocks (port of ``repro.models.blocks.Block``): the QAT face
-``qat`` of kind "attn" (the other kinds' QAT faces are not ported yet) and
-the deploy faces of every kind:
+``qat`` and the deploy faces of every kind:
 ``kind`` "attn" (norm, SPS attention, norm, binary FFN), "hybrid" (the
 attention and a Mamba branch in parallel on the same normed input, their
 outputs averaged, then the FFN), the xLSTM cells "mlstm" / "slstm" (norm
@@ -161,25 +160,41 @@ class Block:
     def qat(self, params: Params, x: torch.Tensor, *, positions=None,
             window=None, memory=None, collect_scores: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """QAT forward of an "attn" block: x + attn(norm1(x)), then + the
-        FFN of norm2 of that; the block's own ``window`` unless one is
-        given.  Returns (x, aux) with the attention's aux keys prefixed
-        "attn_"."""
-        if self.kind != "attn" or memory is not None:
-            raise NotImplementedError(
-                f"the QAT face of a {self.kind!r} block is not ported yet; "
-                f"the port trains attention blocks")
+        """QAT forward of any kind: "attn" x + attn(norm1(x)); "hybrid"
+        the attention and the Mamba branch on the same norm1(x), averaged;
+        "dec" then + cross-attention of norm_x(x) over ``memory``; each
+        then + the FFN of norm2 of that (a MoE's load-balance loss lands
+        in aux as "moe_aux_loss"); the xLSTM cells x + cell(norm1(x)),
+        no FFN.  The block's own ``window`` unless one is given.  Returns
+        (x, aux) with the attention's aux keys prefixed "attn_"."""
+        if self.kind == "dec" and memory is None:
+            raise ValueError("a 'dec' block's QAT face needs memory")
         if window is None and self.window:
             window = self.window
         parts = self._parts()
+        aux: Dict[str, torch.Tensor] = {}
         h = self._norm().apply(params["norm1"], x)
+        if "cell" in parts:
+            return x + parts["cell"].apply(params["cell"], h), aux
         a_out, a_aux = parts["attn"].qat(
             params["attn"], h, positions=positions, window=window,
             collect_scores=collect_scores)
+        aux.update({f"attn_{k}": v for k, v in a_aux.items()})
+        if self.kind == "hybrid":
+            a_out = 0.5 * (a_out + parts["mamba"].apply(params["mamba"], h))
         x = x + a_out
+        if self.kind == "dec":
+            c_out, _ = parts["cross"].qat(
+                params["cross"], self._norm().apply(params["norm_x"], x),
+                memory=memory)
+            x = x + c_out
         h2 = self._norm().apply(params["norm2"], x)
-        x = x + parts["ffn"].apply(params["ffn"], h2)
-        return x, {f"attn_{k}": v for k, v in a_aux.items()}
+        if isinstance(parts["ffn"], BinaryMoE):
+            f_out, f_aux = parts["ffn"].apply(params["ffn"], h2)
+            aux.update(f_aux)
+        else:
+            f_out = parts["ffn"].apply(params["ffn"], h2)
+        return x + f_out, aux
 
     def _ffn_residual(self, params: Params,
                       x: torch.Tensor) -> torch.Tensor:

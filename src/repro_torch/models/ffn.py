@@ -1,7 +1,7 @@
 """Binary FFN (port of ``repro.models.ffn.BinaryFFN``): the QAT face
 ``apply`` (latent weights through sign STEs, float32 +-1 products, the
-hidden layer through the unsigned round STE; dense FFNs only) and the
-deploy face.
+hidden layer through the unsigned round STE; dense and expert-stacked)
+and the deploy face.
 
 ReLU FFN (BERT family, the paper's exact target):
   F1: the first RBMM with the ReLU and the unsigned binarization fused into
@@ -18,12 +18,15 @@ is unsigned-binarized and packed (pack kernel), and meets the binary down
 projection through the and_dc scheme (F2).
 
 Expert stacking (``num_experts`` > 0): every weight carries a leading E
-axis and the deploy face takes (E, C, d) expert buffers, one batched RBMM
-per projection; the four activation scales stay shared across experts.
+axis and both faces take (E, C, d) expert buffers, one batched product
+per projection (the QAT face's a batched float32 +-1 matmul, the deploy
+face's a batched RBMM); the four activation scales stay shared across
+experts.
 
 MoE (``BinaryMoE``): capacity-based dispatch of token rows (or of their
 packed activation bits) to (E, C, ...) expert buffers, the expert-stacked
-FFN, and the gated combine; the router stays float32.
+FFN, and the gated combine; the router stays float32.  The QAT face
+``apply`` also returns the Switch load-balance loss.
 """
 from __future__ import annotations
 
@@ -156,11 +159,9 @@ class BinaryFFN:
         return F.relu(u) if self.act == "relu" else glu_act(self.act, u)
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """QAT forward: x (..., d) -> (..., d) in ``dtype``."""
-        if self.num_experts:
-            raise NotImplementedError(
-                "the QAT face of an expert-stacked FFN is not ported yet; "
-                "the port runs apply_deploy")
+        """QAT forward: x (..., d) -> (..., d) in ``dtype``; an expert
+        stack takes (E, C, d) and multiplies each expert's rows by its own
+        weights (a batched matmul), scaled by alpha_w (E, 1, P)."""
         alpha = params["act_alpha"].clamp_min(1e-6)
         beta = params["act_beta"]
         s_x = binarize.sign_ste(
@@ -168,7 +169,9 @@ class BinaryFFN:
 
         def mm(wp, a, a_scale):
             y = pm1_matmul(a, binarize.sign_ste(wp["w_latent"]), self.dtype)
-            return y * wp["alpha_w"] * a_scale
+            alpha_w = (wp["alpha_w"][:, None, :] if self.num_experts
+                       else wp["alpha_w"])
+            return y * alpha_w * a_scale
 
         u = mm(params["w1"], s_x, params["act_alpha"])
         h = self._act_fn(u)
@@ -274,7 +277,9 @@ class BinaryFFN:
 
 @dataclasses.dataclass(frozen=True)
 class BinaryMoE:
-    """Capacity-routed mixture of binary GLU experts, deploy face.
+    """Capacity-routed mixture of binary GLU experts: the QAT face
+    ``apply`` (returns the Switch load-balance loss too) and the deploy
+    face.
 
     Each of the N = prod(x.shape[:-1]) rows (padded and inactive rows of a
     pooled step included, as in the JAX package) claims its ``top_k``
@@ -286,7 +291,9 @@ class BinaryMoE:
     the fp rows.  ``dense_residual`` (arctic) adds a dense FFN on the
     undispatched rows.  The router's product is float32 as PyTorch runs it
     by default, TF32 off: the card must choose the experts the CPU
-    chooses."""
+    chooses.  In the QAT face the gradient reaches the router through the
+    gates and the load-balance loss; a dropped claim's rows get none (the
+    trash row is cut off, and its combine weight is 0)."""
     d_model: int
     d_ff: int
     num_experts: int
@@ -332,6 +339,11 @@ class BinaryMoE:
 
     # -- dispatch ------------------------------------------------------------
 
+    def _probs(self, params: Params, x2: torch.Tensor) -> torch.Tensor:
+        """The router's float32 softmax over experts, (N, E)."""
+        logits = self._router().apply(params["router"], x2.to(torch.float32))
+        return torch.softmax(logits.to(torch.float32), dim=-1)
+
     def _route(self, params: Params, x2: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor, int]:
@@ -340,8 +352,7 @@ class BinaryMoE:
         lowest expert index ranks first, as ``lax.top_k`` ranks them (a
         stable descending sort; ``torch.topk`` promises no order)."""
         n, e = x2.shape[0], self.num_experts
-        logits = self._router().apply(params["router"], x2.to(torch.float32))
-        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        probs = self._probs(params, x2)
         gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, idx = gates[:, :self.top_k], idx[:, :self.top_k]
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -354,6 +365,18 @@ class BinaryMoE:
         slot = torch.gather(pos, 1, flat[:, None])[:, 0].reshape(
             n, self.top_k)
         return gates, idx, slot, slot < capacity, capacity
+
+    def _aux_loss(self, params: Params, x2: torch.Tensor) -> torch.Tensor:
+        """Switch load-balance loss: E * sum over experts of (the share of
+        rows whose first choice it is) * (its mean probability).  The
+        router runs again, as in the JAX package, so the gradient is the
+        sum over both uses; the argmax takes the first maximum, as
+        ``jnp.argmax``."""
+        probs = self._probs(params, x2)
+        top1 = torch.argmax(probs, dim=-1)
+        frac = (top1[:, None] == torch.arange(
+            self.num_experts, device=x2.device)).to(torch.float32).mean(0)
+        return self.num_experts * torch.sum(frac * probs.mean(0))
 
     def _dispatch(self, x2: torch.Tensor, idx: torch.Tensor,
                   slot: torch.Tensor, keep: torch.Tensor,
@@ -388,10 +411,22 @@ class BinaryMoE:
 
     # -- faces ---------------------------------------------------------------
 
-    def apply(self, params: Params, x: torch.Tensor):
-        raise NotImplementedError(
-            "BinaryMoE's QAT face (apply, the load-balance loss) is not "
-            "ported yet; the port runs apply_deploy")
+    def apply(self, params: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """QAT forward: x (..., d) -> (y (..., d) in ``dtype``,
+        {"moe_aux_loss": the load-balance loss}).  Capacity, top-k,
+        dispatch and combine are the deploy face's; the experts run their
+        QAT face on the (E, C, d) buffer of fp rows."""
+        shape = x.shape
+        x2 = x.reshape(-1, self.d_model)
+        gates, idx, slot, keep, cap = self._route(params, x2)
+        out_buf = self._experts().apply(
+            params["experts"], self._dispatch(x2, idx, slot, keep, cap))
+        y = self._combine(out_buf, gates, idx, slot, keep)
+        if self.dense_residual:
+            y = y + self._residual_ffn().apply(params["residual"], x2)
+        aux = {"moe_aux_loss": self._aux_loss(params, x2)}
+        return y.reshape(shape).to(self.dtype), aux
 
     def apply_deploy(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape

@@ -3,12 +3,11 @@
 encoder-decoder ``EncDecModel`` (seamless' backbone).
 
   train_loss / qat_logits / qat_hidden
-                      QAT forward of an attention stack (the dense family,
-                      gemma's windows, bert's encoder, the frontend stub),
+                      QAT forward of every family (``EncDecModel``:
+                      ``train_loss`` and ``encode(..., deploy=False)``),
                       each block under ``torch.utils.checkpoint`` unless
-                      ``cfg.remat`` is "none"; the other families' QAT
-                      faces and ``EncDecModel.train_loss`` are not ported
-                      yet
+                      ``cfg.remat`` is "none"; a MoE stack's load-balance
+                      losses summed over its blocks
   prefill_logits      deploy full-sequence forward, no cache: the encoder
                       face of bert-base-cobra (bidirectional attention,
                       untied head), and any decoder's whole-prompt logits
@@ -108,6 +107,46 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return plan
 
 
+def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
+               x: torch.Tensor, memory: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The QAT face of a stack of blocks, layer by layer: (x, the MoE
+    load-balance losses summed in layer order, float32).  With
+    ``cfg.remat`` other than "none" each block is a
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward), as the JAX package wraps each block in ``jax.checkpoint``;
+    the recomputation gives the same values."""
+    aux = torch.zeros((), device=x.device)
+    for blk, bp in zip(blocks, layers):
+        def run(xx, mem, blk=blk, bp=bp):
+            y, a = blk.qat(bp, xx, memory=mem)
+            return y, a.get("moe_aux_loss", torch.zeros((),
+                                                       device=xx.device))
+
+        if cfg.remat != "none" and torch.is_grad_enabled():
+            # the QAT forward draws no random numbers: no RNG state to
+            # keep (reading it is not allowed in a captured step)
+            x, a = checkpoint(run, x, memory, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = run(x, memory)
+        aux = aux + a
+    return x, aux
+
+
+def _nll(logits: torch.Tensor, labels
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean NLL over the valid labels (>= 0), valid mask, denominator)
+    of float32 logits."""
+    labels = torch.as_tensor(labels, device=logits.device)
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    denom = valid.sum().clamp_min(1)
+    return torch.where(valid, nll, 0.0).sum() / denom, valid, denom
+
+
 @dataclasses.dataclass(frozen=True)
 class LMModel:
     cfg: ModelConfig
@@ -132,6 +171,14 @@ class LMModel:
         """One block kind throughout (the JAX package stacks such a stack
         for ``scan``; a mixed one, xlstm's, stays a list there too)."""
         return len({k for k, _ in self.plan}) == 1
+
+    @property
+    def stacked(self) -> Tuple[str, ...]:
+        """The param subtrees whose JAX counterparts stack their layers
+        on a leading axis (the optimizer's decay rule and the gradient
+        compression's scale read them so): "blocks" of a uniform stack,
+        none of a mixed one."""
+        return ("blocks",) if self.uniform else ()
 
     def _embed(self) -> nn.Embedding:
         return nn.Embedding(padded_vocab(self.cfg.vocab_size),
@@ -233,26 +280,13 @@ class LMModel:
                    frontend_embeds=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens (B, S) -> (hidden (B, F + S, d) before the final norm,
-        {"moe_aux_loss": 0}: the dense family has no load-balance loss).
-        Runs on the device of ``params``.  With ``cfg.remat`` other than
-        "none" each block is a ``torch.utils.checkpoint`` (its activations
-        recomputed in the backward), as the JAX package wraps each block
-        in ``jax.checkpoint``."""
+        {"moe_aux_loss": the blocks' load-balance losses summed in layer
+        order, 0 without a MoE}).  Runs on the device of ``params``."""
         dev = params["embed"]["embedding"].device
         x = self._embed_tokens(params, torch.as_tensor(tokens, device=dev),
                                frontend_embeds)
-        for blk, bp in zip(self._blocks(), params["blocks"]):
-            def run(xx, blk=blk, bp=bp):
-                return blk.qat(bp, xx)[0]
-
-            if self.cfg.remat != "none" and torch.is_grad_enabled():
-                # the QAT forward draws no random numbers: no RNG state to
-                # keep (reading it is not allowed in a captured step)
-                x = checkpoint(run, x, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = run(x)
-        return x, {"moe_aux_loss": torch.zeros((), device=dev)}
+        x, aux = _qat_stack(self.cfg, self._blocks(), params["blocks"], x)
+        return x, {"moe_aux_loss": aux}
 
     def qat_logits(self, params: Params, tokens: torch.Tensor, *,
                    frontend_embeds=None) -> torch.Tensor:
@@ -266,21 +300,15 @@ class LMModel:
         """batch: tokens (B, S), labels (B, S) with -1 = ignore, and the
         frontend stub's frontend_embeds.  Returns (loss_total, metrics):
         the mean next-token NLL over valid labels plus the z-loss
-        1e-4 * logsumexp^2 over them (plus 0.01 * the MoE aux loss, 0
-        here); metrics "loss" (the NLL alone), "moe_aux", "tokens"."""
+        1e-4 * logsumexp^2 over them plus 0.01 * the MoE load-balance
+        loss; metrics "loss" (the NLL alone), "moe_aux", "tokens"."""
         x, aux = self.qat_hidden(params, batch["tokens"],
                                  frontend_embeds=batch.get(
                                      "frontend_embeds"))
         if self.cfg.frontend_tokens:
             x = x[:, self.cfg.frontend_tokens:]
         logits = self._logits(params, x).to(torch.float32)
-        labels = torch.as_tensor(batch["labels"], device=logits.device)
-        valid = labels >= 0
-        lab = torch.where(valid, labels, 0).long()
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
-        denom = valid.sum().clamp_min(1)
-        loss = torch.where(valid, nll, 0.0).sum() / denom
+        loss, valid, denom = _nll(logits, batch["labels"])
         zl = 1e-4 * torch.logsumexp(logits, dim=-1) ** 2
         loss_total = (loss + torch.where(valid, zl, 0.0).sum() / denom +
                       0.01 * aux["moe_aux_loss"])
@@ -487,10 +515,30 @@ class EncDecModel:
     def enc_layers(self) -> int:
         return self.cfg.num_encoder_layers
 
-    def train_loss(self, params: Params, batch: Dict[str, Any]):
-        raise NotImplementedError(
-            "EncDecModel's QAT face (train_loss) is not ported yet; the "
-            "port runs its deploy faces")
+    @property
+    def stacked(self) -> Tuple[str, ...]:
+        """The param subtrees the JAX package stacks on a leading layer
+        axis (see ``LMModel.stacked``)."""
+        return ("encoder", "decoder")
+
+    def train_loss(self, params: Params, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: frontend_embeds (B, S_enc, ``frontend_dim``), tokens (B,
+        S), labels (B, S) with -1 = ignore.  Returns (loss, metrics): the
+        mean next-token NLL over valid labels, with no z-loss and no MoE
+        term (the JAX package's encoder-decoder loss); metrics "loss",
+        "tokens" and "moe_aux" (0)."""
+        dev = params["embed"]["embedding"].device
+        memory = self.encode(params, torch.as_tensor(
+            batch["frontend_embeds"], device=dev), deploy=False)
+        x = self._embed_tokens(params, torch.as_tensor(batch["tokens"],
+                                                       device=dev))
+        x, _ = _qat_stack(self.cfg, [self._dec_block()] * self.cfg.num_layers,
+                          params["decoder"], x, memory)
+        logits = self._logits(params, x).to(torch.float32)
+        loss, valid, _ = _nll(logits, batch["labels"])
+        return loss, {"loss": loss, "tokens": valid.sum(),
+                      "moe_aux": torch.zeros((), device=dev)}
 
     def _enc_block(self) -> Block:
         return Block(self.cfg, kind="attn", causal=False)
@@ -543,15 +591,21 @@ class EncDecModel:
 
     # -- deploy faces ---------------------------------------------------------
 
-    def encode(self, dparams: Params,
-               frontend_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Params, frontend_embeds: torch.Tensor, *,
+               deploy: bool = True) -> torch.Tensor:
         """frontend_embeds (B, S_enc, ``frontend_dim``) -> the memory (B,
-        S_enc, d), in the dtype the projection gives them."""
-        x = self._frontend().apply(dparams["frontend"], frontend_embeds)
+        S_enc, d), in the dtype the projection gives them: through the
+        deploy params' encoder, or with ``deploy=False`` through the QAT
+        params' (each block checkpointed as ``cfg.remat`` says)."""
+        x = self._frontend().apply(params["frontend"], frontend_embeds)
         blk = self._enc_block()
-        for lp in dparams["encoder"]:
-            x, _ = blk.deploy_prefill(lp, x)
-        return self._norm().apply(dparams["enc_norm"], x)
+        if deploy:
+            for lp in params["encoder"]:
+                x, _ = blk.deploy_prefill(lp, x)
+        else:
+            x, _ = _qat_stack(self.cfg, [blk] * self.enc_layers,
+                              params["encoder"], x)
+        return self._norm().apply(params["enc_norm"], x)
 
     def _embed_tokens(self, params: Params,
                       tokens: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""Recurrent blocks, deploy faces (port of ``repro.models.ssm``): Mamba
-(hymba's parallel branch) and the xLSTM cells (mLSTM, sLSTM).
+"""Recurrent blocks (port of ``repro.models.ssm``): Mamba (hymba's
+parallel branch) and the xLSTM cells (mLSTM, sLSTM), with the QAT face
+(``deploy=False``) and the deploy faces.
 
-Every in/out/QKV-like projection is a ``BinaryDense`` on the port's
-kernels (``pack_threshold``, then ``rbmm_int`` at decode shapes and
-``rbmm_mxu`` at prefill shapes).  The recurrences (the selective scan, the
+Every in/out/QKV-like projection is a ``BinaryDense``: its QAT face
+(``BinaryDense.apply``) when ``deploy`` is False, else the port's kernels
+(``pack_threshold``, then ``rbmm_int`` at decode shapes and ``rbmm_mxu``
+at prefill shapes).  The recurrences (the selective scan, the
 exponential-gate cells, the depthwise causal conv) stay fp, as they are
 ``jnp`` outside any Pallas kernel in the JAX package: here they are plain
 PyTorch, a Python loop over time whose step body is shared by the
 whole-sequence ``apply`` and the one-token ``decode_step`` (the JAX
-package's ``lax.scan`` bodies).
+package's ``lax.scan`` bodies).  The loop writes nothing in place, so
+autograd runs through it (the QAT face).
 
 Each block is functional, as in the JAX package: ``apply`` and
 ``decode_step`` return new carries (``MambaCache``, ``XLSTMCache``);
@@ -16,8 +19,10 @@ Each block is functional, as in the JAX package: ``apply`` and
 in place.  ``seq_lens`` (B,) freezes each sequence's carry past its true
 length (a masked scan), so a right-padded ragged batch, a resumed chunk
 (``state=``) and an inactive pool row (length 0) keep exact carries.
-Their QAT face (``deploy=False``) is not ported yet: the port trains
-attention stacks (``Block.qat`` of kind "attn").
+Where the JAX cells write ``jnp.maximum`` of a value that can tie with
+its bound (the sLSTM's normalizer is exactly 1 after its first step),
+the port writes ``torch.maximum``, whose gradient splits a tie in half as
+JAX's does (``torch.clamp`` would pass all of it).
 """
 from __future__ import annotations
 
@@ -47,10 +52,7 @@ class XLSTMCache(NamedTuple):
 
 def _proj(dense: BinaryDense, p: Params, x: torch.Tensor,
           deploy: bool) -> torch.Tensor:
-    if not deploy:
-        raise NotImplementedError("the recurrent blocks' QAT face is not "
-                                  "ported yet; pass deploy=True")
-    return dense.apply_deploy(p, x)
+    return dense.apply_deploy(p, x) if deploy else dense.apply(p, x)
 
 
 def _live_mask(batch: int, length: int, seq_lens: Optional[torch.Tensor],
@@ -332,7 +334,7 @@ class MLSTMBlock:
             i_[..., None, None] * v[..., :, None] * k[..., None, :]
         n = f_[..., None] * n + i_[..., None] * k
         qn = torch.einsum("bhk,bhk->bh", n, q)
-        denom = torch.clamp(qn.abs(), min=1.0)
+        denom = torch.maximum(qn.abs(), qn.new_ones(()))
         h_out = torch.einsum("bhvk,bhk->bhv", c, q) / denom[..., None]
         return XLSTMCache(c, n, m_new), h_out
 
@@ -420,7 +422,7 @@ class SLSTMBlock:
         f_ = torch.exp(log_f + m - m_new)
         c = f_ * c + i_ * torch.tanh(z)
         n = f_ * n + i_
-        h = torch.sigmoid(og) * c / torch.clamp(n, min=1.0)
+        h = torch.sigmoid(og) * c / torch.maximum(n, n.new_ones(()))
         return XLSTMCache(c, n, m_new), h
 
     def _zifo(self, params: Params, x: torch.Tensor, deploy: bool):

@@ -1,1 +1,2 @@
-"""Optimizer, learning-rate schedules and 1-bit gradient compression."""
+"""Optimizer, learning-rate schedules, 1-bit gradient compression and
+distillation with the SPS threshold search."""

@@ -7,13 +7,22 @@ package's, op by op in float32 (each product and sum rounded where the
 JAX expression rounds it), run as multi-tensor ``torch._foreach_*`` ops
 so a step costs a few launches per op, not one per leaf.
 
+``update(..., donate=True)`` is the port's counterpart of the JAX
+package's donation of its state to the jitted step: the same arithmetic,
+after the global norm over all leaves, runs over groups of flat slices
+of at most ``GROUP_NUMEL`` elements each and writes the new params and
+moments into the given params' and state's own tensors, so the update's
+temporaries stay one group's size (one float32 tree of mixtral-8x22b's
+layer is 11.6 GB).
+
 Two differences of layout, none of value:
   * ``AdamWState.step`` is a 0-d int32 tensor on the host (the JAX
     package keeps it on the device): the learning rate and the bias
     corrections 1 - b^step are computed from it in float32 on the host,
     so a step reads nothing back from the card but the grad norm's
     scale, which stays on the device.
-  * The port keeps a stacked layer subtree (``blocks``) as a list of
+  * The port keeps a stacked layer subtree (``blocks``, an
+    encoder-decoder's ``encoder`` and ``decoder``) as a list of
     per-layer trees, where the JAX package's leaves carry a leading
     layer axis.  Weight decay applies to the leaves whose JAX counterpart
     has ndim >= 2 (JAX's rule), so a per-layer leaf under a stacked key
@@ -32,7 +41,11 @@ from repro_torch import tree
 
 Params = Any
 
-STACKED = ("blocks",)   # the port's lists of layers that JAX stacks
+# the port's lists of layers that JAX stacks (a model names the ones it
+# stacks: ``LMModel.stacked``, ``EncDecModel.stacked``)
+STACKED = ("blocks", "encoder", "decoder")
+# elements per group of the donating update (512 MiB of float32)
+GROUP_NUMEL = 1 << 27
 
 
 class AdamWState(NamedTuple):
@@ -92,27 +105,15 @@ class AdamW:
         c2 = 1.0 - torch.pow(_f32(self.b2), s)
         return lr.item(), c1.item(), c2.item()
 
-    def update(self, grads: Params, state: AdamWState, params: Params, *,
-               stacked: Sequence[str] = STACKED, scalars=None
-               ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
-        """One step: clip by the global norm, moments, bias correction,
-        decoupled decay of the leaves ``decayed`` marks.  ``stacked``
-        names the per-layer lists of a uniform stack (the JAX package
-        keeps a mixed stack, xlstm's, as a list too: pass ()).
-        ``scalars`` (lr, c1, c2), 0-d float32 device tensors, replace
-        ``self.scalars(step)``: a captured step reads them at replay."""
-        step = state.step + 1
-        lr, c1, c2 = scalars or self.scalars(int(step))
+    def _new_values(self, gs, mus, nus, ps, decay, scale, lr, c1, c2):
+        """JAX's ``upd`` over lists of tensors (whole leaves or slices of
+        them): the new params, mu and nu in their storage dtypes."""
         b1, b2 = self.b1, self.b2
-        ps, gs = tree.leaves(params), tree.leaves(grads)
-        gnorm = global_norm(grads)
         g = [x.to(torch.float32) for x in gs]
-        if self.grad_clip:
-            scale = torch.clamp(self.grad_clip / gnorm.clamp_min(1e-9),
-                                max=1.0)
+        if scale is not None:
             g = torch._foreach_mul(g, scale)
-        mu = [m.to(torch.float32) for m in tree.leaves(state.mu)]
-        nu = [n.to(torch.float32) for n in tree.leaves(state.nu)]
+        mu = [m.to(torch.float32) for m in mus]
+        nu = [n.to(torch.float32) for n in nus]
         mu = torch._foreach_add(torch._foreach_mul(mu, b1),
                                 torch._foreach_mul(g, 1 - b1))
         nu = torch._foreach_add(
@@ -122,22 +123,86 @@ class AdamW:
             torch._foreach_div(mu, c1),
             torch._foreach_add(torch._foreach_sqrt(
                 torch._foreach_div(nu, c2)), self.eps)))
-        if self.weight_decay:
-            idx = [i for i, d in enumerate(decayed(params, stacked)) if d]
-            if idx:
-                decay = torch._foreach_mul(
-                    [ps[i].to(torch.float32) for i in idx],
-                    self.weight_decay)
-                for i, v in zip(idx, torch._foreach_add(
-                        [delta[i] for i in idx], decay)):
-                    delta[i] = v
+        idx = [i for i, d in enumerate(decay) if d] \
+            if self.weight_decay else []
+        if idx:
+            dec = torch._foreach_mul([ps[i].to(torch.float32) for i in idx],
+                                     self.weight_decay)
+            for i, v in zip(idx, torch._foreach_add([delta[i] for i in idx],
+                                                    dec)):
+                delta[i] = v
         new_p = torch._foreach_sub([p.to(torch.float32) for p in ps],
                                    torch._foreach_mul(delta, lr))
-        new_p = [v.to(p.dtype) for v, p in zip(new_p, ps)]
         md = self.moment_dtype
-        new_state = AdamWState(step, tree.unflatten(params, [
-            m.to(md) for m in mu]), tree.unflatten(params, [
-                n.to(md) for n in nu]))
+        return ([v.to(p.dtype) for v, p in zip(new_p, ps)],
+                [m.to(md) for m in mu], [n.to(md) for n in nu])
+
+    def update(self, grads: Params, state: AdamWState, params: Params, *,
+               stacked: Sequence[str] = STACKED, scalars=None,
+               donate: bool = False, write: bool = True
+               ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
+        """One step: clip by the global norm, moments, bias correction,
+        decoupled decay of the leaves ``decayed`` marks.  ``stacked``
+        names the per-layer lists the JAX package stacks (a model's
+        ``stacked``; a mixed stack, xlstm's, is a list there too: pass
+        ()).  ``scalars`` (lr, c1, c2), 0-d float32 device tensors,
+        replace ``self.scalars(step)``: a captured step reads them at
+        replay.  ``donate`` writes the new params and moments into
+        ``params`` and ``state``'s own (contiguous) tensors, group by
+        group, and returns those trees; with ``write`` False it computes
+        every group and writes nothing (a warm-up that leaves the state
+        as it was)."""
+        step = state.step + 1
+        lr, c1, c2 = scalars or self.scalars(int(step))
+        ps, gs = tree.leaves(params), tree.leaves(grads)
+        mus, nus = tree.leaves(state.mu), tree.leaves(state.nu)
+        gnorm = global_norm(grads)
+        scale = None
+        if self.grad_clip:
+            scale = torch.clamp(self.grad_clip / gnorm.clamp_min(1e-9),
+                                max=1.0)
+        decay = decayed(params, stacked)
         metrics = {"grad_norm": gnorm, "lr": torch.as_tensor(
             lr, dtype=torch.float32, device=gnorm.device)}
-        return tree.unflatten(params, new_p), new_state, metrics
+        if not donate:
+            new_p, new_mu, new_nu = self._new_values(
+                gs, mus, nus, ps, decay, scale, lr, c1, c2)
+            return tree.unflatten(params, new_p), AdamWState(
+                step, tree.unflatten(params, new_mu),
+                tree.unflatten(params, new_nu)), metrics
+        for t in ps + mus + nus:
+            if not t.is_contiguous():
+                raise ValueError("a donated state's tensors must be "
+                                 "contiguous")
+        for group in _groups([p.numel() for p in ps], GROUP_NUMEL):
+            def cut(ts):
+                return [ts[i].view(-1)[a:b] for i, a, b in group]
+
+            new = self._new_values(
+                [gs[i].reshape(-1)[a:b] for i, a, b in group], cut(mus),
+                cut(nus), cut(ps), [decay[i] for i, _, _ in group], scale,
+                lr, c1, c2)
+            if write:
+                for dst, src in zip((cut(ps), cut(mus), cut(nus)), new):
+                    torch._foreach_copy_(dst, src)
+        return params, AdamWState(step, state.mu, state.nu), metrics
+
+
+def _groups(sizes: Sequence[int], limit: int = GROUP_NUMEL
+            ) -> List[List[Tuple[int, int, int]]]:
+    """Slices (leaf, start, stop) of leaves of ``sizes`` elements, in
+    order, packed into groups of at most ``limit`` elements (a larger
+    leaf is cut into slices)."""
+    groups, cur, room = [], [], limit
+    for i, n in enumerate(sizes):
+        a = 0
+        while True:
+            b = min(n, a + room)
+            cur.append((i, a, b))
+            room, a = room - (b - a), b
+            if room == 0:
+                groups.append(cur)
+                cur, room = [], limit
+            if a >= n:
+                break
+    return groups + [cur] if cur else groups

@@ -9,16 +9,19 @@ arithmetic of its jitted ``step`` (``value_and_grad`` of
 card, and ``device="cpu"`` runs the same steps eagerly on the CPU.
 
 On the card the step is one captured CUDA graph (``graph=True``, the
-default), where the JAX package jits it: the first step of a batch shape
-warms up on a side stream and captures forward, backward and update into
-buffers of the trainer's own, then every step copies the batch (and a
-state that is not the graph's) into them, sets the learning rate and bias
-corrections and replays.  The update ends by copying the new params,
-moments and error feedback into those buffers, so the state a step
-returns IS the graph's buffers, overwritten by the next step: copy a
-state to keep it (``Checkpointer.save`` copies to the host at once).  A
-replay computes what the eager step computes; ``graph=False`` runs the
-step eagerly.
+default), where the JAX package jits it, and the step DONATES its state,
+as the JAX package donates its state to the jitted step: the first step
+of a batch shape adopts the state it is given as the graph's buffers (no
+copy), warms up on a side stream without writing them, and captures
+forward, backward and the update, which writes the new params, moments
+and error feedback into those buffers group by group
+(``AdamW.update(..., donate=True)``).  So the state a step is given and
+the one it returns ARE the graph's buffers, overwritten by every later
+step: copy a state to keep it, as a JAX caller must under donation
+(``Checkpointer.save`` copies to the host at once).  A state that is not
+the graph's is copied into its buffers first.  A replay computes what
+the eager step computes; ``graph=False`` (and the CPU) runs the step
+eagerly and functionally.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device, tree
 from repro_torch.optim import compress as compress_lib
-from repro_torch.optim.adamw import STACKED, AdamW, AdamWState
+from repro_torch.optim.adamw import AdamW, AdamWState
 
 Params = Any
 
@@ -58,8 +61,8 @@ class Trainer:
         self.opt = optimizer
         self.cfg = cfg
         self.device = resolve_device(device)
-        # a uniform stack's layers are one stacked leaf each in JAX
-        self.stacked = STACKED if getattr(model, "uniform", False) else ()
+        # the layer lists whose leaves are one stacked leaf each in JAX
+        self.stacked = model.stacked
         self.graph = graph and self.device.type == "cuda"
         self._graphs: Dict[Any, _StepGraph] = {}
         self.captures = 0
@@ -122,9 +125,11 @@ class Trainer:
         return g.run(state, batch)
 
     def _step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-              scalars=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """The step's arithmetic on device tensors; ``scalars`` as in
-        ``AdamW.update``."""
+              scalars=None, donate: bool = False, write: bool = True
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The step's arithmetic on device tensors; ``scalars``,
+        ``donate`` and ``write`` as in ``AdamW.update`` (the error
+        feedback is donated with the rest)."""
         accum = self.cfg.grad_accum
         if accum > 1:
             gsum = [torch.zeros(p.shape, dtype=torch.float32,
@@ -144,48 +149,55 @@ class Trainer:
             loss, metrics, grads = self.loss_and_grads(state.params, batch)
             metrics["loss_total"] = loss
         ef = state.ef
-        if self.cfg.compress_grads:
-            grads, ef = compress_lib.compress_tree(grads, ef, self.stacked)
         with torch.no_grad():
-            params, opt, om = self.opt.update(grads, state.opt, state.params,
-                                              stacked=self.stacked,
-                                              scalars=scalars)
+            if self.cfg.compress_grads:
+                grads, new_ef = compress_lib.compress_tree(grads, ef,
+                                                           self.stacked)
+                if not donate:
+                    ef = new_ef
+                elif write:
+                    torch._foreach_copy_(tree.leaves(ef),
+                                         tree.leaves(new_ef))
+            params, opt, om = self.opt.update(
+                grads, state.opt, state.params, stacked=self.stacked,
+                scalars=scalars, donate=donate, write=write)
         metrics.update(om)
         return TrainState(params, opt, ef), metrics
 
 
 class _StepGraph:
-    """One batch shape's train step as a captured CUDA graph (see the
-    module docstring)."""
+    """One batch shape's train step as a captured CUDA graph that donates
+    its state (see the module docstring)."""
 
-    WARMUP = 2
+    WARMUP = 1
 
     def __init__(self, trainer: Trainer, state: TrainState,
                  batch: Dict[str, torch.Tensor]):
         self.trainer = trainer
         dev = trainer.device
-        self.state = tree.map(lambda t: t.clone(), state)
+        self.state = state                 # adopted: the graph's buffers
         self.batch = {k: v.clone() for k, v in batch.items()}
         self.scalars = tuple(torch.zeros((), device=dev) for _ in range(3))
         self._set_scalars(int(state.opt.step) + 1)
-        keep = self._buffers(self.state)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP):
-                trainer._step(self.state, self.batch, self.scalars)
+                trainer._step(self.state, self.batch, self.scalars,
+                              donate=True, write=False)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         # a garbage collection inside the capture could free an older
         # graph, which a capturing stream does not allow: collect now,
-        # and not during the capture
+        # and not during the capture; the warm-up's cached blocks go back
+        # to the card, so the graph's own pool can take that memory
         gc.collect()
+        torch.cuda.empty_cache()
         gc.disable()
         try:
             with torch.cuda.graph(self.graph):
-                new, self.metrics = trainer._step(self.state, self.batch,
-                                                  self.scalars)
-                torch._foreach_copy_(keep, self._buffers(new))
+                _, self.metrics = trainer._step(self.state, self.batch,
+                                                self.scalars, donate=True)
         finally:
             gc.enable()
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.rbmm_mxu import ops as mxu_ops, ref as mxu_ref
 from repro_torch.launch import serve as serve_cli, train as train_cli
 from repro_torch.models.attention import SPSAttention
 from repro_torch.models.blocks import Block
+from repro_torch.models.ffn import BinaryFFN
 from repro_torch.models.lm import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.serve import engine, sampler
@@ -220,44 +221,57 @@ def test_not_ported_yet_boundaries():
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
             cfg.compute_dtype) == (30, 576, 9, 3, 64, 1536, 49152,
                                    "bfloat16")
-    # windows, the GELU GLU, the row granularity, MoE's deploy face, the
-    # recurrent families' deploy faces, the encoder-decoder family and the
-    # frontend stub are ported, and every arch resolves; the QAT faces
-    # (MoE's, the recurrent blocks') are not, and frontend models serve
-    # statically only, as in the JAX package
+    # windows, the GELU GLU, the row granularity, the MoE, recurrent and
+    # encoder-decoder families and the frontend stub are ported, and every
+    # arch resolves; frontend models serve statically only, as in the JAX
+    # package
     for arch in base.ARCH_IDS:
         assert base.get_config(arch).name == arch
     assert SPSAttention(96, 3, 1, 32, sps_granularity="row").init(
         torch.Generator(), "cpu")["sps_lambda"].shape == (3, 512)
-    moe = build_model(base.get_smoke_config("granite-3-2b").with_(
-        family="moe", moe=base.MoEConfig(num_experts=4), window_size=16))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        moe._block()._ffn().apply({}, torch.zeros(2, 64))
+    # every family's QAT face runs: the MoE (and its expert-stacked
+    # GLU), the recurrent cells, cross-attention, the hybrid and decoder
+    # blocks and the encoder-decoder's loss
+    gen = torch.Generator().manual_seed(0)
+    moe_ffn = build_model(base.get_smoke_config("granite-3-2b").with_(
+        family="moe", moe=base.MoEConfig(num_experts=4), window_size=16)
+    )._block()._ffn()
+    d = moe_ffn.d_model
+    y, aux = moe_ffn.apply(moe_ffn.init(gen, "cpu"), torch.ones(2, d))
+    assert y.shape == (2, d) and aux["moe_aux_loss"].shape == ()
+    experts = moe_ffn._experts()
+    assert experts.apply(experts.init(gen, "cpu"),
+                         torch.ones(4, 2, d)).shape == (4, 2, d)
     ssm = build_model(base.get_smoke_config("xlstm-350m"))
     cell = ssm._block("mlstm")._parts()["cell"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cell.apply(cell.init(torch.Generator(), "cpu"),
-                   torch.zeros(1, 2, 128))
-    # the QAT faces of the dense family are ported; the other families'
-    # (MoE, recurrent above; cross-attention, the decoder block, hybrid,
-    # the encoder-decoder's loss, expert-stacked FFNs) are not
+    assert cell.apply(cell.init(gen, "cpu"),
+                      torch.ones(1, 2, 128)).shape == (1, 2, 128)
     smoke = base.get_smoke_config("smollm-135m")
     cross = Block(smoke, kind="dec")._parts()["cross"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cross.qat(cross.init(torch.Generator(), "cpu"), torch.zeros(1, 2, 96),
-                  memory=torch.zeros(1, 3, 96))
+    out, _ = cross.qat(cross.init(gen, "cpu"), torch.ones(1, 2, 96),
+                       memory=torch.ones(1, 3, 96))
+    assert out.shape == (1, 2, 96)
     for kind in ("dec", "hybrid"):
         cfg = base.get_smoke_config("hymba-1.5b") if kind == "hybrid" \
             else smoke
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Block(cfg, kind=kind).qat({}, torch.zeros(1, 2, cfg.d_model))
-    experts = moe._block()._ffn()._experts()
+        blk = Block(cfg, kind=kind)
+        x, _ = blk.qat(blk.init(gen, "cpu"), torch.ones(1, 2, cfg.d_model),
+                       memory=torch.ones(1, 3, cfg.d_model))
+        assert x.shape == (1, 2, cfg.d_model)
+    encdec = build_model(base.get_smoke_config("seamless-m4t-large-v2"))
+    loss, metrics = encdec.train_loss(encdec.init(gen), {
+        "frontend_embeds": torch.ones(1, 8, 128),
+        "tokens": torch.zeros(1, 4, dtype=torch.int32),
+        "labels": torch.zeros(1, 4, dtype=torch.int32)})
+    assert bool(torch.isfinite(loss)) and int(metrics["tokens"]) == 4
+    # still not ported: the expert-stacked ReLU FFN (no config uses it),
+    # model parallelism and the elastic restore (mesh work)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        experts.apply({}, torch.zeros(4, 2, 64))
-    encdec_qat = build_model(smoke.with_(family="encdec",
-                                         num_encoder_layers=2))
+        BinaryFFN(64, 128, act="relu", glu=False, num_experts=4)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        train_cli.main(["--device", "cpu", "--model-parallel", "2"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        encdec_qat.train_loss({}, {})
+        ft.elastic_restore(None, None)
     with pytest.raises(ValueError, match="unknown block kind"):
         Block(base.get_smoke_config("smollm-135m"), kind="cross")
     assert Block(base.get_smoke_config("smollm-135m"), kind="dec"
