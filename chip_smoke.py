@@ -118,23 +118,32 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 continuous paged serving (``[granite continuous]``: a
                 preemption, a prefix hit, 40 ``paged_gather_decode`` per
                 pure-decode iteration, graphs == eager)
-  9. qwen       qwen1.5-32b at full width and 8 of its 64 layers (the
-                full depth's float32 masters exceed one card): static
-                and continuous serving as in phase 8 (``[qwen]``,
-                ``[qwen continuous]``): d_h = 128, G = 1, the QKV bias and
-                the untied 152,064-wide head through every kernel
+  9. qwen       qwen1.5-32b at full width and depth (64 layers, its
+                deploy params built block by block by ``init_deploy``,
+                whose first 8 blocks equal the 8-layer build's): static
+                serving and the ragged prefill as in phase 8 (``[qwen]``;
+                the launches per prefill and per decode step equal
+                ``kernel_times.encdec_calls``' per-layer calls times the
+                depth; ``[qwen full depth]``: the build's seconds, GiB and
+                peak, prefill and decode ms), then continuous serving on
+                the first 8 blocks (``truncate_deploy``, ``[qwen
+                continuous]``): d_h = 128, G = 1, the QKV bias and the
+                untied 152,064-wide head through every kernel
   10. crosscheck
                 a narrow qwen-shaped config (2 layers, d = 256, 2 heads of
                 d_h = 128, G = 1, the QKV bias drawn off zero) in float32
                 on the card and on the CPU: equal greedy tokens, logits
                 within a stated tolerance
-  11. gemma    gemma3-27b at full width and 12 of its 62 layers (two 5:1
+  11. gemma    gemma3-27b at full width and depth (62 layers in 5:1
                 local:global periods; bf16, random weights from a seed):
                 static serving of 4 prompts of 1,536 tokens (``[gemma]``:
-                the local layers' rings of 1,024 wrap, graph == eager),
-                the ragged windowed prefill (8 rows of 1 to 1,536
-                tokens, each row's local and global rings equal to its
-                own prefill's), continuous paged serving of a 16-request
+                the local layers' rings of 1,024 wrap, graph == eager,
+                the launches of ``encdec_calls``), the ragged windowed
+                prefill (8 rows of 1 to 1,536 tokens, each row's local
+                and global rings equal to its own prefill's), ``[gemma
+                full depth]``; then on the first 12 blocks (two periods,
+                equal to the 12-layer build's) continuous paged serving
+                of a 16-request
                 trace on two ring groups (``[gemma continuous]``: 8
                 slots, chunks of 512, prefix hits and preemptions by
                 group, graphs == eager) and the same trace
@@ -150,13 +159,18 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 logits within a stated tolerance), continuously and
                 speculatively (tokens by rid and counters equal)
 
-  13. mixtral  mixtral-8x22b at full width (d = 6,144, 48/8 heads of
-                d_h = 128, d_ff = 16,384, 8 experts top-2 at capacity
-                factor 2, a window of 4,096, the untied head over 32,768)
-                and 4 of its 56 layers (bf16, random weights from a
-                seed): static serving of 8 prompts of 512 tokens
-                (``[mixtral]``, graph == eager) and the expert weights'
-                share of a decode step; continuous paged serving of
+  13. mixtral  first ``init_deploy`` == ``convert(init)`` bitwise on the
+                card for mixtral cut to 2 layers at full width
+                (``[init_deploy]``); then mixtral-8x22b at full width (d
+                = 6,144, 48/8 heads of d_h = 128, d_ff = 16,384, 8
+                experts top-2 at capacity factor 2, a window of 4,096,
+                the untied head over 32,768) and depth (56 layers; bf16,
+                random weights from a seed): static serving of 8 prompts
+                of 512 tokens (``[mixtral]``, graph == eager, the
+                launches of ``encdec_calls``) and the expert weights'
+                share of a decode step, ``[mixtral full depth]``; then on
+                the first 4 blocks (equal to the 4-layer build's)
+                continuous paged serving of
                 phase 11's trace and engine shape (``[mixtral
                 continuous]``: each pure-decode iteration launches 7
                 ``rbmm_int`` a layer and no ``rbmm_mxu``, each mixed one 7
@@ -166,9 +180,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 the eager runs of each iteration kind
   14. arctic   arctic-480b at full width (d = 7,168, 56/8 heads, d_ff =
                 4,864, 128 experts top-2 and the dense residual FFN) and
-                1 of its 35 layers: static serving of 8 prompts of 128
-                tokens (``[arctic]``, graph == eager), the expert
-                weights' share of a decode step, the drops
+                depth (35 layers: ~57 GiB of deploy params, drawn and
+                packed expert by expert): static serving of 8 prompts of
+                128 tokens (``[arctic]``, graph == eager, the launches of
+                ``encdec_calls``), the expert weights' share of a decode
+                step, the drops, ``[arctic full depth]``
   15. crosscheck
                 the mixtral and arctic smoke configs (float32, dropless)
                 on the card and on the CPU: static tokens equal and
@@ -217,9 +233,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 forward; the encoder's ms alone; the memories' bytes
                 against bf16
   20. internvl2
-                internvl2-76b at full width and 4 of its 80 layers, 1,024
+                internvl2-76b at full width and depth (80 layers), 1,024
                 patch embeddings before each prompt (``[internvl2]``), the
-                same checks
+                same checks, ``[internvl2 full depth]``
   21. crosscheck
                 both smoke configs (float32) on the card and on the CPU:
                 greedy tokens equal, logits within a stated tolerance, the
@@ -286,12 +302,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    ARCH_CALLS, BF16_FLOPS, ENCDEC_CALLS, ENCDEC_LAYERS, ENCDEC_STATIC,
-    GEMMA_CALLS, HBM_BYTES_PER_S, INT8_OPS,
-    MOE_CALLS, RECURRENT_CALLS, RECURRENT_CELL, RECURRENT_STATIC,
-    SCALAR32_OPS, bound, call_operands, decode_calls, device_ms, eager_ms,
-    moe_rows, nbytes, paged_bound, path_launches, spec_launches,
-    spec_operands, sps_bound, time_all)
+    ARCH_CALLS, BF16_FLOPS, ENCDEC_CALLS, ENCDEC_STATIC,
+    GEMMA_CALLS, GEMMA_LAYERS, HBM_BYTES_PER_S, INT8_OPS,
+    MOE_CALLS, MOE_CUT, RECURRENT_CALLS, RECURRENT_CELL, RECURRENT_STATIC,
+    SCALAR32_OPS, bound, call_operands, decode_calls, device_ms,
+    eager_ms, encdec_calls, moe_rows, nbytes, paged_bound, path_launches,
+    spec_launches, spec_operands, sps_bound, time_all)
 
 SEED = 0
 
@@ -1101,35 +1117,210 @@ def phase_kernels():
 SERVE_B, SERVE_S, SERVE_NEW = 8, 128, 32
 
 
-def load_model(arch: str, tag: str, num_layers: int = 0):
-    """``arch``'s full-width model (its first ``num_layers`` layers when
-    given), random weights from ``SEED`` made on the card, converted;
-    the float32 masters are freed.  Returns (model, deploy params)."""
+# the conversion's temporaries beyond the masters: the |w| of a
+# projection's activation scale (one largest-projection master) and a
+# block of ``packing.PACK_BLOCK`` signs held as bool, int64, its
+# contiguous copy and shifted int64 values (25 bytes each, if all alive
+# at once); the draws themselves run in place (``nn.truncated_normal``)
+BUILD_TEMPS = 1
+PACK_TEMP_BYTES_PER_SIGN = 25
+
+
+def master_bytes(model) -> tuple:
+    """(the float32 masters one step of ``init_deploy`` holds at most: one
+    block's, or in an expert stack the largest of its attention's, one
+    expert's plus the router's and the residual FFN's plus the router's;
+    the largest projection's master), in bytes, from the blocks' QAT
+    params drawn on the meta device (no memory)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models.ffn import BinaryMoE
+    gen = torch.Generator()
+
+    def size(t) -> int:
+        return 4 * sum(leaf.numel() for leaf in tree.leaves(t))
+
+    unit = proj = 0
+    for blocks in model.layer_blocks().values():
+        for blk in set(blocks):
+            parts = []
+            for mod in blk._parts().values():
+                p = mod.init(gen, "meta")
+                if isinstance(mod, BinaryMoE):
+                    router = size(p["router"])
+                    parts += [size(p["experts"]) // mod.num_experts + router,
+                              size(p.get("residual")) + router]
+                else:
+                    parts.append(size(p))
+                for path, t in tree.leaves_with_paths(p):
+                    if path.endswith("w_latent"):
+                        experts = path.startswith("experts")
+                        proj = max(proj, 4 * t[0].numel() if experts
+                                   else 4 * t.numel())
+            moe = any(isinstance(m, BinaryMoE)
+                      for m in blk._parts().values())
+            unit = max(unit, max(parts) if moe else sum(parts))
+    return unit, proj
+
+
+def free_card() -> None:
+    """Give back what earlier phases left: engines and graphs that hold
+    each other (reference cycles) are collected, then the cache freed."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def load_model(arch: str, tag: str):
+    """``arch``'s model at full width and depth, deploy params drawn from
+    ``SEED`` on the card block by block (``init_deploy``: at most one
+    block's float32 masters alive, one expert's in an expert stack).  The
+    build's peak must stay under the final allocation plus those masters,
+    ``BUILD_TEMPS`` times the largest projection's (``master_bytes``) and
+    a packed block's temporaries.  Returns (model, deploy params, {"s", "gib",
+    "peak_gib"}: the build's seconds, GiB after it and its peak)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
     cfg = get_config(arch)
-    if num_layers:
-        cfg = cfg.truncated(num_layers)
     model = build_model(cfg)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.inference_mode():
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        dparams = model.convert(model.init(gen))
+        dparams = model.init_deploy(gen)
     torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    final, peak = (torch.cuda.memory_allocated(),
+                   torch.cuda.max_memory_allocated())
+    from repro_torch.core.packing import PACK_BLOCK
+    unit, proj = master_bytes(model)
+    pack = PACK_TEMP_BYTES_PER_SIGN * PACK_BLOCK
+    bound = final + unit + BUILD_TEMPS * proj + pack
     torch.cuda.empty_cache()
     log(f"{tag} {cfg.name}: {cfg.num_layers} layers"
-        f"{f' (of {get_config(arch).num_layers})' if num_layers else ''}"
         f"{f' and {cfg.num_encoder_layers} encoder layers' if cfg.num_encoder_layers else ''}, "
         f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"d_h={cfg.resolved_head_dim}, d_ff={cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, qkv bias {cfg.attn_bias}, tied head "
         f"{cfg.tie_embeddings}, {cfg.compute_dtype}"
         f"{moe_text(cfg)}; "
-        f"{cfg.param_count() / 1e9:.3f} B parameters; init+convert "
-        f"{time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    return model, dparams
+        f"{cfg.param_count() / 1e9:.3f} B parameters; init_deploy "
+        f"{secs:.1f} s; {final / 2**30:.2f} GiB on the card, the build's "
+        f"peak {peak / 2**30:.2f} GiB <= {bound / 2**30:.2f} (the final "
+        f"allocation + {unit / 2**30:.3f} GiB of masters + {BUILD_TEMPS} x "
+        f"the largest projection's {proj / 2**30:.3f} GiB + "
+        f"{pack / 2**30:.3f} GiB of a packed block's temporaries); peak - "
+        f"final = {(peak - final) / proj:.2f} largest projection masters")
+    if peak > bound:
+        raise AssertionError(f"{tag} init_deploy's peak {peak} bytes "
+                             f"exceeds {bound}")
+    return model, dparams, {"s": secs, "gib": final / 2**30,
+                            "peak_gib": peak / 2**30}
+
+
+def full_depth_line(tag: str, model, built: dict, served: dict) -> None:
+    """The ``[<arch> full depth]`` summary of a full-depth static cell."""
+    from repro_torch.configs import get_config
+    log(f"{tag} {model.cfg.num_layers} layers (of the config's "
+        f"{get_config(model.cfg.name).num_layers}), init_deploy "
+        f"{built['s']:.1f} s, "
+        f"{built['gib']:.2f} GiB allocated after the build, the build's "
+        f"peak {built['peak_gib']:.2f} GiB; prefill "
+        f"{served['prefill_ms']:.1f} ms, decode {served['step_ms']:.2f} "
+        f"ms/step, {served['tok_s']:.1f} tok/s; launches per prefill "
+        f"{json.dumps(served['prefill'])}, per decode step "
+        f"{json.dumps(served['decode'])}")
+
+
+def static_expect(cfg, shape) -> dict:
+    """Launches per prefill and per decode step of ``cfg``'s static path
+    at ``shape`` (``kernel_times.encdec_calls``: each layer's calls
+    times the depth)."""
+    calls = encdec_calls(cfg, shape)
+    short = cfg.name.split("-")[0]
+    return {p: path_launches(calls, short, p) for p in ("prefill", "decode")}
+
+
+def words_digest(params) -> str:
+    """sha256 of every leaf's path and bytes, in flattening order."""
+    import torch
+    from repro_torch import tree
+    h = hashlib.sha256()
+    for path, t in tree.leaves_with_paths(params):
+        h.update(path.encode())
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def check_prefix(model, dparams, n: int, tag: str) -> None:
+    """``init_deploy`` of ``cfg.truncated(n)`` on the card against the
+    full-depth params: its n blocks' words digest as the full model's
+    first n blocks', and its embedding, norm and head are equal."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models.lm import build_model
+    cut_model = build_model(model.cfg.truncated(n))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cut = cut_model.init_deploy(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        got, want = words_digest(cut["blocks"]), \
+            words_digest(dparams["blocks"][:n])
+        rest = [k for k in cut if k != "blocks"]
+        same = all(torch.equal(a, b) for k in rest for a, b in zip(
+            tree.leaves(cut[k]), tree.leaves(dparams[k])))
+    if got != want or not same:
+        raise AssertionError(f"{tag} the {n}-layer build's blocks digest "
+                             f"{got}, the full model's first {n} {want}; "
+                             f"{rest} equal: {same}")
+    log(f"{tag} init_deploy of {n} layers == the full-depth model's first "
+        f"{n} blocks (words digest {got}) and its {rest}, bitwise "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del cut
+    torch.cuda.empty_cache()
+
+
+def check_init_deploy(arch: str, n: int) -> None:
+    """On the card, ``init_deploy`` against ``convert(init)`` of ``arch``
+    cut to ``n`` layers at full width: every leaf bitwise (the expert
+    path and the card generator's offsets over ~20 GB of draws for
+    mixtral's 2 layers)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    model = build_model(get_config(arch).truncated(n))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = model.convert(model.init(
+            torch.Generator(device="cuda").manual_seed(SEED)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        got = model.init_deploy(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g, w = tree.leaves_with_paths(got), tree.leaves_with_paths(want)
+        bad = sum(not (p == q and a.dtype == b.dtype and torch.equal(a, b))
+                  for (p, a), (q, b) in zip(g, w))
+        size = sum(a.numel() * a.element_size() for _, a in g)
+    if bad or len(g) != len(w):
+        raise AssertionError(f"[init_deploy] {arch}, {n} layers: {bad} of "
+                             f"{len(w)} leaves differ from "
+                             f"convert(init)")
+    log(f"[init_deploy] {arch} at full width, {n} layers: init_deploy == "
+        f"convert(init) bitwise, all {len(g)} leaves ({size / 2**30:.2f}"
+        f" GiB of deploy params; {model.cfg.param_count() / 1e9:.2f} B "
+        f"parameters drawn); convert(init) {t1 - t0:.1f} s, init_deploy "
+        f"{t2 - t1:.1f} s")
+    del got, want, g, w
+    torch.cuda.empty_cache()
 
 
 def moe_text(cfg) -> str:
@@ -1147,7 +1338,7 @@ def moe_text(cfg) -> str:
 def serve_static(model, dparams, tag: str,
                  shape=(SERVE_B, SERVE_S, SERVE_NEW), path=STATIC_PATH,
                  expect=None, frontend=None, caches_equal=False,
-                 prompts=None) -> tuple:
+                 prompts=None, stats=None) -> tuple:
     """B = 8 prompts of 128 tokens and 32 greedy tokens each (or the
     (B, S, new tokens) of ``shape``) through ``ServeEngine.generate``,
     rings of S + new tokens (a windowed layer's: its window), the decode
@@ -1158,7 +1349,9 @@ def serve_static(model, dparams, tag: str,
     too); ``caches_equal`` also holds the graph's caches to the eager
     steps' bitwise (``check_static_graph``).  ``prompts`` (B, S) replace
     the ones drawn from ``SEED``.  Returns the launch counts of the run
-    and the wall ms per decode step."""
+    and the wall ms per decode step; ``stats`` (a dict) also takes the
+    prefill ms, the tokens per second and the launches per prefill and
+    per decode step."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
@@ -1232,6 +1425,11 @@ def serve_static(model, dparams, tag: str,
     log(f"{tag} sample tokens {toks[0, :8].tolist()}; all {toks.size} "
         f"tokens' digest {digest(toks.tolist())}")
     step_ms = 1e3 * (t_end - t_pre) / steps
+    if stats is not None:
+        stats.update(prefill_ms=1e3 * (t_pre - t0), step_ms=step_ms,
+                     tok_s=n_b * n_new / total,
+                     prefill={n: c for n, c in c_pre.items() if c},
+                     decode={n: c for n, c in per_step.items() if c})
     walls = [1e3 * (t1 - t0) for (t0, _), (t1, _) in zip(marks, marks[1:])]
     replays = [r for k, _, _, r in probe.stamps if k == "decode"]
     host = [w - r for w, r in zip(walls, replays)]
@@ -2263,12 +2461,12 @@ def phase_encode():
     t0 = time.perf_counter()
     with torch.inference_mode():
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        dparams = model.convert(model.init(gen))
+        dparams = model.init_deploy(gen)
     torch.cuda.synchronize()
     log(f"[encode] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
         f"{cfg.num_heads} heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{cfg.norm}, {cfg.act} FFN blocked R={cfg.binary.ffn_block_r}, "
-        f"causal={cfg.causal}, {cfg.compute_dtype}; init+convert "
+        f"causal={cfg.causal}, {cfg.compute_dtype}; init_deploy "
         f"{time.perf_counter() - t0:.1f} s")
     tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (ENC_B, ENC_S)), device="cuda")
@@ -2374,20 +2572,33 @@ RAGGED_LENS = (1, 128, 63, 64, 65, 127, 100, 2)
 # residual stream and the rings are bitwise equal, the head is a float32
 # cuBLAS product whose algorithm may change with M
 RAGGED_ATOL = 1e-3
-QWEN_LAYERS = 8      # of 64: the full depth's float32 masters exceed 80 GB
+# qwen's continuous cell runs 8 of the 64 layers (the full-depth model's
+# first 8, ``truncate_deploy``), to keep the script's time
+QWEN_LAYERS = 8
 
 
-def phase_dense_arch(arch: str, tag: str, num_layers: int = 0) -> dict:
-    """``arch`` at full width (``num_layers`` deep when given): static
-    serving (phase 4's shapes, graph == eager), the ragged whole-prompt
-    prefill, then continuous paged serving of phase 5's trace on phase
-    5's engine shape (a preemption, a prefix hit, one
-    ``paged_gather_decode`` per layer in every pure-decode iteration).
-    Returns the launch counts of the two serves."""
+def phase_dense_arch(arch: str, tag: str, cut: int = 0) -> dict:
+    """``arch`` at full width and depth: static serving (phase 4's shapes,
+    graph == eager; with ``cut``, the launches per prefill and per decode
+    step equal ``static_expect``'s and a ``[... full depth]`` line), the
+    ragged whole-prompt prefill, then continuous paged serving of phase
+    5's trace on phase 5's engine shape (a preemption, a prefix hit, one
+    ``paged_gather_decode`` per layer in every pure-decode iteration) on
+    the first ``cut`` layers when given (``truncate_deploy`` of the full
+    model, whose first ``cut`` blocks equal ``init_deploy`` of the cut
+    config).  Returns the launch counts of the two serves."""
     import torch
-    model, dparams = load_model(arch, tag, num_layers)
-    launches, _ = serve_static(model, dparams, tag)
+    model, dparams, built = load_model(arch, tag)
+    served, expect = {}, None
+    if cut:
+        check_prefix(model, dparams, cut, tag)
+        expect = static_expect(model.cfg, (SERVE_B, SERVE_S, SERVE_NEW))
+    launches, _ = serve_static(model, dparams, tag, expect=expect,
+                               stats=served)
     check_ragged_prefill(model, dparams, tag)
+    if cut:
+        full_depth_line(f"{tag[:-1]} full depth]", model, built, served)
+        model, dparams = model.truncate_deploy(dparams, cut)
     paged, _ = phase_continuous(model, dparams, f"{tag[:-1]} continuous]")
     del model, dparams
     torch.cuda.empty_cache()
@@ -2497,10 +2708,9 @@ def phase_crosscheck_qwen() -> None:
 
 # -- phase 11: gemma3-27b --------------------------------------------------------
 
-# 12 of 62 layers, two 5:1 local:global periods (layers 5 and 11 global):
-# the full depth's float32 masters (27.0 B parameters, 108 GB) exceed the
-# card
-GEMMA_LAYERS = 12
+# gemma's continuous and speculative cells run 12 of the 62 layers
+# (``kernel_times.GEMMA_LAYERS``: two 5:1 local:global periods, layers 5
+# and 11 global), the full-depth model's first 12
 # static: B = 4 prompts of 1,536 tokens, 32 greedy tokens, rings of 1,568:
 # the local layers' rings of 1,024 wrap
 GEMMA_STATIC = (4, 1536, 32)
@@ -2518,16 +2728,24 @@ GEMMA_CONT = Cell(dict(n_requests=16, mean_prompt=768, max_prompt=2048,
 
 
 def phase_gemma() -> dict:
-    """gemma3-27b at full width and 12 layers, bf16, random weights from
-    ``SEED``: static serving (``GEMMA_STATIC``, graph == eager), the
-    ragged windowed prefill (``GEMMA_RAGGED``), continuous paged serving
-    of ``GEMMA_CONT`` on two ring groups, then the same speculatively.
-    Returns the launch counts of the serves."""
+    """gemma3-27b at full width and depth (62 layers), bf16, random weights
+    from ``SEED``: static serving (``GEMMA_STATIC``, graph == eager, the
+    launches of ``static_expect``), the ragged windowed prefill
+    (``GEMMA_RAGGED``); then on its first ``GEMMA_LAYERS`` blocks
+    (``truncate_deploy``) continuous paged serving of ``GEMMA_CONT`` on
+    two ring groups and the same speculatively.  Returns the launch
+    counts of the serves."""
     import torch
-    model, dparams = load_model("gemma3-27b", "[gemma]", GEMMA_LAYERS)
-    launches, _ = serve_static(model, dparams, "[gemma]", GEMMA_STATIC)
+    model, dparams, built = load_model("gemma3-27b", "[gemma]")
+    check_prefix(model, dparams, GEMMA_LAYERS, "[gemma]")
+    served = {}
+    launches, _ = serve_static(
+        model, dparams, "[gemma]", GEMMA_STATIC, stats=served,
+        expect=static_expect(model.cfg, GEMMA_STATIC))
     check_ragged_prefill(model, dparams, "[gemma]", GEMMA_RAGGED,
                          GEMMA_STATIC[1:])
+    full_depth_line("[gemma full depth]", model, built, served)
+    model, dparams = model.truncate_deploy(dparams, GEMMA_LAYERS)
     paged, _ = phase_continuous(model, dparams, "[gemma continuous]",
                                 GEMMA_CONT)
     spec = phase_cell_speculative(model, dparams, "[gemma speculative]",
@@ -2757,22 +2975,28 @@ def phase_crosscheck_narrow(tag: str, arch: str, kw: dict, static_s: int,
 
 # -- phase 13: mixtral-8x22b; phase 14: arctic-480b ---------------------------
 
-# 4 of 56 layers: the full depth's float32 masters (~560 GB) exceed the
-# card; 4 layers and the untied embedding and head are ~10.4 B parameters
-MIXTRAL_LAYERS = 4
-# static: B = 8 prompts of 512 tokens, 32 greedy tokens (n = 4,096 rows at
-# prefill, capacity 2,048 per expert; 8 at a decode step, capacity 4)
+# mixtral's continuous and speculative cells run 4 of the 56 layers
+# (``kernel_times.MOE_CUT``), the full-depth model's first 4
+MIXTRAL_LAYERS = MOE_CUT
+# static, at full depth: B = 8 prompts of 512 tokens, 32 greedy tokens (n =
+# 4,096 rows at prefill, capacity 2,048 per expert; 8 at a decode step,
+# capacity 4)
 MIXTRAL_STATIC = (8, 512, 32)
 # continuous and speculative: gemma's trace and engine shape (16 requests,
 # 8 slots, chunks of 512, 68 blocks of 32 on 208 pages).  The window of
 # 4,096 covers the capacity (2,176), so every layer's ring is the
 # capacity: one ring group, with preemptions and prefix sharing
 MIXTRAL_CONT = GEMMA_CONT
-# 1 of 35 layers: one layer's float32 masters are ~56 GB (128 experts of
-# 3 x 7,168 x 4,864); B = 8 prompts of 128 tokens, 16 greedy tokens
-# (capacity 32 per expert at prefill, 1 at a decode step)
-ARCTIC_LAYERS = 1
+# static, at full depth (35 layers, ~57 GiB of deploy params): B = 8
+# prompts of 128 tokens, 16 greedy tokens (capacity 32 per expert at
+# prefill, 1 at a decode step)
 ARCTIC_STATIC = (8, 128, 16)
+# the card's allocation before arctic's build: earlier phases' engines and
+# graph pools must be gone, or 57 GiB and the prefill's buffers do not fit
+ARCTIC_BEFORE_GIB = 2.0
+# init_deploy == convert(init) on the card: mixtral at full width, 2
+# layers (~20 GB of float32 masters held by convert(init))
+INIT_DEPLOY_CHECK = ("mixtral-8x22b", 2)
 
 
 class DropCounter:
@@ -2839,23 +3063,31 @@ def log_expert_share(tag: str, cfg, step_ms: float, moe: dict) -> None:
 
 
 def phase_mixtral(moe: dict) -> dict:
-    """mixtral-8x22b at full width and 4 layers, bf16, random weights from
-    ``SEED``: static serving (``MIXTRAL_STATIC``, graph == eager), the
-    expert weights' share of a decode step, continuous paged serving of
+    """``init_deploy`` == ``convert(init)`` on the card (``INIT_DEPLOY_
+    CHECK``); then mixtral-8x22b at full width and depth (56 layers),
+    bf16, random weights from ``SEED``: static serving (``MIXTRAL_STATIC``,
+    graph == eager, the launches of ``static_expect``), the expert
+    weights' share of a decode step; then on its first ``MIXTRAL_LAYERS``
+    blocks (``truncate_deploy``) continuous paged serving of
     ``MIXTRAL_CONT`` (each pure-decode iteration launches 7 ``rbmm_int``
     a layer, 4 projections and 3 expert products, and no ``rbmm_mxu``;
-    each mixed iteration 7 ``rbmm_mxu`` a layer), then the same
-    speculatively (7 ``rbmm_mxu`` a layer in each spec iteration's
-    verify); the drops by iteration kind.  Returns the launch counts of
-    the serves."""
+    each mixed one 7 ``rbmm_mxu`` a layer), then the same speculatively
+    (7 ``rbmm_mxu`` a layer in each spec iteration's verify); the drops by
+    iteration kind.  Returns the launch counts of the serves."""
     import torch
+    check_init_deploy(*INIT_DEPLOY_CHECK)
     tag, n = "[mixtral]", MIXTRAL_LAYERS
-    model, dparams = load_model("mixtral-8x22b", tag, n)
+    model, dparams, built = load_model("mixtral-8x22b", tag)
+    check_prefix(model, dparams, n, tag)
+    served = {}
     with DropCounter() as drops:
         drops.label = "static"
-        launches, step_ms = serve_static(model, dparams, tag,
-                                         MIXTRAL_STATIC)
+        launches, step_ms = serve_static(
+            model, dparams, tag, MIXTRAL_STATIC, stats=served,
+            expect=static_expect(model.cfg, MIXTRAL_STATIC))
         log_expert_share(tag, model.cfg, step_ms, moe)
+        full_depth_line("[mixtral full depth]", model, built, served)
+        model, dparams = model.truncate_deploy(dparams, n)
         drops.label = "continuous"
         paged, _ = phase_continuous(
             model, dparams, "[mixtral continuous]", MIXTRAL_CONT,
@@ -2872,18 +3104,32 @@ def phase_mixtral(moe: dict) -> dict:
 
 
 def phase_arctic(moe: dict) -> dict:
-    """arctic-480b at full width and 1 layer (128 experts and the dense
-    residual FFN), bf16, random weights from ``SEED``: static serving
-    (``ARCTIC_STATIC``, graph == eager), the expert weights' share of a
-    decode step, the drops.  Returns the launch counts of the serve."""
+    """arctic-480b at full width and depth (35 layers of 128 experts and
+    the dense residual FFN: ~57 GiB of deploy params, built expert by
+    expert), bf16, random weights from ``SEED``: static serving
+    (``ARCTIC_STATIC``, graph == eager, the launches of
+    ``static_expect``), the expert weights' share of a decode step, the
+    drops.  Returns the launch counts of the serve."""
     import torch
     tag = "[arctic]"
-    model, dparams = load_model("arctic-480b", tag, ARCTIC_LAYERS)
+    free_card()
+    before, reserved = (torch.cuda.memory_allocated() / 2**30,
+                        torch.cuda.memory_reserved() / 2**30)
+    log(f"{tag} before the build: {before:.2f} GiB allocated, "
+        f"{reserved:.2f} GiB reserved")
+    if before > ARCTIC_BEFORE_GIB:
+        raise AssertionError(f"{tag} {before:.2f} GiB still allocated "
+                             f"before the build (at most "
+                             f"{ARCTIC_BEFORE_GIB})")
+    model, dparams, built = load_model("arctic-480b", tag)
+    served = {}
     with DropCounter() as drops:
         drops.label = "static"
-        launches, step_ms = serve_static(model, dparams, tag,
-                                         ARCTIC_STATIC)
+        launches, step_ms = serve_static(
+            model, dparams, tag, ARCTIC_STATIC, stats=served,
+            expect=static_expect(model.cfg, ARCTIC_STATIC))
         log_expert_share(tag, model.cfg, step_ms, moe)
+    full_depth_line("[arctic full depth]", model, built, served)
     drops.log(tag)
     del model, dparams
     torch.cuda.empty_cache()
@@ -3080,7 +3326,7 @@ def phase_hymba() -> dict:
     decodes plainly.  Returns the launch counts of the serves."""
     import torch
     tag, arch = "[hymba]", "hymba-1.5b"
-    model, dparams = load_model(arch, tag)
+    model, dparams, _ = load_model(arch, tag)
     expect = {p: path_launches(RECURRENT_CALLS, "hymba", p)
               for p in ("prefill", "decode", "pure-decode", "mixed")}
     shape = RECURRENT_STATIC[arch]
@@ -3115,7 +3361,7 @@ def phase_xlstm() -> dict:
     launch counts of the serves."""
     import torch
     tag, arch = "[xlstm]", "xlstm-350m"
-    model, dparams = load_model(arch, tag)
+    model, dparams, _ = load_model(arch, tag)
     expect = {p: path_launches(RECURRENT_CALLS, "xlstm", p)
               for p in ("prefill", "decode", "pure-decode", "mixed")}
     shape = RECURRENT_STATIC[arch]
@@ -3174,16 +3420,14 @@ def phase_crosscheck_recurrent() -> None:
 # -- phase 19: seamless-m4t-large-v2; phase 20: internvl2-76b; phase 21 ---
 
 # seamless at full width and depth (24 encoder and 24 decoder layers,
-# ~1.63 B parameters, ~6.5 GB of float32 masters); internvl2 at full width
-# and 4 of its 80 layers (the full depth's float32 masters, ~282 GB,
-# exceed the card; 4 layers and the untied embedding and head are ~22 GB).
-# Static serving only, as in the JAX package: B = 4 prompts of 64 tokens
-# after 1,024 frontend embeddings each (seamless' frames through the
-# encoder; internvl2's patches before the prompt), 32 new tokens
-# (``kernel_times.ENCDEC_STATIC``)
+# ~1.63 B parameters); internvl2 at full width and depth (80 layers,
+# ~17 GB of deploy params).  Static serving only, as in the JAX package:
+# B = 4 prompts of 64 tokens after 1,024 frontend embeddings each
+# (seamless' frames through the encoder; internvl2's patches before the
+# prompt), 32 new tokens (``kernel_times.ENCDEC_STATIC``)
 ENCDEC_PATH = ("pack_threshold", "rbmm_int", "rbmm_binary", "rbmm_mxu",
                "sps_attention")
-FRONTEND_ITERS = 5
+FRONTEND_ITERS = 2
 
 
 def frontend_embeds(model, batch: int, frames: int = 0,
@@ -3281,26 +3525,30 @@ def log_memory_caches(model, tag: str, batch: int, frames: int) -> None:
         f"({bf16 / 2**20:.2f} MiB)")
 
 
-def phase_frontend(arch: str, tag: str, path) -> dict:
-    """``arch`` at full width (``ENCDEC_LAYERS`` of its layers where
-    given), bf16, random weights from ``SEED``: static serving of
-    ``ENCDEC_STATIC`` with seeded frontend embeddings (graph == eager,
-    caches included; the prefill and each decode step launch
-    ``kernel_times.ENCDEC_CALLS``' counts; every kernel of ``path``
-    launches), ``prefill_logits`` as one graph equal to the eager forward;
-    for the encoder-decoder the encoder's ms alone and its memories'
-    bytes.  Returns the launch counts of the serve."""
+def phase_frontend(arch: str, tag: str, path,
+                   full_depth: bool = False) -> dict:
+    """``arch`` at full width and depth, bf16, random weights from
+    ``SEED``: static serving of ``ENCDEC_STATIC`` with seeded frontend
+    embeddings (graph == eager, caches included; the prefill and each
+    decode step launch ``kernel_times.ENCDEC_CALLS``' counts; every
+    kernel of ``path`` launches), ``prefill_logits`` as one graph equal to
+    the eager forward; for the encoder-decoder the encoder's ms alone and
+    its memories' bytes; with ``full_depth`` a ``[... full depth]`` line.
+    Returns the launch counts of the serve."""
     import torch
-    model, dparams = load_model(arch, tag, ENCDEC_LAYERS[arch])
+    model, dparams, built = load_model(arch, tag)
     shape = ENCDEC_STATIC[arch]
     fe = frontend_embeds(model, shape[0])
     short = arch.split("-")[0]
     expect = {p: path_launches(ENCDEC_CALLS, short, p)
               for p in ("prefill", "decode")}
+    served = {}
     launches, _ = serve_static(model, dparams, tag, shape, path=path,
                                expect=expect, frontend=fe,
-                               caches_equal=True)
+                               caches_equal=True, stats=served)
     check_prefill_graph(model, dparams, tag, shape, fe)
+    if full_depth:
+        full_depth_line(f"{tag[:-1]} full depth]", model, built, served)
     if not hasattr(model, "plan"):           # the encoder-decoder
         fe_dev = torch.as_tensor(fe, device="cuda")
         with torch.inference_mode():
@@ -3991,7 +4239,7 @@ def main() -> int:
     phase_device()
     phase_build()
     rows, moe = phase_kernels()
-    model, dparams = load_model("smollm-135m", "[serve]")
+    model, dparams, _ = load_model("smollm-135m", "[serve]")
     static, _ = serve_static(model, dparams, "[serve]")
     paged, plain = phase_continuous(model, dparams)
     spec = phase_speculative(model, dparams, plain)
@@ -4017,7 +4265,8 @@ def main() -> int:
     phase_crosscheck_recurrent()
     seamless = phase_frontend("seamless-m4t-large-v2", "[seamless]",
                               ENCDEC_PATH)
-    internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH)
+    internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH,
+                               full_depth=True)
     phase_crosscheck_frontend()
     train = phase_train()
     families = phase_train_families()

@@ -19,6 +19,10 @@ numpy arrays (the caller converts, e.g. with ``jax.tree.map(np.asarray,
 The same holds for any tree of the params' structure: gradients, AdamW
 moments, error feedback.  ``from_jax_train_state`` carries a whole JAX
 ``TrainState`` (params, opt = (step, mu, nu), ef) into the port's.
+
+``deploy_from_jax`` takes a JAX QAT tree (numpy, e.g. memory-mapped from
+disk) to the port's deploy params layer by layer, so a full-depth model
+reaches the card holding at most one layer's float32 masters there.
 """
 from __future__ import annotations
 
@@ -78,6 +82,30 @@ def from_jax_params(tree: dict, device="cuda") -> dict:
             layers = [_layer(layers, i)
                       for i in range(_num_layers(layers))]
         out[key] = [_convert(b, dev) for b in layers]
+    return out
+
+
+def deploy_from_jax(model: Any, tree: dict, device="cuda") -> dict:
+    """A JAX QAT param tree of ``model`` (nested numpy arrays; memory-mapped
+    ones are read a slice at a time) -> the port's deploy params on
+    ``device``, equal to ``model.convert(from_jax_params(tree))``: the
+    embedding, head and frontend are carried as they are; each layer of
+    ``blocks``, ``encoder`` and ``decoder`` (split as ``from_jax_params``
+    splits them) is carried to ``device`` one part at a time, converted
+    and freed, an expert stack one expert at a time."""
+    dev = resolve_device(device)
+
+    def load(t: Any) -> Any:
+        return _convert(t, dev)
+
+    out = load({k: v for k, v in tree.items() if k not in STACKS})
+    for key, blocks in model.layer_blocks().items():
+        layers = tree[key]
+        if isinstance(layers, dict):    # stacked for scan: split by layer
+            layers = [_layer(layers, i)
+                      for i in range(_num_layers(layers))]
+        out[key] = [blk.convert(lp, load)
+                    for blk, lp in zip(blocks, layers)]
     return out
 
 

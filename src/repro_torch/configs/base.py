@@ -159,6 +159,20 @@ SHAPES: Dict[str, ShapeConfig] = {
 }
 
 
+def valid_shapes(cfg: ModelConfig) -> Dict[str, ShapeConfig]:
+    """The entries of ``SHAPES`` that ``cfg`` runs: ``long_500k`` only
+    with sub-quadratic attention, the decode shapes only where decode is
+    not skipped."""
+    out = {}
+    for name, s in SHAPES.items():
+        if name == "long_500k" and not cfg.subquadratic:
+            continue
+        if s.kind == "decode" and cfg.skip_decode:
+            continue
+        out[name] = s
+    return out
+
+
 ARCH_IDS: Sequence[str] = (
     "mixtral-8x22b",
     "arctic-480b",
@@ -203,3 +217,8 @@ def get_config(arch_id: str) -> ModelConfig:
 def get_smoke_config(arch_id: str) -> ModelConfig:
     """Reduced same-family config for CPU tests."""
     return _module(arch_id).smoke_config()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every arch's full config, by arch id in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -68,6 +68,23 @@ def pack_signs(x: torch.Tensor) -> torch.Tensor:
     return pack_bits(x >= 0)
 
 
+# the elements ``pack_signs_rows`` packs at a time
+PACK_BLOCK = 1 << 22
+
+
+def pack_signs_rows(x: torch.Tensor) -> torch.Tensor:
+    """``pack_signs`` of a 2-D ``x``, a block of rows of at most
+    ``PACK_BLOCK`` elements (or one row) at a time: the same words, with
+    the temporaries of a block (packing a whole weight holds its signs as
+    bool, int64 and shifted int64 values, ~4 times its float32 bytes)."""
+    rows = max(1, PACK_BLOCK // max(1, x.shape[1]))
+    out = torch.empty((x.shape[0], packed_len(x.shape[1])),
+                      dtype=torch.int32, device=x.device)
+    for i in range(0, x.shape[0], rows):
+        out[i:i + rows] = pack_signs(x[i:i + rows])
+    return out
+
+
 def pack_unsigned(x: torch.Tensor) -> torch.Tensor:
     """{0,1}-scheme packing: bit = (x > 0)."""
     return pack_bits(x > 0)

@@ -28,16 +28,17 @@ call of the speculative iteration (``SPEC_CALLS``, rows named ``... spec
 call of granite-3-2b's and qwen1.5-32b's serve paths at full width
 (``ARCH_CALLS``, rows named by the arch, each with its launches per layer
 of its step, ``layer_launches``); every call of gemma3-27b's serve paths
-at full width and 12 of its 62 layers (``GEMMA_CALLS``, rows named
-``... gemma ...``, each with its launches per 12-layer step,
-``step_launches``: the windowed and full-attention prefills, the row
-table, the 1,024-slot rings and both paged ring groups); every call of
+at full width (``GEMMA_CALLS``, rows named ``... gemma ...``, each with
+its launches per step, ``step_launches``: the static path at the full
+62 layers, the continuous one at 12; the windowed and full-attention
+prefills, the row table, the 1,024-slot rings and both paged ring
+groups); every call of
 hymba-1.5b's and xlstm-350m's serve paths at full width and depth
 (``RECURRENT_CALLS``, rows named ``... hymba ...`` / ``... xlstm ...``
 by path, each with its launches per step of that path,
 ``step_launches``; ``recurrent_calls`` sizes them from a config); every
-call of seamless-m4t-large-v2's (full depth) and internvl2-76b's (4 of
-80 layers) static serve paths at full width (``ENCDEC_CALLS``, rows
+call of seamless-m4t-large-v2's and internvl2-76b's static serve paths
+at full width and depth (``ENCDEC_CALLS``, rows
 named ``... seamless ...`` / ``... internvl2 ...``, each with its
 launches per step, ``step_launches``; ``encdec_calls`` sizes them from a
 config; the fused F1 ``rbmm_binary`` of seamless' decode among them).
@@ -741,40 +742,49 @@ def _arch_calls() -> Dict[str, tuple]:
 
 ARCH_CALLS = _arch_calls()
 
-# gemma3-27b at full width and 12 of its 62 layers (two 5:1 local:global
-# periods: layers 5 and 11 are global; local layers attend within a
-# window of 1,024): d_model, query heads, KV heads, d_h, d_ff, window.
-# The static path's shapes: B = 4 prompts of 1,536 tokens (6,144 rows at
-# prefill), rings of 1,024 (local, wrapped) and 1,568 (global); the
-# continuous path's: 8 slots, pages of 32, the local ring group of 32
-# blocks fully provisioned (256 pages), the global one of 68 blocks over
-# 208 pages.
+# gemma3-27b at full width (5:1 local:global periods: layer i is global
+# when i % 6 == 5; local layers attend within a window of 1,024):
+# d_model, query heads, KV heads, d_h, d_ff, window.  The static path runs
+# the full depth (62 layers, 10 of them global): B = 4 prompts of 1,536
+# tokens (6,144 rows at prefill), rings of 1,024 (local, wrapped) and
+# 1,568 (global); the continuous path 12 of the 62 layers (two periods,
+# 2 global): 8 slots, pages of 32, the local ring group of 32 blocks fully
+# provisioned (256 pages), the global one of 68 blocks over 208 pages.
 GEMMA = (5376, 32, 16, 128, 21504, 1024)
-GEMMA_LAYERS, GEMMA_GLOBAL = 12, 2
+GEMMA_FULL, GEMMA_LAYERS = 62, 12
 GEMMA_B, GEMMA_S, GEMMA_NEW, GEMMA_SLOTS = 4, 1536, 32, 8
 GEMMA_ROW_TABLE = 512
 
 
+def _globals(layers: int) -> int:
+    """Global layers among gemma's first ``layers`` (i % 6 == 5)."""
+    return (layers + 1) // 6
+
+
 def _gemma_calls() -> Dict[str, tuple]:
     """Every call gemma3-27b's serve paths make, at its own shapes:
-    (kernel, operands, launches per 12-layer step of its path: a static
-    decode step at M = 4, a pure-decode iteration at M = 8, the static
-    prefill; M = 16 and the row table are timed beside them, launched by
-    no gemma path)."""
+    (kernel, operands, launches per step of its path: a static decode step
+    at M = 4 and the static prefill at the full depth, a pure-decode
+    iteration at M = 8 at ``GEMMA_LAYERS``; M = 16 and the row table are
+    timed beside them, launched by no gemma path)."""
     d, h, hkv, dh, ff, win = GEMMA
-    g, q_dim, local = h // hkv, h * dh, GEMMA_LAYERS - GEMMA_GLOBAL
+    g, q_dim = h // hkv, h * dh
+    full, full_global = GEMMA_FULL, _globals(GEMMA_FULL)
+    cut, cut_global = GEMMA_LAYERS, _globals(GEMMA_LAYERS)
     out = {}
     proj = {"wq": (q_dim, d, 1), "wo": (d, q_dim, 1),
             "wk/wv": (hkv * dh, d, 2), "w1/w3": (ff, d, 2), "w2": (d, ff, 1)}
+    depth = {GEMMA_B: full, GEMMA_SLOTS: cut, 16: 0}
     for n in (GEMMA_B, GEMMA_SLOTS, 16):
         for call, (p, k, per) in proj.items():
             scheme = "and_dc" if call == "w2" else "xnor"
             tail = ", dc derived" if scheme == "and_dc" else ""
             out[f"rbmm_int gemma decode {call} ({n}x{k})x({p}x{k}) "
                 f"{scheme}{tail}"] = ("rbmm_int", ((), n, p, k, scheme),
-                                      per * GEMMA_LAYERS * (n != 16))
+                                      per * depth[n])
     dhp = (dh + 31) // 32
-    for ring, layers in ((win, local), (GEMMA_S + GEMMA_NEW, GEMMA_GLOBAL)):
+    for ring, layers in ((win, full - full_global),
+                         (GEMMA_S + GEMMA_NEW, full_global)):
         lead = f"{GEMMA_B},{hkv}"
         out[f"rbmm_int gemma decode ring score ({lead},{g},{dhp})x({lead},"
             f"{ring},{dhp}) xnor"] = (
@@ -787,26 +797,28 @@ def _gemma_calls() -> Dict[str, tuple]:
     for call, (p, k, per) in proj.items():
         out[f"rbmm_mxu gemma prefill {call} ({m}x{k})x({p}x{k})"
             f"{' {0,1}' if call == 'w2' else ''}"] = (
-            "rbmm_mxu", (m, k, p, call == "w2"), per * GEMMA_LAYERS)
+            "rbmm_mxu", (m, k, p, call == "w2"), per * full)
     for shape, dtype, th, strided, per in (
-            ((m, d), "bfloat16", (), False, 2),          # x, attn and FFN
-            ((m, q_dim), "float32", (), False, 1),       # ctx
-            ((m, ff), "float32", (), False, 1),          # h
-            ((GEMMA_B, GEMMA_S, h, dh), "bfloat16", (h, 1), False, 1),
-            ((GEMMA_B, GEMMA_S, hkv, dh), "bfloat16", (hkv, 1), False, 1),
-            ((GEMMA_B, hkv, dh, GEMMA_S), "bfloat16", (hkv, 1, 1), True, 1),
-            ((GEMMA_SLOTS, 1, d), "float32", (), False, 2),
-            ((GEMMA_SLOTS, 1, q_dim), "float32", (), False, 1),
-            ((GEMMA_SLOTS, 1, ff), "float32", (), False, 1),
-            ((GEMMA_SLOTS, 1, h, dh), "bfloat16", (h, 1), False, 1),
-            ((GEMMA_SLOTS, 1, hkv, dh), "bfloat16", (hkv, 1), False, 1)):
+            ((m, d), "bfloat16", (), False, 2 * full),   # x, attn and FFN
+            ((m, q_dim), "float32", (), False, full),    # ctx
+            ((m, ff), "float32", (), False, full),       # h
+            ((GEMMA_B, GEMMA_S, h, dh), "bfloat16", (h, 1), False, full),
+            ((GEMMA_B, GEMMA_S, hkv, dh), "bfloat16", (hkv, 1), False,
+             full),
+            ((GEMMA_B, hkv, dh, GEMMA_S), "bfloat16", (hkv, 1, 1), True,
+             full),
+            ((GEMMA_SLOTS, 1, d), "float32", (), False, 2 * cut),
+            ((GEMMA_SLOTS, 1, q_dim), "float32", (), False, cut),
+            ((GEMMA_SLOTS, 1, ff), "float32", (), False, cut),
+            ((GEMMA_SLOTS, 1, h, dh), "bfloat16", (h, 1), False, cut),
+            ((GEMMA_SLOTS, 1, hkv, dh), "bfloat16", (hkv, 1), False, cut)):
         name = (f"pack gemma ({','.join(map(str, shape))}) "
                 f"{DTYPE_TAGS[dtype]}{' strided' if strided else ''}, "
                 f"{'one' if th == () else 'per-head'} theta")
-        out[name] = ("pack_threshold", (shape, dtype, th, strided),
-                     per * GEMMA_LAYERS)
+        out[name] = ("pack_threshold", (shape, dtype, th, strided), per)
     for tag, window, rows, layers in (
-            (f"window {win}", win, 0, local), ("full", 0, 0, GEMMA_GLOBAL),
+            (f"window {win}", win, 0, full - full_global),
+            ("full", 0, 0, full_global),
             (f"row table of {GEMMA_ROW_TABLE}", 0, GEMMA_ROW_TABLE, 0)):
         out[f"sps_attention gemma prefill B={GEMMA_B} L={GEMMA_S} "
             f"H={h}/{hkv} d_h={dh} causal, {tag}"] = (
@@ -815,9 +827,10 @@ def _gemma_calls() -> Dict[str, tuple]:
     cap_blocks = 68
     for tag, ring, nblk, pages, lo, layers, rows in (
             (f"local ring {win}, lengths {win}..{cap_blocks * 32}", win,
-             win // 32, GEMMA_SLOTS * win // 32, win, local, 0),
+             win // 32, GEMMA_SLOTS * win // 32, win, cut - cut_global,
+             0),
             (f"global ring {cap_blocks * 32} over 208 pages", cap_blocks * 32,
-             cap_blocks, 208, 0, GEMMA_GLOBAL, 0),
+             cap_blocks, 208, 0, cut_global, 0),
             (f"local ring {win}, a row table gathered by position", win,
              win // 32, GEMMA_SLOTS * win // 32, win, 0, GEMMA_ROW_TABLE)):
         out[f"paged_gather_decode gemma {GEMMA_SLOTS} slots H={h}/{hkv} "
@@ -831,15 +844,17 @@ GEMMA_CALLS = _gemma_calls()
 
 
 # the MoE archs at full width (repro_torch/configs) and the layers their
-# card runs take: mixtral-8x22b (4 of 56 layers) serves 8 prompts of 512
-# tokens statically and 8 slots with chunks of 512 continuously and
-# speculatively (k = 4: a verify of 8 x 5 rows); arctic-480b (1 of 35
-# layers, a dense residual FFN beside its experts) 8 prompts of 128 tokens
-# statically.  Capacity dispatch runs every expert at its capacity
+# card runs take: mixtral-8x22b serves 8 prompts of 512 tokens statically
+# at its full depth (56 layers) and 8 slots with chunks of 512
+# continuously and speculatively (k = 4: a verify of 8 x 5 rows) at 4 of
+# its layers (``MOE_CUT``); arctic-480b (a dense residual FFN beside its
+# experts) 8 prompts of 128 tokens statically at its full depth (35
+# layers).  Capacity dispatch runs every expert at its capacity
 # (``BinaryMoE.capacity``): mixtral 4 rows at a decode step (n = 8), 2,048
 # at a prefill or a mixed iteration (n = 4,096), 20 at a verify (n = 40);
 # arctic 1 and 32.
-MOE_LAYERS = {"mixtral-8x22b": 4, "arctic-480b": 1}
+MOE_ARCHS = ("mixtral-8x22b", "arctic-480b")
+MOE_CUT = 4
 MOE_B, MOE_VERIFY = 8, 5
 MOE_PREFILL = {"mixtral-8x22b": 512, "arctic-480b": 128}
 
@@ -847,11 +862,12 @@ MOE_PREFILL = {"mixtral-8x22b": 512, "arctic-480b": 128}
 def _moe_calls() -> Dict[str, tuple]:
     """Every expert-batched kernel call of the two MoE archs' serve paths
     (and arctic's dense residual FFN) at full width: (kernel, operands,
-    launches per step of its path: a decode step, a prefill, a verify)."""
+    launches per step of its path: a static decode step and prefill at the
+    full depth, a verify at ``MOE_CUT`` layers)."""
     from repro_torch.configs import get_config
     from repro_torch.models.blocks import Block
     out = {}
-    for arch, layers in MOE_LAYERS.items():
+    for arch in MOE_ARCHS:
         cfg = get_config(arch)
         moe = Block(cfg)._ffn()
         d, ff, e, name = cfg.d_model, cfg.d_ff, moe.num_experts, \
@@ -861,6 +877,7 @@ def _moe_calls() -> Dict[str, tuple]:
             steps["verify"] = MOE_B * MOE_VERIFY
         for step, n in steps.items():
             c = moe.capacity(n)
+            layers = MOE_CUT if step == "verify" else cfg.num_layers
             proj = {"w1/w3": (ff, d, 2), "w2": (d, ff, 1)}
             for call, (p, kk, per) in proj.items():
                 dims = (f"({e},{c},{(kk + 31) // 32})x({e},{p},"
@@ -1083,33 +1100,39 @@ def _recurrent_table() -> Dict[str, tuple]:
 RECURRENT_CALLS = _recurrent_table()
 
 
-# seamless-m4t-large-v2 at full width and depth (24 encoder and 24
-# decoder layers) and internvl2-76b at full width and 4 of its 80 layers
-# (repro_torch/configs), and the shapes of their card runs: the static
-# path only (B prompts of S tokens after F frontend embeddings, then
-# decode steps at M = B on contiguous rings of S + new tokens, F + S + new
-# for internvl2, whose rings hold the patches too).
+# seamless-m4t-large-v2 (24 encoder and 24 decoder layers) and
+# internvl2-76b (80 layers) at full width and depth (repro_torch/configs),
+# and the shapes of their card runs: the static path only (B prompts of S
+# tokens after F frontend embeddings, then decode steps at M = B on
+# contiguous rings of S + new tokens, F + S + new for internvl2, whose
+# rings hold the patches too).
 ENCDEC_STATIC = {"seamless-m4t-large-v2": (4, 64, 32),
                  "internvl2-76b": (4, 64, 32)}
-ENCDEC_LAYERS = {"seamless-m4t-large-v2": 0, "internvl2-76b": 4}
 
 
 def encdec_calls(cfg, static) -> Dict[str, tuple]:
-    """Every kernel call of an encoder-decoder's or a frontend model's
-    static serve path at ``cfg``'s widths: {name: (kernel, operands,
-    launches per step of its path)}.  The paths: ``prefill``, the static
-    prefill of B = ``static[0]`` prompts of S = ``static[1]`` tokens after
-    ``cfg.frontend_tokens`` F embeddings (an encoder-decoder encodes F
-    frames, then its decoder prefills the prompt: causal self-attention,
-    the memory built from the encoder's output, cross-attention over it);
-    ``decode``, a static decode step at M = B (rings of S + new, F + S +
-    new for a frontend model).  The residual stream's dtype follows the
+    """Every kernel call of a model's static serve path at ``cfg``'s widths
+    and depth (an encoder-decoder, or a decoder-only model with or without
+    a frontend, windowed layers and expert stacks included): {name:
+    (kernel, operands, launches per step of its path)}.  The paths:
+    ``prefill``, the static prefill of B = ``static[0]`` prompts of S =
+    ``static[1]`` tokens after ``cfg.frontend_tokens`` F embeddings (an
+    encoder-decoder encodes F frames, then its decoder prefills the
+    prompt: causal self-attention, the memory built from the encoder's
+    output, cross-attention over it); ``decode``, a static decode step at
+    M = B (rings of S + new, F + S + new for a frontend model, a windowed
+    layer's at most its window).  A MoE layer dispatches its n rows into
+    (E, C) expert buffers (C = ``BinaryMoE.capacity(n)``) and runs each
+    projection as one expert-batched call (``rbmm_int``'s decode route at
+    C <= 16), arctic's dense residual FFN on the n rows beside it.  The
+    residual stream's dtype follows the
     models: an encoder runs float32 (its frontend's projection is), a
     frontend model's prefill too (the patches promote it), the
     encoder-decoder's decoder runs ``compute_dtype``, a decoder-only
     decode float32.  Names read ``"<kernel> <arch> <path> <calls>
     <dims>"``."""
-    from repro_torch.models.lm import build_model
+    from repro_torch.models.blocks import _ffn_from_cfg
+    from repro_torch.models.lm import build_model, layer_plan
     arch = cfg.name.split("-")[0]
     b, s, new = static
     f = cfg.frontend_tokens
@@ -1125,8 +1148,8 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
 
     def project(path, name, m, p, k, n=1):
         """A BinaryDense's product: ``rbmm_int``'s decode route at M <=
-        16, ``rbmm_mxu`` above (the ReLU FFN's w2: {0,1} operands)."""
-        unsigned = name == "w2"
+        16, ``rbmm_mxu`` above (an FFN's w2: {0,1} operands)."""
+        unsigned = name.endswith("w2")
         if m <= 16:
             call("rbmm_int", path, name, ((), m, p, k, "and_dc" if unsigned
                                           else "xnor"), n)
@@ -1137,9 +1160,12 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
         call("pack_threshold", path, name, (tuple(shape), dtype, th,
                                             strided))
 
-    def attention(path, n, length, xdt, causal, ring=0):
+    def attention(path, n, length, xdt, causal, ring=0, window=0):
         """A self-attention block's calls over n rows of ``length``
-        positions (one, against a ring of ``ring``, at decode)."""
+        positions (one, against a ring of ``ring``, at decode; a windowed
+        layer's ring holds its window)."""
+        if window:
+            ring = min(ring, window)
         pack(path, "x", (n, length, d), xdt)
         m = n * length
         for name, p in (("wq", qd), ("wk", kvd), ("wv", kvd)):
@@ -1154,7 +1180,7 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
         else:
             pack(path, "V^T", (n, hkv, dh, length), cdt, (hkv, 1, 1), True)
             call("sps_attention", path, "attention",
-                 (n, h, hkv, length, dh, causal, None, 0, 0))
+                 (n, h, hkv, length, dh, causal, None, window, 0))
         pack(path, "ctx", (n, length, qd), "float32")
         project(path, "wo", m, d, qd)
 
@@ -1182,8 +1208,39 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
         pack(path, "cross ctx", (n, length, qd), "float32")
         project(path, "cross wo", m, d, qd)
 
+    def experts(path, moe, m, xdt):
+        """A MoE layer's expert-batched calls over m routed rows (the
+        dense residual FFN's on the rows themselves)."""
+        e, c = moe.num_experts, moe.capacity(m)
+
+        def product(name, p, k):
+            unsigned = name == "w2"
+            if c <= 16:
+                call("rbmm_int", path, f"experts {name}", (
+                    (e,), c, p, k, "and_dc" if unsigned else "xnor"))
+            else:
+                call("rbmm_mxu", path, f"experts {name}", (c, k, p,
+                                                           unsigned))
+        if moe.dispatch_bits:
+            pack(path, "experts x", (m, d), xdt)
+        else:
+            pack(path, "experts x", (e, c, d), xdt)
+        product("w1", ff, d)
+        product("w3", ff, d)
+        pack(path, "experts h", (e, c, ff), "float32")
+        product("w2", d, ff)
+        if moe.dense_residual:
+            pack(path, "residual x", (m, d), xdt)
+            project(path, "residual w1", m, ff, d)
+            project(path, "residual w3", m, ff, d)
+            pack(path, "residual h", (m, ff), "float32")
+            project(path, "residual w2", m, d, ff)
+
     def ffn(path, n, length, xdt):
         m = n * length
+        if cfg.moe.num_experts:
+            experts(path, _ffn_from_cfg(cfg), m, xdt)
+            return
         pack(path, "ffn x", (n, length, d), xdt)
         if cfg.glu:
             project(path, "w1", m, ff, d)
@@ -1220,12 +1277,16 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
         length = f + s
         xdt = "float32" if f else cdt   # the patches promote the stream
 
-        def block(path, length, xdt, ring=0):
-            attention(path, b, length, xdt, causal=True, ring=ring)
+        def block(path, length, xdt, ring=0, window=0):
+            attention(path, b, length, xdt, causal=True, ring=ring,
+                      window=window)
             ffn(path, b, length, xdt)
-        layers(lambda: block("prefill", length, xdt), cfg.num_layers)
-        layers(lambda: block("decode", 1, "float32", length + new),
-               cfg.num_layers)
+        windows = [w for _, w in layer_plan(cfg)]
+        for w in sorted(set(windows)):
+            layers(lambda: block("prefill", length, xdt, window=w),
+                   windows.count(w))
+            layers(lambda: block("decode", 1, "float32", length + new, w),
+                   windows.count(w))
 
     out: Dict[str, tuple] = {}
     for path, entries in rows.items():
@@ -1234,9 +1295,10 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
             for name, spec, n in _merge([(nm, sp, n) for k, nm, sp, n
                                          in entries if k == kernel]):
                 if kernel == "sps_attention":
-                    bb, hh, hk, length, dd, causal, *_ = spec
+                    bb, hh, hk, length, dd, causal, _, window, _ = spec
                     dims = (f"B={bb} L={length} H={hh}/{hk} d_h={dd} "
-                            f"{'causal' if causal else 'bidirectional'}")
+                            f"{'causal' if causal else 'bidirectional'}"
+                            f"{f', window {window}' if window else ''}")
                 else:
                     dims = _call_dims(kernel, spec)
                 out[f"{kernel} {arch} {path} {name} {dims}"] = (kernel, spec,
@@ -1245,15 +1307,11 @@ def encdec_calls(cfg, static) -> Dict[str, tuple]:
 
 
 def _encdec_table() -> Dict[str, tuple]:
-    """``encdec_calls`` of both archs at full width (internvl2 at
-    ``ENCDEC_LAYERS`` of its layers)."""
+    """``encdec_calls`` of both archs at full width and depth."""
     from repro_torch.configs import get_config
     out = {}
     for arch, static in ENCDEC_STATIC.items():
-        cfg = get_config(arch)
-        if ENCDEC_LAYERS[arch]:
-            cfg = cfg.truncated(ENCDEC_LAYERS[arch])
-        out.update(encdec_calls(cfg, static))
+        out.update(encdec_calls(get_config(arch), static))
     return out
 
 

@@ -1,5 +1,6 @@
-"""Serving launcher CLI of the port: init + convert + static batched
-generation on the card (or, with ``--device cpu``, the plain versions).
+"""Serving launcher CLI of the port: deploy params drawn layer by layer
+(``init_deploy``) + static batched generation on the card (or, with
+``--device cpu``, the plain versions).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --batch 4 --prompt-len 16 --new-tokens 32
@@ -59,7 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit(f"{args.arch} is encoder-only: no decode face")
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    dparams = model.convert(model.init(gen))
+    dparams = model.init_deploy(gen)
     max_len = args.max_len or (args.prompt_len + args.new_tokens +
                                cfg.frontend_tokens + 8)
     eng = ServeEngine(model, dparams,

@@ -261,6 +261,10 @@ class SPSAttention:
                  bit_alpha=0.5 * ones(h))
         return p
 
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))``: one layer's masters at most."""
+        return self.convert(self.init(gen, device))
+
     def convert(self, params: Params) -> Params:
         d: Params = {name: dense.convert(params[name])
                      for name, dense in self._denses().items()}

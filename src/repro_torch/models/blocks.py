@@ -27,7 +27,7 @@ engine hold the same tensors."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -139,9 +139,7 @@ class Block:
             parts["ffn"] = self._ffn()
         return parts
 
-    def init(self, gen: torch.Generator, device) -> Params:
-        p = {name: mod.init(gen, device)
-             for name, mod in self._parts().items()}
+    def _with_norms(self, p: Params, device) -> Params:
         p["norm1"] = self._norm().init(device)
         if self._has_ffn:
             p["norm2"] = self._norm().init(device)
@@ -149,12 +147,34 @@ class Block:
             p["norm_x"] = self._norm().init(device)
         return p
 
-    def convert(self, params: Params) -> Params:
-        out = {name: mod.convert(params[name])
-               for name, mod in self._parts().items()}
+    def init(self, gen: torch.Generator, device) -> Params:
+        return self._with_norms({name: mod.init(gen, device)
+                                 for name, mod in self._parts().items()},
+                                device)
+
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))`` part by part in ``init``'s order:
+        each part's float32 masters are drawn, converted and freed before
+        the next part draws (an expert stack's one expert at a time)."""
+        return self._with_norms({name: mod.init_deploy(gen, device)
+                                 for name, mod in self._parts().items()},
+                                device)
+
+    def convert(self, params: Params,
+                load: Callable[[Any], Any] = lambda t: t) -> Params:
+        """QAT params -> deploy params.  ``load`` maps a subtree of
+        ``params`` to tensors where it is read (``bridge.deploy_from_jax``
+        passes a numpy layer): one part at a time, an expert stack one
+        expert at a time."""
+        out = {}
+        for name, mod in self._parts().items():
+            if name == "ffn":       # a BinaryFFN or BinaryMoE loads its own
+                out[name] = mod.convert(params[name], load)
+            else:
+                out[name] = mod.convert(load(params[name]))
         for name in ("norm1", "norm2", "norm_x"):
             if name in params:
-                out[name] = params[name]
+                out[name] = load(params[name])
         return out
 
     def qat(self, params: Params, x: torch.Tensor, *, positions=None,

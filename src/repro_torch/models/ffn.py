@@ -121,12 +121,15 @@ class BinaryFFN:
         return BinaryDense(self.d_ff, self.d_model, external_act=True,
                            dtype=self.dtype)
 
-    def init(self, gen: torch.Generator, device) -> Params:
+    def _build(self, make: Callable[[BinaryDense], Params],
+               device) -> Params:
+        """The params ``make`` gives each projection, drawn in ``init``'s
+        order (an expert stack expert by expert: w1, w2, w3 of expert 0,
+        then of expert 1, ...), then the activation scales."""
         def one(_e: int = 0) -> Params:
-            p: Params = {"w1": self._w1().init(gen, device),
-                         "w2": self._w2().init(gen, device)}
+            p: Params = {"w1": make(self._w1()), "w2": make(self._w2())}
             if self.glu:
-                p["w3"] = self._w1().init(gen, device)
+                p["w3"] = make(self._w1())
             return p
 
         p = _stacked(one, self.num_experts) if self.num_experts else one()
@@ -137,22 +140,38 @@ class BinaryFFN:
             p[k] = torch.full((), v, device=device)
         return p
 
-    def convert(self, params: Params) -> Params:
+    def init(self, gen: torch.Generator, device) -> Params:
+        return self._build(lambda layer: layer.init(gen, device), device)
+
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))`` with one projection's float32
+        master alive at a time: each is drawn, converted and freed before
+        the next draws (an expert stack fills its packed stack expert by
+        expert)."""
+        return self._build(lambda layer: layer.init_deploy(gen, device),
+                           device)
+
+    def convert(self, params: Params,
+                load: Callable[[Any], Any] = lambda t: t) -> Params:
         """QAT params -> deploy params; an expert stack converts expert by
         expert (the JAX package's ``jax.vmap(layer.convert)``), so the
-        temporaries stay one expert's size."""
+        temporaries stay one expert's size.  ``load`` maps a subtree of
+        ``params`` to tensors where it is read (``bridge.deploy_from_jax``
+        passes numpy layers): an expert stack loads one expert at a
+        time."""
         def conv(layer: BinaryDense, wp: Params) -> Params:
             if self.num_experts:
-                return _stacked(lambda e: layer.convert(_expert(wp, e)),
-                                self.num_experts)
-            return layer.convert(wp)
+                return _stacked(
+                    lambda e: layer.convert(load(_expert(wp, e))),
+                    self.num_experts)
+            return layer.convert(load(wp))
 
         d: Params = {"w1": conv(self._w1(), params["w1"]),
                      "w2": conv(self._w2(), params["w2"])}
         if self.glu:
             d["w3"] = conv(self._w1(), params["w3"])
         for k in ("act_alpha", "act_beta", "h_alpha", "h_beta"):
-            d[k] = params[k]
+            d[k] = load(params[k])
         return d
 
     def _act_fn(self, u: torch.Tensor) -> torch.Tensor:
@@ -325,11 +344,25 @@ class BinaryMoE:
             p["residual"] = self._residual_ffn().init(gen, device)
         return p
 
-    def convert(self, params: Params) -> Params:
-        d: Params = {"router": params["router"],
-                     "experts": self._experts().convert(params["experts"])}
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))`` in ``init``'s order: the router
+        (kept float32), the experts one at a time, the residual FFN."""
+        p: Params = {"router": self._router().init(gen, device),
+                     "experts": self._experts().init_deploy(gen, device)}
         if self.dense_residual:
-            d["residual"] = self._residual_ffn().convert(params["residual"])
+            p["residual"] = self._residual_ffn().init_deploy(gen, device)
+        return p
+
+    def convert(self, params: Params,
+                load: Callable[[Any], Any] = lambda t: t) -> Params:
+        """QAT params -> deploy params (``load`` as ``BinaryFFN.convert``
+        takes it)."""
+        d: Params = {"router": load(params["router"]),
+                     "experts": self._experts().convert(params["experts"],
+                                                        load)}
+        if self.dense_residual:
+            d["residual"] = self._residual_ffn().convert(params["residual"],
+                                                         load)
         return d
 
     def capacity(self, n: int) -> int:

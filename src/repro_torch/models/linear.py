@@ -102,9 +102,14 @@ class BinaryDense:
             y = y + params["bias"]
         return y.to(self.dtype)
 
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))``: the master is freed on return."""
+        return self.convert(self.init(gen, device))
+
     def convert(self, params: Params) -> Params:
         """QAT params -> deploy params: (out, ceil(in/32)) packed columns."""
-        d: Params = {"w_packed": packing.pack_signs(params["w_latent"].T),
+        d: Params = {"w_packed": packing.pack_signs_rows(
+                         params["w_latent"].T),
                      "alpha_w": params["alpha_w"]}
         for k in ("act_alpha", "act_beta", "bias"):
             if k in params:

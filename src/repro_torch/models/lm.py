@@ -204,8 +204,14 @@ class LMModel:
 
     # -- params ---------------------------------------------------------------
 
-    def init(self, gen: torch.Generator) -> Params:
-        """QAT params drawn from ``gen``, on ``gen``'s device."""
+    def layer_blocks(self) -> Dict[str, List[Block]]:
+        """The layer lists by param key: "blocks"."""
+        return {"blocks": self._blocks()}
+
+    def _build(self, gen: torch.Generator, layer: str) -> Params:
+        """The embedding, head and frontend drawn from ``gen`` (float32
+        masters, which deploy keeps), then each block's ``layer`` face
+        ("init" or "init_deploy") in turn."""
         dev = gen.device
         p = {"embed": self._embed().init(gen, dev),
              "final_norm": self._norm().init(dev)}
@@ -215,8 +221,22 @@ class LMModel:
         frontend = self._frontend()
         if frontend is not None:
             p["frontend"] = frontend.init(gen, dev)
-        p["blocks"] = [blk.init(gen, dev) for blk in self._blocks()]
+        p["blocks"] = [getattr(blk, layer)(gen, dev)
+                       for blk in self._blocks()]
         return p
+
+    def init(self, gen: torch.Generator) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device."""
+        return self._build(gen, "init")
+
+    def init_deploy(self, gen: torch.Generator) -> Params:
+        """``convert(init(gen))``, bit for bit, drawn block by block: the
+        same draws in the same order, each block's float32 masters
+        converted and freed before the next block draws (an expert stack's
+        one expert at a time), so the card holds the deploy params and at
+        most one block's masters.  The first n blocks of a model's are
+        those of ``cfg.truncated(n)``'s."""
+        return self._build(gen, "init_deploy")
 
     def convert(self, params: Params) -> Params:
         out = {k: v for k, v in params.items() if k != "blocks"}
@@ -566,27 +586,40 @@ class EncDecModel:
 
     # -- params ---------------------------------------------------------------
 
+    def layer_blocks(self) -> Dict[str, List[Block]]:
+        """The layer lists by param key: "encoder", then "decoder"."""
+        return {"encoder": [self._enc_block()] * self.enc_layers,
+                "decoder": [self._dec_block()] * self.cfg.num_layers}
+
+    def _build(self, gen: torch.Generator, layer: str) -> Params:
+        """The embedding, frontend and head drawn from ``gen``, then the
+        encoder's and the decoder's blocks by their ``layer`` face
+        ("init" or "init_deploy"), one at a time."""
+        dev = gen.device
+        p = {"embed": self._embed().init(gen, dev),
+             "frontend": self._frontend().init(gen, dev),
+             "head": self._head().init(gen, dev),
+             "enc_norm": self._norm().init(dev),
+             "final_norm": self._norm().init(dev)}
+        for key, blocks in self.layer_blocks().items():
+            p[key] = [getattr(blk, layer)(gen, dev) for blk in blocks]
+        return p
+
     def init(self, gen: torch.Generator) -> Params:
         """QAT params drawn from ``gen``, on ``gen``'s device."""
-        dev = gen.device
-        enc, dec = self._enc_block(), self._dec_block()
-        return {"embed": self._embed().init(gen, dev),
-                "frontend": self._frontend().init(gen, dev),
-                "head": self._head().init(gen, dev),
-                "enc_norm": self._norm().init(dev),
-                "final_norm": self._norm().init(dev),
-                "encoder": [enc.init(gen, dev)
-                            for _ in range(self.enc_layers)],
-                "decoder": [dec.init(gen, dev)
-                            for _ in range(self.cfg.num_layers)]}
+        return self._build(gen, "init")
+
+    def init_deploy(self, gen: torch.Generator) -> Params:
+        """``convert(init(gen))``, bit for bit, block by block (see
+        ``LMModel.init_deploy``): encoder stack, then decoder stack."""
+        return self._build(gen, "init_deploy")
 
     def convert(self, params: Params) -> Params:
-        out = {k: v for k, v in params.items()
-               if k not in ("encoder", "decoder")}
-        out["encoder"] = [self._enc_block().convert(lp)
-                          for lp in params["encoder"]]
-        out["decoder"] = [self._dec_block().convert(lp)
-                          for lp in params["decoder"]]
+        stacks = self.layer_blocks()
+        out = {k: v for k, v in params.items() if k not in stacks}
+        for key, blocks in stacks.items():
+            out[key] = [blk.convert(lp)
+                        for blk, lp in zip(blocks, params[key])]
         return out
 
     # -- deploy faces ---------------------------------------------------------

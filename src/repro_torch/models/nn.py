@@ -18,12 +18,16 @@ Params = Dict[str, Any]
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      device) -> torch.Tensor:
-    """std * N(0, 1) truncated to [-2, 2], by inverse CDF from ``gen``."""
+    """std * N(0, 1) truncated to [-2, 2], by inverse CDF from ``gen``:
+    std * clamp(sqrt(2) * erfinv(2 * (lo + (hi - lo) * u) - 1), -2, 2) of
+    uniforms u, computed in place (the same float32 operations), so a
+    draw holds one tensor of its shape (a vocabulary-wide head's would
+    otherwise hold four)."""
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
         (1 + math.erf(2 / math.sqrt(2))) / 2
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
-    z = math.sqrt(2) * torch.erfinv(2 * (lo + (hi - lo) * u) - 1)
-    return std * z.clamp(-2.0, 2.0)
+    u.mul_(hi - lo).add_(lo).mul_(2).sub_(1).erfinv_().mul_(math.sqrt(2))
+    return u.clamp_(-2.0, 2.0).mul_(std)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -144,6 +144,10 @@ class MambaBlock:
             "d_skip": torch.ones(di, device=device),
         }
 
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))``: one layer's masters at most."""
+        return self.convert(self.init(gen, device))
+
     def convert(self, params: Params) -> Params:
         d = dict(params)
         d["in_proj"] = self._in_proj().convert(params["in_proj"])
@@ -307,6 +311,10 @@ class MLSTMBlock:
                                   3.0 * torch.ones(h, device=device)]),
         }
 
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))``: one layer's masters at most."""
+        return self.convert(self.init(gen, device))
+
     def convert(self, params: Params) -> Params:
         return {"qkv": self._qkv().convert(params["qkv"]),
                 "out": self._out().convert(params["out"]),
@@ -398,6 +406,10 @@ class SLSTMBlock:
         return {"in_proj": self._in().init(gen, device),
                 "out_proj": self._out().init(gen, device),
                 "f_bias": torch.full((self.d_inner,), 3.0, device=device)}
+
+    def init_deploy(self, gen: torch.Generator, device) -> Params:
+        """``convert(init(gen, device))``: one layer's masters at most."""
+        return self.convert(self.init(gen, device))
 
     def convert(self, params: Params) -> Params:
         return {"in_proj": self._in().convert(params["in_proj"]),
