@@ -282,6 +282,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 falling), and mixtral's, hymba's and xlstm's QAT logits
                 equal their deploy logits on the card
                 (``[train-families qat==deploy]``)
+  24. train on a mesh
+                a one-rank NCCL world in this process (an in-memory
+                store) and a (1, 1) (data, model) mesh: smollm-135m at
+                full width and depth, the CLI's optimizer, B=16 x 128,
+                seed 0, trains 10 steps with the mesh trainer (eager) and
+                10 with the one-device eager trainer from the same init,
+                in turns, under deterministic algorithms: losses, params and
+                moments bitwise equal; ms per mesh step beside the
+                one-device eager and captured steps', collectives per
+                step, peak memory (``[train-mesh]``); ``allreduce_1bit``
+                of every leaf of a gradient over the NCCL world (its sign
+                bits packed by the pack kernel; every packed word equal
+                to the plain version, every result to the plain path);
+                the trained params, gathered whole, serve through the
+                Hopper kernels as phase 22's do (``[train-mesh serve]``)
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -375,13 +390,18 @@ def our_kernels_ms(by_name) -> dict:
 # -- phase 1 and 2 ------------------------------------------------------------
 
 
-def phase_device() -> str:
-    import torch
-    smi = subprocess.run(
+def phase_device_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         check=True).stdout.strip()
+
+
+def phase_device() -> str:
+    import torch
+    smi = phase_device_line()
     log(smi)
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
@@ -3901,7 +3921,7 @@ def train_qat_deploy(model, params, stream,
         raise AssertionError(f"{tag} QAT and deploy logits differ")
 
 
-def train_serve(trainer, stream, state) -> dict:
+def train_serve(trainer, stream, state, tag: str = "[train serve]") -> dict:
     """(d): the trained full-width params, converted, serve 8 prompts of
     the stream greedily through ``ServeEngine.generate`` (the decode step
     a replayed graph); returns the run's launch counts."""
@@ -3909,7 +3929,6 @@ def train_serve(trainer, stream, state) -> dict:
     from repro_torch import kernels, tree
     from repro_torch.serve.engine import (CacheConfig, ServeConfig,
                                           ServeEngine)
-    tag = "[train serve]"
     model = trainer.model
     with torch.no_grad():
         dparams = model.convert(tree.map(lambda t: t.detach(),
@@ -4228,6 +4247,166 @@ def phase_train_families() -> dict:
     return total
 
 
+# -- phase 24: train on a mesh -------------------------------------------------
+
+MESH_STEPS = 10
+MESH_CAPTURED_STEPS = 5          # the captured one-device step, after capture
+
+
+def _timed_step(trainer, state, batch):
+    """One step, timed to the device's end: (state, loss, ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, batch)
+    loss = float(m["loss_total"])
+    torch.cuda.synchronize()
+    return state, loss, 1e3 * (time.perf_counter() - t0)
+
+
+def mesh_train(tag: str, mesh):
+    """(a): the CLI's smollm-135m trainer: the captured one-device step's
+    time, then MESH_STEPS steps of the one-device eager trainer and of
+    the mesh trainer on the (1, 1) mesh from the same init, in turns
+    (eager, mesh, eager, ...), under deterministic algorithms (the
+    embedding's backward otherwise adds with atomics), bitwise equal;
+    returns (mesh trainer, stream, its state)."""
+    import gc
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.trainer import Trainer
+    captured, stream, _ = train_cli.build(train_cli.parse_args(
+        ["--full", "--steps", str(MESH_STEPS), "--seed", str(SEED)]))
+    model, opt, cfg = captured.model, captured.opt, captured.cfg
+    s_c, cap_ms = captured.init_state(), []
+    for i in range(1 + MESH_CAPTURED_STEPS):
+        s_c, _, ms = _timed_step(captured, s_c, stream.batch_at(i))
+        cap_ms.append(ms)
+    del captured, s_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = Trainer(model, opt, cfg, graph=False)
+    meshed = Trainer(model, opt, cfg, mesh=mesh)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        s_e = eager.init_state()
+        torch.cuda.reset_peak_memory_stats()
+        s_m = meshed.init_state()
+        before = mesh.collectives
+        losses_e, losses_m, ms_e, ms_m = [], [], [], []
+        for i in range(MESH_STEPS):
+            batch = stream.batch_at(i)
+            s_e, loss, ms = _timed_step(eager, s_e, batch)
+            losses_e.append(loss)
+            ms_e.append(ms)
+            s_m, loss, ms = _timed_step(meshed, s_m, batch)
+            losses_m.append(loss)
+            ms_m.append(ms)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = (mesh.collectives - before) / MESH_STEPS
+    finally:
+        torch.use_deterministic_algorithms(False)
+    parts = {"params": (s_m.params, s_e.params),
+             "mu": (s_m.opt.mu, s_e.opt.mu), "nu": (s_m.opt.nu, s_e.opt.nu)}
+    equal = {k: all(torch.equal(a, b) for a, b in
+                    zip(tree.leaves(m), tree.leaves(e)))
+             for k, (m, e) in parts.items()}
+    state_gib = sum(t.numel() * t.element_size() for t in tree.leaves(
+        (s_m.params, s_m.opt.mu, s_m.opt.nu))) / 2**30
+    med = lambda xs: float(np.median(xs[1:]))
+    log(f"{tag} {model.cfg.name} at full width and depth, B="
+        f"{stream.global_batch} x {stream.seq_len}, seed {SEED}, on a "
+        f"{mesh} mesh of a one-rank NCCL world: ms per step (median of "
+        f"steps 1-{MESH_STEPS - 1}, the two trainers in turns) mesh "
+        f"{med(ms_m):.2f}, one-device eager {med(ms_e):.2f} (both under "
+        f"deterministic algorithms), one-device captured "
+        f"{float(np.median(cap_ms[1:])):.2f} (median of "
+        f"{MESH_CAPTURED_STEPS} replays; its capture step "
+        f"{cap_ms[0]:.1f}); collectives per mesh step {per_step:g} (every "
+        f"group of a one-rank world has one rank); peak memory over both "
+        f"runs {peak / 2**30:.2f} GiB (each state {state_gib:.2f} GiB)")
+    log(f"{tag} mesh against one-device eager over {MESH_STEPS} steps: "
+        f"losses equal {losses_m == losses_e}, params / moments bitwise "
+        f"equal {equal}; losses {json.dumps([round(x, 4) for x in losses_m])}")
+    if losses_m != losses_e or not all(equal.values()):
+        raise AssertionError(f"{tag} the mesh trainer differs from the "
+                             f"one-device trainer: {losses_m} vs {losses_e}")
+    if not losses_m[-1] < losses_m[0]:
+        raise AssertionError(f"{tag} the loss did not fall: {losses_m}")
+    return meshed, stream, s_m
+
+
+def mesh_allreduce_1bit(tag: str, trainer, stream, state) -> dict:
+    """(b): ``allreduce_1bit`` of every leaf of a gradient of the trained
+    model over the one-rank NCCL world (counted launches: one pack per
+    leaf); then each leaf's packed words against the pack kernel's plain
+    version on the CPU and each result against the plain path, bitwise.
+    Returns the counted launches."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.kernels.pack import ref as pack_ref
+    from repro_torch.optim import compress
+    batch = trainer.batch_on_device(stream.batch_at(MESH_STEPS))
+    grads = tree.leaves_with_paths(trainer.loss_and_grads(state.params,
+                                                          batch)[2])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [compress.allreduce_1bit(g) for _, g in grads]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    if launches["pack_threshold"] != len(grads):
+        raise AssertionError(f"{tag} {launches['pack_threshold']} pack "
+                             f"launches for {len(grads)} leaves")
+    ragged = bad = 0
+    zero = torch.zeros((), dtype=torch.float32)
+    for (path, g), out in zip(grads, outs):
+        flat = g.reshape(-1)
+        words = compress.sign_words(flat).cpu()
+        plain = pack_ref.pack_threshold(flat.float().cpu()[None], zero)[0]
+        scale = flat.abs().mean()
+        want = torch.where(flat >= 0, scale, -scale).reshape(g.shape)
+        ragged += flat.numel() % 32 != 0
+        if not (torch.equal(words, plain) and torch.equal(out, want)):
+            bad += 1
+            log(f"{tag} allreduce_1bit differs at {path}")
+    n = sum(g.numel() for _, g in grads)
+    log(f"{tag} allreduce_1bit over {len(grads)} gradient leaves ({n:,} "
+        f"values, {ragged} of lengths not a multiple of 32) on the NCCL "
+        f"world: {launches['pack_threshold']} pack_threshold launches, "
+        f"{ms:.1f} ms in all; packed words bitwise equal to the plain "
+        f"version and results to the plain path: {bad == 0}")
+    if bad or not ragged:
+        raise AssertionError(f"{tag} allreduce_1bit: {bad} leaves differ, "
+                             f"{ragged} ragged lengths")
+    return launches
+
+
+def phase_train_mesh() -> dict:
+    """Phase 24 (see the module docstring); returns the counted runs'
+    launch counts."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    tag = "[train-mesh]"
+    t0 = time.perf_counter()
+    log(f"{tag} {phase_device_line()}")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, "cuda")
+        trainer, stream, state = mesh_train(tag, mesh)
+        launches = mesh_allreduce_1bit(tag, trainer, stream, state)
+        served = train_serve(trainer, stream, state._replace(
+            params=trainer.whole_params(state.params)),
+            "[train-mesh serve]")
+    finally:
+        dist.destroy_process_group()
+    log(f"{tag} phase 24 took {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + served[k] for k in launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4270,12 +4449,14 @@ def main() -> int:
     phase_crosscheck_frontend()
     train = phase_train()
     families = phase_train_families()
+    meshed = phase_train_mesh()
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
                                    arctic[name] + hymba[name] + xlstm[name] +
                                    seamless[name] + internvl2[name] +
-                                   train[name] + families.get(name, 0))
+                                   train[name] + families.get(name, 0) +
+                                   meshed[name])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

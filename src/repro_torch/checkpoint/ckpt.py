@@ -17,6 +17,12 @@ Layout (one directory per step):
     files and the commit are written on a background thread (``wait``
     joins it).
   * GC: ``keep_last_n`` prunes old committed steps, never the newest.
+  * On a mesh (``layout=``, a trainer's ``StateLayout``) the format is
+    the same, so it does not depend on the mesh: ``save`` gathers each
+    leaf whole, rank 0 writes it, and rank 0 writes ``_COMMITTED`` after a
+    barrier, with every rank waiting for the commit (no thread);
+    ``restore`` reads whole leaves on every rank and keeps this rank's
+    blocks, whatever mesh saved them.
 """
 from __future__ import annotations
 
@@ -71,16 +77,22 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     def save(self, step: int, state: Params, *, blocking: bool = False,
-             extra: Optional[Dict[str, Any]] = None) -> None:
+             extra: Optional[Dict[str, Any]] = None, layout=None) -> None:
         """Device -> host now; the disk commit runs on a thread unless
-        ``blocking``."""
+        ``blocking`` or on a mesh (``layout``: every rank calls ``save``)."""
         self.wait()
-        host = [(name,) + _to_host(leaf)
-                for name, leaf in tree.leaves_with_paths(state)]
+        writer = layout is None or layout.mesh.rank == 0
+        host = []
+        for name, leaf in tree.leaves_with_paths(state):
+            place = layout and layout.placement(name)
+            if place is not None:
+                leaf = place.whole(leaf)
+            if writer:
+                host.append((name,) + _to_host(leaf))
+        d = self._step_dir(step)
+        tmp = d + ".tmp"
 
-        def commit():
-            d = self._step_dir(step)
-            tmp = d + ".tmp"
+        def write():
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
@@ -93,6 +105,8 @@ class Checkpointer:
                     "dtype": dtype, "sha256": _sha(arr)})
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
+
+        def commit():
             with open(os.path.join(tmp, _COMMIT), "w") as f:
                 f.write("ok")
             if os.path.exists(d):
@@ -100,10 +114,19 @@ class Checkpointer:
             os.rename(tmp, d)
             self._gc()
 
-        if blocking:
+        if layout is not None:
+            if writer:
+                write()
+            layout.mesh.barrier()
+            if writer:
+                commit()
+            layout.mesh.barrier()
+        elif blocking:
+            write()
             commit()
         else:
-            self._thread = threading.Thread(target=commit, daemon=True)
+            self._thread = threading.Thread(
+                target=lambda: (write(), commit()), daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
@@ -135,9 +158,11 @@ class Checkpointer:
             return json.load(f)
 
     def restore(self, step: int, like: Params, *,
-                check_integrity: bool = True) -> Tuple[Params, Dict]:
+                check_integrity: bool = True,
+                layout=None) -> Tuple[Params, Dict]:
         """Restore into the structure of ``like``: each leaf on the device
-        and in the dtype of ``like``'s leaf at the same path."""
+        and in the dtype of ``like``'s leaf at the same path; on a mesh
+        (``layout``) this rank's block of it."""
         d = self._step_dir(step)
         manifest = self.manifest(step)
         by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
@@ -149,21 +174,29 @@ class Checkpointer:
             arr = np.load(os.path.join(d, meta["file"]))
             if check_integrity and _sha(arr) != meta["sha256"]:
                 raise IOError(f"integrity check failed for {name}")
-            if list(arr.shape) != list(leaf.shape):
+            whole = _from_host(arr, meta["dtype"])
+            place = layout and layout.placement(name)
+            shape = leaf.shape if place is None else place.shape
+            if list(arr.shape) != list(shape):
                 raise ValueError(f"shape mismatch for {name}: "
-                                 f"{arr.shape} vs {tuple(leaf.shape)}")
-            leaves.append(_from_host(arr, meta["dtype"]).to(
-                device=leaf.device, dtype=leaf.dtype))
+                                 f"{arr.shape} vs {tuple(shape)}")
+            if place is not None:
+                whole = place.shard(whole)
+            leaves.append(whole.to(device=leaf.device, dtype=leaf.dtype))
         return tree.unflatten(like, leaves), manifest.get("extra", {})
 
-    def verify(self, step: int, state: Params) -> int:
-        """Check that every leaf of ``state`` (on any device) hashes to its
-        entry in step's manifest: the state holds the saved bits.  Returns
-        the number of leaves checked; raises on a mismatch."""
+    def verify(self, step: int, state: Params, layout=None) -> int:
+        """Check that every leaf of ``state`` (on any device; on a mesh,
+        ``layout``'s blocks gathered whole) hashes to its entry in step's
+        manifest: the state holds the saved bits.  Returns the number of
+        leaves checked; raises on a mismatch."""
         by_name = {leaf["name"]: leaf["sha256"]
                    for leaf in self.manifest(step)["leaves"]}
         pairs = tree.leaves_with_paths(state)
         for name, leaf in pairs:
+            place = layout and layout.placement(name)
+            if place is not None:
+                leaf = place.whole(leaf)
             if _sha(_to_host(leaf)[0]) != by_name.get(name):
                 raise IOError(f"{name} differs from step {step}'s "
                               f"checkpoint")

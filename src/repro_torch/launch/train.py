@@ -9,8 +9,17 @@ dense, MoE, hybrid, xLSTM and encoder-decoder families) at full width on
 the card; without ``--full`` the smoke (reduced) config.  ``--device
 cpu`` runs the same loop on the CPU; without a card and without it the
 CLI exits with a clear error.  Rerun with the same ``--ckpt-dir`` to
-resume from its newest committed step.  ``--model-parallel`` other than
-1 needs a mesh, which is not ported yet.
+resume from its newest committed step.
+
+Under torchrun (its ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``), or with
+``--model-parallel`` m other than 1, the trainer runs on a (world / m, m)
+(data, model) mesh of the process group (nccl on the card, gloo with
+``--device cpu``; without torchrun's environment the world is this
+process alone):
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --model-parallel 2 --steps 4 --batch 4 --seq-len 16
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from repro_torch import resolve_device, tree
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs import base
 from repro_torch.data.synthetic import SyntheticStream
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedules import warmup_cosine
@@ -58,13 +68,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build(args: argparse.Namespace
           ) -> Tuple[Trainer, SyntheticStream, Checkpointer]:
     """The trainer, the data stream and the checkpointer the CLI runs."""
-    if args.model_parallel != 1:
-        raise SystemExit(f"[train] --model-parallel {args.model_parallel}: "
-                         f"model parallelism (a mesh) is not ported yet")
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[train] {e}")
+    mesh = None
+    if args.model_parallel != 1 or "WORLD_SIZE" in os.environ:
+        try:
+            mesh = make_host_mesh(args.model_parallel, dev)
+        except ValueError as e:
+            raise SystemExit(f"[train] --model-parallel "
+                             f"{args.model_parallel}: {e}")
     cfg = (base.get_smoke_config(args.arch) if args.smoke
            else base.get_config(args.arch))
     opt = AdamW(lr=args.lr, schedule=warmup_cosine(args.steps // 10 + 1,
@@ -73,7 +87,7 @@ def build(args: argparse.Namespace
     trainer = Trainer(build_model(cfg), opt,
                       TrainerConfig(grad_accum=args.grad_accum,
                                     compress_grads=args.compress_grads,
-                                    seed=args.seed), device=dev)
+                                    seed=args.seed), device=dev, mesh=mesh)
     stream = SyntheticStream(cfg, args.seq_len, args.batch, seed=args.seed)
     return trainer, stream, Checkpointer(args.ckpt_dir)
 
@@ -85,12 +99,17 @@ def param_count(state: TrainState) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     args = parse_args(argv)
     trainer, stream, ckpt = build(args)
-    print(f"[train] {trainer.model.cfg.name} params="
-          f"{param_count(trainer.init_state()):,} device={trainer.device} "
-          f"steps={args.steps}")
+    n = param_count(trainer.init_state())
+    where = trainer.device if trainer.mesh is None else trainer.mesh
+    if trainer.rank == 0:
+        print(f"[train] {trainer.model.cfg.name} params={n:,} "
+              f"{'on this rank ' if trainer.mesh else ''}device={where} "
+              f"steps={args.steps}")
     return ft.run(trainer, stream, ckpt, steps=args.steps,
                   ckpt_every=args.ckpt_every)
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -65,6 +65,7 @@ from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn import ref as paged_ref
 from repro_torch.kernels.sps_attn import ops as sps_ops
 from repro_torch.models.linear import BinaryDense, act_bits_packed
+from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
 
@@ -208,6 +209,7 @@ class SPSAttention:
     score_impl: str = "auto"        # decode score route; auto = popcount
     cross: bool = False             # cross-attention (K/V from a memory)
     attn_mode: str = "sps"          # QAT face: sps | bit_softmax (BiT teacher)
+    wo_partition: str = "row"       # the output projection's sharding
 
     def __post_init__(self):
         if self.sps_granularity not in GRANULARITIES:
@@ -232,15 +234,17 @@ class SPSAttention:
     def groups(self) -> int:
         return self.num_heads // self.num_kv_heads
 
-    def _dense(self, in_dim, out_dim, col: bool) -> BinaryDense:
-        return BinaryDense(in_dim, out_dim, use_bias=self.qkv_bias and col,
-                           external_act=True, dtype=self.dtype)
+    def _dense(self, in_dim, out_dim, part: str) -> BinaryDense:
+        return BinaryDense(in_dim, out_dim, use_bias=self.qkv_bias and
+                           part == "col", external_act=True,
+                           dtype=self.dtype, partition=part)
 
     def _denses(self) -> Dict[str, BinaryDense]:
-        return {"wq": self._dense(self.d_model, self.q_dim, True),
-                "wk": self._dense(self.d_model, self.kv_dim, True),
-                "wv": self._dense(self.d_model, self.kv_dim, True),
-                "wo": self._dense(self.q_dim, self.d_model, False)}
+        return {"wq": self._dense(self.d_model, self.q_dim, "col"),
+                "wk": self._dense(self.d_model, self.kv_dim, "col"),
+                "wv": self._dense(self.d_model, self.kv_dim, "col"),
+                "wo": self._dense(self.q_dim, self.d_model,
+                                  self.wo_partition)}
 
     # -- params ---------------------------------------------------------------
 
@@ -259,6 +263,19 @@ class SPSAttention:
                              "row": zeros(h, ROW_TABLE)}[
                                  self.sps_granularity],
                  bit_alpha=0.5 * ones(h))
+        return p
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's): the per-head scale
+        and threshold vectors are tiny and replicated (head counts need
+        not divide the model axis)."""
+        lam_spec = {"layer": P(), "head": P(None),
+                    "row": P(None, None)}[self.sps_granularity]
+        p: Params = {name: d.specs() for name, d in self._denses().items()}
+        p.update(act_alpha=P(), act_beta=P(), q_alpha=P(None),
+                 q_beta=P(None), k_alpha=P(None), k_beta=P(None),
+                 v_alpha=P(None), v_beta=P(None), ctx_alpha=P(),
+                 ctx_beta=P(), sps_lambda=lam_spec, bit_alpha=P(None))
         return p
 
     def init_deploy(self, gen: torch.Generator, device) -> Params:

@@ -56,10 +56,19 @@ def _ffn_from_cfg(cfg: ModelConfig):
             dense_residual=cfg.moe.dense_residual,
             act=cfg.act, glu=cfg.glu, dtype=compute_dtype(cfg),
             impl=cfg.binary.impl,
-            dispatch_bits=cfg.binary.moe_dispatch_bits)
+            dispatch_bits=cfg.binary.moe_dispatch_bits,
+            expert_parallel=cfg.moe.num_experts >= 16,
+            w2_partition=_w2_partition(cfg))
     return BinaryFFN(cfg.d_model, cfg.d_ff, act=cfg.act, glu=cfg.glu,
                      blocked_r=cfg.binary.ffn_block_r,
-                     dtype=compute_dtype(cfg), impl=cfg.binary.impl)
+                     dtype=compute_dtype(cfg), impl=cfg.binary.impl,
+                     w2_partition=_w2_partition(cfg))
+
+
+def _w2_partition(cfg: ModelConfig) -> str:
+    """The sharding of the FFN's w2 and attention's wo: "col" where the
+    config gathers activation bits, else "row" (JAX's rule)."""
+    return "col" if cfg.binary.gather_bits_collectives else "row"
 
 
 def _store(dst, src) -> None:
@@ -108,7 +117,7 @@ class Block:
             sps_granularity=cfg.binary.sps_granularity,
             dtype=compute_dtype(cfg), impl=cfg.binary.impl,
             score_impl=cfg.binary.score_impl, cross=cross,
-            attn_mode=cfg.binary.attn_mode)
+            attn_mode=cfg.binary.attn_mode, wo_partition=_w2_partition(cfg))
 
     def _ffn(self):
         return _ffn_from_cfg(self.cfg)
@@ -138,6 +147,17 @@ class Block:
         if self._has_ffn:
             parts["ffn"] = self._ffn()
         return parts
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's): each part's, then
+        the norms'."""
+        p: Params = {name: mod.specs() for name, mod in self._parts().items()}
+        p["norm1"] = self._norm().specs()
+        if self._has_ffn:
+            p["norm2"] = self._norm().specs()
+        if self.kind == "dec":
+            p["norm_x"] = self._norm().specs()
+        return p
 
     def _with_norms(self, p: Params, device) -> Params:
         p["norm1"] = self._norm().init(device)

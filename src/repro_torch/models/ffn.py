@@ -39,8 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import binarize, packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
-from repro_torch.models import nn
+from repro_torch.models import nn, sharding
 from repro_torch.models.linear import BinaryDense, act_bits_packed, pm1_matmul
+from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
 
@@ -101,6 +102,8 @@ class BinaryFFN:
     # expert stacking: when > 0 all weights get a leading E axis and the
     # deploy face operates on (E, C, d) expert batches
     num_experts: int = 0
+    expert_parallel: bool = False   # shard E over "model" instead of ff
+    w2_partition: str = "row"       # w2's sharding: row | col
 
     def __post_init__(self):
         if (self.act, self.glu) not in PORTED:
@@ -115,11 +118,30 @@ class BinaryFFN:
 
     def _w1(self) -> BinaryDense:
         return BinaryDense(self.d_model, self.d_ff, external_act=True,
-                           dtype=self.dtype)
+                           dtype=self.dtype, partition="col")
 
     def _w2(self) -> BinaryDense:
         return BinaryDense(self.d_ff, self.d_model, external_act=True,
-                           dtype=self.dtype)
+                           dtype=self.dtype, partition=self.w2_partition)
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's): an expert stack's
+        leaves take a leading expert entry, "model" when the experts are
+        spread over it (``expert_parallel``), else None."""
+        if self.num_experts and self.expert_parallel:
+            fix = lambda t: {k: P("model", *(None,) * len(s))
+                             for k, s in t.items()}
+        elif self.num_experts:
+            fix = nn.stack_spec
+        else:
+            fix = lambda t: t
+        w1 = self._w1().specs()
+        p: Params = {"w1": fix(w1), "w2": fix(self._w2().specs())}
+        if self.glu:
+            p["w3"] = fix(w1)
+        for k in ("act_alpha", "act_beta", "h_alpha", "h_beta"):
+            p[k] = P()
+        return p
 
     def _build(self, make: Callable[[BinaryDense], Params],
                device) -> Params:
@@ -324,18 +346,31 @@ class BinaryMoE:
     dtype: torch.dtype = torch.float32
     impl: str = "auto"
     dispatch_bits: bool = False
+    expert_parallel: bool = True
+    w2_partition: str = "row"
 
     def _experts(self) -> BinaryFFN:
         return BinaryFFN(self.d_model, self.d_ff, act=self.act, glu=self.glu,
                          dtype=self.dtype, impl=self.impl,
-                         num_experts=self.num_experts)
+                         num_experts=self.num_experts,
+                         expert_parallel=self.expert_parallel,
+                         w2_partition=self.w2_partition)
 
     def _residual_ffn(self) -> BinaryFFN:
         return BinaryFFN(self.d_model, self.d_ff, act=self.act, glu=self.glu,
-                         dtype=self.dtype, impl=self.impl)
+                         dtype=self.dtype, impl=self.impl,
+                         w2_partition=self.w2_partition)
 
     def _router(self) -> nn.Dense:
-        return nn.Dense(self.d_model, self.num_experts, use_bias=False)
+        return nn.Dense(self.d_model, self.num_experts, use_bias=False,
+                        partition="none")
+
+    def specs(self) -> Params:
+        p: Params = {"router": self._router().specs(),
+                     "experts": self._experts().specs()}
+        if self.dense_residual:
+            p["residual"] = self._residual_ffn().specs()
+        return p
 
     def init(self, gen: torch.Generator, device) -> Params:
         p: Params = {"router": self._router().init(gen, device),
@@ -383,20 +418,26 @@ class BinaryMoE:
         """x2: (N, d) -> (gates (N, k) float32, expert idx (N, k), slot
         (N, k), keep (N, k), capacity).  Among equal probabilities the
         lowest expert index ranks first, as ``lax.top_k`` ranks them (a
-        stable descending sort; ``torch.topk`` promises no order)."""
+        stable descending sort; ``torch.topk`` promises no order).  With
+        the batch split over a mesh's data axis, ``x2`` holds this data
+        index's rows: the capacity counts the global batch's rows and the
+        slots follow the claims of the global batch in token order (the
+        choices of every data index gathered), as the JAX package routes
+        the global batch."""
         n, e = x2.shape[0], self.num_experts
         probs = self._probs(params, x2)
         gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, idx = gates[:, :self.top_k], idx[:, :self.top_k]
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-        capacity = self.capacity(n)
+        index, count = sharding.batch_split()
+        capacity = self.capacity(n * count)
         # each (token, k) claim's position among the claims on its expert
-        flat = idx.reshape(-1)
+        flat = sharding.batch_gather(idx).reshape(-1)
         onehot = (flat[:, None] == torch.arange(e, device=x2.device)).to(
             torch.int32)
         pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
         slot = torch.gather(pos, 1, flat[:, None])[:, 0].reshape(
-            n, self.top_k)
+            n * count, self.top_k)[index * n:(index + 1) * n]
         return gates, idx, slot, slot < capacity, capacity
 
     def _aux_loss(self, params: Params, x2: torch.Tensor) -> torch.Tensor:
@@ -404,12 +445,21 @@ class BinaryMoE:
         rows whose first choice it is) * (its mean probability).  The
         router runs again, as in the JAX package, so the gradient is the
         sum over both uses; the argmax takes the first maximum, as
-        ``jnp.argmax``."""
+        ``jnp.argmax``.  With the batch split over a mesh's data axis the
+        shares count the global batch's rows and each data index returns
+        its rows' part of the mean probability's term: the parts sum to
+        the global batch's loss."""
         probs = self._probs(params, x2)
         top1 = torch.argmax(probs, dim=-1)
-        frac = (top1[:, None] == torch.arange(
-            self.num_experts, device=x2.device)).to(torch.float32).mean(0)
-        return self.num_experts * torch.sum(frac * probs.mean(0))
+        first = (top1[:, None] == torch.arange(
+            self.num_experts, device=x2.device)).to(torch.float32)
+        if sharding.batch_split()[1] == 1:
+            return self.num_experts * torch.sum(first.mean(0) *
+                                                probs.mean(0))
+        n = sharding.batch_sum(torch.tensor(float(x2.shape[0]),
+                                            device=x2.device))
+        frac = sharding.batch_sum(first.sum(0)) / n
+        return self.num_experts * torch.sum(frac * probs.sum(0) / n)
 
     def _dispatch(self, x2: torch.Tensor, idx: torch.Tensor,
                   slot: torch.Tensor, keep: torch.Tensor,

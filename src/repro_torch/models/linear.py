@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import binarize, packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.models import nn
+from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
 
@@ -59,6 +60,7 @@ class BinaryDense:
     # reuses caller-provided activation bits and carries no act scales
     external_act: bool = False
     dtype: torch.dtype = torch.float32
+    partition: str = "col"          # col | row | none (sharding of (in, out))
 
     def init(self, gen: torch.Generator, device) -> Params:
         w = nn.truncated_normal(gen, (self.in_dim, self.out_dim),
@@ -70,6 +72,18 @@ class BinaryDense:
             p["act_beta"] = torch.zeros((), device=device)
         if self.use_bias:
             p["bias"] = torch.zeros(self.out_dim, device=device)
+        return p
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's)."""
+        wspec = nn.MATRIX_SPECS[self.partition]
+        out_axis = wspec[1]
+        p: Params = {"w_latent": wspec, "alpha_w": P(out_axis)}
+        if not self.external_act:
+            p["act_alpha"] = P()
+            p["act_beta"] = P()
+        if self.use_bias:
+            p["bias"] = P(out_axis)
         return p
 
     def apply(self, params: Params, x: Optional[torch.Tensor] = None, *,

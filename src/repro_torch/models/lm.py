@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import nn
+from repro_torch.models import nn, sharding
 from repro_torch.models.attention import PageSpec
 from repro_torch.models.blocks import Block, compute_dtype
 
@@ -107,6 +107,14 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return plan
 
 
+# (path, a freshly drawn part) -> what to hold of it
+Keep = Callable[[str, Params], Params]
+
+
+def _keep_all(path: str, part: Params) -> Params:
+    return part
+
+
 def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
                x: torch.Tensor, memory: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,11 +123,13 @@ def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
     ``cfg.remat`` other than "none" each block is a
     ``torch.utils.checkpoint`` (its activations recomputed in the
     backward), as the JAX package wraps each block in ``jax.checkpoint``;
-    the recomputation gives the same values."""
+    the recomputation gives the same values.  On a mesh each block's
+    params are gathered whole inside its checkpoint, so the backward
+    gathers them again (``sharding.materialize``)."""
     aux = torch.zeros((), device=x.device)
     for blk, bp in zip(blocks, layers):
         def run(xx, mem, blk=blk, bp=bp):
-            y, a = blk.qat(bp, xx, memory=mem)
+            y, a = blk.qat(sharding.materialize(bp), xx, memory=mem)
             return y, a.get("moe_aux_loss", torch.zeros((),
                                                        device=xx.device))
 
@@ -137,13 +147,15 @@ def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
 def _nll(logits: torch.Tensor, labels
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean NLL over the valid labels (>= 0), valid mask, denominator)
-    of float32 logits."""
+    of float32 logits.  With the batch split over a mesh's data axis the
+    denominator counts the global batch's valid labels, so the data
+    indices' losses sum to the global batch's."""
     labels = torch.as_tensor(labels, device=logits.device)
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
-    denom = valid.sum().clamp_min(1)
+    denom = sharding.batch_sum(valid.sum()).clamp_min(1)
     return torch.where(valid, nll, 0.0).sum() / denom, valid, denom
 
 
@@ -188,12 +200,13 @@ class LMModel:
         if self.cfg.tie_embeddings:
             return None
         return nn.Dense(self.cfg.d_model, padded_vocab(self.cfg.vocab_size),
-                        use_bias=False)
+                        use_bias=False, partition="col")
 
     def _frontend(self) -> Optional[nn.Dense]:
         if not self.cfg.frontend_tokens:
             return None
-        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False)
+        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False,
+                        partition="none")
 
     @property
     def frontend_dim(self) -> int:
@@ -208,26 +221,50 @@ class LMModel:
         """The layer lists by param key: "blocks"."""
         return {"blocks": self._blocks()}
 
-    def _build(self, gen: torch.Generator, layer: str) -> Params:
+    def _build(self, gen: torch.Generator, layer: str,
+               keep: Optional[Keep] = None) -> Params:
         """The embedding, head and frontend drawn from ``gen`` (float32
         masters, which deploy keeps), then each block's ``layer`` face
-        ("init" or "init_deploy") in turn."""
+        ("init" or "init_deploy") in turn; each part goes through
+        ``keep`` (see ``init``) as it is drawn."""
         dev = gen.device
-        p = {"embed": self._embed().init(gen, dev),
-             "final_norm": self._norm().init(dev)}
+        keep = keep or _keep_all
+        p = {"embed": keep("embed", self._embed().init(gen, dev)),
+             "final_norm": keep("final_norm", self._norm().init(dev))}
         head = self._head()
         if head is not None:
-            p["head"] = head.init(gen, dev)
+            p["head"] = keep("head", head.init(gen, dev))
         frontend = self._frontend()
         if frontend is not None:
-            p["frontend"] = frontend.init(gen, dev)
-        p["blocks"] = [getattr(blk, layer)(gen, dev)
-                       for blk in self._blocks()]
+            p["frontend"] = keep("frontend", frontend.init(gen, dev))
+        p["blocks"] = [keep(f"blocks/{i}", getattr(blk, layer)(gen, dev))
+                       for i, blk in enumerate(self._blocks())]
         return p
 
-    def init(self, gen: torch.Generator) -> Params:
-        """QAT params drawn from ``gen``, on ``gen``'s device."""
-        return self._build(gen, "init")
+    def init(self, gen: torch.Generator,
+             keep: Optional[Keep] = None) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device.  ``keep(path,
+        part)`` takes each part as it is drawn (the embedding, a norm, the
+        head, the frontend, a block; ``path`` its key, "blocks/3" a block)
+        and returns what to hold of it: a mesh trainer keeps its shards,
+        so the rest is freed before the next part draws."""
+        return self._build(gen, "init", keep)
+
+    def specs(self) -> Params:
+        """The QAT params' specs, a tree of the params' structure: each
+        leaf's the JAX package's, a per-layer leaf's without the stacked
+        leaf's leading layer entry (``launch.mesh.stacked_specs`` maps
+        them back)."""
+        p: Params = {"embed": self._embed().specs(),
+                     "final_norm": self._norm().specs()}
+        head = self._head()
+        if head is not None:
+            p["head"] = head.specs()
+        frontend = self._frontend()
+        if frontend is not None:
+            p["frontend"] = frontend.specs()
+        p["blocks"] = [blk.specs() for blk in self._blocks()]
+        return p
 
     def init_deploy(self, gen: torch.Generator) -> Params:
         """``convert(init(gen))``, bit for bit, drawn block by block: the
@@ -572,10 +609,11 @@ class EncDecModel:
 
     def _head(self) -> nn.Dense:
         return nn.Dense(self.cfg.d_model, padded_vocab(self.cfg.vocab_size),
-                        use_bias=False)
+                        use_bias=False, partition="col")
 
     def _frontend(self) -> nn.Dense:
-        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False)
+        return nn.Dense(self.frontend_dim, self.cfg.d_model, use_bias=False,
+                        partition="none")
 
     @property
     def frontend_dim(self) -> int:
@@ -591,23 +629,40 @@ class EncDecModel:
         return {"encoder": [self._enc_block()] * self.enc_layers,
                 "decoder": [self._dec_block()] * self.cfg.num_layers}
 
-    def _build(self, gen: torch.Generator, layer: str) -> Params:
+    def _build(self, gen: torch.Generator, layer: str,
+               keep: Optional[Keep] = None) -> Params:
         """The embedding, frontend and head drawn from ``gen``, then the
         encoder's and the decoder's blocks by their ``layer`` face
-        ("init" or "init_deploy"), one at a time."""
+        ("init" or "init_deploy"), one at a time, each part through
+        ``keep`` (see ``LMModel.init``)."""
         dev = gen.device
-        p = {"embed": self._embed().init(gen, dev),
-             "frontend": self._frontend().init(gen, dev),
-             "head": self._head().init(gen, dev),
-             "enc_norm": self._norm().init(dev),
-             "final_norm": self._norm().init(dev)}
+        keep = keep or _keep_all
+        p = {"embed": keep("embed", self._embed().init(gen, dev)),
+             "frontend": keep("frontend", self._frontend().init(gen, dev)),
+             "head": keep("head", self._head().init(gen, dev)),
+             "enc_norm": keep("enc_norm", self._norm().init(dev)),
+             "final_norm": keep("final_norm", self._norm().init(dev))}
         for key, blocks in self.layer_blocks().items():
-            p[key] = [getattr(blk, layer)(gen, dev) for blk in blocks]
+            p[key] = [keep(f"{key}/{i}", getattr(blk, layer)(gen, dev))
+                      for i, blk in enumerate(blocks)]
         return p
 
-    def init(self, gen: torch.Generator) -> Params:
-        """QAT params drawn from ``gen``, on ``gen``'s device."""
-        return self._build(gen, "init")
+    def init(self, gen: torch.Generator,
+             keep: Optional[Keep] = None) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device (``keep`` as
+        in ``LMModel.init``)."""
+        return self._build(gen, "init", keep)
+
+    def specs(self) -> Params:
+        """The QAT params' specs (see ``LMModel.specs``)."""
+        p: Params = {"embed": self._embed().specs(),
+                     "frontend": self._frontend().specs(),
+                     "head": self._head().specs(),
+                     "enc_norm": self._norm().specs(),
+                     "final_norm": self._norm().specs()}
+        for key, blocks in self.layer_blocks().items():
+            p[key] = [blk.specs() for blk in blocks]
+        return p
 
     def init_deploy(self, gen: torch.Generator) -> Params:
         """``convert(init(gen))``, bit for bit, block by block (see

@@ -13,7 +13,14 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import tree
+from repro_torch.models.sharding import P
+
 Params = Dict[str, Any]
+
+# a (in, out) matrix's spec by its partition
+MATRIX_SPECS = {"col": P(None, "model"), "row": P("model", None),
+                "none": P(None, None)}
 
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
@@ -30,6 +37,12 @@ def truncated_normal(gen: torch.Generator, shape, std: float,
     return u.clamp_(-2.0, 2.0).mul_(std)
 
 
+def stack_spec(spec: Any) -> Any:
+    """Prepend a None (layer) axis to every spec of a tree: the spec of
+    the JAX package's stacked leaf of a per-layer leaf."""
+    return tree.map(lambda s: P(None, *s), spec)
+
+
 @dataclasses.dataclass(frozen=True)
 class RMSNorm:
     dim: int
@@ -37,6 +50,9 @@ class RMSNorm:
 
     def init(self, device) -> Params:
         return {"scale": torch.ones(self.dim, device=device)}
+
+    def specs(self) -> Params:
+        return {"scale": P(None)}
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -54,6 +70,9 @@ class LayerNorm:
     def init(self, device) -> Params:
         return {"scale": torch.ones(self.dim, device=device),
                 "bias": torch.zeros(self.dim, device=device)}
+
+    def specs(self) -> Params:
+        return {"scale": P(None), "bias": P(None)}
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -79,6 +98,9 @@ class Embedding:
         return {"embedding": truncated_normal(gen, (self.vocab, self.dim),
                                               self.dim ** -0.5, device)}
 
+    def specs(self) -> Params:
+        return {"embedding": P("model", None)}
+
     def apply(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
         return params["embedding"][ids.long()]
 
@@ -95,6 +117,7 @@ class Dense:
     in_dim: int
     out_dim: int
     use_bias: bool = True
+    partition: str = "col"          # col | row | none (sharding of (in, out))
 
     def init(self, gen: torch.Generator, device) -> Params:
         p = {"kernel": truncated_normal(gen, (self.in_dim, self.out_dim),
@@ -103,6 +126,13 @@ class Dense:
         if self.use_bias:
             p["bias"] = torch.zeros(self.out_dim, device=device)
         return p
+
+    def specs(self) -> Params:
+        ps = MATRIX_SPECS[self.partition]
+        out = {"kernel": ps}
+        if self.use_bias:
+            out["bias"] = P(ps[1]) if self.partition == "col" else P(None)
+        return out
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x @ kernel (+ bias) in the promoted dtype of x and the kernel,

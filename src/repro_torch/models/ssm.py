@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import nn
 from repro_torch.models.linear import BinaryDense
+from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
 
@@ -119,10 +120,21 @@ class MambaBlock:
         return self.dt_rank or -(-self.d_model // 16)
 
     def _in_proj(self) -> BinaryDense:
-        return BinaryDense(self.d_model, 2 * self.d_inner, dtype=self.dtype)
+        return BinaryDense(self.d_model, 2 * self.d_inner, dtype=self.dtype,
+                           partition="col")
 
     def _out_proj(self) -> BinaryDense:
-        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype)
+        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype,
+                           partition="row")
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's)."""
+        return {"in_proj": self._in_proj().specs(),
+                "out_proj": self._out_proj().specs(),
+                "conv_w": P(None, "model"), "conv_b": P("model"),
+                "x_proj": P("model", None), "dt_proj": P(None, "model"),
+                "dt_bias": P("model"), "a_log": P("model", None),
+                "d_skip": P("model")}
 
     def init(self, gen: torch.Generator, device) -> Params:
         di, st = self.d_inner, self.state_size
@@ -294,10 +306,18 @@ class MLSTMBlock:
         return self.d_inner // self.num_heads
 
     def _qkv(self) -> BinaryDense:
-        return BinaryDense(self.d_model, 3 * self.d_inner, dtype=self.dtype)
+        return BinaryDense(self.d_model, 3 * self.d_inner, dtype=self.dtype,
+                           partition="col")
 
     def _out(self) -> BinaryDense:
-        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype)
+        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype,
+                           partition="row")
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's): the gate
+        projections are (d, 2H) with small H, replicated."""
+        return {"qkv": self._qkv().specs(), "out": self._out().specs(),
+                "w_gates": P(None, None), "b_gates": P(None)}
 
     def init(self, gen: torch.Generator, device) -> Params:
         h = self.num_heads
@@ -397,10 +417,17 @@ class SLSTMBlock:
         return self.expand * self.d_model
 
     def _in(self) -> BinaryDense:
-        return BinaryDense(self.d_model, 4 * self.d_inner, dtype=self.dtype)
+        return BinaryDense(self.d_model, 4 * self.d_inner, dtype=self.dtype,
+                           partition="col")
 
     def _out(self) -> BinaryDense:
-        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype)
+        return BinaryDense(self.d_inner, self.d_model, dtype=self.dtype,
+                           partition="row")
+
+    def specs(self) -> Params:
+        """The QAT params' specs (the JAX package's)."""
+        return {"in_proj": self._in().specs(), "out_proj": self._out().specs(),
+                "f_bias": P("model")}
 
     def init(self, gen: torch.Generator, device) -> Params:
         return {"in_proj": self._in().init(gen, device),

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
 import torch
 
 from repro_torch import tree
+from repro_torch.models.sharding import P
 
 Params = Any
 
@@ -71,10 +72,16 @@ def decayed(params: Params, stacked: Sequence[str] = STACKED) -> List[bool]:
     return out
 
 
-def global_norm(grads: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, float32."""
+def leaf_norms(grads: Params) -> torch.Tensor:
+    """Each leaf's norm, float32, (leaves,)."""
     gs = [g.to(torch.float32) for g in tree.leaves(grads)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    return torch.stack(torch._foreach_norm(gs))
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, float32: the norm of the
+    leaves' norms."""
+    return torch.linalg.vector_norm(leaf_norms(grads))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +101,11 @@ class AdamW:
                                   device=p.device)
         return AdamWState(torch.zeros((), dtype=torch.int32),
                           tree.map(z, params), tree.map(z, params))
+
+    def state_specs(self, param_specs: Params) -> AdamWState:
+        """The state's specs (placements, on a mesh): the moments take
+        their params', the step is whole."""
+        return AdamWState(P(), param_specs, param_specs)
 
     def scalars(self, step: int) -> Tuple[float, float, float]:
         """(lr, 1 - b1^step, 1 - b2^step) at ``step`` (counted from 1), in
@@ -139,7 +151,8 @@ class AdamW:
 
     def update(self, grads: Params, state: AdamWState, params: Params, *,
                stacked: Sequence[str] = STACKED, scalars=None,
-               donate: bool = False, write: bool = True
+               donate: bool = False, write: bool = True,
+               norm: Optional[torch.Tensor] = None
                ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
         """One step: clip by the global norm, moments, bias correction,
         decoupled decay of the leaves ``decayed`` marks.  ``stacked``
@@ -151,12 +164,13 @@ class AdamW:
         ``params`` and ``state``'s own (contiguous) tensors, group by
         group, and returns those trees; with ``write`` False it computes
         every group and writes nothing (a warm-up that leaves the state
-        as it was)."""
+        as it was).  ``norm`` is the gradients' global norm where the
+        caller computes it (a mesh trainer's, over every rank's shards)."""
         step = state.step + 1
         lr, c1, c2 = scalars or self.scalars(int(step))
         ps, gs = tree.leaves(params), tree.leaves(grads)
         mus, nus = tree.leaves(state.mu), tree.leaves(state.nu)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         scale = None
         if self.grad_clip:
             scale = torch.clamp(self.grad_clip / gnorm.clamp_min(1e-9),

@@ -4,8 +4,10 @@ the straggler watchdog and the production loop.
 A dead process restarts from the last committed checkpoint (saves every
 N steps, committed on a thread; the data stream is a pure function of its
 step counter, so a resume is bit-exact); a slow step is flagged by the
-watchdog's per-step EWMA.  Elastic rescale onto another mesh is mesh work
-and is not ported yet.
+watchdog's per-step EWMA.  The checkpoint holds whole leaves whatever
+mesh saved it, so ``elastic_restore`` re-shards it onto another mesh as
+a plain restore.  On a mesh every rank runs ``run`` (steps and
+checkpoints are collective) and rank 0 logs.
 """
 from __future__ import annotations
 
@@ -20,18 +22,29 @@ from repro_torch.train.trainer import Trainer, TrainState
 def restore_or_init(trainer: Trainer, ckpt: Checkpointer
                     ) -> Tuple[TrainState, int, Dict]:
     """Resume from the newest committed step, else a fresh init, on the
-    trainer's device.  Returns (state, data_step, extra)."""
+    trainer's device or mesh.  Returns (state, data_step, extra)."""
     step = ckpt.latest_step()
     if step is None:
         return trainer.init_state(), 0, {}
-    state, extra = ckpt.restore(step, trainer.init_state())
+    return _restore(ckpt, trainer, step)
+
+
+def _restore(ckpt: Checkpointer, trainer: Trainer, step: int
+             ) -> Tuple[TrainState, int, Dict]:
+    state, extra = ckpt.restore(step, trainer.init_state(),
+                                layout=trainer.layout)
     return state, int(extra.get("data_step", step)), extra
 
 
-def elastic_restore(ckpt: Checkpointer, trainer_new: Trainer):
-    raise NotImplementedError(
-        "elastic_restore re-shards a checkpoint onto another mesh; mesh "
-        "work is not ported yet (restore_or_init restores on one device)")
+def elastic_restore(ckpt: Checkpointer, trainer_new: Trainer
+                    ) -> Tuple[TrainState, int, Dict]:
+    """Restore the newest committed step onto ``trainer_new``'s mesh (or
+    device), whatever mesh saved it: the same state tree, this rank's
+    blocks."""
+    step = ckpt.latest_step()
+    if step is None:
+        raise FileNotFoundError("no committed checkpoint to rescale from")
+    return _restore(ckpt, trainer_new, step)
 
 
 @dataclasses.dataclass
@@ -77,7 +90,7 @@ def run(trainer: Trainer, stream, ckpt: Checkpointer, *, steps: int,
     """The production loop: restore -> step -> watchdog -> checkpoint.
     A step's time includes waiting for the device (where the JAX package
     blocks on the loss); ``on_step(step, metrics, seconds)`` sees every
-    step."""
+    step.  On a mesh every rank calls it, and only rank 0 logs."""
     state, data_step, _ = restore_or_init(trainer, ckpt)
     stream.step = data_step
     wd = watchdog or StragglerWatchdog()
@@ -93,11 +106,14 @@ def run(trainer: Trainer, stream, ckpt: Checkpointer, *, steps: int,
         wd.observe(step, dt)
         if on_step is not None:
             on_step(step, metrics, dt)
-        if step % log_every == 0 or step == steps - 1:
+        if trainer.rank == 0 and (step % log_every == 0 or
+                                  step == steps - 1):
             log_fn(f"step {step} loss {float(metrics['loss']):.4f} "
                    f"gnorm {float(metrics['grad_norm']):.3f} "
                    f"dt {dt * 1e3:.1f}ms flags {wd.flags}")
         if ckpt_every and (step + 1) % ckpt_every == 0:
-            ckpt.save(step + 1, state, extra={"data_step": stream.step})
-    ckpt.save(steps, state, blocking=True, extra={"data_step": stream.step})
+            ckpt.save(step + 1, state, extra={"data_step": stream.step},
+                      layout=trainer.layout)
+    ckpt.save(steps, state, blocking=True, extra={"data_step": stream.step},
+              layout=trainer.layout)
     return state

@@ -22,17 +22,37 @@ step: copy a state to keep it, as a JAX caller must under donation
 the graph's is copied into its buffers first.  A replay computes what
 the eager step computes; ``graph=False`` (and the CPU) runs the step
 eagerly and functionally.
+
+On a mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh``; the JAX
+package's ``Trainer`` binds one too) every leaf of the params, the moments
+and the error feedback is this rank's block, placed by
+``fsdp_specs(specs())`` (``specs()`` alone without ``cfg.fsdp``): the
+state takes 1/|mesh| of its bytes per rank, leaves that nothing divides
+left whole.  ``init_state`` draws each part as the one-device init does
+and keeps its blocks.  A step takes the global batch, and each rank runs
+its data index's rows of each micro-batch (ranks along "model" the same
+rows): the embedding, head and norms are gathered whole at the step's
+start, each block's params inside the block's checkpoint (so the
+backward gathers them again).  The loss divides by the global batch's
+valid labels, so the data indices' gradients sum to the global batch's:
+the gather's backward sums them over "data" and cuts them to this rank's
+block.  The global norm, the compression's scales and the reported
+metrics sum over every rank, each replica counted once; AdamW then
+updates the blocks.  The mesh step runs eagerly (no captured graph).
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device, tree
-from repro_torch.optim import compress as compress_lib
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import sharding
+from repro_torch.optim import adamw, compress as compress_lib
 from repro_torch.optim.adamw import AdamW, AdamWState
 
 Params = Any
@@ -51,29 +71,143 @@ class TrainerConfig:
     seed: int = 0
 
 
+class StateLayout(NamedTuple):
+    """Where a train state's leaves live on a mesh, for the checkpoint:
+    ``placement(path)`` of a state path ("params/...", "opt/mu/...",
+    "opt/step", ...; None: whole on every rank)."""
+    mesh: Any
+    placement: Callable[[str], Optional[mesh_lib.Placement]]
+
+
 class Trainer:
-    """Binds (model, optimizer, device) into train steps."""
+    """Binds (model, optimizer, device or mesh) into train steps."""
 
     def __init__(self, model, optimizer: AdamW,
                  cfg: TrainerConfig = TrainerConfig(), device="cuda",
-                 graph: bool = True):
+                 graph: bool = True, mesh: Optional[mesh_lib.Mesh] = None):
         self.model = model
         self.opt = optimizer
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"Trainer(device={self.device}) on a mesh of "
+                             f"{mesh.device}")
         # the layer lists whose leaves are one stacked leaf each in JAX
         self.stacked = model.stacked
-        self.graph = graph and self.device.type == "cuda"
+        self.graph = graph and self.device.type == "cuda" and mesh is None
         self._graphs: Dict[Any, _StepGraph] = {}
         self.captures = 0
+        self._placements: Dict[str, mesh_lib.Placement] = {}
+        self._state_placements: Dict[str, Any] = {}
+        if mesh is not None:
+            self._specs = dict(tree.leaves_with_paths(model.specs()))
+            self._layers = {k: len(v)
+                            for k, v in model.layer_blocks().items()}
+
+    # -- the mesh ---------------------------------------------------------------
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def layout(self) -> Optional[StateLayout]:
+        """The state's layout for ``Checkpointer`` (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        return StateLayout(self.mesh, self.state_placement)
+
+    def param_spec(self, path: str, shape) -> mesh_lib.P:
+        """The spec of the param at ``path`` (whole ``shape``): ``specs()``'s,
+        with FSDP over the data axes when ``cfg.fsdp``, chosen on the JAX
+        package's leaf (a per-layer leaf of a stacked list has the layer
+        axis before it; where FSDP picks that axis the per-layer leaf
+        stays whole along "data")."""
+        spec = self._specs[path]
+        if not getattr(self.model.cfg, "fsdp", True):
+            return spec
+        key = path.split("/")[0]
+        if key in self.stacked:
+            full = mesh_lib.fsdp_spec(mesh_lib.P(None, *spec),
+                                      (self._layers[key],) + tuple(shape),
+                                      self.mesh)
+            return mesh_lib.P(*tuple(full)[1:])
+        return mesh_lib.fsdp_spec(spec, shape, self.mesh)
+
+    def placement(self, path: str, shape=None) -> mesh_lib.Placement:
+        """The ``Placement`` of the param at ``path``; the first call for a
+        path gives its whole ``shape``."""
+        pl = self._placements.get(path)
+        if pl is None:
+            pl = self._placements[path] = mesh_lib.Placement(
+                self.mesh, self.param_spec(path, shape), shape)
+        return pl
+
+    def state_placement(self, path: str) -> Optional[mesh_lib.Placement]:
+        """The ``Placement`` of a train state's leaf (the JAX package's
+        state specs: the moments and error feedback take their params')."""
+        if not self._state_placements:      # built once placed
+            by_param = dict(self._placements)   # keys are the param paths
+            self._state_placements = dict(tree.leaves_with_paths(
+                TrainState(by_param, self.opt.state_specs(by_param),
+                           by_param if self.cfg.compress_grads else None)))
+        pl = self._state_placements[path]
+        return pl if isinstance(pl, mesh_lib.Placement) else None
+
+    def _keep(self, prefix: str, part: Any) -> Any:
+        """This rank's blocks of a freshly drawn part of the params."""
+        return tree.unflatten(part, [
+            self.placement(f"{prefix}/{p}", t.shape).shard(t)
+            for p, t in tree.leaves_with_paths(part)])
+
+    def _param_placements(self, params: Any):
+        return [self._placements[p] for p, _ in tree.leaves_with_paths(params)]
+
+    def whole_params(self, params: Any) -> Any:
+        """The whole params from every rank's blocks (collectives: every
+        rank calls it); the params themselves off a mesh."""
+        if self.mesh is None:
+            return params
+        return tree.unflatten(params, [
+            pl.whole(t) for pl, t in zip(self._param_placements(params),
+                                         tree.leaves(params))])
+
+    def _global_norm(self, grads: Any) -> torch.Tensor:
+        """``adamw.global_norm`` of the whole gradients from every rank's
+        blocks: each rank's leaf norms, gathered, each block counted
+        once."""
+        norms = adamw.leaf_norms(grads)
+        mesh = self.mesh
+        if mesh.size > 1:
+            every = mesh.all_gather(norms[None], None, 0)   # (ranks, leaves)
+            pls = self._param_placements(grads)
+            owned = torch.tensor([[pl.owns(mesh.coords[r]) for pl in pls]
+                                  for r in range(mesh.size)],
+                                 device=norms.device)
+            norms = every.T[owned.T]
+        return torch.linalg.vector_norm(norms)
+
+    def _compress_scales(self, grads: Any, ef: Any):
+        mesh = self.mesh
+        pls = self._param_placements(grads)
+        return compress_lib.sharded_scales(
+            grads, ef, self.stacked,
+            [pl.owns(mesh.coords[mesh.rank]) for pl in pls],
+            [math.prod(pl.shape) for pl in pls],
+            lambda t: mesh.all_reduce(t, None))
 
     # -- state ------------------------------------------------------------------
 
     def init_state(self) -> TrainState:
         """Params from ``torch.Generator(device).manual_seed(seed)``, zero
-        moments at step 0, and zero error feedback with compression."""
+        moments at step 0, and zero error feedback with compression.  On a
+        mesh, this rank's blocks of the one-device init's params: each
+        part is drawn whole, in the one-device order, and cut to its
+        blocks before the next part draws."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        params = self.model.init(gen)
+        params = self.model.init(gen, None if self.mesh is None
+                                 else self._keep)
         ef = (compress_lib.init_error_feedback(params)
               if self.cfg.compress_grads else None)
         return TrainState(params, self.opt.init(params), ef)
@@ -95,12 +229,29 @@ class Trainer:
                                   Params]:
         """(loss_total, metrics, grads) of ``model.train_loss``; a leaf the
         loss does not read (``bit_alpha`` in SPS mode) gets zeros, as JAX
-        gives it."""
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree.leaves(params)]
-        loss, metrics = self.model.train_loss(tree.unflatten(params, leaves),
-                                              batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gives it.  On a mesh: this rank's rows of ``batch``, and the
+        gradients of this rank's blocks of ``params``."""
+        pairs = tree.leaves_with_paths(params)
+        leaves = [p.detach().requires_grad_(True) for _, p in pairs]
+        if self.mesh is None:
+            loss, metrics = self.model.train_loss(
+                tree.unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        else:
+            rows = mesh_lib.batch_spec(self.mesh, batch["tokens"].shape[0])
+            use = []
+            for (path, _), leaf in zip(pairs, leaves):
+                gather = self._placements[path].gather
+                # a layer's params are gathered where the layer runs
+                use.append(sharding.Gathered(leaf, gather)
+                           if path.split("/")[0] in self._layers
+                           else gather(leaf))
+            with sharding.activation_sharding(self.mesh,
+                                              mesh_lib.data_axes(self.mesh)):
+                loss, metrics = self.model.train_loss(
+                    tree.unflatten(params, use),
+                    {k: v[rows] for k, v in batch.items()})
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -149,10 +300,17 @@ class Trainer:
             loss, metrics, grads = self.loss_and_grads(state.params, batch)
             metrics["loss_total"] = loss
         ef = state.ef
+        sharded = self.mesh is not None and self.mesh.size > 1
         with torch.no_grad():
+            if sharded and self.mesh.data_size > 1:
+                # each data index's share of the global batch's metrics
+                for k in ("loss", "moe_aux", "tokens", "loss_total"):
+                    metrics[k] = self.mesh.all_reduce(metrics[k].clone(),
+                                                      "data")
             if self.cfg.compress_grads:
-                grads, new_ef = compress_lib.compress_tree(grads, ef,
-                                                           self.stacked)
+                grads, new_ef = compress_lib.compress_tree(
+                    grads, ef, self.stacked,
+                    self._compress_scales(grads, ef) if sharded else None)
                 if not donate:
                     ef = new_ef
                 elif write:
@@ -160,7 +318,8 @@ class Trainer:
                                          tree.leaves(new_ef))
             params, opt, om = self.opt.update(
                 grads, state.opt, state.params, stacked=self.stacked,
-                scalars=scalars, donate=donate, write=write)
+                scalars=scalars, donate=donate, write=write,
+                norm=None if self.mesh is None else self._global_norm(grads))
         metrics.update(om)
         return TrainState(params, opt, ef), metrics
 

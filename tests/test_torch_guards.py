@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch import bridge, kernels
+from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs import base
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.rbmm_mxu import ops as mxu_ops, ref as mxu_ref
@@ -72,7 +73,9 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
 def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """The trainer (and so ``ft.run``, which runs on a trainer's device)
     and the training CLI default to CUDA and raise without a card; the
-    new modules fall under the import guard above."""
+    new modules fall under the import guard above.  Without torchrun's
+    environment the world is one rank, which a model axis of 2 does not
+    divide; an elastic restore needs a committed step, as in JAX."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES if "src" in p.parts}
@@ -85,11 +88,13 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         Trainer(model, AdamW())
     with pytest.raises(SystemExit, match="CUDA card"):
         train_cli.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="not ported yet"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match=r"world size \(1\) is not "
+                       r"divisible by the model axis \(2\)"):
         train_cli.main(["--device", "cpu", "--model-parallel", "2",
                         "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ft.elastic_restore(None, None)
+    with pytest.raises(FileNotFoundError, match="no committed checkpoint"):
+        ft.elastic_restore(Checkpointer(str(tmp_path / "empty")), None)
     assert Trainer(model, AdamW(), device="cpu").graph is False
 
 
@@ -213,7 +218,7 @@ def test_bridge_keeps_word_bits_and_splits_stacked_blocks():
     assert out["blocks"][1]["s"].shape == ()
 
 
-def test_not_ported_yet_boundaries():
+def test_not_ported_yet_boundaries(tmp_path):
     with pytest.raises(KeyError):
         base.get_config("gpt-2")
     cfg = base.get_config("smollm-135m")
@@ -264,14 +269,16 @@ def test_not_ported_yet_boundaries():
         "tokens": torch.zeros(1, 4, dtype=torch.int32),
         "labels": torch.zeros(1, 4, dtype=torch.int32)})
     assert bool(torch.isfinite(loss)) and int(metrics["tokens"]) == 4
-    # still not ported: the expert-stacked ReLU FFN (no config uses it),
-    # model parallelism and the elastic restore (mesh work)
+    # still not ported: the expert-stacked ReLU FFN (no config uses it);
+    # the mesh work is ported: a model axis the one-rank world does not
+    # divide exits saying so, an elastic restore without a committed step
+    # raises as JAX's does
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BinaryFFN(64, 128, act="relu", glu=False, num_experts=4)
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match=r"world size \(1\)"):
         train_cli.main(["--device", "cpu", "--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ft.elastic_restore(None, None)
+    with pytest.raises(FileNotFoundError, match="no committed checkpoint"):
+        ft.elastic_restore(Checkpointer(str(tmp_path)), None)
     with pytest.raises(ValueError, match="unknown block kind"):
         Block(base.get_smoke_config("smollm-135m"), kind="cross")
     assert Block(base.get_smoke_config("smollm-135m"), kind="dec"
