@@ -199,9 +199,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 weights from a seed): static serving of 4 prompts of
                 1,536 tokens (``[hymba]``: the rings wrap, graph ==
                 eager, the prefill's and each decode step's launches
-                equal ``kernel_times.RECURRENT_CALLS``'), continuous paged
-                serving of phase 5's trace and engine shape (``[hymba
-                continuous]``: every pure-decode and mixed iteration at
+                equal ``kernel_times.RECURRENT_CALLS``'); on its first
+                8 layers, continuous paged serving of phase 5's trace
+                and engine shape (``[hymba continuous]``: every
+                pure-decode and mixed iteration at
                 the table's launches, graphs == eager with the carries
                 and an inactive row's frozen, a second serve equal) and
                 the same with ``spec_decode=4`` requested (``[hymba
@@ -210,10 +211,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 capture seconds alone within a decode step and a mixed
                 iteration (``recurrence_ms``)
   17. xlstm    xlstm-350m at full width and depth (20 mLSTM and 4 sLSTM
-                layers, no attention): static B=8 x 512 (``[xlstm]``),
-                continuous on the paged pool (no arena) and on contiguous
-                rings (``[xlstm continuous paged|contiguous]``, equal
-                tokens), ``spec_decode=4`` requested, the same checks
+                layers, no attention): static B=8 x 512 (``[xlstm]``);
+                on its first 6 layers (5 mLSTM, 1 sLSTM), continuous on
+                the paged pool (no arena) and on contiguous rings
+                (``[xlstm continuous paged|contiguous]``, equal tokens),
+                ``spec_decode=4`` requested, the same checks
   18. crosscheck
                 the hymba and xlstm smoke configs (float32) on the card
                 and on the CPU: static tokens equal and logits within a
@@ -265,8 +267,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 through ``ft.run`` with the CLI's optimizer, one captured
                 step that donates its state (``[train-mixtral]``:
                 mixtral-8x22b, 1 of 56 layers, B=4 x 128;
-                ``[train-hymba]`` and ``[train-xlstm]`` at full depth, B=8
-                x 64; ``[train-seamless]`` at full depth, B=4 x 128 after
+                ``[train-hymba]``, 8 of 32 layers, and ``[train-xlstm]``,
+                6 of 24 (5 mLSTM, 1 sLSTM), B=8 x 64;
+                ``[train-seamless]`` at full depth, B=4 x 128 after
                 1,024 frames): losses finite, one capture, the new leaves'
                 gradients (router, experts, a_log, dt_bias, f_bias,
                 w_gates, cross-attention's wq, the encoder's lambdas)
@@ -297,12 +300,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 to the plain version, every result to the plain path);
                 the trained params, gathered whole, serve through the
                 Hopper kernels as phase 22's do (``[train-mesh serve]``)
+  25. dryrun   the dry run (``repro_torch.launch.dryrun``) held to the
+                card: smollm-135m's static decode step (B = 8, phase 4's
+                cache) traced on meta gives the launches per kernel that
+                one eager step on the card counts, exactly, and the dense
+                FLOPs that ``FlopCounterMode`` counts over it; the train
+                face at phase 24's size traced on a (1, 1)
+                ``AbstractMesh`` gives the mesh trainer's state bytes,
+                exactly, and its traced arguments + temp lie within 20%
+                of the measured peak of one eager mesh step (less the
+                memory resident beside it); on phase 24's one-rank NCCL
+                (1, 1) mesh the mesh ``prefill_logits`` and
+                ``decode_step`` equal the one-device ones bitwise, and
+                greedy decoding through the mesh ``decode_step`` gives
+                phase 4's tokens; each compared step's roofline
+                ``step_time_s`` is at most its measured device time; and
+                every arch x shape cell on the single-pod production
+                mesh (traced by ``DRY_WORKERS`` CPU workers beside this
+                phase's checks, after the last host-timed phase, so that
+                no host-timed number runs beside them; the multi-pod mesh
+                is the CLI's, ``--mesh both``) is OK or SKIP, one line per
+                cell (``[dryrun]``); the sweep ends with the script
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import json
@@ -322,7 +347,7 @@ from repro_torch.launch.kernel_times import (  # noqa: E402
     MOE_CALLS, MOE_CUT, RECURRENT_CALLS, RECURRENT_CELL, RECURRENT_STATIC,
     SCALAR32_OPS, bound, call_operands, decode_calls, device_ms,
     eager_ms, encdec_calls, moe_rows, nbytes, paged_bound, path_launches,
-    spec_launches, spec_operands, sps_bound, time_all)
+    recurrent_calls, spec_launches, spec_operands, sps_bound, time_all)
 
 SEED = 0
 
@@ -1446,7 +1471,8 @@ def serve_static(model, dparams, tag: str,
         f"tokens' digest {digest(toks.tolist())}")
     step_ms = 1e3 * (t_end - t_pre) / steps
     if stats is not None:
-        stats.update(prefill_ms=1e3 * (t_pre - t0), step_ms=step_ms,
+        stats.update(tokens=toks, prefill_ms=1e3 * (t_pre - t0),
+                     step_ms=step_ms,
                      tok_s=n_b * n_new / total,
                      prefill={n: c for n, c in c_pre.items() if c},
                      decode={n: c for n, c in per_step.items() if c})
@@ -3334,26 +3360,54 @@ def check_spec_ignored(model, dparams, tag: str, cell: Cell,
         f"captures {json.dumps(eng._graphs.captures)}")
 
 
+# the continuous serves' depth of the recurrent archs (the script's
+# 1,200 s): hymba's first 8 of 32 layers, xlstm's first 6 of 24 (5 mLSTM,
+# 1 sLSTM)
+HYMBA_CONT_LAYERS, XLSTM_CONT_LAYERS = 8, 6
+
+
+def continuous_depth(tag: str, model, dparams, layers: int):
+    """The first ``layers`` layers of ``model`` (``truncate_deploy``: the
+    full model's blocks, no copy) and the launches per pure-decode and
+    mixed iteration that ``kernel_times.recurrent_calls`` gives at that
+    depth; returns (model, dparams, {path: {kernel: launches}})."""
+    full = model.cfg.num_layers
+    model, dparams = model.truncate_deploy(dparams, layers)
+    arch = model.cfg.name.split("-")[0]
+    calls = recurrent_calls(model.cfg, RECURRENT_STATIC[model.cfg.name],
+                            **RECURRENT_CELL)
+    kinds = collections.Counter(k for k, _ in model.plan)
+    log(f"{tag} on the first {layers} of {full} layers "
+        f"({json.dumps(kinds)}; truncate_deploy: the full model's blocks, "
+        f"no copy)")
+    return model, dparams, {p: path_launches(calls, arch, p)
+                            for p in ("pure-decode", "mixed")}
+
+
 def phase_hymba() -> dict:
     """hymba-1.5b at full width and depth, bf16, random weights from
     ``SEED``: static serving (``RECURRENT_STATIC``: the rings of 1,024
     wrap; graph == eager; the prefill and every decode step launch
     ``kernel_times.RECURRENT_CALLS``' counts) and the recurrences' share
-    of a decode step; continuous paged serving of ``RECURRENT_CONT``
-    (every pure-decode and mixed iteration at the table's counts, graphs
-    == eager with the carries, a second serve equal) and the
-    recurrences' share of a mixed iteration; ``spec_decode=4`` requested
-    decodes plainly.  Returns the launch counts of the serves."""
+    of a decode step; then on its first ``HYMBA_CONT_LAYERS`` layers
+    (``continuous_depth``) continuous paged serving of ``RECURRENT_CONT``
+    (every pure-decode and mixed iteration at the table's counts of that
+    depth, graphs == eager with the carries, a second serve equal) and
+    the recurrences' share of a mixed iteration; ``spec_decode=4``
+    requested decodes plainly.  Returns the launch counts of the
+    serves."""
     import torch
     tag, arch = "[hymba]", "hymba-1.5b"
     model, dparams, _ = load_model(arch, tag)
     expect = {p: path_launches(RECURRENT_CALLS, "hymba", p)
-              for p in ("prefill", "decode", "pure-decode", "mixed")}
+              for p in ("prefill", "decode")}
     shape = RECURRENT_STATIC[arch]
     launches, step_ms = serve_static(model, dparams, tag, shape,
                                      expect=expect)
     recurrence_ms(model, dparams, tag, "a static decode step", shape[0], 1,
                   step_ms)
+    model, dparams, expect = continuous_depth("[hymba continuous]", model,
+                                              dparams, HYMBA_CONT_LAYERS)
     ctag, cell, stats = "[hymba continuous]", RECURRENT_CONT, {}
     paged, plain = phase_continuous(
         model, dparams, ctag, cell,
@@ -3373,22 +3427,26 @@ def phase_xlstm() -> dict:
     """xlstm-350m at full width and depth (20 mLSTM and 4 sLSTM layers,
     no attention), bf16, random weights from ``SEED``: static serving
     (``RECURRENT_STATIC``, graph == eager, the table's counts) and the
-    recurrences' share of a decode step; ``RECURRENT_CONT`` served on the
-    paged pool (no arena: no layer has attention) and on contiguous
-    rings, each twice with equal tokens, graphs == eager with the
-    carries, each the same tokens; the recurrences' share of a mixed
-    iteration; ``spec_decode=4`` requested decodes plainly.  Returns the
-    launch counts of the serves."""
+    recurrences' share of a decode step; then on its first
+    ``XLSTM_CONT_LAYERS`` layers (``continuous_depth``, the table's
+    counts of that depth) ``RECURRENT_CONT`` served on the paged pool
+    (no arena: no layer has attention) and on contiguous rings, each
+    twice with equal tokens, graphs == eager with the carries, each the
+    same tokens; the recurrences' share of a mixed iteration;
+    ``spec_decode=4`` requested decodes plainly.  Returns the launch
+    counts of the serves."""
     import torch
     tag, arch = "[xlstm]", "xlstm-350m"
     model, dparams, _ = load_model(arch, tag)
     expect = {p: path_launches(RECURRENT_CALLS, "xlstm", p)
-              for p in ("prefill", "decode", "pure-decode", "mixed")}
+              for p in ("prefill", "decode")}
     shape = RECURRENT_STATIC[arch]
     launches, step_ms = serve_static(model, dparams, tag, shape,
                                      path=RECURRENT_PATH, expect=expect)
     recurrence_ms(model, dparams, tag, "a static decode step", shape[0], 1,
                   step_ms)
+    model, dparams, expect = continuous_depth("[xlstm continuous]", model,
+                                              dparams, XLSTM_CONT_LAYERS)
     runs, total, stats = {}, dict(launches), {}
     for paged in (True, False):
         ctag = f"[xlstm continuous {'paged' if paged else 'contiguous'}]"
@@ -3979,8 +4037,8 @@ def phase_train() -> dict:
 
 # (tag, arch, layers (0: full depth), batch, seq_len): one chip each
 FAMILY_CELLS = (("[train-mixtral]", "mixtral-8x22b", 1, 4, 128),
-                ("[train-hymba]", "hymba-1.5b", 0, 8, 64),
-                ("[train-xlstm]", "xlstm-350m", 0, 8, 64),
+                ("[train-hymba]", "hymba-1.5b", 8, 8, 64),
+                ("[train-xlstm]", "xlstm-350m", 6, 8, 64),
                 ("[train-seamless]", "seamless-m4t-large-v2", 0, 4, 128))
 FAMILY_STEPS, FAMILY_MEDIAN_FROM = 10, 3     # median over steps 3..9
 # the leaves this slice made trainable, by path: after the first step
@@ -4407,6 +4465,295 @@ def phase_train_mesh() -> dict:
     return {k: launches[k] + served[k] for k in launches}
 
 
+DRY_WORKERS = 7            # CPU processes that run the dry run's sweep
+                           # (the card's machine has 8 cores)
+DRY_OUT = ROOT / "build" / "dryrun-smoke"
+DRY_RATIO = (0.8, 1.2)     # traced args + temp over the measured peak
+DRY_ARCH = "smollm-135m"
+
+
+def dryrun_start():
+    """Start the dry run's sweep: every arch x shape cell on the
+    single-pod mesh, traced by ``DRY_WORKERS`` CPU processes (no card:
+    they trace on the meta device).  ``phase_dryrun`` starts it when the
+    last host-timed phase has ended and waits for it.  The sweep stays in
+    this script's process group and ends with this process (``dryrun``
+    run as a program, and each of its workers, die with their parent);
+    if the script ends first, it is killed.  Returns (process, its log's
+    path, its start on ``time.perf_counter``)."""
+    import atexit
+    import os
+    import shutil
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    DRY_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log_path = DRY_OUT / "sweep.log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "single", "--out", str(DRY_OUT), "--jobs",
+             str(DRY_WORKERS)], env=env, cwd=str(ROOT), stdout=out,
+            stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, log_path, time.perf_counter()
+
+
+def _meta_like(tree_):
+    import torch
+    from repro_torch import tree
+    return tree.map(lambda t: torch.empty_like(t, device="meta"), tree_)
+
+
+def dryrun_census(tag: str, model, dparams, prompts) -> dict:
+    """The static decode step (B = 8, phase 4's cache) traced on meta
+    against one eager step on the card: launches and dense FLOPs exact,
+    the roofline's step time at most the step's device time.  Returns
+    the card's launches."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels, tree
+    from repro_torch.launch import cost, roofline
+    max_len = SERVE_S + SERVE_NEW
+    with torch.inference_mode():
+        logits, caches = model.prefill_with_cache(
+            dparams, torch.as_tensor(prompts, device="cuda"),
+            max_len=max_len)
+        tok = logits[:, -1:].argmax(-1)
+        census, _ = cost.measure(
+            lambda dp, t, cs: model.decode_step(dp, t, cs),
+            (_meta_like(dparams), torch.empty_like(tok, device="meta"),
+             _meta_like(caches)))
+        step_caches = clone_caches(caches)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with FlopCounterMode(display=False) as fc:
+            model.decode_step(dparams, tok, step_caches)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        # the step again on its own caches: 6 more positions of 160
+        ms, _, _ = device_profile(
+            lambda: model.decode_step(dparams, tok, step_caches), iters=5)
+    counted = {n: c for n, c in launches.items() if c}
+    rec = census.record()
+    terms = roofline.terms_from_artifact(rec)
+    log(f"{tag} {DRY_ARCH} static decode step, B={SERVE_B}, a cache of "
+        f"{max_len}: traced on meta {json.dumps(census.launches())}, "
+        f"counted on the card {json.dumps(counted)}; dense FLOPs traced "
+        f"{census.flops:,}, FlopCounterMode on the card "
+        f"{fc.get_total_flops():,}; traced bytes {census.bytes:,}, "
+        f"arguments {census.arguments / 2**20:.2f} MiB, temp "
+        f"{census.temp / 2**20:.2f} MiB; roofline step {1e3 * terms.step_time_s:.4f} "
+        f"ms ({terms.dominant}) <= device time {ms:.4f} ms (a step, mean "
+        f"of 5 under torch.profiler)")
+    if census.launches() != counted or \
+            census.flops != fc.get_total_flops():
+        raise AssertionError(f"{tag} the census differs from the card's "
+                             f"step")
+    if counted != {"pack_threshold": 180, "rbmm_int": 270}:
+        raise AssertionError(f"{tag} launches per decode step {counted}")
+    if 1e3 * terms.step_time_s > ms:
+        raise AssertionError(f"{tag} the roofline's step time exceeds the "
+                             f"measured step: a counting error")
+    return launches
+
+
+def dryrun_mesh_deploy(tag: str, model, dparams, prompts, mesh,
+                       phase4_tokens) -> dict:
+    """The mesh ``prefill_logits`` / ``decode_step`` on the one-rank NCCL
+    (1, 1) mesh against the one-device ones, bitwise, and greedy decoding
+    through the mesh step against phase 4's tokens.  Returns the counted
+    launches."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.launch import mesh as mesh_lib
+    placed = mesh_lib.shard_tree(mesh, model.deploy_specs(), dparams)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device="cuda")
+        want = model.prefill_logits(dparams, toks)
+        pl = mesh_lib.Placement(mesh, mesh_lib.P(mesh_lib.data_axes(mesh),
+                                                 None), toks.shape)
+        got = model.prefill_logits(placed, mesh_lib.place(toks.clone(), pl),
+                                   mesh=mesh)
+        prefill_equal = torch.equal(got, want)
+        del got, want
+        logits, caches = model.prefill_with_cache(
+            dparams, toks, max_len=SERVE_S + SERVE_NEW)
+        mine = tree.map(lambda t: mesh_lib.place(t.clone(), mesh_lib.Placement(
+            mesh, mesh_lib.P(*([None] * t.dim())), t.shape)), caches)
+        tok = logits[:, -1:].argmax(-1)
+        out, steps_equal = [tok], True
+        for _ in range(SERVE_NEW - 1):
+            want, _ = model.decode_step(dparams, tok, caches)
+            t_pl = mesh_lib.Placement(mesh, mesh_lib.P(None, None), tok.shape)
+            got, _ = model.decode_step(placed, mesh_lib.place(tok.clone(),
+                                                              t_pl),
+                                       mine, mesh=mesh)
+            steps_equal &= torch.equal(got, want)
+            tok = got[:, -1:].argmax(-1)
+            out.append(tok)
+        tokens = torch.cat(out, 1).cpu().numpy()
+    launches = kernels.launch_counts()
+    same = np.array_equal(tokens, phase4_tokens)
+    log(f"{tag} on the one-rank NCCL {mesh}: mesh prefill_logits of B="
+        f"{SERVE_B} x {SERVE_S} bitwise equal to the one-device one "
+        f"{prefill_equal}; {SERVE_NEW - 1} mesh decode steps' logits "
+        f"bitwise equal to the one-device steps' {steps_equal}; greedy "
+        f"tokens through the mesh step equal phase 4's {same} (digest "
+        f"{digest(tokens.tolist())})")
+    if not (prefill_equal and steps_equal and same):
+        raise AssertionError(f"{tag} the mesh deploy faces differ from the "
+                             f"one-device ones")
+    return launches
+
+
+def dryrun_train(tag: str, mesh) -> None:
+    """The train face at phase 24's size traced on a (1, 1) AbstractMesh
+    against the mesh trainer on the NCCL (1, 1) mesh: state bytes exact,
+    traced arguments + temp within ``DRY_RATIO`` of one eager mesh step's
+    peak less the memory resident beside its state, the roofline's step
+    time at most the step's device time."""
+    import gc
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import cost, mesh as mesh_lib, roofline, specs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.trainer import Trainer
+    captured, stream, _ = train_cli.build(train_cli.parse_args(
+        ["--full", "--steps", "1", "--seed", str(SEED)]))
+    model, opt, cfg = captured.model, captured.opt, captured.cfg
+    del captured
+    abstract = mesh_lib.AbstractMesh((1, 1), ("data", "model"))
+    traced = Trainer(model, opt, cfg, device="meta", mesh=abstract)
+    batch = stream.batch_at(0)
+    meta_batch = {k: torch.empty(np.shape(v), dtype=torch.as_tensor(v).dtype,
+                                 device="meta") for k, v in batch.items()}
+    census, _ = cost.measure(lambda st: traced.train_step(st, meta_batch),
+                             (specs.train_state_specs(traced),))
+    meshed = Trainer(model, opt, cfg, mesh=mesh)
+    state = meshed.init_state()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(state))
+    on_card = sum(t.numel() * t.element_size() for t in tree.leaves(state)
+                  if t.is_cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - on_card
+    torch.cuda.reset_peak_memory_stats()
+    new, _ = meshed.train_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del new
+    measured = peak - other
+    got = census.arguments + census.temp
+    ratio = got / measured
+    ms, _, _ = device_profile(lambda: meshed.train_step(state, batch),
+                              iters=1)
+    terms = roofline.terms_from_artifact(census.record())
+    log(f"{tag} {model.cfg.name} train step at full width and depth, B="
+        f"{stream.global_batch} x {stream.seq_len}: traced state "
+        f"{census.arguments:,} bytes, the mesh trainer's {state_bytes:,}; "
+        f"traced arguments + temp {got / 2**30:.3f} GiB against the "
+        f"measured peak {peak / 2**30:.3f} GiB less {other / 2**30:.3f} "
+        f"GiB resident beside the state = {measured / 2**30:.3f} GiB: "
+        f"ratio {ratio:.3f} (band {DRY_RATIO}); traced dense FLOPs "
+        f"{census.flops:.4g}, bytes {census.bytes:.4g}, kernels "
+        f"{json.dumps(census.launches())}; roofline step "
+        f"{1e3 * terms.step_time_s:.3f} ms ({terms.dominant}) <= device "
+        f"time {ms:.3f} ms (one eager mesh step under torch.profiler)")
+    if census.arguments != state_bytes:
+        raise AssertionError(f"{tag} traced state bytes {census.arguments}"
+                             f" != {state_bytes}")
+    if not DRY_RATIO[0] <= ratio <= DRY_RATIO[1]:
+        raise AssertionError(f"{tag} traced memory {got} against the "
+                             f"measured {measured}: ratio {ratio:.3f}")
+    if 1e3 * terms.step_time_s > ms:
+        raise AssertionError(f"{tag} the roofline's step time exceeds the "
+                             f"measured step: a counting error")
+
+
+def dryrun_sweep(tag: str, sweep) -> None:
+    """Wait for the sweep; one line per cell; every cell OK or SKIP, 40
+    records."""
+    t0 = time.perf_counter()
+    proc, path, start = sweep
+    if proc.wait():
+        raise AssertionError(f"{tag} the sweep exited {proc.returncode}:"
+                             f"\n{path.read_text()[-4000:]}")
+    waited, ran = time.perf_counter() - t0, time.perf_counter() - start
+    recs = sorted((json.loads(p.read_text()) for p in DRY_OUT.glob("*.json")),
+                  key=lambda r: (r["mesh"], r["arch"], r["shape"]))
+    gib, worst = 2**30, 0.0
+    for r in recs:
+        if r["status"] == "OK":
+            t = r["roofline"]
+            worst = max(worst, r["trace_s"])
+            log(f"{tag} {r['arch']} x {r['shape']} x {r['mesh']}: OK args "
+                f"{r['argument_size_in_bytes'] / gib:.3f} GiB, temp "
+                f"{r['temp_size_in_bytes'] / gib:.3f} GiB per rank, "
+                f"{t['dominant']}, step_time_s {t['step_time_s']:.6g}, "
+                f"collectives {sum(r['collectives'].values()):.4g} B, "
+                f"build {r['build_s']:.1f} s, trace {r['trace_s']:.1f} s")
+        else:
+            log(f"{tag} {r['arch']} x {r['shape']} x {r['mesh']}: "
+                f"{r['status']} {r.get('reason') or r.get('error')}")
+    status = [r["status"] for r in recs]
+    log(f"{tag} sweep: {len(recs)} cells, {status.count('OK')} OK, "
+        f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, in "
+        f"{DRY_WORKERS} CPU workers in {ran:.1f} s, {waited:.1f} s of them "
+        f"after this phase's checks (the slowest cell's trace "
+        f"{worst:.1f} s)")
+    if len(recs) != 40 or status.count("FAIL"):
+        raise AssertionError(f"{tag} the sweep: {len(recs)} records, "
+                             f"{status.count('FAIL')} FAIL")
+
+
+def phase_dryrun(phase4_tokens) -> dict:
+    """Phase 25 (see the module docstring); returns the counted runs'
+    launch counts."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    log(f"{tag} {phase_device_line()}")
+    # the sweep's CPU workers run beside this phase's card checks, whose
+    # numbers are counts, bytes, bitwise equalities and device times
+    sweep = dryrun_start()
+    model, dparams, _ = load_model(DRY_ARCH, tag)
+    prompts = np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32)
+    counted = dryrun_census(tag, model, dparams, prompts)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, "cuda")
+        deploy = dryrun_mesh_deploy(tag, model, dparams, prompts, mesh,
+                                    phase4_tokens)
+        del model, dparams
+        free_card()
+        dryrun_train(tag, mesh)
+    finally:
+        dist.destroy_process_group()
+    dryrun_sweep(tag, sweep)
+    log(f"{tag} phase 25 took {time.perf_counter() - t0:.1f} s")
+    return {k: counted[k] + deploy[k] for k in counted}
+
+
+_START = time.perf_counter()
+
+
+def lap(name: str) -> None:
+    """The script's seconds so far, after a phase (where its time goes,
+    against the 1,200 s the script has)."""
+    log(f"[time] {name} done at {time.perf_counter() - _START:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4417,46 +4764,70 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
+    lap("build")
     rows, moe = phase_kernels()
+    lap("kernels")
     model, dparams, _ = load_model("smollm-135m", "[serve]")
-    static, _ = serve_static(model, dparams, "[serve]")
+    served = {}
+    static, _ = serve_static(model, dparams, "[serve]", stats=served)
     paged, plain = phase_continuous(model, dparams)
     spec = phase_speculative(model, dparams, plain)
     for name in rows:
         rows[name]["launches"] = static[name] + paged[name] + spec[name]
     phase_crosscheck(dparams)
+    lap("serve, continuous, speculative, crosscheck")
     del model, dparams
     encode = phase_encode()
+    lap("encode")
     granite = phase_dense_arch("granite-3-2b", "[granite]")
+    lap("granite")
     qwen = phase_dense_arch("qwen1.5-32b", "[qwen]", QWEN_LAYERS)
+    lap("qwen")
     phase_crosscheck_qwen()
+    lap("qwen card==cpu")
     gemma = phase_gemma()
+    lap("gemma")
     phase_crosscheck_narrow("[gemma card==cpu]", "gemma3-27b", NARROW_GEMMA,
                             150, (64, (40, 100), (150, 190), 7, 8, 32))
     phase_crosscheck_narrow("[row card==cpu]", "smollm-135m", NARROW_ROW,
                             520, (64, (451, 460), (520, 530), 17, 20, 128),
                             row=True)
+    lap("narrow crosschecks")
     mixtral = phase_mixtral(moe)
+    lap("mixtral")
     arctic = phase_arctic(moe)
+    lap("arctic")
     phase_crosscheck_moe()
+    lap("moe card==cpu")
     hymba = phase_hymba()
+    lap("hymba")
     xlstm = phase_xlstm()
+    lap("xlstm")
     phase_crosscheck_recurrent()
+    lap("recurrent card==cpu")
     seamless = phase_frontend("seamless-m4t-large-v2", "[seamless]",
                               ENCDEC_PATH)
+    lap("seamless")
     internvl2 = phase_frontend("internvl2-76b", "[internvl2]", STATIC_PATH,
                                full_depth=True)
+    lap("internvl2")
     phase_crosscheck_frontend()
+    lap("frontend card==cpu")
     train = phase_train()
+    lap("train")
     families = phase_train_families()
+    lap("train families")
     meshed = phase_train_mesh()
+    lap("train mesh")
+    dry = phase_dryrun(served["tokens"])
+    lap("dryrun")
     for name in rows:
         rows[name]["launches"] += (encode[name] + granite[name] +
                                    qwen[name] + gemma[name] + mixtral[name] +
                                    arctic[name] + hymba[name] + xlstm[name] +
                                    seamless[name] + internvl2[name] +
                                    train[name] + families.get(name, 0) +
-                                   meshed[name])
+                                   meshed[name] + dry.get(name, 0))
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ Each kernel keeps the JAX package's three-part contract:
 
 Dispatch goes by the device of the operands, never by a switch: CUDA
 tensors launch the kernel (or the wrapper raises), CPU tensors take the
-plain version.  Nothing falls back from one to the other.
+plain version, and meta tensors (the dry run, ``launch/dryrun.py``) take a
+shape-only route that returns empty outputs and counts the call's work
+(``work.py``) in the census.  Nothing falls back from one to another.
 
 Build: the first launch compiles every ``csrc/*.cu`` with ``nvcc`` for
 ``sm_90a`` (one compiler process per source, all started together), links
@@ -57,17 +59,18 @@ _lib: Optional[ctypes.CDLL] = None
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
-def use_kernel(*tensors: Optional[torch.Tensor]) -> bool:
-    """The dispatch rule: True when every operand lies on a CUDA device
-    (launch the kernel), False when every one lies on the CPU (plain
-    version).  Mixed or other devices raise."""
+def use_kernel(*tensors: Optional[torch.Tensor]) -> str:
+    """The dispatch rule, by the one device type of the operands: "cuda"
+    (launch the kernel), "cpu" (the plain version) or "meta" (the
+    shape-only route of the dry run: empty outputs of the kernel's shapes
+    and dtypes, and one call's ``work`` added to the census in force; no
+    launch is counted).  Mixed or other devices raise."""
     kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cuda"}:
-        return True
-    if kinds == {"cpu"}:
-        return False
+    if len(kinds) == 1 and kinds <= {"cuda", "cpu", "meta"}:
+        return kinds.pop()
     raise ValueError(f"operands lie on {sorted(kinds)}: a kernel takes "
-                     f"CUDA tensors, its plain version CPU tensors")
+                     f"CUDA tensors, its plain version CPU tensors and "
+                     f"its shape-only route meta tensors")
 
 
 def require_contiguous(name: str, *tensors: Optional[torch.Tensor]) -> None:

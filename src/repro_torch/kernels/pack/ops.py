@@ -11,13 +11,15 @@ float32 for a float ``x`` (the comparison runs in float32) and int32 for
 an int32 ``x``.
 
 Dispatch: CUDA tensors launch ``csrc/pack.cu``; CPU tensors take
-``ref.pack_threshold``.  ``pack_threshold.launches`` counts kernel launches.
+``ref.pack_threshold``; meta tensors the shape-only route
+(``kernels.use_kernel``).  ``pack_threshold.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import census, kernels
+from repro_torch.kernels import work
 from repro_torch.core import packing
 from repro_torch.kernels.pack import ref
 
@@ -51,10 +53,14 @@ def _check(x: torch.Tensor, theta: torch.Tensor) -> int:
 
 def pack_threshold(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     code = _check(x, theta)
-    if not kernels.use_kernel(x, theta):
+    on = kernels.use_kernel(x, theta)
+    if on == "cpu":
         return ref.pack_threshold(x, theta)
     out = torch.empty(x.shape[:-1] + (packing.packed_len(x.shape[-1]),),
                       dtype=torch.int32, device=x.device)
+    if on == "meta":
+        census.kernel("pack_threshold", work.pack(x, theta, out))
+        return out
     pad = 4 - x.dim()
     shape = (1,) * pad + tuple(x.shape)
     xs = (0,) * pad + tuple(x.stride())

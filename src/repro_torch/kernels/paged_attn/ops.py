@@ -19,14 +19,16 @@ be a multiple of 32); page_size is a multiple of 32 with ``vt_pages``
 packing ``page_size/32`` words per page.  The wrapper checks both.
 
 Dispatch: CUDA tensors launch ``csrc/paged_attn.cu``; CPU tensors take
-``ref.paged_gather_decode_popcount``.  ``paged_gather_decode.launches``
-counts kernel launches.
+``ref.paged_gather_decode_popcount``; meta tensors the shape-only route
+(``kernels.use_kernel``, reading every table block within the ring).
+``paged_gather_decode.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import census, kernels
+from repro_torch.kernels import work
 from repro_torch.core import packing
 from repro_torch.kernels.paged_attn import ref
 
@@ -80,8 +82,9 @@ def paged_gather_decode(q_bits: torch.Tensor, k_pages: torch.Tensor,
                         lengths: torch.Tensor, ring_len: int,
                         theta: torch.Tensor, *, d_h: int) -> torch.Tensor:
     _check(q_bits, k_pages, vt_pages, block_table, lengths, theta, d_h)
-    if not kernels.use_kernel(q_bits, k_pages, vt_pages, block_table,
-                              lengths, theta):
+    on = kernels.use_kernel(q_bits, k_pages, vt_pages, block_table,
+                            lengths, theta)
+    if on == "cpu":
         return ref.paged_gather_decode_popcount(
             q_bits, k_pages, vt_pages, block_table, lengths, ring_len,
             theta, d_h=d_h)
@@ -95,6 +98,13 @@ def paged_gather_decode(q_bits: torch.Tensor, k_pages: torch.Tensor,
     kernels.require_contiguous("paged_gather_decode", q_bits, k_pages,
                                vt_pages, block_table, lengths, theta)
     out = torch.empty((b, h, d_h), dtype=torch.int32, device=q_bits.device)
+    if on == "meta":
+        # no lengths to read: every table block within the ring
+        blocks = min(block_table.shape[1], -(-int(ring_len) // page))
+        census.kernel("paged_gather_decode", work.paged(
+            q_bits, k_pages, vt_pages, b * blocks * hkv, block_table,
+            lengths, theta, out))
+        return out
     kernels.launch("cobra_paged_gather_decode", _ARGTYPES, q_bits.device,
                    q_bits.data_ptr(), k_pages.data_ptr(),
                    vt_pages.data_ptr(), block_table.data_ptr(),

@@ -23,7 +23,8 @@ Padding contract (both): operands carry exactly ``ceil(k/32)`` words per
 row, and the wrappers raise otherwise.
 
 Dispatch: CUDA tensors launch ``csrc/rbmm.cu``; CPU tensors take
-``ref.rbmm_int`` / ``ref.rbmm_binary``.  ``rbmm_int.launches`` and
+``ref.rbmm_int`` / ``ref.rbmm_binary``; meta tensors the shape-only route
+(``kernels.use_kernel``).  ``rbmm_int.launches`` and
 ``rbmm_binary.launches`` count kernel launches.  ``rbmm_int`` has two
 kernels, and ``route`` picks one from the shape alone: the decode kernel
 at M <= 16 (groups of lanes split each column's words, its tile from
@@ -38,7 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import census, kernels
+from repro_torch.kernels import work
 from repro_torch.core import packing
 from repro_torch.kernels.rbmm import ref
 
@@ -143,8 +145,16 @@ def rbmm_int(a: torch.Tensor, b: torch.Tensor, k: int, *,
              scheme: str = "xnor",
              dc: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(a, b, k, scheme, dc)
-    if not kernels.use_kernel(a, b, dc):
+    on = kernels.use_kernel(a, b, dc)
+    if on == "cpu":
         return ref.rbmm_int(a, b, k, scheme=scheme, dc=dc)
+    if on == "meta":
+        kernels.require_contiguous("rbmm_int", a, b, dc)
+        out = torch.empty(a.shape[:-1] + (b.shape[-2],), dtype=torch.int32,
+                          device=a.device)
+        census.kernel("rbmm_int", work.rbmm(math.prod(a.shape[:-1]),
+                                         b.shape[-2], k, a, b, dc, out))
+        return out
     return _launch_int(route(a.shape[-2], b.shape[-2], a.shape[-1]), a, b,
                        k, scheme, dc)
 
@@ -156,7 +166,7 @@ def launch_int(which: str, a: torch.Tensor, b: torch.Tensor, k: int, *,
     the shape: the card tests and ``launch/kernel_times.py`` hold and time
     each route; ``rbmm_int`` takes ``route(M, P, Kp)``."""
     _check(a, b, k, scheme, dc)
-    if which not in ROUTES or not kernels.use_kernel(a, b, dc):
+    if which not in ROUTES or kernels.use_kernel(a, b, dc) != "cuda":
         raise ValueError(f"launch_int takes a route of {ROUTES} and CUDA "
                          f"operands, got {which!r} on {a.device}")
     return _launch_int(which, a, b, k, scheme, dc)
@@ -202,7 +212,8 @@ def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
     if not fits:
         raise ValueError(f"rbmm_binary: theta {tuple(theta.shape)} does not "
                          f"broadcast to the output {tuple(shape)}")
-    if not kernels.use_kernel(a, b, dc, theta):
+    on = kernels.use_kernel(a, b, dc, theta)
+    if on == "cpu":
         bits, dc_ret = ref.rbmm_binary(a, b, k, theta, scheme=scheme, dc=dc,
                                        causal=causal)
         return (packing.pack_bits(bits) if pack_output else bits), dc_ret
@@ -213,6 +224,10 @@ def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
                       device=a.device)
     dc_ret = torch.zeros(a.shape[:-1], dtype=torch.int32, device=a.device)
     th, th_strides = _theta_view(theta, shape, batch)
+    if on == "meta":
+        census.kernel("rbmm_binary", work.rbmm(batch * m, p, k, a, b, dc, th,
+                                            out, dc_ret))
+        return out, dc_ret
     kernels.launch("cobra_rbmm_binary", _BINARY_ARGTYPES, a.device,
                    a.data_ptr(), b.data_ptr(), kernels.ptr(dc),
                    th.data_ptr(), *th_strides, batch, m, p, a.shape[-1], k,

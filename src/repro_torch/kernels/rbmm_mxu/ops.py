@@ -14,7 +14,8 @@ and a zero value adds nothing whatever its weight bit); and ``tile_for``
 picks the output tile, the largest of ``TILES`` whose grid fills the card.
 
 Dispatch: CUDA tensors launch ``csrc/rbmm_mxu.cu``; CPU tensors take
-``ref.rbmm_mxu``.  ``rbmm_mxu.launches`` counts kernel launches.
+``ref.rbmm_mxu``; meta tensors the shape-only route
+(``kernels.use_kernel``).  ``rbmm_mxu.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import math
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import census, kernels
+from repro_torch.kernels import work
 from repro_torch.core import packing
 from repro_torch.kernels.rbmm_mxu import ref
 
@@ -71,7 +73,8 @@ def _check(a_vals: torch.Tensor, w_packed: torch.Tensor) -> None:
 
 def rbmm_mxu(a_vals: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     _check(a_vals, w_packed)
-    if not kernels.use_kernel(a_vals, w_packed):
+    on = kernels.use_kernel(a_vals, w_packed)
+    if on == "cpu":
         return ref.rbmm_mxu(a_vals, w_packed)
     if a_vals.dtype != torch.bfloat16:
         raise TypeError(f"rbmm_mxu: the kernel takes bfloat16 values, got "
@@ -83,6 +86,10 @@ def rbmm_mxu(a_vals: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty(a_vals.shape[:-1] + (p,), dtype=torch.float32,
                       device=a_vals.device)
     a8 = pad_k(a_vals)
+    if on == "meta":
+        census.kernel("rbmm_mxu", work.mxu(batch, m, a_vals.shape[-1], p,
+                                        a_vals, w_packed, out))
+        return out
     bm, bn = tile_for(batch, m, p)
     kernels.launch("cobra_rbmm_mxu", _ARGTYPES, a_vals.device,
                    a8.data_ptr(), w_packed.data_ptr(), batch, m, p,

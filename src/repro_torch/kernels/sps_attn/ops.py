@@ -31,7 +31,8 @@ Padding contract: operands carry exactly ``ceil(d_h/32)`` words with zero
 pad bits; the wrappers check the word count and raise.
 
 Dispatch: CUDA tensors launch ``csrc/sps_attn.cu``; CPU tensors take
-``ref.sps_attention_gqa``.  ``sps_attention_gqa.launches`` counts kernel
+``ref.sps_attention_gqa``; meta tensors the shape-only route
+(``kernels.use_kernel``).  ``sps_attention_gqa.launches`` counts kernel
 launches (``sps_attention`` goes through it).
 """
 from __future__ import annotations
@@ -40,7 +41,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import census, kernels
+from repro_torch.kernels import work
 from repro_torch.core import packing
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.sps_attn import ref
@@ -96,7 +98,8 @@ def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
                       window: int = 0) -> torch.Tensor:
     window = int(window or 0)
     _check_gqa(q_bits, k_bits, vt_bits, theta, d_h, lens, causal, window)
-    if not kernels.use_kernel(q_bits, k_bits, vt_bits, theta, lens):
+    on = kernels.use_kernel(q_bits, k_bits, vt_bits, theta, lens)
+    if on == "cpu":
         return ref.sps_attention_gqa(q_bits, k_bits, vt_bits, theta,
                                      d_h=d_h, causal=causal, lens=lens,
                                      window=window)
@@ -108,6 +111,10 @@ def sps_attention_gqa(q_bits: torch.Tensor, k_bits: torch.Tensor,
     b, h, length, _ = q_bits.shape
     out = torch.empty((b, h, length, d_h), dtype=torch.int32,
                       device=q_bits.device)
+    if on == "meta":
+        census.kernel("sps_attention", work.sps(q_bits, k_bits, vt_bits, theta,
+                                             out, causal, window, lens))
+        return out
     kernels.launch("cobra_sps_attention", _ARGTYPES, q_bits.device,
                    q_bits.data_ptr(), k_bits.data_ptr(), vt_bits.data_ptr(),
                    theta.data_ptr(), kernels.ptr(lens), b, h,

@@ -74,11 +74,11 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
-SCALAR32_OPS = 67e12     # 32-bit operations outside the tensor cores
+from repro_torch.kernels import work
+# H100 SXM peaks (NVIDIA data sheet; dense, 700 W) and the bound arithmetic
+# the kernels' dry-run census shares (``repro_torch.kernels.work``)
+from repro_torch.kernels.work import (  # noqa: F401
+    BF16_FLOPS, HBM_BYTES_PER_S, INT8_OPS, SCALAR32_OPS, bound, nbytes)
 
 M_ENC, D_ENC = 4096, 768   # bert-base-cobra, B = 8 x 512 tokens
 # chunked prefill of the continuous path: 16 slots, 3 KV heads of 3 query
@@ -129,18 +129,6 @@ def eager_ms(fn: Callable, iters: int = 50, warmup: int = 5,
     return sorted(times)[len(times) // 2]
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(moved_bytes: float, ops: float, op_rate: float):
-    """(ms, "bytes" or "operations"): the larger of the bytes at the memory
-    rate and the operations at ``op_rate``."""
-    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # rbmm_int's decode calls at smollm-135m's full width (d = 576, 9/3 heads,
 # d_h = 64, d_ff = 1536, a ring of 128 + 32 tokens): M is the batch (8 in a
 # static decode step, 16 slots in a pure-decode iteration), or, for the
@@ -184,10 +172,8 @@ def word_or_mac(m, p, k, *tensors):
     """The bound of an RBMM: its operands' and output's bytes against the
     faster of two ways to do the work, popcount words (3 ops a word pair)
     on the ALUs or the MACs of the unpacked values on the int8 tensor
-    cores."""
-    moved = nbytes(*tensors)
-    return min(bound(moved, 3 * m * p * ((k + 31) // 32), SCALAR32_OPS),
-               bound(moved, 2 * m * p * k, INT8_OPS))
+    cores (``work.rbmm``)."""
+    return work.bound_of(work.rbmm(m, p, k, *tensors))
 
 
 def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
@@ -221,7 +207,7 @@ def rbmm_shapes(seed: int = 0) -> Dict[str, Dict]:
         out[name] = dict(
             kernel=lambda a=a, w=w: mxu.rbmm_mxu(a, w),
             library=lambda a=a, wv=wv: torch.matmul(a, wv.T),
-            bound=bound(nbytes(a, w, res), 2 * m * k * p, BF16_FLOPS))
+            bound=work.bound_of(work.mxu(1, m, k, p, a, w, res)))
     m, k, p = M_ENC, D_ENC, D_ENC
     a, w = words(m, k), words(p, k)
     av = packing.unpack_signs(a, k, torch.bfloat16)
@@ -317,44 +303,35 @@ def pack_shapes(seed: int = 0) -> Dict[str, Dict]:
 
 
 def sps_bound(q, k, vt, theta, out, causal: bool, window: int = 0):
-    """The bound of one sps_attention call: the bytes of its operands and
-    output against the faster of two ways to do the work, the score and
-    context words on the ALUs (3 operations a word pair) or their
-    multiply-adds on the int8 tensor cores, over the (query, key) pairs
-    its mask lets through (a causal window: min(row + 1, window) a row)."""
-    b, h, length, dhp = q.shape
-    dh = vt.shape[2]
-    if causal and 0 < window < length:
-        per_seq = window * (window + 1) // 2 + (length - window) * window
-    elif causal:
-        per_seq = length * (length + 1) // 2
-    else:
-        per_seq = length * length
-    pairs = b * h * per_seq
-    moved = nbytes(q, k, vt, theta, out)
-    return min(bound(moved, 3 * pairs * dhp + 3 * pairs * dh // 32,
-                     SCALAR32_OPS),
-               bound(moved, 2 * 2 * pairs * dh, INT8_OPS))
+    """The bound of one sps_attention call (``work.sps``): the bytes of its
+    operands and output against the faster of two ways to do the work,
+    the score and context words on the ALUs (3 operations a word pair) or
+    their multiply-adds on the int8 tensor cores, over the (query, key)
+    pairs its mask lets through (a causal window: min(row + 1, window) a
+    row)."""
+    return work.bound_of(work.sps(q, k, vt, theta, out, causal, window))
+
+
+def paged_pages_read(lengths, ring: int, page: int, blocks: int,
+                     hkv: int) -> int:
+    """The (page, KV head) blocks a paged_gather_decode call reads at these
+    lengths: the pages up to each row's last valid column."""
+    last = torch.clamp(lengths.long(), max=ring - 1)
+    live = torch.clamp(torch.div(last, page, rounding_mode="floor") + 1,
+                       min=0, max=blocks)
+    return int(live.sum()) * hkv
 
 
 def paged_bound(q, k_pages, vt_pages, block_table, lengths, ring: int,
                 theta, out):
-    """The bound of one paged_gather_decode call at these lengths: the
-    pages up to each row's last valid column, once per KV head, and q,
-    table, lengths, thresholds and output; the words' popcount operations
-    at the ALU rate."""
-    _, h, dhp = q.shape
-    _, hkv, page, _ = k_pages.shape
-    dh = vt_pages.shape[2]
-    last = torch.clamp(lengths.long(), max=ring - 1)
-    live = torch.clamp(torch.div(last, page, rounding_mode="floor") + 1,
-                       min=0, max=block_table.shape[1])
-    pages_read = int(live.sum()) * hkv
-    groups = h // hkv
-    moved = pages_read * 4 * (page * dhp + dh * page // 32) + nbytes(
-        q, block_table, lengths, theta, out)
-    word_ops = pages_read * 3 * groups * (page * dhp + dh * page // 32)
-    return bound(moved, word_ops, SCALAR32_OPS)
+    """The bound of one paged_gather_decode call at these lengths
+    (``work.paged``): the pages up to each row's last valid column, once
+    per KV head, and q, table, lengths, thresholds and output; the words'
+    popcount operations at the ALU rate."""
+    pages = paged_pages_read(lengths, ring, k_pages.shape[2],
+                             block_table.shape[1], k_pages.shape[1])
+    return work.bound_of(work.paged(q, k_pages, vt_pages, pages,
+                                    block_table, lengths, theta, out))
 
 
 # continuous decode: 16 slots, H = 9 over 3, d_h = 64, 12 blocks of 32 over
@@ -583,7 +560,7 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
                          lambda a=a, w=w: mxu_ref.rbmm_mxu(a, w),
                          lambda a=a, wv=wv: torch.matmul(
                              a, wv.transpose(-1, -2)),
-                         bound(nbytes(a, w, res), 2 * macs, BF16_FLOPS))
+                         work.bound_of(work.mxu(1, 1, 1, macs, a, w, res)))
         elif kernel == "sps_attention":
             b, h, hkv, length, dh, causal, lens, window, rows = spec
             q, k = words(b, h, length, k=dh), words(b, hkv, length, k=dh)
@@ -649,7 +626,7 @@ def call_operands(calls: Dict[str, tuple], seed: int = 0
             out[name] = (kernel, lambda x=x, th=th: pack.pack_threshold(x, th),
                          lambda x=x, th=th: pack_ref.pack_threshold(x, th),
                          None,
-                         bound(nbytes(x, th, res), x.numel(), SCALAR32_OPS))
+                         work.bound_of(work.pack(x, th, res)))
     return out
 
 
@@ -1385,7 +1362,7 @@ def shapes(seed: int = 0) -> Dict[str, Dict]:
         out[name] = dict(
             kernel=lambda x=x, th=th: pack.pack_threshold(x, th),
             library=None,
-            bound=bound(nbytes(x, th, res), x.numel(), SCALAR32_OPS))
+            bound=work.bound_of(work.pack(x, th, res)))
     out.update(attention_shapes(seed))
     return out
 

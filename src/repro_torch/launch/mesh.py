@@ -1,6 +1,6 @@
 """Mesh construction and sharding specs on torch.distributed (port of
-``repro.launch.mesh``): the (data, model) host mesh, FSDP specs, batch
-rows, and per-leaf placements.
+``repro.launch.mesh``): the (data, model) host mesh, the production mesh
+of the dry run, FSDP specs, batch rows, and per-leaf placements.
 
 ``make_host_mesh(model_axis, device)`` joins the process group (nccl for
 a CUDA device, gloo for the CPU; torchrun's environment when it is set,
@@ -8,36 +8,47 @@ else a world of one rank) and lays a ``DeviceMesh`` of (world /
 model_axis, model_axis) named ("data", "model") over its ranks.  The
 port's ``Mesh`` wraps it with what the trainer asks of a mesh: each
 rank's index on each axis, and the collectives (all-gather, all-reduce,
-barrier) it runs, counted in ``Mesh.collectives``.
+barrier) it runs, counted in ``Mesh.collectives`` and, by result bytes,
+in the dry run's census (``repro_torch.census``), once a call: a call
+over several axes runs one collective per axis that holds more than one
+index, and counts as one, as ``AbstractMesh``'s does.
+
+``make_production_mesh(multi_pod)`` is the dry run's mesh: an
+``AbstractMesh`` of (16, 16) ("data", "model") = 256 ranks, or (2, 16, 16)
+("pod", "data", "model") = 512, seen from rank 0 on the meta device.  It
+joins no process group: its collectives return meta tensors of their
+results' shapes and count their bytes.  ``param_shapes`` draws a model's
+params on the meta device (shapes and dtypes, nothing allocated).
 
 A leaf's ``Placement`` (what ``named`` gives per leaf, the port's
 ``NamedSharding``) holds its spec and whole shape: a dimension whose spec
-names a mesh axis is split over that axis where it divides by the axis'
-size (a dimension that does not divide stays whole, where the JAX package
-would pad).  ``shard`` cuts this rank's block; ``gather`` puts the whole
-leaf back together over the axes it is split on, and its backward takes
-the whole gradient to this rank's block: summed over the data axis (each
-data index computed it from its own rows), cut along "model" (the ranks
-along "model" computed the same rows).
-
-``make_production_mesh`` and ``param_shapes`` belong to the dry run and
-are not ported yet.
+names mesh axes (one, or several such as FSDP's ("pod", "data")) is split
+over them where it divides by their sizes' product (a dimension that does
+not divide stays whole, where the JAX package would pad).  ``shard`` cuts
+this rank's block; ``gather`` puts the whole leaf back together over the
+axes it is split on, and its backward takes the whole gradient to this
+rank's block: summed over the data axes (each data index computed it
+from its own rows), cut along "model" (the ranks along "model" computed
+the same rows).
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device, tree
+from repro_torch import census, resolve_device, tree
 from repro_torch.models.nn import stack_spec
-from repro_torch.models.sharding import P, PartitionSpec  # noqa: F401
+from repro_torch.models.sharding import (  # noqa: F401
+    P, PartitionSpec, data_axes, place, placement_of, rows_split)
 
 Params = Any
 AXES = ("data", "model")
+Axes = Union[None, str, Sequence[str]]
 
 
 def world_size() -> int:
@@ -67,24 +78,21 @@ def init_world(device) -> None:
                                 world_size=1)
 
 
-class Mesh:
-    """A (data, model) ``DeviceMesh`` and the collectives run on it."""
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
-    def __init__(self, device_mesh, device: torch.device):
-        self.device_mesh = device_mesh
-        self.device = device
-        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
-        self.shape: Dict[str, int] = dict(zip(self.axis_names,
-                                              device_mesh.shape))
-        self.rank = dist.get_rank()
-        self.collectives = 0
-        layout = device_mesh.mesh.reshape(-1, self.shape["model"]).tolist()
-        # (data index, model index) of every rank of the world
-        self.coords = {r: (d, m) for d, row in enumerate(layout)
-                       for m, r in enumerate(row)}
+
+class _MeshBase:
+    """What a mesh is to the port: named axes, this rank's index on each,
+    and collectives over axes (``axis``: one name, several, or None for
+    every axis)."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    rank: int
+    device: torch.device
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, device={self.device})"
+        return f"{type(self).__name__}({self.shape}, device={self.device})"
 
     @property
     def size(self) -> int:
@@ -94,44 +102,160 @@ class Mesh:
     def data_size(self) -> int:
         return data_size(self)
 
+    @property
+    def coords(self) -> Dict[int, Tuple[int, ...]]:
+        """Every rank's index on each axis (in ``axis_names`` order)."""
+        return self._coords
+
     def index(self, axis: str) -> int:
         """This rank's index along ``axis``."""
         return self.coords[self.rank][self.axis_names.index(axis)]
 
     @property
     def data_index(self) -> int:
-        return self.index("data")
+        """This rank's index over the data axes (row-major)."""
+        return block_index(self, data_axes(self))
+
+    def _axes(self, axis: Axes) -> Tuple[str, ...]:
+        if axis is None:
+            return self.axis_names
+        return (axis,) if isinstance(axis, str) else tuple(axis)
+
+    def _width(self, axis: Axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axis))
+
+
+def block_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's index over ``axes`` taken together, row-major (the
+    block of a dim split over them)."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.index(a)
+    return i
+
+
+class Mesh(_MeshBase):
+    """A ``DeviceMesh`` and the collectives run on it."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh = device_mesh
+        self.device = device
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, device_mesh.shape))
+        self.rank = dist.get_rank()
+        self.collectives = 0
+        ranks = device_mesh.mesh.cpu().numpy()
+        self._coords = {int(ranks[ix]): tuple(int(i) for i in ix)
+                        for ix in np.ndindex(ranks.shape)}
 
     def _group(self, axis: Optional[str]):
         return None if axis is None else self.device_mesh.get_group(axis)
 
-    def _width(self, axis: Optional[str]) -> int:
-        return self.size if axis is None else self.shape[axis]
-
-    def all_gather(self, x: torch.Tensor, axis: Optional[str],
+    def all_gather(self, x: torch.Tensor, axis: Axes,
                    dim: int) -> torch.Tensor:
-        """Every index's ``x`` along ``axis`` (None: the whole world),
-        concatenated on ``dim`` in index order."""
+        """Every index's ``x`` along ``axis`` (None: the whole world; several
+        axes: row-major), concatenated on ``dim`` in index order."""
         if self._width(axis) == 1:
             return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self._width(axis))]
-        dist.all_gather(parts, x, group=self._group(axis))
+        for a in ([None] if axis is None else
+                  reversed([a for a in self._axes(axis)
+                            if self.shape[a] > 1])):
+            x = x.contiguous()
+            parts = [torch.empty_like(x) for _ in range(self._width(a))]
+            dist.all_gather(parts, x, group=self._group(a))
+            x = torch.cat(parts, dim=dim)
         self.collectives += 1
-        return torch.cat(parts, dim=dim)
+        census.collective("all-gather", _nbytes(x))
+        return x
 
-    def all_reduce(self, x: torch.Tensor,
-                   axis: Optional[str]) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axis: Axes) -> torch.Tensor:
         """``x`` summed over ``axis`` (None: the whole world), in place."""
-        if self._width(axis) > 1:
-            dist.all_reduce(x, group=self._group(axis))
-            self.collectives += 1
+        if self._width(axis) == 1:
+            return x
+        for a in ([None] if axis is None else
+                  [a for a in self._axes(axis) if self.shape[a] > 1]):
+            dist.all_reduce(x, group=self._group(a))
+        self.collectives += 1
+        census.collective("all-reduce", _nbytes(x))
         return x
 
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier()
             self.collectives += 1
+
+
+class AbstractMesh(_MeshBase):
+    """A mesh of ``shape`` (axis name -> size) seen from rank 0 on the meta
+    device, with no process group (the dry run's; JAX's
+    ``jax.sharding.AbstractMesh``): each collective gives a meta tensor of
+    its result's shape and counts its result's bytes, once per call."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.device = torch.device("meta")
+        self.rank = 0
+        self.collectives = 0
+        self._coords = {r: ix for r, ix in
+                        enumerate(np.ndindex(tuple(self.shape.values())))}
+
+    def all_gather(self, x: torch.Tensor, axis: Axes,
+                   dim: int) -> torch.Tensor:
+        n = self._width(axis)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_empty(shape, device=x.device)
+        self.collectives += 1
+        census.collective("all-gather", _nbytes(out))
+        return out
+
+    def all_reduce(self, x: torch.Tensor, axis: Axes) -> torch.Tensor:
+        if self._width(axis) > 1:
+            self.collectives += 1
+            census.collective("all-reduce", _nbytes(x))
+        return x
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            self.collectives += 1
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: (16, 16) ("data", "model") = 256 ranks.  Multi-pod:
+    (2, 16, 16) ("pod", "data", "model") = 512, "pod" the slow axis that
+    carries only data-parallel traffic (the JAX package's meshes)."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def param_shapes(init_fn, *args, **kwargs) -> Params:
+    """``init_fn(*args, device="meta")``: the params' shapes and dtypes as
+    meta tensors, nothing allocated (JAX's ``eval_shape``; a generator
+    among ``args`` is a CPU one: a meta generator cannot be made).  A
+    census in force does not count it."""
+    with census.suspended():
+        return init_fn(*args, device=torch.device("meta"), **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Placed shards: a rank's block of a leaf, carrying its Placement (the
+# port's counterpart of a JAX array with its sharding; ``place``,
+# ``placement_of`` and ``rows_split`` live in ``models.sharding``, which the
+# models' mesh faces read)
+# ---------------------------------------------------------------------------
+
+
+def shard_tree(mesh, specs: Params, whole: Params) -> Params:
+    """This rank's placed blocks of the whole leaves ``whole`` by
+    ``specs``."""
+    def one(spec, t):
+        pl = Placement(mesh, spec, t.shape)
+        return place(pl.shard(t), pl)
+    return tree.map(one, specs, whole)
 
 
 def make_host_mesh(model_axis: int = 1, device="cuda") -> Mesh:
@@ -150,10 +274,6 @@ def make_host_mesh(model_axis: int = 1, device="cuda") -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
     return Mesh(init_device_mesh(dev.type, (world // model_axis, model_axis),
                                  mesh_dim_names=AXES), dev)
-
-
-def data_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 def data_size(mesh) -> int:
@@ -230,64 +350,82 @@ def named(mesh: Mesh, specs: Params, shapes: Params) -> Params:
 class Placement:
     """Where one leaf lives on a mesh (see the module docstring)."""
 
-    def __init__(self, mesh: Mesh, spec: P, shape: Sequence[int]):
+    def __init__(self, mesh, spec: P, shape: Sequence[int]):
         self.mesh, self.spec, self.shape = mesh, spec, tuple(shape)
+        # (axes, dim): the dim split over those axes taken together
+        self.splits: List[Tuple[Tuple[str, ...], int]] = []
         self.dims: Dict[str, int] = {}      # axis -> the dim split over it
         for d, entry in enumerate(spec):
             axes = (() if entry is None else
                     (entry,) if isinstance(entry, str) else tuple(entry))
-            if len(axes) > 1:
-                raise NotImplementedError(
-                    f"a dim split over several axes {axes} is not ported")
-            for a in axes:
-                n = mesh.shape[a]
-                if n > 1 and self.shape[d] % n == 0:
-                    self.dims[a] = d
+            axes = tuple(a for a in axes if mesh.shape[a] > 1)
+            n = math.prod(mesh.shape[a] for a in axes)
+            if axes and self.shape[d] % n == 0:
+                self.splits.append((axes, d))
+                self.dims.update({a: d for a in axes})
 
     def __repr__(self) -> str:
         return f"Placement({self.spec}, {self.shape}, split {self.dims})"
 
+    def _width(self, axes: Sequence[str]) -> int:
+        return math.prod(self.mesh.shape[a] for a in axes)
+
     @property
     def local_shape(self) -> Tuple[int, ...]:
         s = list(self.shape)
-        for a, d in self.dims.items():
-            s[d] //= self.mesh.shape[a]
+        for axes, d in self.splits:
+            s[d] //= self._width(axes)
         return tuple(s)
 
-    def owns(self, coords: Tuple[int, int]) -> bool:
-        """Is the block the rank at (data, model) ``coords`` holds one the
-        mesh counts once (replicas along an unsplit axis: index 0's)?"""
+    def owns(self, coords: Tuple[int, ...]) -> bool:
+        """Is the block the rank at ``coords`` (its index on each axis)
+        holds one the mesh counts once (replicas along an unsplit axis:
+        index 0's)?"""
         return all(a in self.dims or coords[i] == 0
-                   for i, a in enumerate(AXES))
+                   for i, a in enumerate(self.mesh.axis_names))
+
+    def _cut(self, t: torch.Tensor, axes, d: int) -> torch.Tensor:
+        n = t.shape[d] // self._width(axes)
+        return t.narrow(d, block_index(self.mesh, axes) * n, n)
+
+    def block(self, full: torch.Tensor, skip: Sequence[int] = ()
+              ) -> torch.Tensor:
+        """This rank's block of the whole leaf (a view; the dims of
+        ``skip`` are taken as they are)."""
+        for axes, d in self.splits:
+            if d not in skip:
+                full = self._cut(full, axes, d)
+        return full
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole leaf, in memory of its own."""
-        for a, d in self.dims.items():
-            n = full.shape[d] // self.mesh.shape[a]
-            full = full.narrow(d, self.mesh.index(a) * n, n)
-        return full.clone(memory_format=torch.contiguous_format)
+        return self.block(full).clone(memory_format=torch.contiguous_format)
 
-    def _gather(self, local: torch.Tensor) -> torch.Tensor:
-        for a, d in self.dims.items():
-            local = self.mesh.all_gather(local, a, d)
+    def _gather(self, local: torch.Tensor, skip=()) -> torch.Tensor:
+        for axes, d in self.splits:
+            if d not in skip:
+                local = self.mesh.all_gather(local, axes, d)
         return local
 
     def _reduce(self, grad: torch.Tensor) -> torch.Tensor:
         """The whole gradient -> this rank's block's: cut along "model",
-        summed over data (each data index's own rows)."""
-        if "model" in self.dims:
-            d, n = self.dims["model"], self.local_shape[self.dims["model"]]
-            grad = grad.narrow(d, self.mesh.index("model") * n, n)
+        summed over the data axes (each data index's own rows)."""
+        daxes = data_axes(self.mesh)
+        for axes, d in self.splits:
+            if not set(axes) & set(daxes):
+                grad = self._cut(grad, axes, d)
         if self.mesh.data_size > 1:
-            grad = self.mesh.all_reduce(grad.clone(), "data")
-        if "data" in self.dims:
-            d, n = self.dims["data"], self.local_shape[self.dims["data"]]
-            grad = grad.narrow(d, self.mesh.data_index * n, n)
+            grad = self.mesh.all_reduce(grad.clone(), daxes)
+        for axes, d in self.splits:
+            if set(axes) & set(daxes):
+                grad = self._cut(grad, axes, d)
         return grad.contiguous()
 
-    def whole(self, local: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from this rank's block (no gradient)."""
-        return self._gather(local.detach())
+    def whole(self, local: torch.Tensor, skip: Sequence[int] = ()
+              ) -> torch.Tensor:
+        """The whole leaf from this rank's block (no gradient); the dims of
+        ``skip`` stay this rank's block."""
+        return self._gather(local.detach(), skip)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole leaf, differentiably (see the module docstring)."""

@@ -278,6 +278,17 @@ class SPSAttention:
                  ctx_beta=P(), sps_lambda=lam_spec, bit_alpha=P(None))
         return p
 
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (the JAX package's)."""
+        p: Params = {name: d.deploy_specs()
+                     for name, d in self._denses().items()}
+        p.update(act_alpha=P(), act_beta=P(), ctx_alpha=P(), ctx_beta=P(),
+                 q_alpha=P(None), q_beta=P(None), k_alpha=P(None),
+                 k_beta=P(None), v_alpha=P(None), v_beta=P(None),
+                 sps_lambda={"layer": P(), "head": P(None),
+                             "row": P(None, None)}[self.sps_granularity])
+        return p
+
     def init_deploy(self, gen: torch.Generator, device) -> Params:
         """``convert(init(gen, device))``: one layer's masters at most."""
         return self.convert(self.init(gen, device))

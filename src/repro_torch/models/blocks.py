@@ -151,7 +151,15 @@ class Block:
     def specs(self) -> Params:
         """The QAT params' specs (the JAX package's): each part's, then
         the norms'."""
-        p: Params = {name: mod.specs() for name, mod in self._parts().items()}
+        return self._norm_specs({name: mod.specs()
+                                 for name, mod in self._parts().items()})
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (JAX's ``specs(deploy=True)``)."""
+        return self._norm_specs({name: mod.deploy_specs()
+                                 for name, mod in self._parts().items()})
+
+    def _norm_specs(self, p: Params) -> Params:
         p["norm1"] = self._norm().specs()
         if self._has_ffn:
             p["norm2"] = self._norm().specs()

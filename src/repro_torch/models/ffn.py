@@ -128,6 +128,14 @@ class BinaryFFN:
         """The QAT params' specs (the JAX package's): an expert stack's
         leaves take a leading expert entry, "model" when the experts are
         spread over it (``expert_parallel``), else None."""
+        return self._specs(BinaryDense.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (the JAX package's ``specs(deploy=
+        True)``), expert entries as in ``specs``."""
+        return self._specs(BinaryDense.deploy_specs)
+
+    def _specs(self, dense_specs: Callable[[BinaryDense], Params]) -> Params:
         if self.num_experts and self.expert_parallel:
             fix = lambda t: {k: P("model", *(None,) * len(s))
                              for k, s in t.items()}
@@ -135,8 +143,8 @@ class BinaryFFN:
             fix = nn.stack_spec
         else:
             fix = lambda t: t
-        w1 = self._w1().specs()
-        p: Params = {"w1": fix(w1), "w2": fix(self._w2().specs())}
+        w1 = dense_specs(self._w1())
+        p: Params = {"w1": fix(w1), "w2": fix(dense_specs(self._w2()))}
         if self.glu:
             p["w3"] = fix(w1)
         for k in ("act_alpha", "act_beta", "h_alpha", "h_beta"):
@@ -370,6 +378,15 @@ class BinaryMoE:
                      "experts": self._experts().specs()}
         if self.dense_residual:
             p["residual"] = self._residual_ffn().specs()
+        return p
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (the JAX package's ``specs(deploy=
+        True)``): the router stays float32 and whole."""
+        p: Params = {"router": self._router().specs(),
+                     "experts": self._experts().deploy_specs()}
+        if self.dense_residual:
+            p["residual"] = self._residual_ffn().deploy_specs()
         return p
 
     def init(self, gen: torch.Generator, device) -> Params:

@@ -32,6 +32,10 @@ from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
 
+# the size of the mesh axis the deploy specs split packed weights over
+# ("model" of the production mesh, ``launch.mesh.make_production_mesh``)
+MODEL_PARTITIONS = 16
+
 
 def act_bits_packed(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Signed-scheme activation bits, packed: bit = x >= beta (float32
@@ -115,6 +119,31 @@ class BinaryDense:
         if self.use_bias:
             y = y + params["bias"]
         return y.to(self.dtype)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (the JAX package's): the packed (out,
+        ceil(in/32)) words split along "model" on the output rows where
+        ``MODEL_PARTITIONS`` divides them, else on the packed contraction
+        words (a "row" layer prefers the words)."""
+        mp = MODEL_PARTITIONS
+        kp_ok = packing.packed_len(self.in_dim) % mp == 0
+        out_ok = self.out_dim % mp == 0
+        if self.partition == "col":
+            wspec = (P("model", None) if out_ok else
+                     (P(None, "model") if kp_ok else P(None, None)))
+        elif self.partition == "row":
+            wspec = (P(None, "model") if kp_ok else
+                     (P("model", None) if out_ok else P(None, None)))
+        else:
+            wspec = P(None, None)
+        out_axis = wspec[0] if wspec[0] == "model" else None
+        p: Params = {"w_packed": wspec, "alpha_w": P(out_axis)}
+        if not self.external_act:
+            p["act_alpha"] = P()
+            p["act_beta"] = P()
+        if self.use_bias:
+            p["bias"] = P(out_axis)
+        return p
 
     def init_deploy(self, gen: torch.Generator, device) -> Params:
         """``convert(init(gen, device))``: the master is freed on return."""

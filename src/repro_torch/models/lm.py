@@ -16,6 +16,8 @@ encoder-decoder ``EncDecModel`` (seamless' backbone).
                       ``caches=``) one chunk continuing sequences already
                       in ring or paged caches
   decode_step         one token per sequence against those caches
+                      (``prefill_logits`` and ``decode_step`` also run on
+                      a mesh, ``mesh=``: ``_OnMesh``, the dry run's faces)
   verify_with_cache   speculative decode: logits at every position of a
                       candidate chunk, the caches unwritten; then
                       ``commit_chunks`` writes each sequence's accepted
@@ -46,6 +48,7 @@ serve token-only decoders.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -54,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn, sharding
 from repro_torch.models.attention import PageSpec
@@ -105,6 +108,53 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
             w = 0 if i % (r + 1) == r else cfg.window_size
         plan.append((kind, w))
     return plan
+
+
+class _OnMesh:
+    """The deploy faces on a mesh (``mesh=``), the trainer's design: the
+    params are this rank's placed blocks (``deploy_specs``), each block's
+    gathered whole where it runs (no autograd); the rows of the batch are
+    this rank's where the data axes split them (a placed batch), else
+    every rank's (a batch the data axes do not divide is replicated, as
+    the JAX package's ``_shard_batch_dim`` does); each cache leaf is this
+    rank's block (``launch.specs.cache_shardings``), gathered whole for
+    its layer's step along the axes that split it but the rows', the
+    step's writes put back into this rank's block.  A mesh of one index
+    on every axis runs no collective: the one-device arithmetic."""
+
+    def __init__(self, mesh, batch: torch.Tensor):
+        self.mesh = mesh
+        self.skip = (0,) if sharding.rows_split(mesh, batch) else ()
+
+    def params(self, p: Params) -> Params:
+        return tree.map(lambda t: sharding.placement_of(t).whole(t), p)
+
+    def context(self):
+        """The MoE's routing over the global batch where rows are split."""
+        if self.skip and self.mesh.data_size > 1:
+            return sharding.activation_sharding(
+                self.mesh, sharding.data_axes(self.mesh))
+        return contextlib.nullcontext()
+
+    def cache(self, cache: Dict[str, Any], read_only=("cross",)):
+        """(the layer's cache whole along every split axis but the rows',
+        a function that puts the step's writes back into the blocks)."""
+        whole, back = {}, []
+        for part, c in cache.items():
+            leaves = []
+            for t in tree.leaves(c):
+                pl = sharding.placement_of(t)
+                w = pl.whole(t, self.skip)
+                if part not in read_only and any(
+                        d not in self.skip for _, d in pl.splits):
+                    back.append((t, pl, w))
+                leaves.append(w)
+            whole[part] = tree.unflatten(c, leaves)
+
+        def put_back():
+            for t, pl, w in back:
+                t.copy_(pl.block(w, self.skip))
+        return whole, put_back
 
 
 # (path, a freshly drawn part) -> what to hold of it
@@ -222,12 +272,13 @@ class LMModel:
         return {"blocks": self._blocks()}
 
     def _build(self, gen: torch.Generator, layer: str,
-               keep: Optional[Keep] = None) -> Params:
+               keep: Optional[Keep] = None, device=None) -> Params:
         """The embedding, head and frontend drawn from ``gen`` (float32
         masters, which deploy keeps), then each block's ``layer`` face
         ("init" or "init_deploy") in turn; each part goes through
-        ``keep`` (see ``init``) as it is drawn."""
-        dev = gen.device
+        ``keep`` (see ``init``) as it is drawn.  On ``device`` (default:
+        ``gen``'s; "meta" draws shapes from a CPU generator)."""
+        dev = gen.device if device is None else torch.device(device)
         keep = keep or _keep_all
         p = {"embed": keep("embed", self._embed().init(gen, dev)),
              "final_norm": keep("final_norm", self._norm().init(dev))}
@@ -241,20 +292,29 @@ class LMModel:
                        for i, blk in enumerate(self._blocks())]
         return p
 
-    def init(self, gen: torch.Generator,
-             keep: Optional[Keep] = None) -> Params:
-        """QAT params drawn from ``gen``, on ``gen``'s device.  ``keep(path,
-        part)`` takes each part as it is drawn (the embedding, a norm, the
-        head, the frontend, a block; ``path`` its key, "blocks/3" a block)
-        and returns what to hold of it: a mesh trainer keeps its shards,
-        so the rest is freed before the next part draws."""
-        return self._build(gen, "init", keep)
+    def init(self, gen: torch.Generator, keep: Optional[Keep] = None,
+             device=None) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device (or
+        ``device``).  ``keep(path, part)`` takes each part as it is drawn
+        (the embedding, a norm, the head, the frontend, a block; ``path``
+        its key, "blocks/3" a block) and returns what to hold of it: a
+        mesh trainer keeps its shards, so the rest is freed before the
+        next part draws."""
+        return self._build(gen, "init", keep, device)
 
     def specs(self) -> Params:
         """The QAT params' specs, a tree of the params' structure: each
         leaf's the JAX package's, a per-layer leaf's without the stacked
         leaf's leading layer entry (``launch.mesh.stacked_specs`` maps
         them back)."""
+        return self._spec_tree(Block.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (the JAX package's, per layer as
+        ``specs``)."""
+        return self._spec_tree(Block.deploy_specs)
+
+    def _spec_tree(self, block_specs: Callable[[Block], Params]) -> Params:
         p: Params = {"embed": self._embed().specs(),
                      "final_norm": self._norm().specs()}
         head = self._head()
@@ -263,17 +323,17 @@ class LMModel:
         frontend = self._frontend()
         if frontend is not None:
             p["frontend"] = frontend.specs()
-        p["blocks"] = [blk.specs() for blk in self._blocks()]
+        p["blocks"] = [block_specs(blk) for blk in self._blocks()]
         return p
 
-    def init_deploy(self, gen: torch.Generator) -> Params:
+    def init_deploy(self, gen: torch.Generator, device=None) -> Params:
         """``convert(init(gen))``, bit for bit, drawn block by block: the
         same draws in the same order, each block's float32 masters
         converted and freed before the next block draws (an expert stack's
         one expert at a time), so the card holds the deploy params and at
         most one block's masters.  The first n blocks of a model's are
         those of ``cfg.truncated(n)``'s."""
-        return self._build(gen, "init_deploy")
+        return self._build(gen, "init_deploy", device=device)
 
     def convert(self, params: Params) -> Params:
         out = {k: v for k, v in params.items() if k != "blocks"}
@@ -376,14 +436,26 @@ class LMModel:
     # -- deploy faces ---------------------------------------------------------
 
     def prefill_logits(self, dparams: Params, tokens, *,
-                       frontend_embeds=None,
-                       device="cuda") -> torch.Tensor:
+                       frontend_embeds=None, device="cuda",
+                       mesh=None) -> torch.Tensor:
         """Deploy full-sequence forward, no cache: tokens (B, S) -> logits
         (B, S, V), or (B, F + S, V) with the frontend stub's
         ``frontend_embeds`` (B, F, ``frontend_dim``).  Attention is causal
         or bidirectional as ``cfg.causal`` says.  ``dparams`` must already
         lie on ``device`` (CUDA by default; pass ``device="cpu"`` for the
-        plain versions); the inputs are moved there."""
+        plain versions); the inputs are moved there.  On a ``mesh``
+        (``launch.mesh``): the params, tokens and frontend embeddings are
+        this rank's placed blocks, the logits this rank's rows (see
+        ``_OnMesh``); ``device`` is the mesh's."""
+        if mesh is not None:
+            on = _OnMesh(mesh, tokens)
+            top = on.params({k: v for k, v in dparams.items()
+                             if k != "blocks"})
+            with on.context():
+                x = self._embed_tokens(top, tokens, frontend_embeds)
+                for blk, bp in zip(self._blocks(), dparams["blocks"]):
+                    x, _ = blk.deploy_prefill(on.params(bp), x)
+                return self._logits(top, x)
         dev = _on_device(dparams, device)
         x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev),
                                frontend_embeds)
@@ -532,15 +604,29 @@ class LMModel:
         return caches
 
     def decode_step(self, dparams: Params, token: torch.Tensor,
-                    caches: List[Dict[str, Any]]
+                    caches: List[Dict[str, Any]], *, mesh=None
                     ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """token: (B, 1).  Returns (logits (B, 1, V), caches): the caches
         given, their tensors (lengths included) updated in place, so a
-        captured graph of the step and its caller hold the same caches."""
-        x = self._scale(self._embed().apply(dparams["embed"], token))
-        for blk, bp, cache in zip(self._blocks(), dparams["blocks"], caches):
-            x, _ = blk.deploy_decode(bp, x, cache)
-        return self._logits(dparams, x), caches
+        captured graph of the step and its caller hold the same caches.
+        On a ``mesh``: params, token and caches are this rank's placed
+        blocks (``_OnMesh``), the logits this rank's rows."""
+        if mesh is None:
+            x = self._scale(self._embed().apply(dparams["embed"], token))
+            for blk, bp, cache in zip(self._blocks(), dparams["blocks"],
+                                      caches):
+                x, _ = blk.deploy_decode(bp, x, cache)
+            return self._logits(dparams, x), caches
+        on = _OnMesh(mesh, token)
+        top = on.params({k: v for k, v in dparams.items() if k != "blocks"})
+        with on.context():
+            x = self._scale(self._embed().apply(top["embed"], token))
+            for blk, bp, cache in zip(self._blocks(), dparams["blocks"],
+                                      caches):
+                whole, put_back = on.cache(cache)
+                x, _ = blk.deploy_decode(on.params(bp), x, whole)
+                put_back()
+            return self._logits(top, x), caches
 
 
 # ---------------------------------------------------------------------------
@@ -630,12 +716,12 @@ class EncDecModel:
                 "decoder": [self._dec_block()] * self.cfg.num_layers}
 
     def _build(self, gen: torch.Generator, layer: str,
-               keep: Optional[Keep] = None) -> Params:
+               keep: Optional[Keep] = None, device=None) -> Params:
         """The embedding, frontend and head drawn from ``gen``, then the
         encoder's and the decoder's blocks by their ``layer`` face
         ("init" or "init_deploy"), one at a time, each part through
-        ``keep`` (see ``LMModel.init``)."""
-        dev = gen.device
+        ``keep`` (see ``LMModel.init``), on ``device`` (as there)."""
+        dev = gen.device if device is None else torch.device(device)
         keep = keep or _keep_all
         p = {"embed": keep("embed", self._embed().init(gen, dev)),
              "frontend": keep("frontend", self._frontend().init(gen, dev)),
@@ -647,27 +733,34 @@ class EncDecModel:
                       for i, blk in enumerate(blocks)]
         return p
 
-    def init(self, gen: torch.Generator,
-             keep: Optional[Keep] = None) -> Params:
-        """QAT params drawn from ``gen``, on ``gen``'s device (``keep`` as
-        in ``LMModel.init``)."""
-        return self._build(gen, "init", keep)
+    def init(self, gen: torch.Generator, keep: Optional[Keep] = None,
+             device=None) -> Params:
+        """QAT params drawn from ``gen``, on ``gen``'s device or ``device``
+        (``keep`` as in ``LMModel.init``)."""
+        return self._build(gen, "init", keep, device)
 
     def specs(self) -> Params:
         """The QAT params' specs (see ``LMModel.specs``)."""
+        return self._spec_tree(Block.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (see ``LMModel.deploy_specs``)."""
+        return self._spec_tree(Block.deploy_specs)
+
+    def _spec_tree(self, block_specs: Callable[[Block], Params]) -> Params:
         p: Params = {"embed": self._embed().specs(),
                      "frontend": self._frontend().specs(),
                      "head": self._head().specs(),
                      "enc_norm": self._norm().specs(),
                      "final_norm": self._norm().specs()}
         for key, blocks in self.layer_blocks().items():
-            p[key] = [blk.specs() for blk in blocks]
+            p[key] = [block_specs(blk) for blk in blocks]
         return p
 
-    def init_deploy(self, gen: torch.Generator) -> Params:
+    def init_deploy(self, gen: torch.Generator, device=None) -> Params:
         """``convert(init(gen))``, bit for bit, block by block (see
         ``LMModel.init_deploy``): encoder stack, then decoder stack."""
-        return self._build(gen, "init_deploy")
+        return self._build(gen, "init_deploy", device=device)
 
     def convert(self, params: Params) -> Params:
         stacks = self.layer_blocks()
@@ -680,20 +773,24 @@ class EncDecModel:
     # -- deploy faces ---------------------------------------------------------
 
     def encode(self, params: Params, frontend_embeds: torch.Tensor, *,
-               deploy: bool = True) -> torch.Tensor:
+               deploy: bool = True, on: Optional[_OnMesh] = None
+               ) -> torch.Tensor:
         """frontend_embeds (B, S_enc, ``frontend_dim``) -> the memory (B,
         S_enc, d), in the dtype the projection gives them: through the
         deploy params' encoder, or with ``deploy=False`` through the QAT
-        params' (each block checkpointed as ``cfg.remat`` says)."""
-        x = self._frontend().apply(params["frontend"], frontend_embeds)
+        params' (each block checkpointed as ``cfg.remat`` says).  ``on``:
+        the deploy params are placed blocks on a mesh (``_OnMesh``)."""
+        whole = (lambda p: p) if on is None else on.params
+        x = self._frontend().apply(whole(params["frontend"]),
+                                   frontend_embeds)
         blk = self._enc_block()
         if deploy:
             for lp in params["encoder"]:
-                x, _ = blk.deploy_prefill(lp, x)
+                x, _ = blk.deploy_prefill(whole(lp), x)
         else:
             x, _ = _qat_stack(self.cfg, [blk] * self.enc_layers,
                               params["encoder"], x)
-        return self._norm().apply(params["enc_norm"], x)
+        return self._norm().apply(whole(params["enc_norm"]), x)
 
     def _embed_tokens(self, params: Params,
                       tokens: torch.Tensor) -> torch.Tensor:
@@ -707,26 +804,35 @@ class EncDecModel:
                                   x)[..., :self.cfg.vocab_size]
 
     def _decoder(self, dparams: Params, tokens: torch.Tensor,
-                 frontend_embeds, cache_size: int = 0):
+                 frontend_embeds, cache_size: int = 0,
+                 on: Optional[_OnMesh] = None):
         """Encode, then the decoder stack over the tokens: (hidden (B, S,
-        d), per-layer caches when ``cache_size``)."""
+        d), per-layer caches when ``cache_size``; ``on`` as ``encode``)."""
         dev = tokens.device
+        whole = (lambda p: p) if on is None else on.params
         memory = self.encode(dparams, torch.as_tensor(frontend_embeds,
-                                                      device=dev))
-        x = self._embed_tokens(dparams, tokens)
+                                                      device=dev), on=on)
+        x = self._embed_tokens(whole({"embed": dparams["embed"]}), tokens)
         blk, caches = self._dec_block(), []
         for lp in dparams["decoder"]:
-            x, cache = blk.deploy_prefill(lp, x, memory=memory,
+            x, cache = blk.deploy_prefill(whole(lp), x, memory=memory,
                                           cache_size=cache_size)
             caches.append(cache)
         return x, caches
 
     def prefill_logits(self, dparams: Params, tokens, *, frontend_embeds,
-                       device="cuda") -> torch.Tensor:
+                       device="cuda", mesh=None) -> torch.Tensor:
         """Deploy forward, no cache: tokens (B, S) and frontend_embeds (B,
         S_enc, ``frontend_dim``) -> logits (B, S, V).  ``dparams`` must
         already lie on ``device`` (CUDA by default; ``device="cpu"`` for
-        the plain versions); the inputs are moved there."""
+        the plain versions); the inputs are moved there.  On a ``mesh``
+        as ``LMModel.prefill_logits``."""
+        if mesh is not None:
+            on = _OnMesh(mesh, tokens)
+            with on.context():
+                x, _ = self._decoder(dparams, tokens, frontend_embeds, on=on)
+                return self._logits(on.params(
+                    {k: dparams[k] for k in ("final_norm", "head")}), x)
         dev = _on_device(dparams, device)
         x, _ = self._decoder(dparams, torch.as_tensor(tokens, device=dev),
                              frontend_embeds)
@@ -759,16 +865,27 @@ class EncDecModel:
                 for _ in range(self.cfg.num_layers)]
 
     def decode_step(self, dparams: Params, token: torch.Tensor,
-                    caches: List[Dict[str, Any]]
+                    caches: List[Dict[str, Any]], *, mesh=None
                     ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
         """token: (B, 1).  Returns (logits (B, 1, V), caches): the caches
         given, their rings and lengths updated in place (the memory
-        read only)."""
-        x = self._embed_tokens(dparams, token)
+        read only).  On a ``mesh`` as ``LMModel.decode_step``."""
         blk = self._dec_block()
-        for lp, cache in zip(dparams["decoder"], caches):
-            x, _ = blk.deploy_decode(lp, x, cache)
-        return self._logits(dparams, x), caches
+        if mesh is None:
+            x = self._embed_tokens(dparams, token)
+            for lp, cache in zip(dparams["decoder"], caches):
+                x, _ = blk.deploy_decode(lp, x, cache)
+            return self._logits(dparams, x), caches
+        on = _OnMesh(mesh, token)
+        top = on.params({k: dparams[k]
+                         for k in ("embed", "final_norm", "head")})
+        with on.context():
+            x = self._embed_tokens(top, token)
+            for lp, cache in zip(dparams["decoder"], caches):
+                whole, put_back = on.cache(cache)
+                x, _ = blk.deploy_decode(on.params(lp), x, whole)
+                put_back()
+            return self._logits(top, x), caches
 
 
 def build_model(cfg: ModelConfig):

@@ -22,6 +22,11 @@ wider than one, it asks of the context:
     FSDP-sharded params, which XLA inserts in the JAX package).
 Outside a context, or on a data axis of one, each gives its argument back.
 
+A rank's block of a leaf carries its ``launch.mesh.Placement``: ``place``
+marks it, ``placement_of`` reads it, and ``rows_split`` says whether a
+placed batch's rows are split over the data axes (``data_axes``); the
+models' deploy faces on a mesh read them.
+
 The context is the process's, not a thread's (JAX keeps it per thread):
 a block's checkpoint recomputes the block inside the backward, which on
 the card runs on autograd's own device thread, and the recomputation
@@ -127,14 +132,44 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the data indices (no gradient)."""
     mesh = _split_mesh()
     return t if mesh is None else mesh.all_reduce(t.detach().clone(),
-                                                  "data")
+                                                  batch_axes())
 
 
 def batch_gather(t: torch.Tensor) -> torch.Tensor:
     """Every data index's ``t`` concatenated on dim 0 in data order: the
     global batch's rows (no gradient)."""
     mesh = _split_mesh()
-    return t if mesh is None else mesh.all_gather(t.detach(), "data", 0)
+    return t if mesh is None else mesh.all_gather(t.detach(), batch_axes(),
+                                                  0)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` that split the batch, slow to fast."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def place(local: torch.Tensor, placement) -> torch.Tensor:
+    """``local`` (this rank's block) marked with its ``placement`` (a
+    ``launch.mesh.Placement``)."""
+    local.placement = placement
+    return local
+
+
+def placement_of(t: torch.Tensor):
+    pl = getattr(t, "placement", None)
+    if pl is None:
+        raise ValueError(f"a mesh face takes placed shards (place); got a "
+                         f"tensor of shape {tuple(t.shape)} without a "
+                         f"placement")
+    return pl
+
+
+def rows_split(mesh, t: torch.Tensor) -> bool:
+    """Are the rows (dim 0) of placed ``t`` split over the data axes (the
+    batch of a mesh face; unplaced rows are whole)?"""
+    pl = getattr(t, "placement", None)
+    return pl is not None and any(
+        d == 0 and set(axes) <= set(data_axes(mesh)) for axes, d in pl.splits)
 
 
 def materialize(params: Any) -> Any:

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import census
 from repro_torch.models import nn
 from repro_torch.models.linear import BinaryDense
 from repro_torch.models.sharding import P
@@ -82,14 +83,17 @@ def _scan_cells(cell: Callable, carry: XLSTMCache,
     """Run an xLSTM ``cell`` over batch-major inputs (B, L, ...), one step
     per position.  ``apply`` and ``decode_step`` (the L = 1 case) both go
     through this one step body, as the JAX package's do through its one
-    ``lax.scan``.  Returns (last carry, outputs (L, B, ...))."""
+    ``lax.scan``.  Returns (last carry, outputs (L, B, ...)).  A dry run's
+    census may run fewer steps (``census.steps``): the outputs keep
+    their L steps."""
+    n = seqs[0].shape[1]
     hs = []
-    for t in range(seqs[0].shape[1]):
+    for t in census.steps(n):
         new, h = cell(carry, tuple(s[:, t] for s in seqs))
         carry = XLSTMCache(*_freeze_cache(
             new, carry, None if live is None else live[:, t]))
         hs.append(h)
-    return carry, torch.stack(hs, 0)
+    return carry, torch.stack(census.pad_steps(hs, n), 0)
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -129,8 +133,15 @@ class MambaBlock:
 
     def specs(self) -> Params:
         """The QAT params' specs (the JAX package's)."""
-        return {"in_proj": self._in_proj().specs(),
-                "out_proj": self._out_proj().specs(),
+        return self._specs(BinaryDense.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (JAX's ``specs(deploy=True)``)."""
+        return self._specs(BinaryDense.deploy_specs)
+
+    def _specs(self, dense_specs) -> Params:
+        return {"in_proj": dense_specs(self._in_proj()),
+                "out_proj": dense_specs(self._out_proj()),
                 "conv_w": P(None, "model"), "conv_b": P("model"),
                 "x_proj": P("model", None), "dt_proj": P(None, "model"),
                 "dt_bias": P("model"), "a_log": P("model", None),
@@ -188,8 +199,8 @@ class MambaBlock:
         dt, b, c = self._ssm_params(params, u)
         uf = u.to(torch.float32)
         live = _live_mask(u.shape[0], u.shape[1], seq_lens, u.device)
-        h, ys = h0, []
-        for t in range(u.shape[1]):
+        h, ys, n = h0, [], u.shape[1]
+        for t in census.steps(n):     # all n but in a dry run's census
             dt_t = dt[:, t, :, None]                         # (B, di, 1)
             da = torch.exp(dt_t * a[None])                   # (B, di, st)
             dbu = dt_t * b[:, t, None, :] * uf[:, t, :, None]
@@ -197,7 +208,7 @@ class MambaBlock:
             h = h_new if live is None else torch.where(
                 live[:, t, None, None], h_new, h)
             ys.append(torch.einsum("bds,bs->bd", h, c[:, t]))
-        y = torch.stack(ys, 1) + uf * params["d_skip"]
+        y = torch.stack(census.pad_steps(ys, n), 1) + uf * params["d_skip"]
         return y, h
 
     def _conv(self, params: Params, u_p: torch.Tensor,
@@ -316,7 +327,15 @@ class MLSTMBlock:
     def specs(self) -> Params:
         """The QAT params' specs (the JAX package's): the gate
         projections are (d, 2H) with small H, replicated."""
-        return {"qkv": self._qkv().specs(), "out": self._out().specs(),
+        return self._specs(BinaryDense.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (JAX's ``specs(deploy=True)``)."""
+        return self._specs(BinaryDense.deploy_specs)
+
+    def _specs(self, dense_specs) -> Params:
+        return {"qkv": dense_specs(self._qkv()),
+                "out": dense_specs(self._out()),
                 "w_gates": P(None, None), "b_gates": P(None)}
 
     def init(self, gen: torch.Generator, device) -> Params:
@@ -426,8 +445,15 @@ class SLSTMBlock:
 
     def specs(self) -> Params:
         """The QAT params' specs (the JAX package's)."""
-        return {"in_proj": self._in().specs(), "out_proj": self._out().specs(),
-                "f_bias": P("model")}
+        return self._specs(BinaryDense.specs)
+
+    def deploy_specs(self) -> Params:
+        """The deploy params' specs (JAX's ``specs(deploy=True)``)."""
+        return self._specs(BinaryDense.deploy_specs)
+
+    def _specs(self, dense_specs) -> Params:
+        return {"in_proj": dense_specs(self._in()),
+                "out_proj": dense_specs(self._out()), "f_bias": P("model")}
 
     def init(self, gen: torch.Generator, device) -> Params:
         return {"in_proj": self._in().init(gen, device),

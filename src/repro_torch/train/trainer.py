@@ -182,10 +182,13 @@ class Trainer:
         if mesh.size > 1:
             every = mesh.all_gather(norms[None], None, 0)   # (ranks, leaves)
             pls = self._param_placements(grads)
-            owned = torch.tensor([[pl.owns(mesh.coords[r]) for pl in pls]
-                                  for r in range(mesh.size)],
-                                 device=norms.device)
-            norms = every.T[owned.T]
+            ranks = mesh.size
+            # each leaf's owned blocks, leaf by leaf in rank order (indices
+            # made on the host: no data-dependent shape)
+            owned = [j * ranks + r for j, pl in enumerate(pls)
+                     for r in range(ranks) if pl.owns(mesh.coords[r])]
+            norms = every.T.reshape(-1)[torch.tensor(owned,
+                                                     device=norms.device)]
         return torch.linalg.vector_norm(norms)
 
     def _compress_scales(self, grads: Any, ef: Any):
@@ -305,8 +308,8 @@ class Trainer:
             if sharded and self.mesh.data_size > 1:
                 # each data index's share of the global batch's metrics
                 for k in ("loss", "moe_aux", "tokens", "loss_total"):
-                    metrics[k] = self.mesh.all_reduce(metrics[k].clone(),
-                                                      "data")
+                    metrics[k] = self.mesh.all_reduce(
+                        metrics[k].clone(), mesh_lib.data_axes(self.mesh))
             if self.cfg.compress_grads:
                 grads, new_ef = compress_lib.compress_tree(
                     grads, ef, self.stacked,

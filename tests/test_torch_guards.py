@@ -4,6 +4,7 @@ sampler invariants, the bridge's word format and the "not ported yet"
 boundaries."""
 import test_torch_threads  # noqa: F401  (first: one torch thread)
 import ast
+import types
 from pathlib import Path
 
 import numpy as np
@@ -43,9 +44,27 @@ def _imported_modules(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 20
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    assert {launch / f"{name}.py" for name in (
+        "specs", "cost", "roofline", "dryrun", "mesh")} <= set(PORT_FILES)
     bad = [(str(path.relative_to(ROOT)), mod) for path in PORT_FILES
            for mod in _imported_modules(path)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_kernels_and_models_import_nothing_of_launch():
+    """The layers run bottom up: the kernel wrappers, the models and the
+    census hooks import nothing of ``repro_torch.launch`` (the CLIs and
+    the dry run's entry points)."""
+    src = ROOT / "src" / "repro_torch"
+    low = [p for p in PORT_FILES if p.parent == src or
+           src / "kernels" in p.parents or src / "models" in p.parents or
+           src / "core" in p.parents]
+    assert src / "census.py" in low and src / "models" / "lm.py" in low
+    bad = [(str(path.relative_to(ROOT)), mod) for path in low
+           for mod in _imported_modules(path)
+           if mod.startswith("repro_torch.launch")]
     assert not bad, bad
 
 
@@ -106,13 +125,26 @@ def test_cli_runs_on_cpu_when_asked(capsys):
 
 
 def test_dispatch_goes_by_device_and_cpu_never_counts_a_launch():
+    """CPU operands take the plain version and meta operands the
+    shape-only route; neither counts a launch, and a mix of meta with
+    CPU (or CUDA) operands raises."""
     kernels.reset_launch_counts()
     x = torch.randn(4, 40)
-    assert not kernels.use_kernel(x, None)
+    assert kernels.use_kernel(x, None) == "cpu"
     pack_ops.pack_threshold(x, torch.zeros(()))
+    meta = torch.empty(4, 40, device="meta")
+    assert kernels.use_kernel(meta, None) == "meta"
+    out = pack_ops.pack_threshold(meta, torch.zeros((), device="meta"))
+    assert out.device.type == "meta" and out.shape == (4, 2)
+    assert out.dtype == torch.int32
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     with pytest.raises(ValueError, match="meta"):
-        kernels.use_kernel(torch.empty(2, device="meta"))
+        kernels.use_kernel(meta, x)
+    with pytest.raises(ValueError, match="meta"):
+        pack_ops.pack_threshold(meta, torch.zeros(()))
+    cuda = types.SimpleNamespace(device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="cuda"):
+        kernels.use_kernel(meta, cuda)
 
 
 def test_every_kernel_source_names_what_it_replaces_and_its_bound():
