@@ -289,7 +289,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 a one-rank NCCL world in this process (an in-memory
                 store) and a (1, 1) (data, model) mesh: smollm-135m at
                 full width and depth, the CLI's optimizer, B=16 x 128,
-                seed 0, trains 10 steps with the mesh trainer (eager) and
+                seed 0, trains 10 steps with the mesh trainer (eager; its
+                compute split along "model" as on any mesh, every exchange
+                the identity at a width of one) and
                 10 with the one-device eager trainer from the same init,
                 in turns, under deterministic algorithms: losses, params and
                 moments bitwise equal; ms per mesh step beside the
@@ -320,7 +322,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 phase's checks, after the last host-timed phase, so that
                 no host-timed number runs beside them; the multi-pod mesh
                 is the CLI's, ``--mesh both``) is OK or SKIP, one line per
-                cell (``[dryrun]``); the sweep ends with the script
+                cell (``[dryrun]``); the train_4k cells against the mesh
+                trainer's before its compute was split along "model"
+                (``DRY_UNSPLIT``): qwen1.5-32b's, gemma3-27b's,
+                granite-3-2b's, internvl2-76b's and seamless-m4t-large-v2's
+                arguments + temp and dense FLOPs a rank fall at least 8x,
+                fit 80 GB (under 74.5 GiB), and their collective bytes a
+                step (a reduce-scatter's by its input) do not grow, but
+                for granite-3-2b's and seamless-m4t-large-v2's, which do
+                and are held to this slice's figures
+                (``DRY_COLL_GROWN``); no other train cell's arguments + temp
+                grows (``[dryrun split]``); the sweep ends with the script
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -4384,6 +4396,10 @@ def mesh_train(tag: str, mesh):
         f"{cap_ms[0]:.1f}); collectives per mesh step {per_step:g} (every "
         f"group of a one-rank world has one rank); peak memory over both "
         f"runs {peak / 2**30:.2f} GiB (each state {state_gib:.2f} GiB)")
+    log(f"{tag} the mesh step splits its compute along \"model\" "
+        f"(attention by heads, the FFN by columns, the residual stream by "
+        f"sequence) at a width of {mesh.shape['model']}: every exchange the "
+        f"identity, the one-device arithmetic")
     log(f"{tag} mesh against one-device eager over {MESH_STEPS} steps: "
         f"losses equal {losses_m == losses_e}, params / moments bitwise "
         f"equal {equal}; losses {json.dumps([round(x, 4) for x in losses_m])}")
@@ -4470,6 +4486,36 @@ DRY_WORKERS = 7            # CPU processes that run the dry run's sweep
 DRY_OUT = ROOT / "build" / "dryrun-smoke"
 DRY_RATIO = (0.8, 1.2)     # traced args + temp over the measured peak
 DRY_ARCH = "smollm-135m"
+# the single-pod train_4k cells as the dry run traced the mesh trainer
+# before its compute was split along "model" (every activation and FLOP of
+# a rank's rows whole along it; ``python -m repro_torch.launch.dryrun
+# --all --mesh single``): (arguments + temp bytes a rank, dense FLOPs a
+# rank, collective bytes a rank and step)
+DRY_UNSPLIT = {
+    "arctic-480b": (2450698717204, 128113205082849280, 4172446005412),
+    "gemma3-27b": (398422125636, 15065783201693696, 230371831516),
+    "granite-3-2b": (260509779224, 1667065786138624, 21753173276),
+    "hymba-1.5b": (201920230576, 1057528322457600, 14108228764),
+    "internvl2-76b": (702222432664, 39013215174131712, 608548573724),
+    "mixtral-8x22b": (4524848029044, 571599399080165376, 1230856129756),
+    "qwen1.5-32b": (383190758232, 19349686661939200, 301405658140),
+    "seamless-m4t-large-v2": (209913418136, 604628316061696, 12070623644),
+    "smollm-135m": (72503853672, 141012366262272, 1059195204),
+    "xlstm-350m": (290030168116, 141360258613248, 2303578140),
+}
+# the cells the split must bring onto one 80 GB card: memory and FLOPs a
+# rank at least DRY_FALL times smaller, memory under DRY_FITS, collective
+# bytes no more than before
+DRY_SPLIT = ("qwen1.5-32b", "gemma3-27b", "granite-3-2b", "internvl2-76b",
+             "seamless-m4t-large-v2")
+# the two of them whose split step moves more collective bytes than before
+# (at d = 1,024 and 2,048 the activations' gradients outweigh the
+# weights): held to the split's own bytes a rank and step, as the dry run
+# traced them (``python -m repro_torch.launch.dryrun --shape train_4k``)
+DRY_COLL_GROWN = {"granite-3-2b": 28855294172,
+                  "seamless-m4t-large-v2": 19591039356}
+DRY_FALL = 8
+DRY_FITS = 74.5 * 2**30
 
 
 def dryrun_start():
@@ -4703,6 +4749,7 @@ def dryrun_sweep(tag: str, sweep) -> None:
         else:
             log(f"{tag} {r['arch']} x {r['shape']} x {r['mesh']}: "
                 f"{r['status']} {r.get('reason') or r.get('error')}")
+    dryrun_split(tag, recs)
     status = [r["status"] for r in recs]
     log(f"{tag} sweep: {len(recs)} cells, {status.count('OK')} OK, "
         f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, in "
@@ -4712,6 +4759,40 @@ def dryrun_sweep(tag: str, sweep) -> None:
     if len(recs) != 40 or status.count("FAIL"):
         raise AssertionError(f"{tag} the sweep: {len(recs)} records, "
                              f"{status.count('FAIL')} FAIL")
+
+
+def dryrun_split(tag: str, recs) -> None:
+    """The sweep's train_4k cells against ``DRY_UNSPLIT``: the falls, the
+    fit and the collectives of ``DRY_SPLIT``'s cells (``DRY_COLL_GROWN``'s
+    against their own figures), and no other cell's memory grown; one
+    ``[dryrun split]`` line a cell."""
+    tag = tag[:-1] + " split]"
+    gib, bad = 2**30, []
+    train = {r["arch"]: r for r in recs if r["shape"] == "train_4k"}
+    for arch, (mem0, flops0, coll0) in DRY_UNSPLIT.items():
+        r = train.get(arch)
+        if r is None or r["status"] != "OK":
+            bad.append(f"{arch}: no OK record")
+            continue
+        mem = r["argument_size_in_bytes"] + r["temp_size_in_bytes"]
+        coll = sum(r["collectives"].values())
+        log(f"{tag} {arch} x train_4k: arguments + temp {mem0 / gib:.2f} -> "
+            f"{mem / gib:.2f} GiB a rank ({mem0 / mem:.2f}x), dense FLOPs "
+            f"{flops0:.4g} -> {r['flops']:.4g} ({flops0 / r['flops']:.2f}x)"
+            f", collectives {coll0:.4g} -> {coll:.4g} B a step ("
+            + ", ".join(f"{k} {v:.4g}" for k, v in r["collectives"].items()
+                        if v) + ")")
+        if arch in DRY_SPLIT:
+            if not (mem0 >= DRY_FALL * mem and mem < DRY_FITS and
+                    flops0 >= DRY_FALL * r["flops"] and
+                    coll <= DRY_COLL_GROWN.get(arch, coll0)):
+                bad.append(f"{arch}: memory {mem0} -> {mem}, FLOPs {flops0}"
+                           f" -> {r['flops']}, collectives {coll0} -> "
+                           f"{coll}")
+        elif mem > mem0:
+            bad.append(f"{arch}: memory grew {mem0} -> {mem}")
+    if bad:
+        raise AssertionError(f"{tag} " + "; ".join(bad))
 
 
 def phase_dryrun(phase4_tokens) -> dict:

@@ -56,8 +56,9 @@ def kernel(name: str, work) -> None:
 
 
 def collective(kind: str, nbytes: int) -> None:
-    """A collective of ``kind`` whose result holds ``nbytes`` on this
-    rank, counted in the census in force."""
+    """A collective of ``kind`` whose whole-sized side (a reduce-scatter's
+    input, any other's result) holds ``nbytes`` on this rank, counted in
+    the census in force."""
     c = active()
     if c is not None:
         c.collectives[kind] += int(nbytes)

@@ -15,8 +15,8 @@ tallies, for the one rank that runs it:
     bytes;
   * the kernels' census: launches and work of each hand-written kernel,
     from its wrapper's shape-only route (``repro_torch.kernels.work``);
-  * collectives: result bytes by kind, from the meshes
-    (``launch/mesh.py``);
+  * collectives: bytes by kind (a reduce-scatter's input, any other's
+    result), from the meshes (``launch/mesh.py``);
   * argument bytes: the storages of ``args`` (the rank's shards);
   * temp: the peak of the live bytes of storages allocated during the
     step (each freed when its storage dies), outputs included;

@@ -5,7 +5,8 @@ meta device as rank 0 of the production mesh (port of
 For each cell this builds the port's step as it would run on a rank of
 the 16 x 16 = 256-GPU single-pod mesh or the 2 x 16 x 16 = 512-GPU
 multi-pod mesh (``launch.mesh.make_production_mesh``): the mesh trainer's
-``train_step`` with its optimizer update, the mesh ``prefill_logits``, or
+``train_step`` with its optimizer update (its compute split along "model":
+``models.sharding``), the mesh ``prefill_logits``, or
 the mesh ``decode_step``, on stand-ins from ``launch.specs`` (this rank's
 blocks as meta tensors).  It traces the step once on the meta device
 under ``launch.cost``'s census: nothing is allocated, no kernel is
@@ -123,7 +124,8 @@ def build_traced(arch: str, shape_name: str, mesh_kind: str,
             # a layer's params gathered where the layer runs, as the
             # trainer gathers them
             use = tree.unflatten(params, [
-                sharding.Gathered(t, mesh_lib.placement_of(t).gather)
+                sharding.Gathered(t, mesh_lib.placement_of(t).gather,
+                                  mesh_lib.placement_of(t))
                 if p.split("/")[0] in layers
                 else mesh_lib.placement_of(t).gather(t)
                 for p, t in tree.leaves_with_paths(params)])

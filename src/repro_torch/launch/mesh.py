@@ -8,10 +8,13 @@ else a world of one rank) and lays a ``DeviceMesh`` of (world /
 model_axis, model_axis) named ("data", "model") over its ranks.  The
 port's ``Mesh`` wraps it with what the trainer asks of a mesh: each
 rank's index on each axis, and the collectives (all-gather, all-reduce,
-barrier) it runs, counted in ``Mesh.collectives`` and, by result bytes,
-in the dry run's census (``repro_torch.census``), once a call: a call
-over several axes runs one collective per axis that holds more than one
-index, and counts as one, as ``AbstractMesh``'s does.
+reduce-scatter, all-to-all, barrier) it runs, counted in
+``Mesh.collectives`` and in the dry run's census (``repro_torch.census``)
+by the bytes of their whole-sized side (an all-gather's result, a
+reduce-scatter's input: about what a rank receives or sends; an
+all-reduce's or all-to-all's tensor), once a call: a call over several
+axes runs one collective per axis that holds more than one index, and
+counts as one, as ``AbstractMesh``'s does.
 
 ``make_production_mesh(multi_pod)`` is the dry run's mesh: an
 ``AbstractMesh`` of (16, 16) ("data", "model") = 256 ranks, or (2, 16, 16)
@@ -26,10 +29,15 @@ names mesh axes (one, or several such as FSDP's ("pod", "data")) is split
 over them where it divides by their sizes' product (a dimension that does
 not divide stays whole, where the JAX package would pad).  ``shard`` cuts
 this rank's block; ``gather`` puts the whole leaf back together over the
-axes it is split on, and its backward takes the whole gradient to this
-rank's block: summed over the data axes (each data index computed it
-from its own rows), cut along "model" (the ranks along "model" computed
-the same rows).
+axes it is split on, and ``gather_range`` puts together this rank's range
+of one dim (the compute split along "model": a head range, d_ff columns).
+The backward takes the gradient to this rank's block by one rule
+(``_reduce``), a function of the leaf's placement and of whether its
+compute is split: a leaf gathered whole was applied by every rank to its
+own rows and heads only, so its gradient is summed over the data axes and
+"model"; a leaf gathered on exactly its own block along "model" (a range
+that is this rank's block for every rank) holds the whole gradient of
+that block already, and is summed over the data axes only.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ import torch.distributed as dist
 from repro_torch import census, resolve_device, tree
 from repro_torch.models.nn import stack_spec
 from repro_torch.models.sharding import (  # noqa: F401
-    P, PartitionSpec, data_axes, place, placement_of, rows_split)
+    P, PartitionSpec, data_axes, from_words, place, placement_of,
+    rows_split, to_words)
 
 Params = Any
 AXES = ("data", "model")
@@ -179,6 +188,32 @@ class Mesh(_MeshBase):
         census.collective("all-reduce", _nbytes(x))
         return x
 
+    def reduce_scatter(self, x: torch.Tensor, axis: Axes,
+                       dim: int) -> torch.Tensor:
+        """``x`` summed over ``axis`` and cut to this rank's block of ``dim``
+        (several axes: row-major, as ``all_gather`` puts them together)."""
+        if self._width(axis) == 1:
+            return x
+        sent = _nbytes(x)
+        for a in [a for a in self._axes(axis) if self.shape[a] > 1]:
+            parts = [p.contiguous() for p in x.chunk(self.shape[a], dim)]
+            x = torch.empty_like(parts[0])
+            dist.reduce_scatter(x, parts, group=self._group(a))
+        self.collectives += 1
+        census.collective("reduce-scatter", sent)
+        return x
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` (n, ...), n the size of ``axis``: row j goes to index j,
+        and row j of the result is what index j sent this rank."""
+        if self.shape[axis] == 1:
+            return x
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=self._group(axis))
+        self.collectives += 1
+        census.collective("all-to-all", _nbytes(out))
+        return out
+
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier()
@@ -189,7 +224,8 @@ class AbstractMesh(_MeshBase):
     """A mesh of ``shape`` (axis name -> size) seen from rank 0 on the meta
     device, with no process group (the dry run's; JAX's
     ``jax.sharding.AbstractMesh``): each collective gives a meta tensor of
-    its result's shape and counts its result's bytes, once per call."""
+    its result's shape and counts the bytes of its whole-sized side (a
+    reduce-scatter's input, any other's result), once per call."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         self.axis_names = tuple(axis_names)
@@ -217,6 +253,26 @@ class AbstractMesh(_MeshBase):
             self.collectives += 1
             census.collective("all-reduce", _nbytes(x))
         return x
+
+    def reduce_scatter(self, x: torch.Tensor, axis: Axes,
+                       dim: int) -> torch.Tensor:
+        n = self._width(axis)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = x.new_empty(shape, device=x.device)
+        self.collectives += 1
+        census.collective("reduce-scatter", _nbytes(x))
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if self.shape[axis] == 1:
+            return x
+        out = torch.empty_like(x)
+        self.collectives += 1
+        census.collective("all-to-all", _nbytes(out))
+        return out
 
     def barrier(self) -> None:
         if self.size > 1:
@@ -407,39 +463,111 @@ class Placement:
                 local = self.mesh.all_gather(local, axes, d)
         return local
 
-    def _reduce(self, grad: torch.Tensor) -> torch.Tensor:
-        """The whole gradient -> this rank's block's: cut along "model",
-        summed over the data axes (each data index's own rows)."""
-        daxes = data_axes(self.mesh)
+    def _reduce(self, grad: torch.Tensor, keep: Optional[int] = None
+                ) -> torch.Tensor:
+        """The gradient of what ``_gather`` gave -> this rank's block's:
+        summed over the data axes and "model" (reduce-scatters along the
+        dims those axes split, an all-reduce over the axes that split
+        none), each split dim cut to this rank's block.  ``keep``: the dim
+        split over "model" that was gathered on this rank's own block
+        (``gather_range``); its gradient is that block's whole gradient,
+        and "model" is not summed."""
+        mesh = self.mesh
+        summed = data_axes(mesh) + ("model",) * (keep is None and
+                                                 "model" in mesh.shape)
         for axes, d in self.splits:
-            if not set(axes) & set(daxes):
-                grad = self._cut(grad, axes, d)
-        if self.mesh.data_size > 1:
-            grad = self.mesh.all_reduce(grad.clone(), daxes)
-        for axes, d in self.splits:
-            if set(axes) & set(daxes):
-                grad = self._cut(grad, axes, d)
+            if d != keep:
+                grad = mesh.reduce_scatter(grad, axes, d)
+        rest = tuple(a for a in summed
+                     if a not in self.dims and mesh.shape[a] > 1)
+        if rest:
+            grad = mesh.all_reduce(grad.clone(), rest)
         return grad.contiguous()
 
-    def whole(self, local: torch.Tensor, skip: Sequence[int] = ()
-              ) -> torch.Tensor:
+    def whole(self, local: torch.Tensor, skip: Sequence[int] = (),
+              signs: bool = False) -> torch.Tensor:
         """The whole leaf from this rank's block (no gradient); the dims of
-        ``skip`` stay this rank's block."""
+        ``skip`` stay this rank's block.  ``signs``: sign(leaf), one bit a
+        value on the wire."""
+        if signs:
+            return self._gather_signs(local.detach(), skip)
         return self._gather(local.detach(), skip)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The whole leaf, differentiably (see the module docstring)."""
-        if not self.dims and self.mesh.data_size == 1:
+    def _gather_signs(self, local: torch.Tensor, skip=()) -> torch.Tensor:
+        """sign(leaf) (+-1, sign(0) = +1) put together as ``_gather`` puts
+        the leaf, one bit a value on the wire: the signs of this rank's
+        block packed, the words all-gathered over every axis at once (the
+        splits' axes in dim order, row-major) and every block unpacked
+        into its place."""
+        splits = [(axes, d) for axes, d in self.splits if d not in skip]
+        if not splits:
+            return (local >= 0).to(local.dtype) * 2 - 1
+        every = self.mesh.all_gather(
+            to_words(local.reshape(1, -1), True),
+            tuple(a for axes, _ in splits for a in axes), 0)
+        counts = [self._width(axes) for axes, _ in splits]
+        blocks = from_words(every, local.numel(), True, local.dtype)
+        blocks = blocks.reshape(tuple(counts) + tuple(local.shape))
+        # each split's count right before the dim it splits, then merged
+        order, shape = [], []
+        for i, n in enumerate(local.shape):
+            for j, (_, d) in enumerate(splits):
+                if d == i:
+                    order.append(j)
+            order.append(len(splits) + i)
+            shape.append(n * math.prod(c for c, (_, d) in zip(counts, splits)
+                                        if d == i))
+        return blocks.permute(order).reshape(shape)
+
+    def gather(self, local: torch.Tensor, signs: bool = False
+               ) -> torch.Tensor:
+        """The whole leaf, differentiably (see the module docstring).
+        ``signs``: sign(leaf) through the straight-through estimator
+        (``binarize.sign_ste``), one bit a value on the wire; its backward
+        applies the estimator's mask to this rank's block of the reduced
+        gradient."""
+        if not self.dims and self.mesh.size == 1:
+            if signs:
+                from repro_torch.core import binarize
+                return binarize.sign_ste(local)
             return local
-        return _Gather.apply(local, self)
+        return _Gather.apply(local, self, None, signs)
+
+    def gather_range(self, local: torch.Tensor, dim: int,
+                     spans: Sequence[Tuple[int, int]], index: int,
+                     signs: bool = False) -> torch.Tensor:
+        """Rank ``index``'s span ``spans[index]`` of the leaf along ``dim``
+        (``spans``: every "model" rank's, in rank order), differentiably
+        (``signs`` as in ``gather``).  Where every span is its rank's
+        block of a dim split over "model" alone, the leaf is gathered over
+        its other axes only and its backward sums over the data axes;
+        otherwise the whole leaf is gathered and narrowed, and the
+        gradient summed over "model" too (ranks that read the same span,
+        such as a KV head shared by query heads on two ranks, add their
+        parts)."""
+        m = self.mesh.shape.get("model", 1)
+        n = self.shape[dim] // m
+        own = [(r * n, (r + 1) * n) for r in range(m)]
+        if dict(self.splits).get(("model",)) == dim and list(spans) == own:
+            return _Gather.apply(local, self, dim, signs)
+        lo, hi = spans[index]
+        return self.gather(local, signs).narrow(dim, lo, hi - lo)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, placement):
-        ctx.placement = placement
-        return placement._gather(local)
+    def forward(ctx, local, placement, keep, signs):
+        ctx.placement, ctx.keep, ctx.signs = placement, keep, signs
+        skip = () if keep is None else (keep,)
+        if signs:
+            ctx.save_for_backward(local)
+            return placement._gather_signs(local, skip)
+        return placement._gather(local, skip)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.placement._reduce(grad), None
+        grad = ctx.placement._reduce(grad, ctx.keep)
+        if ctx.signs:
+            local, = ctx.saved_tensors
+            grad = grad * (local.abs() <= 1.0).to(grad.dtype)
+        return grad, None, None, None

@@ -8,7 +8,8 @@ record counts one rank's step):
                tensor-core operations / int8 peak and their 32-bit word
                operations / the ALU rate
   memory     = bytes / HBM bandwidth
-  collective = collective result bytes / the per-GPU network bandwidth
+  collective = collective bytes (a reduce-scatter's input, any other's
+               result) / the per-GPU network bandwidth
 
 Constants, H100 SXM5 (NVIDIA H100 Tensor Core GPU data sheet, SXM5,
 dense, 700 W; ``repro_torch.kernels.work``, which ``kernel_times`` uses

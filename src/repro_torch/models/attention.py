@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,7 @@ from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn import ref as paged_ref
 from repro_torch.kernels.sps_attn import ops as sps_ops
+from repro_torch.models import sharding
 from repro_torch.models.linear import BinaryDense, act_bits_packed
 from repro_torch.models.sharding import P
 
@@ -327,19 +328,77 @@ class SPSAttention:
                 m = m & (c > r - window)
         return m
 
-    def _repeat_kv(self, x: torch.Tensor) -> torch.Tensor:
+    def _repeat_kv(self, x: torch.Tensor,
+                   heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """(B, Hkv, ...) -> (B, H, ...): each KV head for its G query
-        heads."""
-        if self.groups == 1:
+        heads.  ``heads`` (h0, h1): ``x`` holds the KV heads that query
+        heads h0..h1-1 read, from KV head h0 // G on, and the result those
+        query heads."""
+        g = self.groups
+        if heads is not None and (heads[0] % g or heads[1] % g):
+            h0, h1 = heads
+            idx = torch.arange(h0, h1, device=x.device) // g - h0 // g
+            return x.index_select(1, idx)
+        if g == 1:
             return x
         b, hkv = x.shape[:2]
-        return x[:, :, None].expand(b, hkv, self.groups, *x.shape[2:]
-                                    ).reshape(b, hkv * self.groups,
-                                              *x.shape[2:])
+        return x[:, :, None].expand(b, hkv, g, *x.shape[2:]
+                                    ).reshape(b, hkv * g, *x.shape[2:])
+
+    def head_ranges(self, split: sharding.Split = sharding.WHOLE
+                    ) -> Tuple[List[Tuple[int, int]],
+                               List[Tuple[int, int]]]:
+        """Every "model" rank's query heads [h0, h1) (``split_range``) and
+        the KV heads [k0, k1) they read, in rank order."""
+        g = self.groups
+        qs = sharding.ranges(self.num_heads, split)
+        kvs = [(lo // g, -(-hi // g)) if hi > lo else (lo // g, lo // g)
+               for lo, hi in qs]
+        return qs, kvs
+
+    def _head_params(self, params: Params, split: sharding.Split,
+                     qs, kvs) -> Params:
+        """This rank's params: the signs of ``wq``'s columns of its query
+        heads and of ``wk``/``wv``'s columns of their KV heads, with their
+        scales and biases; the per-head vectors of both
+        (``sharding.columns``); ``wo``'s signs and the rest whole."""
+        dh = self.head_dim
+
+        def take(leaf, dim, spans, signs=False):
+            return sharding.columns(leaf, dim, spans, split, signs)
+
+        def dense_cols(p, heads):
+            spans = [(lo * dh, hi * dh) for lo, hi in heads]
+            out = {"w_sign": take(p["w_latent"], 1, spans, True),
+                   "alpha_w": take(p["alpha_w"], 0, spans)}
+            if "bias" in p:
+                out["bias"] = take(p["bias"], 0, spans)
+            return out
+
+        wo = params["wo"]
+        out: Params = {
+            "wq": dense_cols(params["wq"], qs),
+            "wk": dense_cols(params["wk"], kvs),
+            "wv": dense_cols(params["wv"], kvs),
+            "wo": {"w_sign": sharding.whole(wo["w_latent"], signs=True),
+                   **{k: sharding.whole(v) for k, v in wo.items()
+                      if k != "w_latent"}}}
+        for k in ("q_alpha", "q_beta", "bit_alpha"):
+            out[k] = take(params[k], 0, qs)
+        for k in ("k_alpha", "k_beta", "v_alpha", "v_beta"):
+            out[k] = take(params[k], 0, kvs)
+        lam = params["sps_lambda"]
+        out["sps_lambda"] = (sharding.whole(lam)
+                             if self.sps_granularity == "layer"
+                             else take(lam, 0, qs))
+        for k in ("act_alpha", "act_beta", "ctx_alpha", "ctx_beta"):
+            out[k] = sharding.whole(params[k])
+        return out
 
     def qat(self, params: Params, x: torch.Tensor, *, memory=None,
             positions: Optional[torch.Tensor] = None, window=None,
-            kv_len=None, collect_scores: bool = False
+            kv_len=None, collect_scores: bool = False,
+            split: sharding.Split = sharding.WHOLE
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """QAT forward: x (B, S, d) -> (out (B, S, d) in ``dtype``, aux).
         Cross-attention takes its keys and values from ``memory`` (B,
@@ -347,16 +406,26 @@ class SPSAttention:
         ``act_beta``; its mask is the key length alone, and RoPE is off.
         ``window`` masks keys at or before row - window (causal only);
         ``kv_len`` masks keys from there on; ``collect_scores`` returns the
-        float32 scores and probabilities (B, H, S, S_kv) in aux."""
+        float32 scores and probabilities (B, H, S, S_kv) in aux.
+
+        ``split`` (``sharding.Split``, the compute split along "model"):
+        ``x`` and the output are this rank's block of the sequence (whole
+        where the split leaves it whole; ``memory`` is whole); the signs
+        of ``x`` are gathered whole along the sequence, the rank computes
+        its query heads (``head_ranges``) and the KV heads they read
+        (``sharding.col_product``: the projections' input gradient goes to
+        the positions' ranks by an all-to-all); the context's signs go to
+        the ranks whose positions they are
+        (``sharding.to_rows``), and ``wo`` multiplies this rank's
+        positions by its whole weight.  ``params`` may hold
+        ``sharding.Gathered`` leaves."""
         if self.cross and memory is None:
             raise ValueError("cross-attention's QAT face needs memory")
-        b, s, _ = x.shape
-        h, hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
-        dev = x.device
-        xkv = memory if self.cross else x
-        skv = xkv.shape[1]
-        if positions is None:
-            positions = torch.arange(s, device=dev)[None, :]
+        dh = self.head_dim
+        qs, kvs = self.head_ranges(split)
+        h0, h1 = qs[split.index]
+        latent = {n: params[n]["w_latent"] for n in ("wq", "wk", "wv")}
+        params = self._head_params(params, split, qs, kvs)
         alpha = params["act_alpha"].clamp_min(1e-6)
         beta = params["act_beta"]
 
@@ -364,15 +433,31 @@ class SPSAttention:
             return binarize.sign_ste(
                 (binarize.promote(t, alpha, beta) - beta) / alpha)
 
-        s_x = signs(x)
-        s_kv = signs(xkv) if self.cross else s_x
+        s_own = signs(x)
+        s_x = sharding.seq_gather(s_own.detach(), split, signs=True)
+        b, s, _ = s_x.shape
+        dev = x.device
+        skv = memory.shape[1] if self.cross else s
+        if positions is None:
+            positions = torch.arange(s, device=dev)[None, :]
         dense = self._denses()
-        q = dense["wq"].apply(params["wq"], act_values=s_x, act_scale=alpha)
-        k, v = (dense[n].apply(params[n], act_values=s_kv, act_scale=alpha)
-                for n in ("wk", "wv"))
-        q = q.reshape(b, s, h, dh)
-        k = k.reshape(b, skv, hkv, dh)
-        v = v.reshape(b, skv, hkv, dh)
+
+        def proj(n, heads):
+            y = sharding.col_product(
+                s_own, s_x, params[n]["w_sign"], latent[n], split,
+                [(lo * dh, hi * dh) for lo, hi in heads], dense[n].dtype)
+            return dense[n].finish(params[n], y, alpha)
+
+        q = proj("wq", qs)
+        if self.cross:
+            s_kv = signs(memory)
+            k, v = (dense[n].apply(params[n], act_values=s_kv,
+                                   act_scale=alpha) for n in ("wk", "wv"))
+        else:
+            k, v = proj("wk", kvs), proj("wv", kvs)
+        q = q.reshape(b, s, h1 - h0, dh)
+        k = k.reshape(b, skv, -1, dh)
+        v = v.reshape(b, skv, -1, dh)
         if self.use_rope and not self.cross:
             q = rope(q, positions, self.rope_theta)
             k = rope(k, positions[:, :s], self.rope_theta)
@@ -383,14 +468,15 @@ class SPSAttention:
                 alpha_h[None, :, None, None].clamp_min(1e-6)
             return binarize.sign_ste(z)
 
+        def per_head(t):
+            return self._repeat_kv(t, (h0, h1))
+
         s_q = headwise_sign(q, params["q_alpha"], params["q_beta"])
-        s_k = self._repeat_kv(headwise_sign(k, params["k_alpha"],
-                                            params["k_beta"]))
-        s_v = self._repeat_kv(headwise_sign(v, params["v_alpha"],
-                                            params["v_beta"]))
+        s_k = per_head(headwise_sign(k, params["k_alpha"], params["k_beta"]))
+        s_v = per_head(headwise_sign(v, params["v_alpha"], params["v_beta"]))
         scale_qk = (params["q_alpha"][:, None, None] *
-                    self._repeat_kv(params["k_alpha"][None])[0][
-                        :, None, None] / math.sqrt(dh))
+                    per_head(params["k_alpha"][None])[0][:, None, None] /
+                    math.sqrt(dh))
         rows = torch.arange(s, device=dev)
         m = self._mask(rows, torch.arange(skv, device=dev),
                        skv if kv_len is None else kv_len, window)[None, None]
@@ -407,12 +493,15 @@ class SPSAttention:
         ctx = torch.matmul(probs, s_v)
         aux: Dict[str, torch.Tensor] = {}
         if collect_scores:
-            aux["scores"], aux["probs"] = z, probs
-        av = self._repeat_kv(params["v_alpha"][None])[0]
+            aux["scores"], aux["probs"] = (sharding.gather_heads(
+                t, split, 1, qs) for t in (z, probs))
+        av = per_head(params["v_alpha"][None])[0]
         ctx = ctx * av[None, :, None, None]
         ca = params["ctx_alpha"].clamp_min(1e-6)
         s_c = binarize.sign_ste((ctx - params["ctx_beta"]) / ca)
-        s_c = s_c.transpose(1, 2).reshape(b, s, self.q_dim)
+        s_c = s_c.transpose(1, 2).reshape(b, s, (h1 - h0) * dh)
+        s_c = sharding.to_rows(s_c, split, [(lo * dh, hi * dh)
+                                            for lo, hi in qs])
         out = dense["wo"].apply(params["wo"], act_values=s_c,
                                 act_scale=params["ctx_alpha"])
         return out, aux

@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import nn
+from repro_torch.models import nn, sharding
 from repro_torch.models.attention import PageSpec, SPSAttention
 from repro_torch.models.ffn import PORTED, BinaryFFN, BinaryMoE
 from repro_torch.models.ssm import MambaBlock, MLSTMBlock, SLSTMBlock
@@ -206,7 +206,8 @@ class Block:
         return out
 
     def qat(self, params: Params, x: torch.Tensor, *, positions=None,
-            window=None, memory=None, collect_scores: bool = False
+            window=None, memory=None, collect_scores: bool = False,
+            split: sharding.Split = sharding.WHOLE
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """QAT forward of any kind: "attn" x + attn(norm1(x)); "hybrid"
         the attention and the Mamba branch on the same norm1(x), averaged;
@@ -214,34 +215,55 @@ class Block:
         then + the FFN of norm2 of that (a MoE's load-balance loss lands
         in aux as "moe_aux_loss"); the xLSTM cells x + cell(norm1(x)),
         no FFN.  The block's own ``window`` unless one is given.  Returns
-        (x, aux) with the attention's aux keys prefixed "attn_"."""
+        (x, aux) with the attention's aux keys prefixed "attn_".
+
+        ``split`` (``sharding.Split``): ``x`` and the result are this
+        rank's block of the sequence (``memory`` whole); the norms run on
+        its rows, the attention and a dense FFN split their compute along
+        "model" (``SPSAttention.qat``, ``BinaryFFN.apply``), and the
+        recurrent cells, the Mamba branch and a MoE compute whole on the
+        sequence gathered whole, each rank keeping its rows; a MoE's
+        load-balance loss, which every "model" rank computes whole, counts
+        1 / width on each.  ``params`` may hold ``sharding.Gathered``
+        leaves, gathered here (inside the caller's checkpoint)."""
         if self.kind == "dec" and memory is None:
             raise ValueError("a 'dec' block's QAT face needs memory")
         if window is None and self.window:
             window = self.window
         parts = self._parts()
+        norm, whole = self._norm(), sharding.materialize
         aux: Dict[str, torch.Tensor] = {}
-        h = self._norm().apply(params["norm1"], x)
+
+        def whole_rows(mod, p, h):
+            out = mod.apply(whole(p), sharding.seq_gather(h, split))
+            if isinstance(out, tuple):
+                return (sharding.seq_local(out[0], split),) + out[1:]
+            return sharding.seq_local(out, split)
+
+        h = norm.apply(whole(params["norm1"]), x)
         if "cell" in parts:
-            return x + parts["cell"].apply(params["cell"], h), aux
+            return x + whole_rows(parts["cell"], params["cell"], h), aux
         a_out, a_aux = parts["attn"].qat(
             params["attn"], h, positions=positions, window=window,
-            collect_scores=collect_scores)
+            collect_scores=collect_scores, split=split)
         aux.update({f"attn_{k}": v for k, v in a_aux.items()})
         if self.kind == "hybrid":
-            a_out = 0.5 * (a_out + parts["mamba"].apply(params["mamba"], h))
+            a_out = 0.5 * (a_out + whole_rows(parts["mamba"],
+                                              params["mamba"], h))
         x = x + a_out
         if self.kind == "dec":
             c_out, _ = parts["cross"].qat(
-                params["cross"], self._norm().apply(params["norm_x"], x),
-                memory=memory)
+                params["cross"], norm.apply(whole(params["norm_x"]), x),
+                memory=memory, split=split)
             x = x + c_out
-        h2 = self._norm().apply(params["norm2"], x)
+        h2 = norm.apply(whole(params["norm2"]), x)
         if isinstance(parts["ffn"], BinaryMoE):
-            f_out, f_aux = parts["ffn"].apply(params["ffn"], h2)
+            f_out, f_aux = whole_rows(parts["ffn"], params["ffn"], h2)
+            if split.width > 1:
+                f_aux = {k: v / split.width for k, v in f_aux.items()}
             aux.update(f_aux)
         else:
-            f_out = parts["ffn"].apply(params["ffn"], h2)
+            f_out = parts["ffn"].apply(params["ffn"], h2, split=split)
         return x + f_out, aux
 
     def _ffn_residual(self, params: Params,

@@ -207,29 +207,64 @@ class BinaryFFN:
     def _act_fn(self, u: torch.Tensor) -> torch.Tensor:
         return F.relu(u) if self.act == "relu" else glu_act(self.act, u)
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Params, x: torch.Tensor,
+              split: sharding.Split = sharding.WHOLE) -> torch.Tensor:
         """QAT forward: x (..., d) -> (..., d) in ``dtype``; an expert
         stack takes (E, C, d) and multiplies each expert's rows by its own
-        weights (a batched matmul), scaled by alpha_w (E, 1, P)."""
-        alpha = params["act_alpha"].clamp_min(1e-6)
-        beta = params["act_beta"]
-        s_x = binarize.sign_ste(
-            (binarize.promote(x, alpha, beta) - beta) / alpha)
+        weights (a batched matmul), scaled by alpha_w (E, 1, P).
 
-        def mm(wp, a, a_scale):
-            y = pm1_matmul(a, binarize.sign_ste(wp["w_latent"]), self.dtype)
+        ``split`` (``sharding.Split``; a dense FFN on (B, S, d) only):
+        ``x`` and the output are this rank's block of the sequence; the
+        signs of ``x`` are gathered whole along it, ``w1``/``w3`` give
+        this rank's d_ff columns (``sharding.split_range``;
+        ``sharding.col_product``: their input gradient goes to the
+        positions' ranks by an all-to-all) and the
+        mid-activation's binarization runs on them; its {0, 1} values go
+        to the ranks whose positions they are (``sharding.to_rows``), and
+        ``w2`` multiplies this rank's positions by its whole weight.
+        ``params`` may hold ``sharding.Gathered`` leaves."""
+        if split.width > 1 and self.num_experts:
+            raise ValueError("an expert stack computes whole; only a dense"
+                             " FFN splits along \"model\"")
+        spans = sharding.ranges(self.d_ff, split)
+
+        def take(leaf, dim, signs=False):
+            return sharding.columns(leaf, dim, spans, split, signs)
+
+        w1, w3 = ({"w_sign": take(params[k]["w_latent"], -1, True),
+                   "alpha_w": take(params[k]["alpha_w"], -1)}
+                  if k in params else None for k in ("w1", "w3"))
+        w2 = {"w_sign": sharding.whole(params["w2"]["w_latent"], True),
+              "alpha_w": sharding.whole(params["w2"]["alpha_w"])}
+        act_alpha, act_beta, h_alpha, h_beta = (sharding.whole(params[k])
+                                                for k in ("act_alpha",
+                                                          "act_beta",
+                                                          "h_alpha",
+                                                          "h_beta"))
+        alpha = act_alpha.clamp_min(1e-6)
+        s_own = binarize.sign_ste(
+            (binarize.promote(x, alpha, act_beta) - act_beta) / alpha)
+        s_x = sharding.seq_gather(s_own.detach(), split, signs=True)
+
+        def scale(wp, y, a_scale):
             alpha_w = (wp["alpha_w"][:, None, :] if self.num_experts
                        else wp["alpha_w"])
             return y * alpha_w * a_scale
 
-        u = mm(params["w1"], s_x, params["act_alpha"])
-        h = self._act_fn(u)
+        def cols(k, wp):
+            return scale(wp, sharding.col_product(
+                s_own, s_x, wp["w_sign"], params[k]["w_latent"], split,
+                spans, self.dtype), act_alpha)
+
+        h = self._act_fn(cols("w1", w1))
         if self.glu:
-            h = h * mm(params["w3"], s_x, params["act_alpha"])
-        ha = params["h_alpha"].clamp_min(1e-6)
-        h_vals = binarize.clip(binarize.round_ste(
-            (h - params["h_beta"]) / ha), 0.0, 1.0)
-        return mm(params["w2"], h_vals, params["h_alpha"]).to(self.dtype)
+            h = h * cols("w3", w3)
+        ha = h_alpha.clamp_min(1e-6)
+        h_vals = binarize.clip(binarize.round_ste((h - h_beta) / ha), 0.0,
+                               1.0)
+        h_vals = sharding.to_rows(h_vals, split, spans, signed=False)
+        return scale(w2, pm1_matmul(h_vals, w2["w_sign"], self.dtype),
+                     h_alpha).to(self.dtype)
 
     def apply_deploy(self, params: Params, x: Optional[torch.Tensor] = None,
                      *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:

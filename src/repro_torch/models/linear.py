@@ -97,7 +97,11 @@ class BinaryDense:
         which this layer binarizes with its own scales, or ``act_values``
         (+-1 / {0,1} unscaled values: a shared QKV binarization, attention
         probabilities) with ``act_scale``.  The scales multiply after the
-        +-1 accumulation, so the integer part is the deploy RBMM's."""
+        +-1 accumulation, so the integer part is the deploy RBMM's.
+        ``params`` may give the weight's signs (``w_sign``, +-1 through
+        the straight-through estimator) in place of ``w_latent``, and a
+        column range (``w_sign`` (in, n), ``alpha_w`` and ``bias`` (n,))
+        gives those n outputs."""
         if self.external_act:
             if act_values is None:
                 raise ValueError("a layer with external_act takes "
@@ -112,10 +116,16 @@ class BinaryDense:
             a = binarize.sign_ste(
                 (binarize.promote(x, alpha, beta) - beta) / alpha)
             a_scale = params["act_alpha"]
-        wb = binarize.sign_ste(params["w_latent"])
-        y = pm1_matmul(a, wb, self.dtype)
+        wb = params["w_sign"] if "w_sign" in params else \
+            binarize.sign_ste(params["w_latent"])
+        return self.finish(params, pm1_matmul(a, wb, self.dtype), a_scale)
+
+    def finish(self, params: Params, y: torch.Tensor,
+               act_scale=1.0) -> torch.Tensor:
+        """``apply``'s last step: the scales, and the bias, on a +-1 sum
+        ``y`` (a column range's from ``sharding.col_product``)."""
         y = y * (params["alpha_w"].to(torch.float32) * torch.as_tensor(
-            a_scale, dtype=torch.float32, device=y.device))
+            act_scale, dtype=torch.float32, device=y.device))
         if self.use_bias:
             y = y + params["bias"]
         return y.to(self.dtype)

@@ -166,20 +166,23 @@ def _keep_all(path: str, part: Params) -> Params:
 
 
 def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
-               x: torch.Tensor, memory: Optional[torch.Tensor] = None
+               x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+               split: sharding.Split = sharding.WHOLE
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The QAT face of a stack of blocks, layer by layer: (x, the MoE
     load-balance losses summed in layer order, float32).  With
     ``cfg.remat`` other than "none" each block is a
     ``torch.utils.checkpoint`` (its activations recomputed in the
     backward), as the JAX package wraps each block in ``jax.checkpoint``;
-    the recomputation gives the same values.  On a mesh each block's
-    params are gathered whole inside its checkpoint, so the backward
-    gathers them again (``sharding.materialize``)."""
+    the recomputation gives the same values.  ``split``: ``x`` is this
+    rank's block of the residual stream's sequence, which is what each
+    checkpoint saves (``Block.qat``).  On a mesh each block's params are
+    gathered inside its checkpoint (whole, or on this rank's range), so
+    the backward gathers them again."""
     aux = torch.zeros((), device=x.device)
     for blk, bp in zip(blocks, layers):
         def run(xx, mem, blk=blk, bp=bp):
-            y, a = blk.qat(sharding.materialize(bp), xx, memory=mem)
+            y, a = blk.qat(bp, xx, memory=mem, split=split)
             return y, a.get("moe_aux_loss", torch.zeros((),
                                                        device=xx.device))
 
@@ -197,16 +200,31 @@ def _qat_stack(cfg: ModelConfig, blocks: List[Block], layers: List[Params],
 def _nll(logits: torch.Tensor, labels
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean NLL over the valid labels (>= 0), valid mask, denominator)
-    of float32 logits.  With the batch split over a mesh's data axis the
-    denominator counts the global batch's valid labels, so the data
-    indices' losses sum to the global batch's."""
+    of float32 logits.  With the batch split over a mesh's data axis, and
+    the sequence over "model", the denominator counts the global batch's
+    valid labels, so the ranks' losses sum to the global batch's."""
     labels = torch.as_tensor(labels, device=logits.device)
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
-    denom = sharding.batch_sum(valid.sum()).clamp_min(1)
+    denom = sharding.batch_sum(valid.sum(), seq=True).clamp_min(1)
     return torch.where(valid, nll, 0.0).sum() / denom, valid, denom
+
+
+def _loss_rows(x: torch.Tensor, labels, n: int, prefix: int = 0):
+    """(the hidden rows, the labels) whose loss this rank counts: of a
+    stream of ``n`` positions whose first ``prefix`` carry no label (the
+    frontend stub's), ``x`` holding this rank's positions
+    (``sharding.held``) and ``labels`` (B, n - prefix) every position's;
+    one device's: ``x[:, prefix:]`` and all the labels."""
+    split = sharding.model_split(n)
+    lo = sharding.held(n, split)[0]
+    a, b = sharding.loss_rows(n, split)
+    a = max(a, prefix)
+    b = max(a, b)
+    labels = torch.as_tensor(labels, device=x.device)
+    return x[:, a - lo:b - lo], labels[:, a - prefix:b - prefix]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,16 +416,24 @@ class LMModel:
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens (B, S) -> (hidden (B, F + S, d) before the final norm,
         {"moe_aux_loss": the blocks' load-balance losses summed in layer
-        order, 0 without a MoE}).  Runs on the device of ``params``."""
+        order, 0 without a MoE}).  Runs on the device of ``params``.
+        Where the context splits the compute along "model" (the mesh
+        trainer's), the hidden holds this rank's positions
+        (``sharding.held``): the residual stream is cut to them before
+        the first block (JAX's ``constrain(y, "batch", "model", None)``)."""
         dev = params["embed"]["embedding"].device
         x = self._embed_tokens(params, torch.as_tensor(tokens, device=dev),
                                frontend_embeds)
-        x, aux = _qat_stack(self.cfg, self._blocks(), params["blocks"], x)
+        split = sharding.model_split(x.shape[1])
+        x = sharding.constrain(x, "batch", "model", None)
+        x, aux = _qat_stack(self.cfg, self._blocks(), params["blocks"], x,
+                            split=split)
         return x, {"moe_aux_loss": aux}
 
     def qat_logits(self, params: Params, tokens: torch.Tensor, *,
                    frontend_embeds=None) -> torch.Tensor:
-        """QAT forward -> logits (B, F + S, V), float32."""
+        """QAT forward -> logits (B, F + S, V), float32 (this rank's
+        positions where the compute is split, as ``qat_hidden``)."""
         x, _ = self.qat_hidden(params, tokens,
                                frontend_embeds=frontend_embeds)
         return self._logits(params, x)
@@ -418,14 +444,19 @@ class LMModel:
         frontend stub's frontend_embeds.  Returns (loss_total, metrics):
         the mean next-token NLL over valid labels plus the z-loss
         1e-4 * logsumexp^2 over them plus 0.01 * the MoE load-balance
-        loss; metrics "loss" (the NLL alone), "moe_aux", "tokens"."""
-        x, aux = self.qat_hidden(params, batch["tokens"],
+        loss; metrics "loss" (the NLL alone), "moe_aux", "tokens".  Where
+        the compute is split along "model", the final norm, the logits
+        and both losses run on this rank's positions (the frontend's
+        carry no label) and the terms are this rank's shares: they sum
+        over the ranks to the global batch's."""
+        tokens = batch["tokens"]
+        x, aux = self.qat_hidden(params, tokens,
                                  frontend_embeds=batch.get(
                                      "frontend_embeds"))
-        if self.cfg.frontend_tokens:
-            x = x[:, self.cfg.frontend_tokens:]
+        f = self.cfg.frontend_tokens
+        x, labels = _loss_rows(x, batch["labels"], f + tokens.shape[1], f)
         logits = self._logits(params, x).to(torch.float32)
-        loss, valid, denom = _nll(logits, batch["labels"])
+        loss, valid, denom = _nll(logits, labels)
         zl = 1e-4 * torch.logsumexp(logits, dim=-1) ** 2
         loss_total = (loss + torch.where(valid, zl, 0.0).sum() / denom +
                       0.01 * aux["moe_aux_loss"])
@@ -674,12 +705,15 @@ class EncDecModel:
         dev = params["embed"]["embedding"].device
         memory = self.encode(params, torch.as_tensor(
             batch["frontend_embeds"], device=dev), deploy=False)
-        x = self._embed_tokens(params, torch.as_tensor(batch["tokens"],
-                                                       device=dev))
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        x = self._embed_tokens(params, tokens)
+        split = sharding.model_split(x.shape[1])
+        x = sharding.constrain(x, "batch", "model", None)
         x, _ = _qat_stack(self.cfg, [self._dec_block()] * self.cfg.num_layers,
-                          params["decoder"], x, memory)
+                          params["decoder"], x, memory, split)
+        x, labels = _loss_rows(x, batch["labels"], tokens.shape[1])
         logits = self._logits(params, x).to(torch.float32)
-        loss, valid, _ = _nll(logits, batch["labels"])
+        loss, valid, _ = _nll(logits, labels)
         return loss, {"loss": loss, "tokens": valid.sum(),
                       "moe_aux": torch.zeros((), device=dev)}
 
@@ -787,10 +821,16 @@ class EncDecModel:
         if deploy:
             for lp in params["encoder"]:
                 x, _ = blk.deploy_prefill(whole(lp), x)
-        else:
-            x, _ = _qat_stack(self.cfg, [blk] * self.enc_layers,
-                              params["encoder"], x)
-        return self._norm().apply(whole(params["enc_norm"]), x)
+            return self._norm().apply(whole(params["enc_norm"]), x)
+        # the QAT face splits the compute along "model" where the context
+        # says so: the memory is gathered whole once, for every decoder
+        # layer's cross-attention
+        split = sharding.model_split(x.shape[1])
+        x = sharding.constrain(x, "batch", "model", None)
+        x, _ = _qat_stack(self.cfg, [blk] * self.enc_layers,
+                          params["encoder"], x, split=split)
+        return sharding.seq_gather(
+            self._norm().apply(params["enc_norm"], x), split)
 
     def _embed_tokens(self, params: Params,
                       tokens: torch.Tensor) -> torch.Tensor:

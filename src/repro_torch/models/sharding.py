@@ -7,20 +7,47 @@ names.  It is a leaf of ``repro_torch.tree`` (not a tuple), so a spec tree
 mirrors the param tree it describes.
 
 ``with activation_sharding(mesh, data_axes):`` is what the trainer's mesh
-step runs the model's loss in.  The JAX package lets XLA place the
-activations (``constrain`` emits ``with_sharding_constraint``); the port
-splits the batch at the trainer and computes every activation whole along
-"model", so ``constrain`` returns ``x`` itself, in a context or not, and
-no model code calls it.  What the port's model does need on a data axis
-wider than one, it asks of the context:
+step runs the model's loss in.  The trainer splits the batch over the
+data axes; on a mesh whose "model" axis is wider than one, a QAT face
+also splits its compute along "model", as the JAX package's param specs
+and ``constrain`` name it (``Split``, from ``model_split(n)`` for a
+stream of n positions):
+  * the residual stream between blocks holds this rank's block of the
+    sequence (``constrain(x, "batch", "model", None)`` cuts it; a length
+    that "model" does not divide stays whole on every rank);
+  * a block gathers its normed input along the sequence (``seq_gather``;
+    the attention's and the FFN's as sign bits, ``signs=True``), computes
+    its attention on this rank's query heads and its FFN on this rank's
+    d_ff columns (``split_range``: the first n % m ranks take ceil(n/m)
+    units, the rest floor(n/m)); the context's and the mid-activation's
+    binary values then go to the ranks whose positions they are
+    (``to_rows``: an all-to-all of packed bits), and ``wo`` and ``w2``
+    multiply this rank's positions by their whole weights;
+  * what still computes whole (recurrent cells, the Mamba branch, the
+    MoE) runs on the gathered sequence and keeps this rank's rows
+    (``seq_local``).
+Each is an ``autograd.Function``: an all-gather's backward is a
+reduce-scatter, an all-to-all's the all-to-all back; the column products
+that read a gathered input (``col_product``: ``wq``/``wk``/``wv``,
+``w1``/``w3``) send their output's gradient to the positions' ranks by an
+all-to-all instead, each rank's span of columns (B S c / m values where
+the reduce-scatter of the input's gradient would move B S d).  A block's binary
+weights travel as sign bits (``columns(..., signs=True)``,
+``whole(..., signs=True)``: the forward reads nothing else of a latent
+weight, and the straight-through mask applies to this rank's block after
+the gradient's reduction).  At a "model" axis of one every one of them
+is the identity, and the code path is the one a single device runs.  What
+the port's model asks of the context on a data axis wider than one:
   * ``batch_sum`` — a count over the global batch (the loss's number of
-    valid labels, the MoE's first choices per expert);
+    valid labels, with ``seq=True`` over the ranks' sequence blocks too;
+    the MoE's first choices per expert);
   * ``batch_gather`` — rows of every data index, in global row order (the
     MoE's expert choices, for capacity slots in global token order);
-  * ``materialize`` — a layer's params gathered whole where the layer
-    runs (``Gathered`` leaves: the port's just-in-time all-gather of
-    FSDP-sharded params, which XLA inserts in the JAX package).
-Outside a context, or on a data axis of one, each gives its argument back.
+  * ``materialize`` / ``columns`` — a layer's params gathered whole, or on
+    this rank's range, where the layer runs (``Gathered`` leaves: the
+    port's just-in-time all-gather of FSDP-sharded params, which XLA
+    inserts in the JAX package).
+Outside a context, or on axes of one index, each gives its argument back.
 
 A rank's block of a leaf carries its ``launch.mesh.Placement``: ``place``
 marks it, ``placement_of`` reads it, and ``rows_split`` says whether a
@@ -35,7 +62,8 @@ must route and gather as the forward did.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -78,18 +106,22 @@ P = PartitionSpec
 class Gathered:
     """A param leaf held as this rank's shard (``local``); ``gather(local)``
     gives the whole leaf, differentiably (its backward reduces the
-    gradient to the shard)."""
-    __slots__ = ("local", "gather")
+    gradient to the shard).  With its ``placement`` (a
+    ``launch.mesh.Placement``) it can also be gathered on a range of one
+    dim (``columns``)."""
+    __slots__ = ("local", "gather", "placement")
 
     def __init__(self, local: torch.Tensor,
-                 gather: Callable[[torch.Tensor], torch.Tensor]):
-        self.local, self.gather = local, gather
+                 gather: Callable[[torch.Tensor], torch.Tensor],
+                 placement: Any = None):
+        self.local, self.gather, self.placement = local, gather, placement
 
 
 @contextlib.contextmanager
 def activation_sharding(mesh, data_axes: Sequence[str]):
     """Run model code on ``mesh`` with the global batch split over
-    ``data_axes`` (``mesh``: ``repro_torch.launch.mesh.Mesh``)."""
+    ``data_axes`` (``mesh``: ``repro_torch.launch.mesh.Mesh``), and the
+    QAT faces' compute split along its "model" axis (``model_split``)."""
     prev = _CTX[0]
     _CTX[0] = (mesh, tuple(data_axes))
     try:
@@ -100,12 +132,6 @@ def activation_sharding(mesh, data_axes: Sequence[str]):
 
 def current() -> Optional[Tuple[Any, Tuple[str, ...]]]:
     return _CTX[0]
-
-
-def constrain(x, *axes):
-    """JAX's activation constraint; the port's activations are whole along
-    "model" and split over the data axes by the trainer: ``x`` itself."""
-    return x
 
 
 def batch_axes() -> Tuple[str, ...]:
@@ -128,11 +154,16 @@ def batch_split() -> Tuple[int, int]:
     return (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
 
 
-def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the data indices (no gradient)."""
-    mesh = _split_mesh()
-    return t if mesh is None else mesh.all_reduce(t.detach().clone(),
-                                                  batch_axes())
+def batch_sum(t: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """``t`` summed over the data indices (no gradient); with ``seq`` also
+    over "model" where the compute is split along it, whose ranks count
+    their own rows of the sequence (the loss's valid labels)."""
+    axes = batch_axes() if _split_mesh() is not None else ()
+    if seq and model_split(0).width > 1:
+        axes = axes + ("model",)
+    if not axes:
+        return t
+    return current()[0].all_reduce(t.detach().clone(), axes)
 
 
 def batch_gather(t: torch.Tensor) -> torch.Tensor:
@@ -141,6 +172,321 @@ def batch_gather(t: torch.Tensor) -> torch.Tensor:
     mesh = _split_mesh()
     return t if mesh is None else mesh.all_gather(t.detach(), batch_axes(),
                                                   0)
+
+
+# ---------------------------------------------------------------------------
+# The compute split along "model"
+# ---------------------------------------------------------------------------
+
+
+class Split(NamedTuple):
+    """This rank's share of the compute along "model" for one stream of
+    positions: its ``index`` on the axis, the axis' ``width``, the
+    ``mesh`` that runs the collectives, and whether the stream's sequence
+    is split (``seq``: each rank holds a block of it) or whole on every
+    rank (a length the width does not divide).  ``WHOLE`` is one device's
+    (and a "model" axis of one's): every function below gives its
+    argument back."""
+    index: int = 0
+    width: int = 1
+    mesh: Any = None
+    seq: bool = False
+
+
+WHOLE = Split()
+
+
+def model_split(n: int) -> Split:
+    """The split in force for a stream of ``n`` positions; ``WHOLE``
+    outside a context, or on a mesh without a "model" axis wider than
+    one."""
+    ctx = current()
+    if ctx is None:
+        return WHOLE
+    mesh = ctx[0]
+    m = getattr(mesh, "shape", {}).get("model", 1)
+    if m == 1:
+        return WHOLE
+    return Split(mesh.index("model"), m, mesh, n % m == 0)
+
+
+def split_range(n: int, index: int, width: int) -> Tuple[int, int]:
+    """[lo, hi) of rank ``index``'s share of ``n`` units over ``width``
+    ranks: the first n % width ranks take ceil(n / width) units, the rest
+    floor(n / width) (so index 0 holds the largest share; a rank may hold
+    none)."""
+    q, rem = divmod(n, width)
+    lo = index * q + min(index, rem)
+    return lo, lo + q + (index < rem)
+
+
+def ranges(n: int, split: Split, unit: int = 1) -> List[Tuple[int, int]]:
+    """Every rank's ``split_range`` of ``n`` units, in elements of
+    ``unit`` each (heads of ``unit`` columns), in rank order."""
+    return [(lo * unit, hi * unit) for lo, hi in
+            (split_range(n, r, split.width) for r in range(split.width))]
+
+
+def held(n: int, split: Split) -> Tuple[int, int]:
+    """[lo, hi) of the positions of a stream of ``n`` this rank holds: its
+    block of the sequence, or all of them when the sequence is whole."""
+    if not split.seq:
+        return 0, n
+    b = n // split.width
+    return split.index * b, (split.index + 1) * b
+
+
+def loss_rows(n: int, split: Split) -> Tuple[int, int]:
+    """[lo, hi) of the positions whose loss this rank counts: the ones it
+    holds, or its ``split_range`` of a sequence whole on every rank (each
+    position counted once over the ranks)."""
+    if split.seq or split.width == 1:
+        return held(n, split)
+    return split_range(n, split.index, split.width)
+
+
+def constrain(x, *axes):
+    """JAX's activation constraint, for a whole ``x``: where the context
+    splits the compute and an entry is "model", this rank's block of that
+    dim (``seq_local``: the residual stream's sequence); the batch is
+    split by the trainer and None stays whole, so otherwise ``x``
+    itself."""
+    for d, a in enumerate(axes):
+        if a == "model":
+            x = seq_local(x, model_split(x.shape[d]), dim=d)
+    return x
+
+
+def seq_local(x: torch.Tensor, split: Split, dim: int = 1) -> torch.Tensor:
+    """This rank's block of the whole ``x`` along the sequence (``dim``),
+    in memory of its own; ``x`` itself when the sequence is whole.  Its
+    backward puts the gradient back in place, zeros elsewhere."""
+    if not split.seq:
+        return x
+    lo, hi = held(x.shape[dim], split)
+    return x.narrow(dim, lo, hi - lo).clone(
+        memory_format=torch.contiguous_format)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' blocks of the sequence gathered whole (optionally as
+    packed sign bits); backward: the gradient summed over "model" and cut
+    to this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, split, dim, signs):
+        ctx.split, ctx.dim = split, dim
+        mesh = split.mesh
+        if not signs:
+            return mesh.all_gather(x, "model", dim)
+        # +-1 values along the last dim, 1 bit each on the wire
+        words = mesh.all_gather(to_words(x, True), "model", dim)
+        return from_words(words, x.shape[-1], True, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dt = g.dtype
+        out = ctx.split.mesh.reduce_scatter(g.to(torch.float32), "model",
+                                            ctx.dim)
+        return out.to(dt), None, None, None
+
+
+def seq_gather(x: torch.Tensor, split: Split, dim: int = 1,
+               signs: bool = False) -> torch.Tensor:
+    """This rank's block of the sequence (``dim``) -> the whole sequence
+    (all-gather over "model"); ``signs``: ``x`` holds +-1 values only,
+    which travel as packed bits.  ``x`` itself when the sequence is
+    whole."""
+    if not split.seq:
+        return x
+    return _SeqGather.apply(x, split, dim, signs)
+
+
+def to_words(t: torch.Tensor, signed: bool) -> torch.Tensor:
+    """Packed bits (int32 words along the last dim, by the pack kernel) of
+    +-1 (``signed``: bit = t >= 0) or {0, 1} values."""
+    from repro_torch.kernels.pack import ops as pack_ops
+    if t.shape[-1] == 0:            # a rank with no head sends no word
+        return t.new_zeros(t.shape, dtype=torch.int32)
+    theta = torch.full((), 0.0 if signed else 0.5, dtype=torch.float32,
+                       device=t.device)
+    return pack_ops.pack_threshold(t.to(torch.float32), theta)
+
+
+def from_words(words: torch.Tensor, k: int, signed: bool,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``to_words``' values back, the first ``k`` along the last dim, in
+    ``dtype``."""
+    from repro_torch.core import packing
+    bits = packing.unpack_bits(words[..., :packing.packed_len(k)], k)
+    return (2 * bits - 1 if signed else bits).to(dtype)
+
+
+def _column_index(spans: Sequence[Tuple[int, int]], most: int,
+                  device) -> Optional[torch.Tensor]:
+    """The index that takes every rank's span out of a layout of ``most``
+    columns a rank: None where every span fills its ``most``."""
+    if all(hi - lo == most for lo, hi in spans):
+        return None
+    return torch.tensor([j * most + c for j, (lo, hi) in enumerate(spans)
+                         for c in range(hi - lo)], device=device)
+
+
+class _ToRows(torch.autograd.Function):
+    """Every rank's columns (its span) of every position -> every column
+    of this rank's positions, the values travelling as packed bits (an
+    all-to-all; an all-gather along the columns where the sequence is
+    whole).  Backward: each rank's columns of the gradient sent back to
+    it (an all-to-all; a reduce-scatter along the columns, in float32,
+    where the sequence is whole)."""
+
+    @staticmethod
+    def forward(ctx, t, split, spans, signed):
+        from repro_torch.core import packing
+        ctx.split, ctx.spans = split, spans
+        mesh, m = split.mesh, split.width
+        bits = 32 * packing.packed_len(max(hi - lo for lo, hi in spans))
+        b, s, c = t.shape
+        if split.seq:       # chunks by the rank whose rows they are
+            t = t.reshape(b, m, s // m, c).transpose(0, 1)
+        words = to_words(t, signed)
+        pad = bits // 32 - words.shape[-1]
+        if pad:
+            words = torch.cat([words, words.new_zeros(
+                words.shape[:-1] + (pad,))], -1)
+        if split.seq:
+            got = mesh.all_to_all(words.contiguous(), "model")
+        else:
+            got = mesh.all_gather(words[None], "model", 0)
+        vals = from_words(got, bits, signed, t.dtype)   # (m, B, S', bits)
+        vals = vals.movedim(0, -2).reshape(vals.shape[1:3] + (m * bits,))
+        idx = _column_index(spans, bits, t.device)
+        return vals if idx is None else vals.index_select(-1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, spans = ctx.split, ctx.spans
+        mesh, m = split.mesh, split.width
+        most = max(hi - lo for lo, hi in spans)
+        lo, hi = spans[split.index]
+        g32 = g.to(torch.float32)
+        idx = _column_index(spans, most, g.device)
+        if idx is not None:         # every rank's span padded to ``most``
+            g32 = g32.new_zeros(g32.shape[:-1] + (m * most,)).index_copy_(
+                -1, idx, g32)
+        parts = g32.reshape(g32.shape[:2] + (m, most)).movedim(2, 0)
+        if split.seq:
+            got = mesh.all_to_all(parts.contiguous(), "model")
+            out = got.transpose(0, 1).reshape(got.shape[1], -1, most)
+        else:
+            out = mesh.reduce_scatter(parts.contiguous(), "model", 0)[0]
+        return out[..., :hi - lo].to(g.dtype), None, None, None
+
+
+def to_rows(t: torch.Tensor, split: Split,
+            spans: Sequence[Tuple[int, int]],
+            signed: bool = True) -> torch.Tensor:
+    """``t`` (B, S, c): +-1 (``signed``) or {0, 1} values of this rank's
+    span ``spans[split.index]`` of C columns (every rank's span given: a
+    head range's context, a d_ff range's mid-activation) at every
+    position -> (B, S_held, C): every rank's columns of this rank's
+    positions (``held``), where the next product runs on whole weights.
+    ``t`` itself on one rank."""
+    if split.width == 1:
+        return t
+    return _ToRows.apply(t, split, tuple(spans), signed)
+
+
+def _rows_of(t: torch.Tensor, split: Split,
+             spans: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``t`` (B, S, c): this rank's span of columns at every position of a
+    split sequence -> (B, S_held, sum of the spans): every rank's span at
+    this rank's positions, in rank order (an all-to-all, in ``t``'s
+    dtype)."""
+    mesh, m = split.mesh, split.width
+    most = max(hi - lo for lo, hi in spans)
+    b, s, c = t.shape
+    if c < most:
+        t = torch.cat([t, t.new_zeros((b, s, most - c))], -1)
+    got = mesh.all_to_all(
+        t.reshape(b, m, s // m, most).transpose(0, 1).contiguous(), "model")
+    vals = got.movedim(0, -2).reshape(b, s // m, m * most)
+    idx = _column_index(spans, most, t.device)
+    return vals if idx is None else vals.index_select(-1, idx)
+
+
+class _ColProduct(torch.autograd.Function):
+    """``pm1_matmul(every, w_cols)``, whose input gradient goes to the
+    ranks whose positions it is: each rank's output gradient at every
+    position is sent to the position's rank (``_rows_of``), which
+    multiplies its positions' gradient of every rank's span by the whole
+    weight's signs in one product (in place of a reduce-scatter of every
+    position's partial input gradient: B S sum(spans) / m values a rank
+    where that would move B S K)."""
+
+    @staticmethod
+    def forward(ctx, own, every, w_cols, leaf, split, spans, dtype):
+        ctx.save_for_backward(every, w_cols)
+        ctx.leaf, ctx.split, ctx.spans, ctx.dtype = leaf, split, spans, dtype
+        ctx.own_dtype = own.dtype
+        return torch.matmul(every.to(dtype).to(torch.float32),
+                            w_cols.to(dtype).to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        every, w_cols = ctx.saved_tensors
+        dt = ctx.dtype
+        dw = torch.matmul(
+            every.to(dt).to(torch.float32).flatten(0, -2).transpose(0, 1),
+            g.flatten(0, -2))
+        w = whole_signs(ctx.leaf)
+        w = torch.cat([w[:, lo:hi] for lo, hi in ctx.spans], 1)
+        d_own = torch.matmul(_rows_of(g, ctx.split, ctx.spans),
+                             w.to(dt).to(torch.float32).transpose(0, 1))
+        return (d_own.to(dt).to(ctx.own_dtype), None,
+                dw.to(dt).to(w_cols.dtype), None, None, None, None)
+
+
+def col_product(own: torch.Tensor, every: torch.Tensor, w_cols: torch.Tensor,
+                leaf, split: Split, spans: Sequence[Tuple[int, int]],
+                dtype: torch.dtype) -> torch.Tensor:
+    """A column range's +-1 product on a split sequence: ``every`` (B, S,
+    K), the +-1 values of every position (``seq_gather`` of ``own``,
+    detached), times ``w_cols`` (K, c), the signs of this rank's span
+    ``spans[split.index]`` of the weight ``leaf`` (K, C), summed in float32
+    as ``linear.pm1_matmul``; the gradient goes to ``own`` (this rank's
+    positions, B, S_held, K) and ``w_cols``.  ``pm1_matmul(own, w_cols)``
+    itself where the sequence is whole."""
+    if not split.seq:
+        from repro_torch.models.linear import pm1_matmul
+        return pm1_matmul(own, w_cols, dtype)
+    return _ColProduct.apply(own, every.detach(), w_cols, leaf, split,
+                             tuple(spans), dtype)
+
+
+def whole_signs(leaf) -> torch.Tensor:
+    """sign(leaf) (+-1, sign(0) = +1) of a whole ``Gathered`` leaf or a
+    tensor, with no gradient (a placed leaf's travelling as bits)."""
+    if isinstance(leaf, Gathered) and leaf.placement is not None:
+        return leaf.placement.whole(leaf.local, signs=True)
+    t = (leaf.gather(leaf.local) if isinstance(leaf, Gathered)
+         else leaf).detach()
+    return (t >= 0).to(t.dtype) * 2 - 1
+
+
+def gather_heads(t: torch.Tensor, split: Split, dim: int,
+                 spans: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Every rank's ``t`` (its ``spans[rank]`` of a dim split unevenly)
+    put together whole along ``dim`` (no gradient: ``collect_scores``)."""
+    if split.width == 1:
+        return t
+    most = max(hi - lo for lo, hi in spans)
+    pad = list(t.shape)
+    pad[dim] = most - t.shape[dim]
+    t = torch.cat([t.detach(), t.new_zeros(pad)], dim=dim)
+    every = split.mesh.all_gather(t, "model", dim)
+    return torch.cat([every.narrow(dim, r * most, hi - lo)
+                      for r, (lo, hi) in enumerate(spans)], dim=dim)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -172,7 +518,39 @@ def rows_split(mesh, t: torch.Tensor) -> bool:
         d == 0 and set(axes) <= set(data_axes(mesh)) for axes, d in pl.splits)
 
 
+def whole(leaf, signs: bool = False) -> torch.Tensor:
+    """A ``Gathered`` leaf gathered whole; a tensor as it is.  ``signs``:
+    sign(leaf) (+-1, sign(0) = +1) through the straight-through estimator,
+    a placed leaf's travelling as bits (``Placement.gather``)."""
+    if isinstance(leaf, Gathered) and leaf.placement is not None:
+        return leaf.placement.gather(leaf.local, signs=signs)
+    t = leaf.gather(leaf.local) if isinstance(leaf, Gathered) else leaf
+    if signs:
+        from repro_torch.core import binarize
+        return binarize.sign_ste(t)
+    return t
+
+
 def materialize(params: Any) -> Any:
     """``params`` with each ``Gathered`` leaf gathered whole."""
-    return tree.map(lambda t: t.gather(t.local)
-                    if isinstance(t, Gathered) else t, params)
+    return tree.map(whole, params)
+
+
+def columns(leaf, dim: int, spans: Sequence[Tuple[int, int]],
+            split: Split = WHOLE, signs: bool = False) -> torch.Tensor:
+    """This rank's span (``spans[split.index]``, every rank's given) of
+    ``leaf`` along ``dim``: a placed ``Gathered`` leaf gathered for it
+    (``Placement.gather_range``), else the whole leaf narrowed (itself
+    when the span is all of it).  ``signs`` as in ``whole``."""
+    lo, hi = spans[split.index]
+    if isinstance(leaf, Gathered) and leaf.placement is not None:
+        pl = leaf.placement
+        dim %= len(pl.shape)
+        if (lo, hi) == (0, pl.shape[dim]):
+            return pl.gather(leaf.local, signs=signs)
+        return pl.gather_range(leaf.local, dim, spans, split.index,
+                               signs=signs)
+    t = whole(leaf)
+    if (lo, hi) != (0, t.shape[dim]):
+        t = t.narrow(dim, lo, hi - lo)
+    return whole(t, signs) if signs else t

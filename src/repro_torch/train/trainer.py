@@ -30,15 +30,21 @@ and the error feedback is this rank's block, placed by
 state takes 1/|mesh| of its bytes per rank, leaves that nothing divides
 left whole.  ``init_state`` draws each part as the one-device init does
 and keeps its blocks.  A step takes the global batch, and each rank runs
-its data index's rows of each micro-batch (ranks along "model" the same
-rows): the embedding, head and norms are gathered whole at the step's
-start, each block's params inside the block's checkpoint (so the
-backward gathers them again).  The loss divides by the global batch's
-valid labels, so the data indices' gradients sum to the global batch's:
-the gather's backward sums them over "data" and cuts them to this rank's
-block.  The global norm, the compression's scales and the reported
-metrics sum over every rank, each replica counted once; AdamW then
-updates the blocks.  The mesh step runs eagerly (no captured graph).
+its data index's rows of each micro-batch, with the compute split along
+"model" as the JAX package's specs name it (``models.sharding``): the
+residual stream holds this rank's block of the sequence, each block's
+attention runs on this rank's query heads and its FFN on its d_ff
+columns, the row-parallel sums meet in a reduce-scatter.  The embedding,
+head and norms are gathered whole at the step's start, each block's
+params inside the block's checkpoint, whole or on this rank's range (so
+the backward gathers them again).  The loss divides by the global
+batch's valid labels, so the ranks' gradients sum to the global batch's:
+the gather's backward sums a leaf's gradient over the data axes and
+"model" (over the data axes alone for a leaf gathered on its own block
+along "model") and cuts it to this rank's block.  The global norm, the
+compression's scales and the reported metrics sum over every rank, each
+replica counted once; AdamW then updates the blocks.  The mesh step runs
+eagerly (no captured graph).
 """
 from __future__ import annotations
 
@@ -244,11 +250,12 @@ class Trainer:
             rows = mesh_lib.batch_spec(self.mesh, batch["tokens"].shape[0])
             use = []
             for (path, _), leaf in zip(pairs, leaves):
-                gather = self._placements[path].gather
-                # a layer's params are gathered where the layer runs
-                use.append(sharding.Gathered(leaf, gather)
+                pl = self._placements[path]
+                # a layer's params are gathered where the layer runs,
+                # whole or on this rank's range of the compute
+                use.append(sharding.Gathered(leaf, pl.gather, pl)
                            if path.split("/")[0] in self._layers
-                           else gather(leaf))
+                           else pl.gather(leaf))
             with sharding.activation_sharding(self.mesh,
                                               mesh_lib.data_axes(self.mesh)):
                 loss, metrics = self.model.train_loss(
@@ -305,11 +312,12 @@ class Trainer:
         ef = state.ef
         sharded = self.mesh is not None and self.mesh.size > 1
         with torch.no_grad():
-            if sharded and self.mesh.data_size > 1:
-                # each data index's share of the global batch's metrics
+            if sharded:
+                # each rank's share of the global batch's metrics (its
+                # data index's rows, its block of the sequence)
                 for k in ("loss", "moe_aux", "tokens", "loss_total"):
-                    metrics[k] = self.mesh.all_reduce(
-                        metrics[k].clone(), mesh_lib.data_axes(self.mesh))
+                    metrics[k] = self.mesh.all_reduce(metrics[k].clone(),
+                                                      None)
             if self.cfg.compress_grads:
                 grads, new_ef = compress_lib.compress_tree(
                     grads, ef, self.stacked,
