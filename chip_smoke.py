@@ -313,7 +313,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 of the measured peak of one eager mesh step (less the
                 memory resident beside it); on phase 24's one-rank NCCL
                 (1, 1) mesh the mesh ``prefill_logits`` and
-                ``decode_step`` equal the one-device ones bitwise, and
+                ``decode_step`` (its compute split along "model" as on
+                any mesh: each product on the rank's block of its weight,
+                attention on its heads, the embedding and the head on
+                vocabulary blocks; every exchange the identity at a width
+                of one) equal the one-device ones bitwise, and
                 greedy decoding through the mesh ``decode_step`` gives
                 phase 4's tokens; each compared step's roofline
                 ``step_time_s`` is at most its measured device time; and
@@ -332,7 +336,18 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 for granite-3-2b's and seamless-m4t-large-v2's, which do
                 and are held to this slice's figures
                 (``DRY_COLL_GROWN``); no other train cell's arguments + temp
-                grows (``[dryrun split]``); the sweep ends with the script
+                grows (``[dryrun split]``); against the cells before the
+                decode step was split (``DRY_GATHERED``): the collective
+                bytes a rank and step of the decode_32k cells of
+                ``DRY_DECODE_SPLIT`` and the long_500k cells of
+                ``DRY_LONG_SPLIT`` fall at least 10x, those decode_32k
+                cells' dense FLOPs and ``rbmm_int`` word ops a rank at least
+                8x (arctic-480b's FLOPs held to this slice's figure: its
+                router computes whole, ``DRY_FLOPS_WHOLE``), hymba-1.5b's and
+                xlstm-350m's decode and long_500k bytes at least 2x, no
+                decode or long_500k cell's arguments + temp grows, and the
+                train and prefill cells equal them (``[dryrun decode]``);
+                the sweep ends with the script
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -4516,6 +4531,94 @@ DRY_COLL_GROWN = {"granite-3-2b": 28855294172,
                   "seamless-m4t-large-v2": 19591039356}
 DRY_FALL = 8
 DRY_FITS = 74.5 * 2**30
+# the single-pod cells as the dry run traced them before the mesh decode
+# step was split along "model" (every deploy leaf and every split cache
+# leaf gathered whole at each step; ``python -m repro_torch.launch.dryrun
+# --all --mesh single``): (arguments + temp bytes a rank, dense FLOPs a
+# rank, collective bytes a rank and step, rbmm_int's word ops a rank)
+DRY_GATHERED = {
+    ("arctic-480b", "decode_32k"): (10193467088, 4183818240, 61686374400,
+                                    193880064000),
+    ("arctic-480b", "prefill_32k"): (847543191664, 34273839022080,
+                                     62273505280, 0),
+    ("arctic-480b", "train_4k"): (2272264570552, 125033520258088960,
+                                  6196438647972, 0),
+    ("gemma3-27b", "decode_32k"): (6662292512, 22548578304, 10409918464,
+                                   21539192832),
+    ("gemma3-27b", "long_500k"): (6884098108, 2818572288, 11730731008,
+                                  6467272704),
+    ("gemma3-27b", "prefill_32k"): (77734216384, 184717953466368,
+                                    8849637376, 0),
+    ("gemma3-27b", "train_4k"): (32826087028, 941611450105856,
+                                 147623349900, 0),
+    ("granite-3-2b", "decode_32k"): (1979108768, 1619001344, 711950336,
+                                     5851054080),
+    ("granite-3-2b", "prefill_32k"): (16917241216, 13262859010048,
+                                      711950336, 0),
+    ("granite-3-2b", "train_4k"): (17652681612, 106940390703104,
+                                   28855294172, 0),
+    ("hymba-1.5b", "decode_32k"): (503530272, 1232076800, 774406144,
+                                   1228800000),
+    ("hymba-1.5b", "long_500k"): (469214612, 154009600, 722960384,
+                                  153600000),
+    ("hymba-1.5b", "prefill_32k"): (11884063488, 10093173145600, 712146944,
+                                    0),
+    ("hymba-1.5b", "train_4k"): (63798361236, 327051290607616, 51584759452,
+                                 0),
+    ("internvl2-76b", "decode_32k"): (15344259616, 16810770432,
+                                      16983392256, 83550535680),
+    ("internvl2-76b", "prefill_32k"): (72206131840, 137748191117312,
+                                       16983392256, 0),
+    ("internvl2-76b", "train_4k"): (60957321940, 2463455802032128,
+                                    313751130652, 0),
+    ("mixtral-8x22b", "decode_32k"): (3870437104, 3265265664, 19199279104,
+                                      5813305344),
+    ("mixtral-8x22b", "long_500k"): (3160858404, 408158208, 19257884672,
+                                     13410238464),
+    ("mixtral-8x22b", "prefill_32k"): (1994687279488, 26749056319488,
+                                       20138688512, 0),
+    ("mixtral-8x22b", "train_4k"): (4309286470860, 567738463999229952,
+                                    1945539183804, 0),
+    ("qwen1.5-32b", "decode_32k"): (28650506688, 12457082880, 10456530944,
+                                    41334865920),
+    ("qwen1.5-32b", "prefill_32k"): (60839008384, 102048422952960,
+                                     10456530944, 0),
+    ("qwen1.5-32b", "train_4k"): (39589964276, 1251686614040576,
+                                  216400288796, 0),
+    ("seamless-m4t-large-v2", "decode_32k"): (2579844320, 4198498304,
+                                              3837067264, 1509949440),
+    ("seamless-m4t-large-v2", "prefill_32k"): (68917108096, 34398393073664,
+                                               2240118784, 309237645312),
+    ("seamless-m4t-large-v2", "train_4k"): (15291589016, 37853694263296,
+                                            19591039356, 0),
+    ("smollm-135m", "decode_32k"): (549790732, 452984832, 127070208,
+                                    928972800),
+    ("smollm-135m", "prefill_32k"): (13308819464, 3710851743744, 127070208,
+                                     0),
+    ("smollm-135m", "train_4k"): (8292260392, 13426671747072, 5427785412,
+                                  0),
+    ("xlstm-350m", "decode_32k"): (1216143648, 1165099008, 440795136,
+                                   157286400),
+    ("xlstm-350m", "long_500k"): (468850084, 145637376, 524156928, 19660800),
+    ("xlstm-350m", "prefill_32k"): (14199337984, 9544491073536, 440008704,
+                                    0),
+    ("xlstm-350m", "train_4k"): (286513129524, 122322816073728, 16441176092,
+                                 0),
+}
+# the decode cells whose collective bytes the split must cut at least
+# DRY_COLL_FALL times (and, at decode_32k, their dense FLOPs and rbmm_int's
+# word ops a rank at least DRY_FALL times); hymba's and xlstm's decode
+# cells, whose recurrences compute whole, at least DRY_WHOLE_FALL times
+DRY_DECODE_SPLIT = ("qwen1.5-32b", "gemma3-27b", "granite-3-2b",
+                    "smollm-135m", "internvl2-76b", "seamless-m4t-large-v2",
+                    "mixtral-8x22b", "arctic-480b")
+DRY_LONG_SPLIT = ("gemma3-27b", "mixtral-8x22b")
+DRY_COLL_FALL = 10
+DRY_WHOLE_FALL = 2
+# arctic's MoE router computes whole on every rank
+# (``models.sharding.WHOLE_PARTS``): 513,802,240 of its 743,178,240 dense
+# FLOPs a rank, a 5.6x fall; held to that figure
+DRY_FLOPS_WHOLE = {"arctic-480b": 743178240}
 
 
 def dryrun_start():
@@ -4750,6 +4853,7 @@ def dryrun_sweep(tag: str, sweep) -> None:
             log(f"{tag} {r['arch']} x {r['shape']} x {r['mesh']}: "
                 f"{r['status']} {r.get('reason') or r.get('error')}")
     dryrun_split(tag, recs)
+    dryrun_decode(tag, recs)
     status = [r["status"] for r in recs]
     log(f"{tag} sweep: {len(recs)} cells, {status.count('OK')} OK, "
         f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, in "
@@ -4791,6 +4895,52 @@ def dryrun_split(tag: str, recs) -> None:
                            f"{coll}")
         elif mem > mem0:
             bad.append(f"{arch}: memory grew {mem0} -> {mem}")
+    if bad:
+        raise AssertionError(f"{tag} " + "; ".join(bad))
+
+
+def dryrun_decode(tag: str, recs) -> None:
+    """The sweep's cells against ``DRY_GATHERED``: the decode and long_500k
+    cells' falls (collective bytes, dense FLOPs, rbmm_int's word ops) and
+    no memory grown; the train and prefill cells equal; one
+    ``[dryrun decode]`` line a decode cell."""
+    tag = tag[:-1] + " decode]"
+    gib, bad = 2**30, []
+    got = {(r["arch"], r["shape"]): r for r in recs}
+    for (arch, shape), before in DRY_GATHERED.items():
+        r = got.get((arch, shape))
+        if r is None or r["status"] != "OK":
+            bad.append(f"{arch} x {shape}: no OK record")
+            continue
+        now = (r["argument_size_in_bytes"] + r["temp_size_in_bytes"],
+               int(r["flops"]), int(sum(r["collectives"].values())),
+               int(sum(r["kernels"].get("rbmm_int", {}).get(
+                   "ops", {}).values())))
+        if shape in ("train_4k", "prefill_32k"):
+            if now != before:
+                bad.append(f"{arch} x {shape}: {before} -> {now}")
+            continue
+        (mem0, flops0, coll0, ops0), (mem, flops, coll, ops) = before, now
+        log(f"{tag} {arch} x {shape}: collectives {coll0:.4g} -> {coll:.4g}"
+            f" B a step ({coll0 / coll:.1f}x: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in r["collectives"].items() if v) +
+            f"), dense FLOPs {flops0:.4g} -> {flops:.4g} ({flops0 / flops:.1f}"
+            f"x), rbmm_int word ops {ops0:.4g} -> {ops:.4g} ("
+            f"{ops0 / ops:.1f}x), arguments + temp {mem0 / gib:.3f} -> "
+            f"{mem / gib:.3f} GiB a rank, step_time_s "
+            f"{r['roofline']['step_time_s']:.6g} ({r['roofline']['dominant']})")
+        ok = mem <= mem0
+        if arch in DRY_DECODE_SPLIT and shape == "decode_32k":
+            ok &= (DRY_COLL_FALL * coll <= coll0 and DRY_FALL * ops <= ops0
+                   and (flops <= DRY_FLOPS_WHOLE[arch]
+                        if arch in DRY_FLOPS_WHOLE
+                        else DRY_FALL * flops <= flops0))
+        elif arch in DRY_LONG_SPLIT:
+            ok &= DRY_COLL_FALL * coll <= coll0
+        else:
+            ok &= DRY_WHOLE_FALL * coll <= coll0
+        if not ok:
+            bad.append(f"{arch} x {shape}: {before} -> {now}")
     if bad:
         raise AssertionError(f"{tag} " + "; ".join(bad))
 

@@ -3,8 +3,8 @@ report to a dry run's census (``repro_torch.launch.cost``).
 
 Outside a census each hook does nothing (``steps`` runs every step), so
 the serving and training paths pay one list lookup a call.  The census in
-force is an object with ``add_kernel(name, work)``, a ``collectives``
-dict (kind -> bytes) and the loop fields ``steps`` keeps (``trip``,
+force is an object with ``add_kernel(name, work)``,
+``add_collective(kind, nbytes)`` and the loop fields ``steps`` keeps (``trip``,
 ``loop_len``, ``loops``, ``segment``, ``where``); ``launch.cost.Census``
 is the one the port has.  This module depends on torch alone, so the
 lowest layers import it and nothing of ``launch``.
@@ -61,7 +61,7 @@ def collective(kind: str, nbytes: int) -> None:
     the census in force."""
     c = active()
     if c is not None:
-        c.collectives[kind] += int(nbytes)
+        c.add_collective(kind, int(nbytes))
 
 
 def steps(n: int) -> Iterator[int]:

@@ -16,7 +16,9 @@ tallies, for the one rank that runs it:
   * the kernels' census: launches and work of each hand-written kernel,
     from its wrapper's shape-only route (``repro_torch.kernels.work``);
   * collectives: bytes by kind (a reduce-scatter's input, any other's
-    result), from the meshes (``launch/mesh.py``);
+    result), from the meshes (``launch/mesh.py``), and by kind and site:
+    the model code that asked for each (``_site``: its innermost two
+    frames under ``models/`` outside ``sharding.py``);
   * argument bytes: the storages of ``args`` (the rank's shards);
   * temp: the peak of the live bytes of storages allocated during the
     step (each freed when its storage dies), outputs included;
@@ -44,6 +46,8 @@ against the unrolled trace on short sequences).
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 import weakref
 from typing import (Any, Callable, Dict, Iterator, List, Optional,
                     Sequence, Tuple)
@@ -83,6 +87,25 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+_MODELS = os.path.join("repro_torch", "models") + os.sep
+
+
+def _site() -> str:
+    """Where the step asked for a collective: "caller > callee", the
+    innermost frame of the port's model code (``models/`` but
+    ``sharding.py``, whose helpers only carry it out) and the innermost
+    one of another module calling it; "-" outside the models."""
+    names, mods, f = [], [], sys._getframe(2)
+    while f is not None and len(names) < 2:
+        path = f.f_code.co_filename
+        mod = os.path.basename(path)[:-3]
+        if _MODELS in path and mod != "sharding" and mod not in mods:
+            names.append(f"{mod}.{f.f_code.co_name}")
+            mods.append(mod)
+        f = f.f_back
+    return " > ".join(reversed(names)) or "-"
+
+
 def mm_flops(func, args, out) -> int:
     """2 * |out| * K of a dense product (0 for any other op)."""
     name = func.overloadpacket.__name__
@@ -104,6 +127,7 @@ class Census:
         self.ops = 0
         self.kernels: Dict[str, Dict[str, Any]] = {}
         self.collectives = {k: 0 for k in COLLECTIVE_KINDS}
+        self.sites: Dict[str, int] = {}     # "kind site" -> bytes
         self.arguments = 0
         self.outputs = 0
         self.temp = 0
@@ -138,6 +162,11 @@ class Census:
         k["ops"][work.unit] += work.ops
         self.bytes += work.bytes
 
+    def add_collective(self, kind: str, nbytes: int) -> None:
+        self.collectives[kind] += nbytes
+        key = f"{kind} {_site()}"
+        self.sites[key] = self.sites.get(key, 0) + nbytes
+
     def launches(self) -> Dict[str, int]:
         return {name: k["launches"] for name, k in self.kernels.items()}
 
@@ -152,6 +181,7 @@ class Census:
         return {"flops": self.flops, "bytes": self.bytes, "ops": self.ops,
                 "temp": self.temp, "outputs": self.outputs,
                 "collectives": dict(self.collectives),
+                "sites": dict(self.sites),
                 "kernels": {n: {"launches": k["launches"],
                                 "bytes": k["bytes"], "ops": dict(k["ops"])}
                             for n, k in self.kernels.items()}}
@@ -174,6 +204,7 @@ class Census:
         out.temp, out.outputs = _peak(self, more, n), num["outputs"]
         out.collectives = {k: num["collectives"].get(k, 0)
                            for k in COLLECTIVE_KINDS}
+        out.sites = dict(sorted(num["sites"].items()))
         out.kernels = {name: {"launches": k["launches"], "bytes": k["bytes"],
                               "ops": {u: k["ops"].get(u, 0) for u in UNITS}}
                        for name, k in sorted(num["kernels"].items())}
@@ -188,6 +219,8 @@ class Census:
                 "bytes_accessed": float(self.bytes),
                 "collectives": {k: float(v)
                                 for k, v in self.collectives.items()},
+                "collective_sites": {k: float(v) for k, v in
+                                     sorted(self.sites.items())},
                 "argument_size_in_bytes": int(self.arguments),
                 "output_size_in_bytes": int(self.outputs),
                 "temp_size_in_bytes": int(self.temp),

@@ -7,8 +7,9 @@ the 16 x 16 = 256-GPU single-pod mesh or the 2 x 16 x 16 = 512-GPU
 multi-pod mesh (``launch.mesh.make_production_mesh``): the mesh trainer's
 ``train_step`` with its optimizer update (its compute split along "model":
 ``models.sharding``), the mesh ``prefill_logits``, or
-the mesh ``decode_step``, on stand-ins from ``launch.specs`` (this rank's
-blocks as meta tensors).  It traces the step once on the meta device
+the mesh ``decode_step`` (its compute split along "model" too, and a batch
+of one's rings over the data axes: ``models.lm._OnMesh``), on stand-ins
+from ``launch.specs`` (this rank's blocks as meta tensors).  It traces the step once on the meta device
 under ``launch.cost``'s census: nothing is allocated, no kernel is
 launched and no process group is joined.  Each cell writes one JSON
 record: per-rank memory (arguments, temp, outputs), dense FLOPs, bytes,

@@ -433,6 +433,19 @@ class Placement:
             s[d] //= self._width(axes)
         return tuple(s)
 
+    def span(self, dim: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's block along ``dim`` of the whole leaf:
+        its index over the axes that split the dim, row-major, or the
+        whole dim where none does (a decode product's rows, words or
+        experts, a ring's slots)."""
+        dim %= len(self.shape)
+        for axes, d in self.splits:
+            if d == dim:
+                n = self.shape[d] // self._width(axes)
+                i = block_index(self.mesh, axes)
+                return i * n, (i + 1) * n
+        return 0, self.shape[dim]
+
     def owns(self, coords: Tuple[int, ...]) -> bool:
         """Is the block the rank at ``coords`` (its index on each axis)
         holds one the mesh counts once (replicas along an unsplit axis:

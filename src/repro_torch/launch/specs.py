@@ -6,7 +6,9 @@ shape and the spec; ``launch.mesh.place``), where the JAX package gives
 
   train   -> (state, batch)            for ``Trainer.train_step``
   prefill -> (dparams, batch)          for ``prefill_logits(..., mesh=)``
-  decode  -> (dparams, token, caches)  for ``decode_step(..., mesh=)``
+  decode  -> (dparams, token, caches)  for ``decode_step(..., mesh=)``,
+             which computes on these blocks as they are placed (a cache
+             split on its KV heads, a ring split over the data axes)
 
 The dtypes are the port's: the JAX package's ``uint32`` words are
 ``int32`` here.  The meshes are ``launch.mesh``'s (the production mesh of

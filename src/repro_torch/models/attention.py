@@ -90,6 +90,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _Share(NamedTuple):
+    """This rank's share of a decode step's attention over a ring or a
+    memory (``SPSAttention._share``; one device's is all of it): the
+    "model" axis (``split``); its query heads [h0, h1) and every rank's,
+    in rank order (``spans``); the KV heads [kv0, kv1) its cache block
+    holds (all of them where the cache is whole along "model", whose
+    ranks then write every head); the ring's ``ring`` slots, of which its
+    K block holds [s0, s1) (over the data axes ``k_axes``: a batch of
+    one's ring) and its V^T block the words [w0, w1) (over ``w_axes``)
+    and the d_h rows [d0, d1) (over ``d_axes``); the mesh."""
+    split: Any
+    heads: Tuple[int, int]
+    spans: List[Tuple[int, int]]
+    kv: Tuple[int, int]
+    ring: int
+    slots: Tuple[int, int]
+    words: Tuple[int, int]
+    rows: Tuple[int, int]
+    k_axes: Tuple[str, ...] = ()
+    w_axes: Tuple[str, ...] = ()
+    d_axes: Tuple[str, ...] = ()
+    mesh: Any = None
+
+    @property
+    def whole(self) -> bool:
+        return self.mesh is None
+
+
 class KVCache(NamedTuple):
     """Binary KV ring.  k_bits: (B, Hkv, W, ceil(dh/32)) packed along d_h;
     vt_bits: (B, Hkv, dh, ceil(W/32)) packed along the ring; length: (B,)
@@ -543,9 +571,50 @@ class SPSAttention:
         col = positions.long().clamp(0, ROW_TABLE - 1)
         return theta[:, col].movedim(0, -1)
 
+    def _share(self, k_bits: torch.Tensor,
+               vt_bits: torch.Tensor) -> _Share:
+        """This rank's ``_Share`` of the attention over the ring or memory
+        ``k_bits`` (B, Hkv, W, dhp) / ``vt_bits`` (B, Hkv, dh, W/32),
+        from their placements (``launch.specs.cache_spec``): a cache split
+        on its KV heads along "model" gives the rank the query heads of
+        its KV heads; one whole along it, its ``split_range`` of the query
+        heads (every rank writing every KV head).  A batch of one's ring
+        split over the data axes gives it a block of K's slots and of
+        V^T's words or d_h rows.  Raises for a split the rule cannot
+        compute on."""
+        h, hkv, g, dh = (self.num_heads, self.num_kv_heads, self.groups,
+                         self.head_dim)
+        kpl = getattr(k_bits, "placement", None)
+        if kpl is None:
+            w = k_bits.shape[2]
+            return _Share(sharding.WHOLE, (0, h), [(0, h)], (0, hkv), w,
+                          (0, w), (0, vt_bits.shape[3]), (0, dh))
+        vpl = sharding.placement_of(vt_bits)
+        for pl, dims in ((kpl, (0, 2)), (vpl, (0, 2, 3))):
+            for axes, d in pl.splits:
+                if not (axes == ("model",) and d == 1 or
+                        "model" not in axes and d in dims):
+                    raise ValueError(f"a decode step cannot attend over a "
+                                     f"cache placed {pl}")
+        split = sharding.decode_split(k_bits)
+        if kpl.dims.get("model") == 1:
+            n = hkv // split.width * g
+            spans = [(r * n, (r + 1) * n) for r in range(split.width)]
+        else:
+            spans = sharding.ranges(h, split)
+        heads = spans[split.index]
+        kv = kpl.span(1)
+
+        def axes(pl, dim):
+            return next((a for a, d in pl.splits if d == dim), ())
+        return _Share(split, heads, spans, kv, kpl.shape[2], kpl.span(2),
+                      vpl.span(3), vpl.span(2), axes(kpl, 2),
+                      axes(vpl, 3), axes(vpl, 2), kpl.mesh)
+
     def _project_qkv_deploy(self, params: Params, x: torch.Tensor,
                             positions: torch.Tensor,
-                            parts: Tuple[str, ...] = ("wq", "wk", "wv")
+                            parts: Tuple[str, ...] = ("wq", "wk", "wv"),
+                            share: Optional[_Share] = None
                             ) -> Tuple[Optional[torch.Tensor],
                                        Optional[torch.Tensor],
                                        Optional[torch.Tensor]]:
@@ -553,16 +622,27 @@ class SPSAttention:
         V projection (B,S,Hkv,dh), which prefill packs along S and decode
         thresholds per element.  Only the projections of ``parts`` run
         (the others come back None): cross-attention projects its queries
-        and its memory apart."""
+        and its memory apart.  With a ``share`` (a decode step on a mesh)
+        q holds its query heads and k, v the KV heads its cache block
+        holds, each product on this rank's block of its weight."""
         b, s, _ = x.shape
-        h, hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
+        dh = self.head_dim
         dense = self._denses()
         bits_x = act_bits_packed(x, params["act_beta"])
         alpha = params["act_alpha"]
+        (h0, h1), (k0, k1) = ((0, self.num_heads), (0, self.num_kv_heads)) \
+            if share is None else (share.heads, share.kv)
+        cols = {"wq": None, "wk": None, "wv": None}
+        if share is not None:
+            cols["wq"] = [(lo * dh, hi * dh) for lo, hi in share.spans]
+            n = (k1 - k0) * dh  # every rank's KV heads: its block, or all
+            cols["wk"] = cols["wv"] = [
+                (r * n, (r + 1) * n) if n < self.kv_dim else (0, n)
+                for r in range(share.split.width)]
         proj = {name: dense[name].apply_deploy(
                     params[name], bits=bits_x, act_alpha=alpha,
-                    impl=self.impl) for name in parts}
-        heads = {"wq": h, "wk": hkv, "wv": hkv}
+                    impl=self.impl, cols=cols[name]) for name in parts}
+        heads = {"wq": h1 - h0, "wk": k1 - k0, "wv": k1 - k0}
         q, k, v = (proj[n].reshape(b, s, heads[n], dh) if n in proj
                    else None for n in ("wq", "wk", "wv"))
         if self.use_rope:
@@ -571,22 +651,55 @@ class SPSAttention:
         # per-head binarize + pack on the (B,S,H,dh) layout, then move the
         # (32x smaller) words to the head-major layout
         q_bits, k_bits = (
-            None if t is None else pack_ops.pack_threshold(
-                t, params[beta][:, None]).transpose(1, 2).contiguous()
-            for t, beta in ((q, "q_beta"), (k, "k_beta")))
+            None if t is None else self._pack_heads(
+                t, params[beta] if share is None else params[beta][lo:hi])
+            for t, beta, lo, hi in ((q, "q_beta", h0, h1),
+                                    (k, "k_beta", k0, k1)))
         return q_bits, k_bits, v
 
-    def _output_deploy(self, params: Params,
-                       ctx_int: torch.Tensor) -> torch.Tensor:
-        """ctx_int (B, H, S, dh) int32 -> wo -> (B, S, d)."""
+    @staticmethod
+    def _pack_heads(t: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+        """(B, S, n, dh) fp -> (B, n, S, dhp) words of t >= beta (n,) (a
+        rank with no head packs nothing)."""
+        if t.shape[2] == 0:
+            return t.new_zeros((t.shape[0], 0, t.shape[1],
+                                packing.packed_len(t.shape[3])),
+                               dtype=torch.int32)
+        return pack_ops.pack_threshold(t, beta[:, None]).transpose(
+            1, 2).contiguous()
+
+    def _output_deploy(self, params: Params, ctx_int: torch.Tensor,
+                       share: Optional[_Share] = None) -> torch.Tensor:
+        """ctx_int (B, H, S, dh) int32 -> wo -> (B, S, d).  With a
+        ``share``, ctx_int holds its query heads: their context is scaled
+        and binarized here, and its bits go to ``wo`` as they are where
+        ``wo`` is split on its words and every rank's block is its heads'
+        (nothing crosses), else put together whole over "model"
+        (``sharding.join_bits``)."""
         b, h, s, dh = ctx_int.shape
         av = self._per_query_head(params["v_alpha"])
+        if share is not None:
+            av = av[share.heads[0]:share.heads[1]]
         ctx = ctx_int.to(torch.float32) * av[None, :, None, None]
-        ctx = ctx.transpose(1, 2).reshape(b, s, self.q_dim)
-        bits = pack_ops.pack_threshold(ctx, params["ctx_beta"])
-        return self._denses()["wo"].apply_deploy(
-            params["wo"], bits=bits, act_alpha=params["ctx_alpha"],
-            impl=self.impl)
+        ctx = ctx.transpose(1, 2).reshape(b, s, h * dh)
+        wo, held = self._denses()["wo"], None
+        if share is None or h:
+            bits = pack_ops.pack_threshold(ctx, params["ctx_beta"])
+        else:
+            bits = ctx.new_zeros((b, s, 0), dtype=torch.int32)
+        if share is not None:
+            blk = wo.words_held(params["wo"])
+            spans = [(lo * dh, hi * dh) for lo, hi in share.spans]
+            n = None if blk is None else (blk[1] - blk[0]) * packing.WORD
+            if n is not None and spans == [(r * n, (r + 1) * n)
+                                           for r in range(len(spans))]:
+                held = blk
+            else:
+                bits = sharding.join_bits(bits, share.split, spans,
+                                          self.q_dim)
+        return wo.apply_deploy(params["wo"], bits=bits,
+                               act_alpha=params["ctx_alpha"],
+                               impl=self.impl, held=held)
 
     # -- prefill --------------------------------------------------------------
 
@@ -924,32 +1037,112 @@ class SPSAttention:
         the probabilities packed along the memory (by the pack kernel
         where M > 16); the context 2*popcount(P & V^T) - nnz(P) as the
         and_dc ``rbmm_int`` over K = S_enc, whose derived dc cancels the
-        -K.  Queries sit at rows 0..S-1 of the ``row`` table, as in the
-        JAX package: a decode step reads row 0."""
-        b, s, _ = x.shape
-        h, hkv, g, dh = (self.num_heads, self.num_kv_heads, self.groups,
-                         self.head_dim)
-        skv = mem.k_bits.shape[2]
-        dev = x.device
+        -K (``_attend_heads``).  Queries sit at rows 0..S-1 of the ``row``
+        table, as in the JAX package: a decode step reads row 0.  On a
+        mesh (a placed memory) the rank attends its query heads over its
+        block of the memory (``_share``), which is read, never
+        gathered."""
+        s = x.shape[1]
+        share = self._share(mem.k_bits, mem.vt_bits)
+        part = None if share.whole else share
         q_bits, _, _ = self._project_qkv_deploy(params, x, None,
-                                                parts=("wq",))
-        qg = self._grouped(q_bits)                           # (B,Hkv,G*S,dhp)
-        c = rbmm.rbmm_int(qg, mem.k_bits, dh, scheme="xnor",
-                          impl=self._score_impl())          # (B,Hkv,G*S,Skv)
-        th = self._theta_at(self._theta_int(params),
-                            torch.arange(s, device=dev))     # (S, H)
-        th_rows = th.T.reshape(hkv, g * s, 1)
-        valid = (torch.arange(skv, device=dev)[None, :] <
-                 mem.length.reshape(-1, 1))                  # (B, Skv)
-        if g * s > 16:
-            probs_p = (pack_ops.pack_threshold(c, th_rows) &
-                       packing.pack_bits(valid)[:, None, None, :])
-        else:
-            probs_p = packing.pack_bits((c >= th_rows) &
-                                        valid[:, None, None, :])
-        ctx = rbmm.rbmm_int(probs_p, mem.vt_bits, skv, scheme="and_dc",
-                            impl="popcount")                # (B,Hkv,G*S,dh)
-        return self._output_deploy(params, ctx.reshape(b, h, s, dh))
+                                                parts=("wq",), share=part)
+        th = self._theta_at(self._theta_heads(params, share),
+                            torch.arange(s, device=x.device))   # (S, nh)
+        valid = self._slots(share, x.device)[None, :] < \
+            mem.length.reshape(-1, 1)                        # (B, Skv)
+        ctx = self._attend_heads(q_bits, mem.k_bits, mem.vt_bits, th.T[None],
+                                 valid, share)
+        return self._output_deploy(params, ctx, part)
+
+    # -- a rank's query heads over a ring or a memory -------------------------
+
+    def _theta_heads(self, params: Params, share: _Share) -> torch.Tensor:
+        """``_theta_int`` of ``share``'s query heads."""
+        theta = self._theta_int(params)
+        return theta if share.whole else theta[share.heads[0]:
+                                               share.heads[1]]
+
+    @staticmethod
+    def _slots(share: _Share, device) -> torch.Tensor:
+        """The ring slots (memory positions) of this rank's K block."""
+        s0, s1 = share.slots
+        idx = torch.arange(s1 - s0, device=device)
+        return idx if s0 == 0 else idx + s0
+
+    def _segments(self, h0: int, h1: int) -> List[Tuple[int, int, int, int]]:
+        """Query heads [h0, h1) cut by KV group: (first head, end, first KV
+        head, KV heads) a cut; whole groups go together, a partial group
+        alone (one at each end at most)."""
+        g, out, a = self.groups, [], h0
+        while a < h1:
+            if a % g == 0 and a + g <= h1:
+                n = (h1 - a) // g
+                out.append((a, a + n * g, a // g, n))
+            else:
+                out.append((a, min(h1, (a // g + 1) * g), a // g, 1))
+            a = out[-1][1]
+        return out
+
+    def _attend_heads(self, q_bits: torch.Tensor, kc: torch.Tensor,
+                      vc: torch.Tensor, th: torch.Tensor, valid: torch.Tensor,
+                      share: _Share) -> torch.Tensor:
+        """The context of ``share``'s query heads over a ring or a memory:
+        q_bits (B, nh, R, dhp), R query rows of each head; kc (B, nk, W,
+        dhp) and vc (B, nk, dh', W'/32) the K and V^T blocks, KV heads from
+        ``share.kv[0]`` on; th (B or 1, nh, R) int32 thresholds; valid
+        (B, W) the keys of kc's slots that count -> (B, nh, R, dh) int32.
+
+        Each KV group's query rows are the M of one xnor ``rbmm_int``
+        against its KV head's keys (a cut of whole groups batched over
+        them, a partial group alone: ``_segments``); the probabilities are
+        packed along the keys (by the pack kernel where M > 16); the
+        context 2 popc(P & V^T) - nnz(P) is the and_dc ``rbmm_int`` over
+        them, whose derived dc cancels the -K.  A ring split over the data
+        axes (``share``): with V^T split on its words as K on its slots,
+        each rank's int32 partial context is summed over them (exact);
+        with V^T split on its d_h rows (or whole), the probabilities' bits
+        are gathered over K's axes, and the context's d_h rows over
+        V^T's."""
+        b, _, r, dhp = q_bits.shape
+        (h0, h1), kv0 = share.heads, share.kv[0]
+        gather = bool(share.k_axes) and not share.w_axes
+        keys = share.ring if gather else kc.shape[2]
+        thr = th if th.shape[0] > 1 else th[0]
+        ctxs = []
+        for a, c, k0, n in self._segments(h0, h1):
+            rows = (c - a) // n * r
+
+            def heads_of(t, i=k0 - kv0, n=n):
+                return t if (i, n) == (0, t.shape[1]) else \
+                    t[:, i:i + n].contiguous()
+            q = q_bits if (a, c) == (h0, h1) else q_bits[:, a - h0:c - h0]
+            sc = rbmm.rbmm_int(q.reshape(b, n, rows, dhp), heads_of(kc),
+                               self.head_dim, scheme="xnor",
+                               impl=self._score_impl())  # (B, n, rows, W)
+            t = thr[..., a - h0:c - h0, :]
+            t = t.reshape(t.shape[:-2] + (n, rows, 1))
+            if gather:
+                probs_p = sharding.gather_bool(
+                    (sc >= t) & valid[:, None, None, :], share.mesh,
+                    share.k_axes)
+            elif rows > 16:
+                probs_p = (pack_ops.pack_threshold(sc, t) &
+                           packing.pack_bits(valid)[:, None, None, :])
+            else:
+                probs_p = packing.pack_bits((sc >= t) &
+                                            valid[:, None, None, :])
+            ctx = rbmm.rbmm_int(probs_p, heads_of(vc), keys,
+                                scheme="and_dc", impl="popcount")
+            ctxs.append(ctx.reshape(b, c - a, r, ctx.shape[-1]))
+        if not ctxs:
+            return q_bits.new_zeros((b, 0, r, self.head_dim))
+        ctx = ctxs[0] if len(ctxs) == 1 else torch.cat(ctxs, 1)
+        if share.w_axes:
+            ctx = share.mesh.all_reduce(ctx, share.w_axes)
+        elif share.d_axes:
+            ctx = share.mesh.all_gather(ctx.contiguous(), share.d_axes, 3)
+        return ctx
 
     # -- decode ---------------------------------------------------------------
 
@@ -983,55 +1176,58 @@ class SPSAttention:
             length=zeros(batch),
             ring_len=int(ring_len))
 
-    def _v_bits(self, params: Params, v: torch.Tensor) -> torch.Tensor:
-        """fp V projection (B, S, Hkv, dh) -> its per-head bits, bool."""
-        return v.to(torch.float32) >= params["v_beta"][:, None]
+    def _v_bits(self, params: Params, v: torch.Tensor,
+                kv: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """fp V projection (B, S, Hkv, dh) -> its per-head bits, bool (of
+        the KV heads [kv0, kv1) where ``kv`` names them)."""
+        beta = params["v_beta"] if kv is None else \
+            params["v_beta"][kv[0]:kv[1]]
+        return v.to(torch.float32) >= beta[:, None]
 
     def _write_token(self, params: Params, k_store: torch.Tensor,
                      vt_store: torch.Tensor, row: torch.Tensor,
                      col: torch.Tensor, k_new: torch.Tensor,
                      v: torch.Tensor,
-                     keep: Optional[torch.Tensor] = None) -> None:
+                     keep: Optional[torch.Tensor] = None,
+                     share: Optional[_Share] = None) -> None:
         """Write one decode token per sequence in place: K words at
         ``k_store[row, :, col]`` and the V^T bit (col % 32) of word
         (col // 32) in ``vt_store[row, :, :, ...]``.  ``row`` is the
         sequence of a ring or the physical page of an arena, ``col`` the
         ring slot or the in-page offset.  Sequences where ``keep`` (B,) is
-        False write zeros (the trash page's rows)."""
+        False write zeros (the trash page's rows).  With a ``share`` the
+        stores are this rank's blocks of a ring and ``k_new``, ``v`` the
+        new token of the KV heads they hold; where the ring is split over
+        the data axes only the rank whose block holds the slot (the word)
+        writes it, each rank its d_h rows of V^T."""
         k_row = k_new[:, :, 0]
         word = col // packing.WORD
         mask = packing.bit_mask(col % packing.WORD)[:, None, None]
-        v_bit = self._v_bits(params, v[:, 0]).to(torch.int32)  # (B,Hkv,dh)
+        v_bit = self._v_bits(params, v[:, 0], share and share.kv
+                             ).to(torch.int32)                 # (B,Hkv,dh)
+        own_v = None
+        if share is not None:
+            if share.d_axes:
+                v_bit = v_bit[..., share.rows[0]:share.rows[1]]
+            if share.k_axes:
+                s0, s1 = share.slots
+                own, col = (col >= s0) & (col < s1), (col - s0).clamp(
+                    0, s1 - s0 - 1)
+                k_row = torch.where(own[:, None, None], k_row,
+                                    k_store[row, :, col])
+            if share.w_axes:
+                w0, w1 = share.words
+                own_v, word = (word >= w0) & (word < w1), (word - w0).clamp(
+                    0, w1 - w0 - 1)
         old = vt_store[row, :, :, word]
         new = (old & ~mask) | (v_bit * mask)
+        if own_v is not None:
+            new = torch.where(own_v[:, None, None], new, old)
         if keep is not None:
             k_row = torch.where(keep[:, None, None], k_row, 0)
             new = torch.where(keep[:, None, None], new, 0)
         k_store[row, :, col] = k_row
         vt_store[row, :, :, word] = new
-
-    def _attend_cache(self, params: Params, q_bits: torch.Tensor,
-                      kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
-        """One query token per sequence (B,H,1,dhp) at positions ``pos``
-        (B,) against the packed K (B,Hkv,W,dhp) / V^T (B,Hkv,dh,W/32)
-        ring; ``valid`` (B, W)."""
-        b = q_bits.shape[0]
-        h, hkv, dh, g = (self.num_heads, self.num_kv_heads, self.head_dim,
-                         self.groups)
-        w = kc.shape[2]
-        # each KV head scores its G query heads as the rows of one RBMM
-        qg = q_bits.reshape(b, hkv, g, q_bits.shape[-1])
-        c = rbmm.rbmm_int(qg, kc, dh, scheme="xnor",
-                          impl=self._score_impl()).reshape(b, h, 1, w)
-        th = self._theta_at(self._theta_int(params), pos)[:, :, None, None]
-        probs = (c >= th) & valid[:, None, None, :]
-        probs_p = packing.pack_bits(probs).reshape(b, hkv, g, -1)
-        # context = 2*popcount(P & V^T) - nnz(P): the and_dc RBMM over the
-        # ring (k = W; its derived dc = W - nnz cancels the -W)
-        ctx = rbmm.rbmm_int(probs_p, vc, w, scheme="and_dc",
-                            impl="popcount")
-        return self._output_deploy(params, ctx.reshape(b, h, 1, dh))
 
     def deploy_decode(self, params: Params, x: torch.Tensor,
                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
@@ -1043,20 +1239,30 @@ class SPSAttention:
         tensors, ``length`` included, are
         updated IN PLACE (the JAX package returns new arrays), and the
         same cache is returned: a captured CUDA graph of the step keeps
-        reading the addresses it was captured with."""
+        reading the addresses it was captured with.
+
+        On a mesh (``cache`` this rank's placed blocks, ``params`` its
+        blocks of the weights) the rank projects and attends its query
+        heads (``_share``), writes the new token of the KV heads its block
+        holds, and scores the keys of its slots, each masked by its global
+        slot (``_attend_heads``): nothing of the ring is gathered."""
         if isinstance(cache, PagedKVCache):
             return self._deploy_decode_paged(params, x, cache)
         b = x.shape[0]
-        w = cache.k_bits.shape[2]
+        share = self._share(cache.k_bits, cache.vt_bits)
+        part = None if share.whole else share
         pos = cache.length.to(torch.int32)
-        q_bits, k_new, v = self._project_qkv_deploy(params, x,
-                                                    pos[:, None])
+        q_bits, k_new, v = self._project_qkv_deploy(params, x, pos[:, None],
+                                                    share=part)
         self._write_token(params, cache.k_bits, cache.vt_bits,
                           torch.arange(b, device=x.device),
-                          torch.remainder(pos, w).long(), k_new, v)
-        valid = torch.arange(w, device=x.device)[None, :] <= pos[:, None]
-        out = self._attend_cache(params, q_bits, cache.k_bits,
-                                 cache.vt_bits, pos, valid)
+                          torch.remainder(pos, share.ring).long(), k_new, v,
+                          share=part)
+        valid = self._slots(share, x.device)[None, :] <= pos[:, None]
+        th = self._theta_at(self._theta_heads(params, share), pos)
+        ctx = self._attend_heads(q_bits, cache.k_bits, cache.vt_bits,
+                                 th[:, :, None], valid, share)
+        out = self._output_deploy(params, ctx, part)
         cache.length.add_(1)      # pos aliases it: every reader comes first
         return out, cache
 

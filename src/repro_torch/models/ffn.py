@@ -37,10 +37,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.core import binarize, packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.models import nn, sharding
-from repro_torch.models.linear import BinaryDense, act_bits_packed, pm1_matmul
+from repro_torch.models.linear import (BinaryDense, act_bits_packed,
+                                       pm1_matmul, rbmm_placed)
 from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
@@ -267,51 +269,105 @@ class BinaryFFN:
                      h_alpha).to(self.dtype)
 
     def apply_deploy(self, params: Params, x: Optional[torch.Tensor] = None,
-                     *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     *, bits: Optional[torch.Tensor] = None,
+                     take: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Deploy forward, fp in and out; a fully binary matmul chain.
         Either fp ``x`` (binarized here) or, for the GLU FFN, pre-packed
         ``bits``; the ReLU FFN binarizes inside its fused F1 and takes
         ``x`` only, as in the JAX package.  An expert stack (GLU only)
-        takes (E, C, d) rows or (E, C, Kp) bits."""
+        takes (E, C, d) rows or (E, C, Kp) bits; ``take`` (N,) picks the
+        rows (of the E * C) whose outputs come back, (N, d).
+
+        On a mesh (placed params; ``linear.rbmm_placed``) ``w1``/``w3``
+        give this rank's d_ff columns where they are split on their rows,
+        the mid-activation's bits of them feed ``w2``'s block of words
+        where that block is exactly them (nothing crosses between the
+        two), else they are put together whole (``sharding.join_bits``);
+        ``w2``'s int32 partials are all-reduced over "model" (its words
+        split) or its rows' outputs all-gathered: only the rows ``take``
+        picks cross."""
         if self.glu:
-            return self._deploy_glu(params, x, bits=bits)
-        if bits is not None:
+            return self._deploy_glu(params, x, bits=bits, take=take)
+        if bits is not None or take is not None:
             raise ValueError("the ReLU FFN takes fp x, not packed bits")
         if self.blocked_r:
             return self._deploy_relu_blocked(params, x)
         return self._deploy_relu(params, x)
 
     def _mm_int(self, wp: Params, bits: torch.Tensor, k: int,
-                scheme: str = "xnor", dc: Optional[torch.Tensor] = None
+                scheme: str = "xnor", dc: Optional[torch.Tensor] = None,
+                held: Optional[Tuple[int, int]] = None,
+                take: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """RBMM of (..., Kp) bits against packed weights -> (c, alpha_w);
-        an expert stack multiplies (E, C, Kp) bits by its (E, P, Kp)
-        words in one batched RBMM, scaled by (E, 1, P)."""
+        """RBMM of (..., Kp) bits against packed weights -> (c, alpha_w),
+        c of the output columns that ``rows_held`` names on a mesh
+        (``linear.rbmm_placed``); an expert stack multiplies (E, C, Kp)
+        bits by its (E, P, Kp) words in one batched RBMM, scaled by (E, 1,
+        P), or with ``take`` the picked rows' (N, P) by their experts'
+        (N, P)."""
         if self.num_experts:
-            c = rbmm.rbmm_int(bits, wp["w_packed"], k, scheme=scheme, dc=dc,
-                              impl=self.impl)
-            return c, wp["alpha_w"][:, None, :]
+            c, _ = rbmm_placed(bits, wp["w_packed"], k, scheme=scheme,
+                               dc=dc, impl=self.impl, held=held, take=take)
+            if take is None:
+                return c, wp["alpha_w"][:, None, :]
+            return c, wp["alpha_w"].index_select(0, take // bits.shape[-2])
         shape = bits.shape[:-1]
-        c = rbmm.rbmm_int(bits.reshape(-1, bits.shape[-1]), wp["w_packed"],
-                          k, scheme=scheme,
-                          dc=None if dc is None else dc.reshape(-1),
-                          impl=self.impl)
+        c, _ = rbmm_placed(bits.reshape(-1, bits.shape[-1]), wp["w_packed"],
+                           k, scheme=scheme,
+                           dc=None if dc is None else dc.reshape(-1),
+                           impl=self.impl, held=held)
         return c.reshape(shape + (c.shape[-1],)), wp["alpha_w"]
+
+    def _to_w2(self, params: Params, words: torch.Tensor,
+               own: Tuple[int, int], dc: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[Tuple[int, int]],
+                          Optional[torch.Tensor]]:
+        """The mid-activation's packed bits of this rank's d_ff columns
+        ``own`` (and their don't-care count) -> (bits, the words they
+        hold, dc) for ``w2``: as they are where ``w2``'s block of words is
+        exactly them, or where they are every column; else every rank's
+        put together whole (``sharding.join_bits``; dc derived by the
+        product)."""
+        held = self._w2().words_held(params["w2"])
+        lo, hi = own        # every rank's block as wide: each decides alike
+        if held is not None and (hi - lo) % packing.WORD == 0 and \
+                held == (lo // packing.WORD, hi // packing.WORD):
+            return words, held, dc
+        if own == (0, self.d_ff):
+            return words, None, dc
+        split = sharding.decode_split(params["w1"]["w_packed"])
+        n = hi - lo
+        spans = [(r * n, (r + 1) * n) for r in range(split.width)]
+        return sharding.join_bits(words, split, spans, self.d_ff), None, None
+
+    def _w2_out(self, params: Params, c2: torch.Tensor,
+                scale2: torch.Tensor) -> torch.Tensor:
+        """``w2``'s outputs, scaled, in ``dtype``: every column (a rows
+        block's all-gathered)."""
+        y = (c2.to(torch.float32) * scale2 * params["h_alpha"]).to(self.dtype)
+        return sharding.take_cols(
+            y, sharding.decode_split(params["w2"]["w_packed"]),
+            self._w2().rows_held(params["w2"]), self.d_model)
 
     def _deploy_relu(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Unblocked F1 -> F2 with the fused ReLU+unsigned threshold."""
-        h_bits, dc = self._w1().apply_deploy_fused_unsigned(
+        w1 = self._w1()
+        h_bits, dc = w1.apply_deploy_fused_unsigned(
             params["w1"], x, params["h_alpha"], params["h_beta"],
             relu=self.act == "relu", impl=self.impl,
             act_alpha=params["act_alpha"], act_beta=params["act_beta"])
+        h_bits, held, dc = self._to_w2(params, h_bits,
+                                       w1.rows_held(params["w1"]), dc)
         c2, scale2 = self._mm_int(params["w2"], h_bits, self.d_ff,
-                                  scheme="and_dc", dc=dc)
-        y = c2.to(torch.float32) * scale2 * params["h_alpha"]
-        return y.to(self.dtype)
+                                  scheme="and_dc", dc=dc, held=held)
+        return self._w2_out(params, c2, scale2)
 
     def _deploy_relu_blocked(self, params: Params,
                              x: torch.Tensor) -> torch.Tensor:
-        """Eq. 11: R-chunked F1/F2 with two live l x d buffers."""
+        """Eq. 11: R-chunked F1/F2 with two live l x d buffers (whole
+        weights only: a placed block raises)."""
+        for k in ("w1", "w2"):
+            sharding.placed_block(params[k]["w_packed"], ())
         r = self.blocked_r
         bits = act_bits_packed(x, params["act_beta"])
         shape = bits.shape[:-1]
@@ -335,7 +391,8 @@ class BinaryFFN:
         return y.to(self.dtype)
 
     def _deploy_glu(self, params: Params, x: Optional[torch.Tensor] = None,
-                    *, bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    *, bits: Optional[torch.Tensor] = None,
+                    take: Optional[torch.Tensor] = None) -> torch.Tensor:
         if bits is None:
             bits = act_bits_packed(x, params["act_beta"])
         c_u, scale1 = self._mm_int(params["w1"], bits, self.d_model)
@@ -346,12 +403,13 @@ class BinaryFFN:
         h = glu_act(self.act, u) * g                   # fp elementwise
         h_bits = pack_ops.pack_threshold(
             h, params["h_beta"] + 0.5 * params["h_alpha"])
+        h_bits, held, _ = self._to_w2(params, h_bits,
+                                      self._w1().rows_held(params["w1"]))
         # the and_dc RBMM derives dc = d_ff - popcount(h_bits) from the
         # words, which is the JAX package's d_ff - sum(hb)
         c2, scale2 = self._mm_int(params["w2"], h_bits, self.d_ff,
-                                  scheme="and_dc")
-        y = c2.to(torch.float32) * scale2 * params["h_alpha"]
-        return y.to(self.dtype)
+                                  scheme="and_dc", held=held, take=take)
+        return self._w2_out(params, c2, scale2)
 
 
 # ---------------------------------------------------------------------------
@@ -532,17 +590,48 @@ class BinaryMoE:
                                 tuple(x2.shape[1:]))
 
     @staticmethod
-    def _combine(out_buf: torch.Tensor, gates: torch.Tensor,
+    def _sources(idx: torch.Tensor, slot: torch.Tensor,
+                 capacity: int) -> torch.Tensor:
+        """(N * k,) the expert-buffer row of each claim (a dropped one's
+        clamped to a real row, whose gate is 0)."""
+        return (idx * capacity + slot.clamp(0, capacity - 1)).reshape(-1)
+
+    @staticmethod
+    def _weigh(got: torch.Tensor, gates: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+        """The claims' expert outputs (N * k, d) weighted by the gates (a
+        dropped claim's gate is 0) and summed per row, (N, d) float32."""
+        n, k = gates.shape
+        w = (gates * keep.to(gates.dtype))[:, :, None]
+        return (got.reshape(n, k, -1) * w).sum(1)
+
+    def _combine(self, out_buf: torch.Tensor, gates: torch.Tensor,
                  idx: torch.Tensor, slot: torch.Tensor,
                  keep: torch.Tensor) -> torch.Tensor:
         """(E, C, d) expert outputs gathered back to (N, d), weighted by
-        the gates (a dropped claim's gate is 0), in float32."""
-        n, k = idx.shape
-        capacity = out_buf.shape[1]
-        src = (idx * capacity + slot.clamp(0, capacity - 1)).reshape(-1)
+        the gates, in float32."""
+        src = self._sources(idx, slot, out_buf.shape[1])
         got = out_buf.reshape(-1, out_buf.shape[-1]).index_select(0, src)
-        w = (gates * keep.to(gates.dtype))[:, :, None]
-        return (got.reshape(n, k, -1) * w).sum(1)
+        return self._weigh(got, gates, keep)
+
+    def _claimed(self, ep: Params, key: str, buf: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+        """The expert stack's outputs (N * k, d) at the claims' buffer
+        rows ``src``, on a mesh (``ep`` this rank's placed blocks of the
+        stack; ``buf`` (E, C, ...) its dispatched ``key`` input)."""
+        experts, w1 = self._experts(), ep["w1"]["w_packed"]
+        by, e0, e1 = sharding.placed_block(w1, (0, 1, 2))
+        if by != 0:
+            return experts.apply_deploy(ep, take=src, **{key: buf})
+        cap = buf.shape[1]
+        own = (src >= e0 * cap) & (src < e1 * cap)
+        local = tree.map(lambda t: t.view(t.shape), ep)   # blocks, whole
+        got = experts.apply_deploy(
+            local, take=(src - e0 * cap).clamp(0, (e1 - e0) * cap - 1),
+            **{key: buf[e0:e1]})
+        got = torch.where(own[:, None], got.to(torch.float32), 0.0)
+        return sharding.decode_split(w1).mesh.all_reduce(
+            got, "model").to(self.dtype)
 
     # -- faces ---------------------------------------------------------------
 
@@ -564,19 +653,29 @@ class BinaryMoE:
         return y.reshape(shape).to(self.dtype), aux
 
     def apply_deploy(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Deploy forward: route (the router whole), dispatch, the expert
+        stack on its buffers, the gated combine.  On a mesh (placed
+        params) only the claims' rows of the stack's outputs are kept
+        (``take``), and the stack runs on this rank's block: split on its
+        rows and words as a dense FFN (``BinaryFFN.apply_deploy``), or by
+        expert (``expert_parallel``): this rank's experts' buffers run
+        whole, each claim takes its expert's rank's row and zeros on the
+        others, and the float32 rows are summed over "model" (exact: one
+        term of each is not zero)."""
         shape = x.shape
         x2 = x.reshape(-1, self.d_model)
         gates, idx, slot, keep, cap = self._route(params, x2)
-        experts = self._experts()
-        if self.dispatch_bits:
-            bits2 = act_bits_packed(x2, params["experts"]["act_beta"])
-            out_buf = experts.apply_deploy(
-                params["experts"],
-                bits=self._dispatch(bits2, idx, slot, keep, cap))
+        experts, ep = self._experts(), params["experts"]
+        rows = (act_bits_packed(x2, ep["act_beta"]) if self.dispatch_bits
+                else x2)
+        buf = self._dispatch(rows, idx, slot, keep, cap)
+        key = "bits" if self.dispatch_bits else "x"
+        if getattr(ep["w1"]["w_packed"], "placement", None) is None:
+            y = self._combine(experts.apply_deploy(ep, **{key: buf}), gates,
+                              idx, slot, keep)
         else:
-            out_buf = experts.apply_deploy(
-                params["experts"], self._dispatch(x2, idx, slot, keep, cap))
-        y = self._combine(out_buf, gates, idx, slot, keep)
+            y = self._weigh(self._claimed(ep, key, buf, self._sources(
+                idx, slot, cap)), gates, keep)
         if self.dense_residual:
             y = y + self._residual_ffn().apply_deploy(params["residual"], x2)
         return y.reshape(shape).to(self.dtype)

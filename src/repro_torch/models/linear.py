@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import binarize, packing, rbmm
 from repro_torch.kernels.pack import ops as pack_ops
-from repro_torch.models import nn
+from repro_torch.models import nn, sharding
 from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
@@ -42,6 +42,52 @@ def act_bits_packed(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     compare, as the JAX package promotes a compute-dtype x against its
     float32 beta)."""
     return pack_ops.pack_threshold(x, beta.to(torch.float32))
+
+
+def rbmm_placed(bits: torch.Tensor, w: torch.Tensor, k: int, *,
+                scheme: str = "xnor", dc: Optional[torch.Tensor] = None,
+                impl: str = "auto",
+                held: Optional[Tuple[int, int]] = None,
+                take: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """The decode rule's integer product of (..., M, Kp) bits by packed
+    weights ``w`` (..., P, Kp) of K = ``k`` bits, ``w`` this rank's block
+    on a mesh (``sharding.placed_block``; unplaced: whole) -> (c int32,
+    the output columns [lo, hi) of P that c holds):
+      * whole: every column from the whole bits;
+      * output rows split: this rank's rows, from the whole bits;
+      * packed contraction words split: this rank's words of the bits (of
+        all words, or ``held``, the words [lo, hi) ``bits`` hold, which
+        must be the block), of their true bit count (32 a word, the last
+        block's pad excepted; and_dc derives its don't-care count per
+        block: 2 popc(AND) - popc(bits)), the int32 partial sums
+        all-reduced over "model" (exact) before any scale: every column.
+    ``take`` (N,): only these rows of c (its leading dims and M
+    flattened), picked before the exchange, (N, P)."""
+    nd = w.dim()
+    d, lo, hi = sharding.placed_block(w, (nd - 2, nd - 1))
+    p = w.shape[-2] if d != nd - 2 else w.placement.shape[-2]
+    if d == nd - 1:
+        if held is None:
+            bits, dc = bits[..., lo:hi].contiguous(), None
+        elif tuple(held) != (lo, hi):
+            raise ValueError(f"bits of words {held} meet a weight block of "
+                             f"words {(lo, hi)}")
+        kb = min(k, packing.WORD * hi) - packing.WORD * lo
+        c = _take(rbmm.rbmm_int(bits, w, kb, scheme=scheme, dc=dc,
+                                impl=impl), take)
+        return sharding.decode_split(w).mesh.all_reduce(c, "model"), (0, p)
+    if held is not None:
+        raise ValueError(f"a product whole along its words takes every "
+                         f"word of its bits, got words {held}")
+    c = _take(rbmm.rbmm_int(bits, w, k, scheme=scheme, dc=dc, impl=impl),
+              take)
+    return c, ((lo, hi) if d == nd - 2 else (0, p))
+
+
+def _take(c: torch.Tensor, take: Optional[torch.Tensor]) -> torch.Tensor:
+    return c if take is None else c.reshape(-1, c.shape[-1]).index_select(
+        0, take)
 
 
 def pm1_matmul(a: torch.Tensor, wb: torch.Tensor,
@@ -173,10 +219,17 @@ class BinaryDense:
                      *, bits: Optional[torch.Tensor] = None,
                      act_alpha: Optional[torch.Tensor] = None,
                      scheme: str = "xnor", dc: Optional[torch.Tensor] = None,
-                     impl: str = "auto") -> torch.Tensor:
+                     impl: str = "auto", held: Optional[Tuple[int, int]] = None,
+                     cols=None) -> torch.Tensor:
         """Deploy forward -> compute-dtype output.  Either fp ``x`` (this
         layer binarizes and packs it) or packed ``bits`` from upstream with
-        ``act_alpha`` (and, for the unsigned scheme, ``dc``)."""
+        ``act_alpha`` (and, for the unsigned scheme, ``dc``).  On a mesh
+        (placed params) the product runs on this rank's block of the
+        weight (``rbmm_placed``; ``held``: the words ``bits`` hold), and
+        this rank's columns of ``cols`` come back (every rank's, or one
+        pair for all; default all): a rows block's all-gathered over
+        "model" where some rank's rows do not hold its columns
+        (``sharding.take_cols``)."""
         if bits is None:
             if self.external_act or x is None:
                 raise ValueError("apply_deploy needs x for a layer with its "
@@ -189,20 +242,39 @@ class BinaryDense:
         shape = bits.shape[:-1]
         a2 = bits.reshape(-1, bits.shape[-1])
         dc2 = dc.reshape(-1) if dc is not None else None
-        c = rbmm.rbmm_int(a2, params["w_packed"], self.in_dim,
-                          scheme=scheme, dc=dc2, impl=impl)
-        c = c.reshape(shape + (self.out_dim,))
+        c, own = rbmm_placed(a2, params["w_packed"], self.in_dim,
+                             scheme=scheme, dc=dc2, impl=impl, held=held)
+        c = c.reshape(shape + (c.shape[-1],))
         y = (c.to(torch.float32) * params["alpha_w"] *
              act_alpha.to(torch.float32))
         if self.use_bias:
             y = y + params["bias"]
-        return y.to(self.dtype)
+        return sharding.take_cols(y.to(self.dtype), sharding.decode_split(
+            params["w_packed"]), own, self.out_dim, cols)
+
+    def rows_held(self, params: Params) -> Tuple[int, int]:
+        """The output rows [lo, hi) this rank computes: its block where
+        the weight is split on its rows, else all."""
+        w = params["w_packed"]
+        d, lo, hi = sharding.placed_block(w, (w.dim() - 2, w.dim() - 1))
+        return (lo, hi) if d == w.dim() - 2 else (0, self.out_dim)
+
+    def words_held(self, params: Params) -> Optional[Tuple[int, int]]:
+        """The packed contraction words [lo, hi) this rank multiplies
+        where the weight is split on them, else None (every word)."""
+        w = params["w_packed"]
+        d, lo, hi = sharding.placed_block(w, (w.dim() - 2, w.dim() - 1))
+        return (lo, hi) if d == w.dim() - 1 else None
 
     def _fused(self, params: Params, bits: torch.Tensor,
                theta: torch.Tensor, impl: str, return_dc: bool
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(..., Kp) bits -> packed (..., ceil(out/32)) bits of
-        c >= theta, with their zero counts (...,) if asked."""
+        c >= theta, with their zero counts (...,) if asked; on a mesh,
+        of this rank's rows (``rows_held``: the threshold needs every
+        word, so a weight split on its words raises)."""
+        w = params["w_packed"]
+        sharding.placed_block(w, (w.dim() - 2,))
         shape = bits.shape[:-1]
         out_bits, dc_ret = rbmm.rbmm_binary(
             bits.reshape(-1, bits.shape[-1]), params["w_packed"],
@@ -248,5 +320,6 @@ class BinaryDense:
         theta = torch.ceil((t - shift) / scale)
         if relu:
             theta = torch.where(t > 0, theta, float(-(self.in_dim + 1)))
-        return self._fused(params, bits, theta.expand(self.out_dim), impl,
+        return self._fused(params, bits,
+                           theta.expand(params["w_packed"].shape[-2]), impl,
                            return_dc)

@@ -61,7 +61,7 @@ from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn, sharding
 from repro_torch.models.attention import PageSpec
-from repro_torch.models.blocks import Block, compute_dtype
+from repro_torch.models.blocks import RECURRENT, Block, compute_dtype
 
 Params = Dict[str, Any]
 
@@ -111,16 +111,23 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 class _OnMesh:
-    """The deploy faces on a mesh (``mesh=``), the trainer's design: the
-    params are this rank's placed blocks (``deploy_specs``), each block's
-    gathered whole where it runs (no autograd); the rows of the batch are
-    this rank's where the data axes split them (a placed batch), else
-    every rank's (a batch the data axes do not divide is replicated, as
-    the JAX package's ``_shard_batch_dim`` does); each cache leaf is this
-    rank's block (``launch.specs.cache_shardings``), gathered whole for
-    its layer's step along the axes that split it but the rows', the
-    step's writes put back into this rank's block.  A mesh of one index
-    on every axis runs no collective: the one-device arithmetic."""
+    """The deploy faces on a mesh (``mesh=``): the params are this rank's
+    placed blocks (``deploy_specs``); the rows of the batch are this
+    rank's where the data axes split them (a placed batch), else every
+    rank's (a batch the data axes do not divide is replicated, as the JAX
+    package's ``_shard_batch_dim`` does); each cache leaf is this rank's
+    block (``launch.specs.cache_shardings``).  A mesh of one index on
+    every axis runs no collective: the one-device arithmetic.
+
+    ``prefill_logits`` runs the trainer's design (``params``: each
+    block's leaves gathered whole where it runs).  ``decode_step`` splits
+    its compute as the specs place the state (``decode_params``,
+    ``decode_cache``): each binary product runs on this rank's block of
+    its weight (``linear.rbmm_placed``), attention on this rank's heads
+    and slots (``SPSAttention.deploy_decode``), the embedding and the head
+    on its vocabulary block (``nn.Embedding``, ``nn.Dense``); only the
+    leaves of ``sharding.WHOLE_PARTS`` are gathered, and the recurrent
+    carries (the recurrences compute whole)."""
 
     def __init__(self, mesh, batch: torch.Tensor):
         self.mesh = mesh
@@ -129,6 +136,14 @@ class _OnMesh:
     def params(self, p: Params) -> Params:
         return tree.map(lambda t: sharding.placement_of(t).whole(t), p)
 
+    @staticmethod
+    def decode_params(p: Params) -> Params:
+        """The leaves of ``sharding.WHOLE_PARTS`` gathered whole, every
+        other leaf as this rank's placed block."""
+        return tree.unflatten(p, [
+            sharding.placement_of(t).whole(t) if sharding.kept_whole(path)
+            else t for path, t in tree.leaves_with_paths(p)])
+
     def context(self):
         """The MoE's routing over the global batch where rows are split."""
         if self.skip and self.mesh.data_size > 1:
@@ -136,25 +151,28 @@ class _OnMesh:
                 self.mesh, sharding.data_axes(self.mesh))
         return contextlib.nullcontext()
 
-    def cache(self, cache: Dict[str, Any], read_only=("cross",)):
-        """(the layer's cache whole along every split axis but the rows',
-        a function that puts the step's writes back into the blocks)."""
-        whole, back = {}, []
-        for part, c in cache.items():
+    def decode_cache(self, cache: Dict[str, Any]):
+        """(the layer's cache for its step: the attention's ring and the
+        cross memory as this rank's blocks, each recurrent carry whole
+        along every split axis but the rows', a function that puts the
+        step's writes back into the carries' blocks)."""
+        out, back = dict(cache), []
+        for part in RECURRENT:
+            if part not in cache:
+                continue
             leaves = []
-            for t in tree.leaves(c):
+            for t in tree.leaves(cache[part]):
                 pl = sharding.placement_of(t)
                 w = pl.whole(t, self.skip)
-                if part not in read_only and any(
-                        d not in self.skip for _, d in pl.splits):
+                if any(d not in self.skip for _, d in pl.splits):
                     back.append((t, pl, w))
                 leaves.append(w)
-            whole[part] = tree.unflatten(c, leaves)
+            out[part] = tree.unflatten(cache[part], leaves)
 
         def put_back():
             for t, pl, w in back:
                 t.copy_(pl.block(w, self.skip))
-        return whole, put_back
+        return out, put_back
 
 
 # (path, a freshly drawn part) -> what to hold of it
@@ -641,7 +659,8 @@ class LMModel:
         given, their tensors (lengths included) updated in place, so a
         captured graph of the step and its caller hold the same caches.
         On a ``mesh``: params, token and caches are this rank's placed
-        blocks (``_OnMesh``), the logits this rank's rows."""
+        blocks, the logits this rank's rows; the step computes on this
+        rank's blocks of the params and caches (``_OnMesh``)."""
         if mesh is None:
             x = self._scale(self._embed().apply(dparams["embed"], token))
             for blk, bp, cache in zip(self._blocks(), dparams["blocks"],
@@ -649,13 +668,14 @@ class LMModel:
                 x, _ = blk.deploy_decode(bp, x, cache)
             return self._logits(dparams, x), caches
         on = _OnMesh(mesh, token)
-        top = on.params({k: v for k, v in dparams.items() if k != "blocks"})
+        top = on.decode_params({k: v for k, v in dparams.items()
+                                if k != "blocks"})
         with on.context():
             x = self._scale(self._embed().apply(top["embed"], token))
             for blk, bp, cache in zip(self._blocks(), dparams["blocks"],
                                       caches):
-                whole, put_back = on.cache(cache)
-                x, _ = blk.deploy_decode(on.params(bp), x, whole)
+                mine, put_back = on.decode_cache(cache)
+                x, _ = blk.deploy_decode(on.decode_params(bp), x, mine)
                 put_back()
             return self._logits(top, x), caches
 
@@ -917,14 +937,12 @@ class EncDecModel:
                 x, _ = blk.deploy_decode(lp, x, cache)
             return self._logits(dparams, x), caches
         on = _OnMesh(mesh, token)
-        top = on.params({k: dparams[k]
-                         for k in ("embed", "final_norm", "head")})
+        top = on.decode_params({k: dparams[k]
+                                for k in ("embed", "final_norm", "head")})
         with on.context():
             x = self._embed_tokens(top, token)
             for lp, cache in zip(dparams["decoder"], caches):
-                whole, put_back = on.cache(cache)
-                x, _ = blk.deploy_decode(on.params(lp), x, whole)
-                put_back()
+                x, _ = blk.deploy_decode(on.decode_params(lp), x, cache)
             return self._logits(top, x), caches
 
 

@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import tree
+from repro_torch.models import sharding
 from repro_torch.models.sharding import P
 
 Params = Dict[str, Any]
@@ -102,12 +103,31 @@ class Embedding:
         return {"embedding": P("model", None)}
 
     def apply(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return params["embedding"][ids.long()]
+        """The table's rows of ``ids``.  On a mesh (the table this rank's
+        block of the vocabulary): a token whose id lies in the block takes
+        its row, any other zeros, and the float32 rows are summed over
+        "model" (exact: one term of each is not zero)."""
+        table = params["embedding"]
+        d, lo, hi = sharding.placed_block(table, (0,))
+        if d is None:
+            return table[ids.long()]
+        local = ids.long() - lo
+        inside = (local >= 0) & (local < hi - lo)
+        rows = table[local.clamp(0, hi - lo - 1)]
+        rows = torch.where(inside[..., None], rows, 0.0)
+        return sharding.decode_split(table).mesh.all_reduce(rows, "model")
 
     def attend(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding logits (float32, like the JAX einsum of a
-        compute-dtype x against the float32 table)."""
-        return torch.matmul(x.to(torch.float32), params["embedding"].T)
+        compute-dtype x against the float32 table); on a mesh, this
+        rank's vocabulary block's, all-gathered along the vocabulary."""
+        table = params["embedding"]
+        d, _, _ = sharding.placed_block(table, (0,))
+        lg = torch.matmul(x.to(torch.float32), table.T)
+        if d is None:
+            return lg
+        return sharding.decode_split(table).mesh.all_gather(
+            lg, "model", lg.dim() - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,10 +157,16 @@ class Dense:
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x @ kernel (+ bias) in the promoted dtype of x and the kernel,
         as the JAX einsum promotes (a bf16 x meets a float32 kernel in
-        float32)."""
+        float32).  On a mesh (the kernel this rank's block of its output
+        columns, the untied head's vocabulary): this rank's columns,
+        all-gathered along them."""
         kernel = params["kernel"]
+        d, _, _ = sharding.placed_block(kernel, (1,))
         dt = torch.promote_types(x.dtype, kernel.dtype)
         y = torch.matmul(x.to(dt), kernel.to(dt))
         if self.use_bias:
             y = y + params["bias"]
-        return y
+        if d is None:
+            return y
+        return sharding.decode_split(kernel).mesh.all_gather(
+            y, "model", y.dim() - 1)

@@ -554,3 +554,118 @@ def columns(leaf, dim: int, spans: Sequence[Tuple[int, int]],
     if (lo, hi) != (0, t.shape[dim]):
         t = t.narrow(dim, lo, hi - lo)
     return whole(t, signs) if signs else t
+
+
+# ---------------------------------------------------------------------------
+# The deploy decode on a mesh: each product on this rank's block of its
+# weight (``models.linear.rbmm_placed``), attention on this rank's heads
+# (``SPSAttention.deploy_decode``), the embedding and the head on
+# vocabulary blocks (``models.nn``); what crosses "model" is activations.
+# ---------------------------------------------------------------------------
+
+# the leaves a decode step computes with whole on every rank, gathered
+# whole where they run (by the end of their path in a block's params): the
+# Mamba branch's float32 leaves and the sLSTM's forget bias (the
+# recurrences' per-position math), the mLSTM's fp gate projection and the
+# MoE's router.  Every other leaf is read as this rank's block.
+WHOLE_PARTS = ("mamba/conv_w", "mamba/conv_b", "mamba/x_proj",
+               "mamba/dt_proj", "mamba/dt_bias", "mamba/a_log",
+               "mamba/d_skip", "cell/f_bias", "cell/w_gates",
+               "cell/b_gates", "router/kernel")
+
+
+def kept_whole(path: str) -> bool:
+    """Is the leaf at ``path`` one of ``WHOLE_PARTS``?"""
+    return any(path == p or path.endswith("/" + p) for p in WHOLE_PARTS)
+
+
+def decode_split(t) -> Split:
+    """The "model" axis a decode step's products on placed ``t`` run
+    over: this rank's index and the axis' width on ``t``'s mesh; ``WHOLE``
+    for an unplaced tensor or an axis of one (every exchange below is then
+    the identity)."""
+    pl = getattr(t, "placement", None)
+    m = 1 if pl is None else pl.mesh.shape.get("model", 1)
+    if m == 1:
+        return WHOLE
+    return Split(pl.mesh.index("model"), m, pl.mesh)
+
+
+def placed_block(t, dims: Sequence[int]) -> Tuple[Optional[int], int, int]:
+    """The decode rule's reading of a leaf: (the dim of ``t`` split along
+    "model", this rank's block [lo, hi) of it), or (None, 0, dim 0's
+    size) where ``t`` is whole.  Raises for a split the rule cannot
+    compute on: over other axes than "model", or on a dim not in
+    ``dims``."""
+    pl = getattr(t, "placement", None)
+    if pl is None or not pl.splits:
+        return None, 0, t.shape[0] if t.dim() else 0
+    allowed = {d % len(pl.shape) for d in dims}
+    for axes, d in pl.splits:
+        if tuple(axes) != ("model",) or d not in allowed:
+            raise ValueError(f"a decode step computes on a leaf split along "
+                             f"\"model\" on dims {sorted(allowed)}; got "
+                             f"{pl}")
+    d = pl.splits[0][1]
+    return (d,) + pl.span(d)
+
+
+def take_cols(y: torch.Tensor, split: Split, own: Tuple[int, int], n: int,
+              cols=None) -> torch.Tensor:
+    """``y`` (..., hi - lo): this rank's columns ``own`` = [lo, hi) of n
+    (all n, or its block of a product split on its output rows, the
+    ranks' blocks equal and in rank order) -> this rank's columns of
+    ``cols``: the columns [lo, hi) every "model" rank wants, in rank order
+    (or one pair for all; default all n).  Narrowed where every rank's
+    block holds what it wants, else all-gathered over "model" first (each
+    rank decides alike, so each runs the same collectives)."""
+    cols = (0, n) if cols is None else cols
+    every = [cols] * split.width if isinstance(cols[0], int) else cols
+    a, b = every[split.index]
+    lo, hi = own
+    blk = hi - lo
+    if blk < n and not all(r * blk <= ca and cb <= (r + 1) * blk
+                           for r, (ca, cb) in enumerate(every)):
+        y = split.mesh.all_gather(y.contiguous(), "model", y.dim() - 1)
+        lo = 0
+    if (a - lo, b - lo) == (0, y.shape[-1]):
+        return y
+    return y[..., a - lo:b - lo]
+
+
+def join_bits(words: torch.Tensor, split: Split,
+              spans: Sequence[Tuple[int, int]], n: int) -> torch.Tensor:
+    """``words`` (..., ceil((hi - lo) / 32)): the packed bits of this
+    rank's span ``spans[split.index]`` = [lo, hi) of n binary columns
+    (every rank's span given, in order, covering [0, n)) -> the packed
+    bits of all n columns, every span in its place: the words
+    all-gathered where each span starts on a word, else the bits, one
+    byte each.  ``words`` itself on one rank."""
+    from repro_torch.core import packing
+    if split.width == 1:
+        return words
+    if all(lo % packing.WORD == 0 for lo, _ in spans):
+        w_spans = [(lo // packing.WORD, packing.packed_len(hi))
+                   for lo, hi in spans]
+        return gather_heads(words, split, words.dim() - 1, w_spans)
+    lo, hi = spans[split.index]
+    vals = packing.unpack_bits(words, hi - lo).to(torch.uint8)
+    every = gather_heads(vals, split, vals.dim() - 1, spans)
+    return packing.pack_bits(every.bool())
+
+
+def gather_bool(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``t`` (..., w) bool: this rank's block of the last dim, split over
+    ``axes`` -> the packed bits (..., ceil(w * n / 32)) of the whole dim:
+    the words all-gathered where a block holds whole words, else the
+    values, one byte each, then packed."""
+    from repro_torch.core import packing
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not axes:
+        return packing.pack_bits(t)
+    if t.shape[-1] % packing.WORD == 0:
+        return mesh.all_gather(packing.pack_bits(t).contiguous(), axes,
+                               t.dim() - 1)
+    every = mesh.all_gather(t.to(torch.uint8).contiguous(), axes,
+                            t.dim() - 1)
+    return packing.pack_bits(every.bool())
