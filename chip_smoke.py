@@ -312,7 +312,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 exactly, and its traced arguments + temp lie within 20%
                 of the measured peak of one eager mesh step (less the
                 memory resident beside it); on phase 24's one-rank NCCL
-                (1, 1) mesh the mesh ``prefill_logits`` and
+                (1, 1) mesh the mesh ``prefill_logits`` (split along
+                "model" by the sequence as on any mesh: the rank's block
+                of the positions on whole 1-bit weights, attention on its
+                heads through all-to-alls of packed bits) and
                 ``decode_step`` (its compute split along "model" as on
                 any mesh: each product on the rank's block of its weight,
                 attention on its heads, the embedding and the head on
@@ -346,8 +349,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 router computes whole, ``DRY_FLOPS_WHOLE``), hymba-1.5b's and
                 xlstm-350m's decode and long_500k bytes at least 2x, no
                 decode or long_500k cell's arguments + temp grows, and the
-                train and prefill cells equal them (``[dryrun decode]``);
-                the sweep ends with the script
+                train cells and the prefill cells of the archs that
+                compute whole equal them (``[dryrun decode]``); the
+                prefill_32k cells of ``DRY_PREFILL_SPLIT`` against them
+                and against the kernels' work before the prefill was split
+                (``DRY_PREFILL_SPLIT``): arguments + temp a rank fall at
+                least 4x, dense FLOPs and ``rbmm_mxu``'s and
+                ``sps_attention``'s work a rank at least 8x, collective
+                bytes a rank at most 1.25x (smollm-135m's held to this
+                slice's figure, ``DRY_PREFILL_COLL_HELD``), ``step_time_s``
+                falls (``[dryrun prefill]``); the sps_attention kernel on
+                the operands the split hands it (a rank's query heads cut
+                by KV group, a span starting inside one, the row table
+                sliced to them) equals its plain version, bitwise
+                (``[dryrun prefill kernels]``); the sweep ends with the
+                script
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -4615,6 +4631,29 @@ DRY_DECODE_SPLIT = ("qwen1.5-32b", "gemma3-27b", "granite-3-2b",
 DRY_LONG_SPLIT = ("gemma3-27b", "mixtral-8x22b")
 DRY_COLL_FALL = 10
 DRY_WHOLE_FALL = 2
+# the single-pod prefill_32k cells as the dry run traced them before the
+# mesh prefill was split along "model" (every block whole on every rank's
+# rows; ``python -m repro_torch.launch.dryrun --shape prefill_32k``), the
+# work a rank that ``DRY_GATHERED`` does not hold: (``rbmm_mxu``'s
+# operations, ``sps_attention``'s operations, the roofline's
+# ``step_time_s``)
+DRY_PREFILL_SPLIT = {
+    "qwen1.5-32b": (4409041627381760, 1407417833226240, 8.38412422434388),
+    "gemma3-27b": (3355228451635200, 232209353015296, 6.616772346001194),
+    "granite-3-2b": (318858372055040, 351854458306560, 1.657175535799403),
+    "smollm-135m": (13915694039040, 74219299799040, 0.3105339893898508),
+    "internvl2-76b": (8972014882652160, 2814835666452480,
+                      12.079447252747462),
+    "seamless-m4t-large-v2": (74835510165504, 105762495922176,
+                              0.9280209348011941),
+}
+DRY_PREFILL_MEM_FALL = 4
+DRY_PREFILL_COLL = 1.25
+# smollm's rank 0 holds one of its 9 heads, whose query bits and KV head's
+# K and V^T bits it takes over the whole sequence (3 x 2 x 32,768 x 64
+# bits a layer), beside the tied table gathered whole (1.13e8 B): held to
+# the split's own bytes a rank, as the dry run traced them
+DRY_PREFILL_COLL_HELD = {"smollm-135m": 189984768}
 # arctic's MoE router computes whole on every rank
 # (``models.sharding.WHOLE_PARTS``): 513,802,240 of its 743,178,240 dense
 # FLOPs a rank, a 5.6x fall; held to that figure
@@ -4730,6 +4769,8 @@ def dryrun_mesh_deploy(tag: str, model, dparams, prompts, mesh,
                                                  None), toks.shape)
         got = model.prefill_logits(placed, mesh_lib.place(toks.clone(), pl),
                                    mesh=mesh)
+        # the rank's placed block of the logits, put together whole
+        got = mesh_lib.placement_of(got).whole(got)[..., :want.shape[-1]]
         prefill_equal = torch.equal(got, want)
         del got, want
         logits, caches = model.prefill_with_cache(
@@ -4854,6 +4895,7 @@ def dryrun_sweep(tag: str, sweep) -> None:
                 f"{r['status']} {r.get('reason') or r.get('error')}")
     dryrun_split(tag, recs)
     dryrun_decode(tag, recs)
+    dryrun_prefill(tag, recs)
     status = [r["status"] for r in recs]
     log(f"{tag} sweep: {len(recs)} cells, {status.count('OK')} OK, "
         f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, in "
@@ -4902,8 +4944,9 @@ def dryrun_split(tag: str, recs) -> None:
 def dryrun_decode(tag: str, recs) -> None:
     """The sweep's cells against ``DRY_GATHERED``: the decode and long_500k
     cells' falls (collective bytes, dense FLOPs, rbmm_int's word ops) and
-    no memory grown; the train and prefill cells equal; one
-    ``[dryrun decode]`` line a decode cell."""
+    no memory grown; the train cells and the prefill cells but
+    ``DRY_PREFILL_SPLIT``'s equal; one ``[dryrun decode]`` line a decode
+    cell."""
     tag = tag[:-1] + " decode]"
     gib, bad = 2**30, []
     got = {(r["arch"], r["shape"]): r for r in recs}
@@ -4916,6 +4959,8 @@ def dryrun_decode(tag: str, recs) -> None:
                int(r["flops"]), int(sum(r["collectives"].values())),
                int(sum(r["kernels"].get("rbmm_int", {}).get(
                    "ops", {}).values())))
+        if shape == "prefill_32k" and arch in DRY_PREFILL_SPLIT:
+            continue        # ``dryrun_prefill``'s
         if shape in ("train_4k", "prefill_32k"):
             if now != before:
                 bad.append(f"{arch} x {shape}: {before} -> {now}")
@@ -4945,6 +4990,102 @@ def dryrun_decode(tag: str, recs) -> None:
         raise AssertionError(f"{tag} " + "; ".join(bad))
 
 
+def dryrun_prefill(tag: str, recs) -> None:
+    """The sweep's prefill_32k cells of ``DRY_PREFILL_SPLIT`` against
+    ``DRY_GATHERED`` and ``DRY_PREFILL_SPLIT``: the falls of memory, dense
+    FLOPs and the kernels' work, the collectives' bound, ``step_time_s``;
+    one ``[dryrun prefill]`` line a cell."""
+    tag = tag[:-1] + " prefill]"
+    bad = []
+    got = {(r["arch"], r["shape"]): r for r in recs}
+
+    def work(r, name):
+        return sum(r["kernels"].get(name, {}).get("ops", {}).values())
+    for arch, (mxu0, sps0, step0) in DRY_PREFILL_SPLIT.items():
+        r = got.get((arch, "prefill_32k"))
+        if r is None or r["status"] != "OK":
+            bad.append(f"{arch}: no OK record")
+            continue
+        mem0, flops0, coll0, _ = DRY_GATHERED[(arch, "prefill_32k")]
+        mem = r["argument_size_in_bytes"] + r["temp_size_in_bytes"]
+        coll = int(sum(r["collectives"].values()))
+        mxu, sps = work(r, "rbmm_mxu"), work(r, "sps_attention")
+        step = r["roofline"]["step_time_s"]
+        log(f"{tag} {arch} x prefill_32k: arguments + temp {mem0:.4g} -> "
+            f"{mem:.4g} B a rank ({mem0 / mem:.2f}x), dense FLOPs "
+            f"{flops0:.4g} -> {r['flops']:.4g} ({flops0 / r['flops']:.2f}x), "
+            f"rbmm_mxu ops {mxu0:.4g} -> {mxu:.4g} ({mxu0 / mxu:.2f}x), "
+            f"sps_attention ops {sps0:.4g} -> {sps:.4g} ({sps0 / sps:.2f}x), "
+            f"collectives {coll0:.4g} -> {coll:.4g} B ({coll / coll0:.3f}x: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in
+                        r["collective_sites"].items()) +
+            f"), step_time_s {step0:.6g} -> {step:.6g} "
+            f"({r['roofline']['dominant']})")
+        if not (DRY_PREFILL_MEM_FALL * mem <= mem0 and
+                DRY_FALL * r["flops"] <= flops0 and DRY_FALL * mxu <= mxu0
+                and DRY_FALL * sps <= sps0 and step < step0 and
+                (coll <= DRY_PREFILL_COLL_HELD[arch]
+                 if arch in DRY_PREFILL_COLL_HELD
+                 else coll <= DRY_PREFILL_COLL * coll0)):
+            bad.append(f"{arch}: memory {mem0} -> {mem}, FLOPs {flops0} -> "
+                       f"{r['flops']}, rbmm_mxu {mxu0} -> {mxu}, "
+                       f"sps_attention {sps0} -> {sps}, collectives "
+                       f"{coll0} -> {coll}, step {step0} -> {step}")
+    if bad:
+        raise AssertionError(f"{tag} " + "; ".join(bad))
+
+
+def dryrun_split_kernels(tag: str) -> None:
+    """``sps_attention`` on the operands a split prefill hands it, on the
+    card against its plain version on the same inputs, bitwise: each
+    rank's query heads of smollm's 9 over 3 KV heads at widths 2, 4 and
+    16 of "model" (spans cut by KV group, one starting inside a group,
+    empty ranks), with the (H, 512) row table sliced to them, causal and
+    a window, B = 2 x 512 positions (``SPSAttention._attend_span``)."""
+    import torch
+    from repro_torch.kernels.sps_attn import ops as sps_ops
+    from repro_torch.models import sharding
+    from repro_torch.models.attention import SPSAttention
+    tag = tag[:-1] + " prefill kernels]"
+    gen = torch.Generator().manual_seed(SEED)
+    b, length, dh, h, hkv = 2, 512, 64, 9, 3
+    attn = SPSAttention(d_model=576, num_heads=h, num_kv_heads=hkv,
+                        head_dim=dh, sps_granularity="row")
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             dtype=torch.int32)
+    q, k = words(b, h, length, 2), words(b, hkv, length, 2)
+    vt = words(b, hkv, dh, length // 32)
+    theta = torch.randint(-8, 9, (h, 512), generator=gen, dtype=torch.int32)
+    calls = spans = 0
+    for m in (2, 4, 16):
+        qs, kvs = attn.head_ranges(sharding.Split(0, m))
+        for (h0, h1), (k0, k1) in zip(qs, kvs):
+            if h1 == h0:
+                continue
+            args = (q[:, h0:h1], k[:, k0:k1], vt[:, k0:k1], theta[h0:h1])
+            for window in (0, 100):
+                before = sps_ops.sps_attention_gqa.launches
+                got = attn._attend_span(
+                    *(t.cuda().contiguous() for t in args), (h0, h1), k0,
+                    causal=True, window=window).cpu()
+                calls += sps_ops.sps_attention_gqa.launches - before
+                want = attn._attend_span(*(t.contiguous() for t in args),
+                                         (h0, h1), k0, causal=True,
+                                         window=window)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{tag} heads [{h0}, {h1}) of "
+                                         f"{m} ranks, window {window}: the "
+                                         f"kernel differs from its plain "
+                                         f"version")
+                spans += 1
+    log(f"{tag} sps_attention on {spans} rank spans (with windows 0 and "
+        f"100) of 9 heads over 3 KV heads at widths 2, 4, 16 (row table "
+        f"sliced; B=2 x L=512, d_h=64): {calls} launches, each bitwise "
+        f"equal to its plain version")
+
+
 def phase_dryrun(phase4_tokens) -> dict:
     """Phase 25 (see the module docstring); returns the counted runs'
     launch counts."""
@@ -4966,6 +5107,7 @@ def phase_dryrun(phase4_tokens) -> dict:
         mesh = mesh_lib.make_host_mesh(1, "cuda")
         deploy = dryrun_mesh_deploy(tag, model, dparams, prompts, mesh,
                                     phase4_tokens)
+        dryrun_split_kernels(tag)
         del model, dparams
         free_card()
         dryrun_train(tag, mesh)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the RBMM kernels (unblocked Eq. 7, and the
-Eq. 10 threshold epilogue of ``rbmm_binary``)."""
+Eq. 10 threshold epilogue of ``rbmm_binary``), and the integer product of
+unpacked values they are held to (``rbmm_int_dense``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -38,3 +39,17 @@ def rbmm_binary(a: torch.Tensor, b: torch.Tensor, k: int,
         bits = torch.tril(bits)
     dc_ret = bits.shape[-1] - bits.sum(-1, dtype=torch.int32)
     return bits, dc_ret
+
+
+def rbmm_int_dense(a_vals: torch.Tensor, b_vals: torch.Tensor
+                   ) -> torch.Tensor:
+    """Ground-truth integer product of +-1 / {0,1} value matrices: (M, K)
+    x (P, K) -> (M, P) int32, a_vals @ b_vals.T on unpacked values (what
+    ``rbmm_int`` computes from their packed words).  The integers are
+    summed in int64 on the CPU and in float64 on the card (exact below
+    2^53), which has no integer matmul."""
+    if a_vals.is_cuda:
+        return (a_vals.to(torch.float64) @ b_vals.to(torch.float64).T).to(
+            torch.int32)
+    return (a_vals.to(torch.int64) @ b_vals.to(torch.int64).T).to(
+        torch.int32)

@@ -6,7 +6,9 @@ For each cell this builds the port's step as it would run on a rank of
 the 16 x 16 = 256-GPU single-pod mesh or the 2 x 16 x 16 = 512-GPU
 multi-pod mesh (``launch.mesh.make_production_mesh``): the mesh trainer's
 ``train_step`` with its optimizer update (its compute split along "model":
-``models.sharding``), the mesh ``prefill_logits``, or
+``models.sharding``), the mesh ``prefill_logits`` (split along "model"
+by the sequence: ``models.lm._OnMesh``; the record names the block of
+the logits a rank holds, ``logits``), or
 the mesh ``decode_step`` (its compute split along "model" too, and a batch
 of one's rings over the data axes: ``models.lm._OnMesh``), on stand-ins
 from ``launch.specs`` (this rank's blocks as meta tensors).  It traces the step once on the meta device
@@ -188,8 +190,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             variant=variant)
         rec["build_s"] = time.time() - t0
         t1 = time.time()
-        census, _ = cost.measure(step, args)
+        census, out = cost.measure(step, args)
         rec["trace_s"] = time.time() - t1
+        pl = getattr(out, "placement", None)
+        if face == "prefill" and pl is not None:    # the deploy face's
+            rec["logits"] = {"block": list(out.shape),
+                             "whole": list(pl.shape),
+                             "model_dim": pl.dims.get("model")}
         rec.update(census.record())
         rec["face"] = face
         rec["ranks"] = mesh.size

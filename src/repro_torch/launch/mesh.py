@@ -133,6 +133,12 @@ class _MeshBase:
     def _width(self, axis: Axes) -> int:
         return math.prod(self.shape[a] for a in self._axes(axis))
 
+    def placement(self, spec: P, shape: Sequence[int]) -> "Placement":
+        """The ``Placement`` of a whole leaf of ``shape`` laid out by
+        ``spec`` on this mesh (for the models, which import nothing of
+        ``launch``)."""
+        return Placement(self, spec, shape)
+
 
 def block_index(mesh, axes: Sequence[str]) -> int:
     """This rank's index over ``axes`` taken together, row-major (the

@@ -706,7 +706,8 @@ class SPSAttention:
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions: Optional[torch.Tensor] = None,
                        window: int = 0, cache_size: int = 0,
-                       seq_lens: Optional[torch.Tensor] = None
+                       seq_lens: Optional[torch.Tensor] = None,
+                       split: Optional[sharding.Split] = None
                        ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Full-sequence deploy forward.  Returns (out, cache); the ring
         cache (W = cache_size) is built when cache_size > 0.
@@ -720,7 +721,19 @@ class SPSAttention:
         columns >= seq_lens[b] are masked out of every row of sequence b
         (the ``lens`` operand of the sps_attention kernel), and the cache
         holds each sequence's own ring contents and length.  Pad rows
-        still compute, but no real row reads them."""
+        still compute, but no real row reads them.
+
+        ``split`` (``sharding.prefill_split``, a mesh prefill): ``x`` and
+        the output are this rank's block of the sequence, at
+        ``positions`` (1, S_held); the rank attends its query heads over
+        the whole sequence (``_prefill_heads``, ``_attend_span``,
+        ``_prefill_output``).  No cache, no ``seq_lens``."""
+        if split is not None:
+            if cache_size or seq_lens is not None:
+                raise ValueError("a split prefill builds no cache and takes "
+                                 "no seq_lens")
+            return self._prefill_split(params, x, positions, window,
+                                       split), None
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -743,6 +756,103 @@ class SPSAttention:
                                   device=x.device)
             cache = self._ring_cache(k_bits, vt_bits, lens, cache_size)
         return out, cache
+
+    # -- prefill split along "model" ----------------------------------------
+
+    def _split_heads(self, split: sharding.Split
+                     ) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
+        """``head_ranges`` of a split prefill, which exchanges whole words
+        of each head (d_h a multiple of 32)."""
+        if self.head_dim % packing.WORD:
+            raise ValueError(f"a split prefill exchanges whole words of each "
+                             f"head; d_h = {self.head_dim} is not a multiple "
+                             f"of {packing.WORD}")
+        return self.head_ranges(split)
+
+    def _prefill_heads(self, split: sharding.Split, spans, parts):
+        """``parts`` ((words, "q" or "kv", seq_dim), ...) of this rank's
+        positions -> those of this rank's query heads (``spans``: every
+        rank's query heads and KV heads, ``head_ranges``) over the whole
+        sequence: one all-to-all of packed bits (``sharding.to_heads``)."""
+        qs, kvs = spans
+        return sharding.to_heads([(t, qs if kind == "q" else kvs, sd)
+                                  for t, kind, sd in parts], split)
+
+    def _attend_span(self, q_bits: torch.Tensor, k_bits: torch.Tensor,
+                     vt_bits: torch.Tensor, theta: torch.Tensor,
+                     heads: Tuple[int, int], kv0: int, *, causal: bool,
+                     window: int) -> torch.Tensor:
+        """``sps_attention_gqa`` of query heads ``heads`` = [h0, h1):
+        q_bits (B, h1 - h0, S, dhp), k_bits / vt_bits the KV heads they
+        read from KV head ``kv0`` on, theta their rows of ``_theta_int``
+        -> (B, h1 - h0, S, d_h) int32.  Whole KV groups go in one call, a
+        partial group apart (``_segments``); each head's integers are the
+        one-device call's."""
+        b, _, s, _ = q_bits.shape
+        h0, h1 = heads
+        ctxs = []
+        for a, c, k0, n in self._segments(h0, h1):
+            whole = (a, c) == (h0, h1)
+
+            def kv(t, i=k0 - kv0, n=n):
+                return t if (i, n) == (0, t.shape[1]) else \
+                    t[:, i:i + n].contiguous()
+            ctxs.append(sps_ops.sps_attention_gqa(
+                q_bits if whole else q_bits[:, a - h0:c - h0].contiguous(),
+                kv(k_bits), kv(vt_bits),
+                theta if whole else theta[a - h0:c - h0],
+                d_h=self.head_dim, causal=causal, window=window))
+        if not ctxs:
+            return q_bits.new_zeros((b, 0, s, self.head_dim))
+        return ctxs[0] if len(ctxs) == 1 else torch.cat(ctxs, 1)
+
+    def _prefill_output(self, params: Params, ctx_int: torch.Tensor,
+                        split: sharding.Split,
+                        qs: List[Tuple[int, int]]) -> torch.Tensor:
+        """ctx_int (B, h, S, d_h) int32 of this rank's query heads ``qs[
+        split.index]`` over the whole sequence -> wo -> (B, S_held, d):
+        the context scaled and thresholded into bits (as
+        ``_output_deploy``), the words sent to the positions' ranks (one
+        all-to-all, ``sharding.heads_to_rows``), ``wo`` on its whole
+        weight."""
+        b, h, s, dh = ctx_int.shape
+        h0, h1 = qs[split.index]
+        av = self._per_query_head(params["v_alpha"])[h0:h1]
+        ctx = ctx_int.to(torch.float32) * av[None, :, None, None]
+        ctx = ctx.transpose(1, 2).reshape(b, s, h * dh)
+        if h:
+            bits = pack_ops.pack_threshold(ctx, params["ctx_beta"])
+        else:
+            bits = ctx.new_zeros((b, s, 0), dtype=torch.int32)
+        per = dh // packing.WORD
+        bits = sharding.heads_to_rows(bits, split, [(lo * per, hi * per)
+                                                    for lo, hi in qs])
+        return self._denses()["wo"].apply_deploy(
+            params["wo"], bits=bits, act_alpha=params["ctx_alpha"],
+            impl=self.impl)
+
+    def _prefill_split(self, params: Params, x: torch.Tensor,
+                       positions: torch.Tensor, window: int,
+                       split: sharding.Split) -> torch.Tensor:
+        """``deploy_prefill`` on a split (see there): the projections on
+        this rank's positions (whole weights), q and k packed per head and
+        V^T along this rank's block of the sequence (whole words), the
+        three sent to the ranks of their heads, ``sps_attention_gqa`` on
+        this rank's query heads, the context back to the positions'
+        ranks, ``wo``."""
+        qs, kvs = spans = self._split_heads(split)
+        heads, kv = qs[split.index], kvs[split.index]
+        q_bits, k_bits, v = self._project_qkv_deploy(params, x, positions)
+        vt_bits = pack_ops.pack_threshold(v.permute(0, 2, 3, 1),
+                                          params["v_beta"][:, None, None])
+        q_bits, k_bits, vt_bits = self._prefill_heads(
+            split, spans, [(q_bits, "q", 2), (k_bits, "kv", 2),
+                           (vt_bits, "kv", 3)])
+        theta = self._theta_int(params)[heads[0]:heads[1]]
+        ctx = self._attend_span(q_bits, k_bits, vt_bits, theta, heads,
+                                kv[0], causal=self.causal,
+                                window=window if self.causal else 0)
+        return self._prefill_output(params, ctx, split, qs)
 
     @staticmethod
     def _ring_cache(k_bits: torch.Tensor, vt_bits: torch.Tensor,
@@ -1011,24 +1121,35 @@ class SPSAttention:
 
     # -- cross-attention over a static memory ---------------------------------
 
-    def build_memory_cache(self, params: Params,
-                           memory: torch.Tensor) -> KVCache:
+    def build_memory_cache(self, params: Params, memory: torch.Tensor,
+                           split: Optional[sharding.Split] = None
+                           ) -> KVCache:
         """Project an encoder's output (B, S_enc, d) once into the binary
         memory: K bits (B, Hkv, S_enc, dhp) and V^T (B, Hkv, d_h,
         ceil(S_enc/32)) packed along the memory by the pack kernel's
         strided route (as ``deploy_prefill`` packs V^T), with length
-        S_enc.  No RoPE: the keys carry no position."""
+        S_enc.  No RoPE: the keys carry no position.  ``split`` (a split
+        prefill): ``memory`` is this rank's block of the memory, and the
+        result the KV heads its query heads read over the whole memory
+        (the bits sent by one all-to-all, as ``deploy_prefill``'s)."""
         b, s, _ = memory.shape
         _, k_bits, v = self._project_qkv_deploy(params, memory, None,
                                                 parts=("wk", "wv"))
         vt_bits = pack_ops.pack_threshold(v.permute(0, 2, 3, 1),
                                           params["v_beta"][:, None, None])
+        if split is not None:
+            k_bits, vt_bits = self._prefill_heads(
+                split, self._split_heads(split),
+                [(k_bits, "kv", 2), (vt_bits, "kv", 3)])
+            s *= split.width
         return KVCache(k_bits, vt_bits,
                        torch.full((b,), s, dtype=torch.int32,
                                   device=memory.device))
 
     def attend_memory(self, params: Params, x: torch.Tensor,
-                      mem: KVCache) -> torch.Tensor:
+                      mem: KVCache,
+                      split: Optional[sharding.Split] = None
+                      ) -> torch.Tensor:
         """Cross-attention of x (B, S, d), any S, over the static memory
         ``mem`` (read, never written; no causal mask).  The G*S query rows
         of each KV head are the M of one xnor ``rbmm_int`` against its
@@ -1041,8 +1162,14 @@ class SPSAttention:
         table, as in the JAX package: a decode step reads row 0.  On a
         mesh (a placed memory) the rank attends its query heads over its
         block of the memory (``_share``), which is read, never
-        gathered."""
+        gathered.  ``split`` (a split prefill): ``x`` and the output are
+        this rank's block of the queries, ``mem`` its KV heads'
+        (``build_memory_cache(split=)``); the rank attends its query heads
+        at every query position, their bits sent to it and the context's
+        back by an all-to-all each."""
         s = x.shape[1]
+        if split is not None:
+            return self._attend_memory_split(params, x, mem, split)
         share = self._share(mem.k_bits, mem.vt_bits)
         part = None if share.whole else share
         q_bits, _, _ = self._project_qkv_deploy(params, x, None,
@@ -1054,6 +1181,26 @@ class SPSAttention:
         ctx = self._attend_heads(q_bits, mem.k_bits, mem.vt_bits, th.T[None],
                                  valid, share)
         return self._output_deploy(params, ctx, part)
+
+    def _attend_memory_split(self, params: Params, x: torch.Tensor,
+                             mem: KVCache,
+                             split: sharding.Split) -> torch.Tensor:
+        """``attend_memory`` on a split (see there)."""
+        qs, kvs = spans = self._split_heads(split)
+        heads, kv = qs[split.index], kvs[split.index]
+        q_bits, _, _ = self._project_qkv_deploy(params, x, None,
+                                                parts=("wq",))
+        q_bits, = self._prefill_heads(split, spans, [(q_bits, "q", 2)])
+        s, w = q_bits.shape[2], mem.k_bits.shape[2]
+        share = _Share(split, heads, qs, kv, w, (0, w),
+                       (0, mem.vt_bits.shape[3]), (0, self.head_dim))
+        th = self._theta_at(self._theta_int(params)[heads[0]:heads[1]],
+                            torch.arange(s, device=x.device))   # (S, nh)
+        valid = torch.arange(w, device=x.device)[None, :] < \
+            mem.length.reshape(-1, 1)                        # (B, Skv)
+        ctx = self._attend_heads(q_bits, mem.k_bits, mem.vt_bits, th.T[None],
+                                 valid, share)
+        return self._prefill_output(params, ctx, split, qs)
 
     # -- a rank's query heads over a ring or a memory -------------------------
 

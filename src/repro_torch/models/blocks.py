@@ -273,16 +273,27 @@ class Block:
         return x + self._ffn().apply_deploy(
             params["ffn"], self._norm().apply(params["norm2"], x))
 
-    def _cross_residual(self, params: Params, x: torch.Tensor,
-                        mem) -> torch.Tensor:
-        """A "dec" layer's cross-attention over its memory cache."""
+    def _cross_residual(self, params: Params, x: torch.Tensor, mem,
+                        split: Optional[sharding.Split] = None
+                        ) -> torch.Tensor:
+        """A "dec" layer's cross-attention over its memory cache (on a
+        split prefill, ``split``: see ``SPSAttention.attend_memory``)."""
         return x + self._parts()["cross"].attend_memory(
-            params["cross"], self._norm().apply(params["norm_x"], x), mem)
+            params["cross"], self._norm().apply(params["norm_x"], x), mem,
+            split)
+
+    @property
+    def splits_prefill(self) -> bool:
+        """Does a mesh prefill split this block along "model" by the
+        sequence (attention with a dense FFN: "attn" and "dec")?  The
+        recurrent kinds and a MoE compute whole on the sequence."""
+        return self.kind in ("attn", "dec") and not self.cfg.moe.num_experts
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions=None, cache_size: int = 0,
                        seq_lens=None,
-                       memory: Optional[torch.Tensor] = None
+                       memory: Optional[torch.Tensor] = None,
+                       split: Optional[sharding.Split] = None
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Whole-sequence forward; ``seq_lens`` (B,) takes a ragged,
         right-padded batch (see ``SPSAttention.deploy_prefill``; the
@@ -290,7 +301,21 @@ class Block:
         the decode cache: the attention ring and the carries at each
         sequence's end.  A "dec" layer attends over ``memory`` (B, S_enc,
         d), the encoder's output, projected here into the binary memory
-        that its cache keeps as "cross"; it takes no ``seq_lens``."""
+        that its cache keeps as "cross"; it takes no ``seq_lens``.
+
+        ``split`` (``sharding.prefill_split``; a block that
+        ``splits_prefill``): ``x``, the result and a "dec" layer's
+        ``memory`` are this rank's blocks of their sequences, ``x`` at
+        ``positions``; the norms and the FFN run on its rows, the
+        attention on its query heads (``SPSAttention.deploy_prefill``,
+        ``attend_memory``).  No cache."""
+        if split is not None:
+            if not self.splits_prefill or cache_size or seq_lens is not None:
+                raise ValueError(f"a split prefill runs attention blocks "
+                                 f"with a dense FFN and builds no cache "
+                                 f"(kind={self.kind!r})")
+            return self._prefill_split(params, x, positions, memory,
+                                       split), {}
         if seq_lens is not None and self.kind == "dec":
             raise ValueError("ragged prefill (seq_lens) does not support "
                              "enc-dec decoder blocks")
@@ -325,6 +350,21 @@ class Block:
                 out, cache["cell"] = out
             x = x + out
         return self._ffn_residual(params, x), cache
+
+    def _prefill_split(self, params: Params, x: torch.Tensor, positions,
+                       memory: Optional[torch.Tensor],
+                       split: sharding.Split) -> torch.Tensor:
+        """``deploy_prefill`` on a split (see there)."""
+        parts = self._parts()
+        a_out, _ = parts["attn"].deploy_prefill(
+            params["attn"], self._norm().apply(params["norm1"], x),
+            positions=positions, window=self.window, split=split)
+        x = x + a_out
+        if self.kind == "dec":
+            mem = parts["cross"].build_memory_cache(params["cross"], memory,
+                                                    split)
+            x = self._cross_residual(params, x, mem, split)
+        return self._ffn_residual(params, x)
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor,
                              cache: Dict[str, Any], *, start=None,

@@ -51,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -119,8 +120,16 @@ class _OnMesh:
     block (``launch.specs.cache_shardings``).  A mesh of one index on
     every axis runs no collective: the one-device arithmetic.
 
-    ``prefill_logits`` runs the trainer's design (``params``: each
-    block's leaves gathered whole where it runs).  ``decode_step`` splits
+    ``prefill_logits`` splits its compute along "model" by the sequence
+    (``prefill_split``): each rank computes its block of the positions,
+    each block's leaves gathered whole where it runs (``params``: a 1-bit
+    weight costs fewer bytes than the activations it multiplies would),
+    attention on the rank's query heads over the whole sequence
+    (``SPSAttention.deploy_prefill(split=)``), the embedding and the head
+    on whole tables or on vocabulary blocks, whichever moves fewer bytes
+    (``vocab_blocks``); a stack with a recurrent block or a MoE, or a
+    length "model" does not divide into whole-word blocks, runs every
+    block whole on every rank.  ``decode_step`` splits
     its compute as the specs place the state (``decode_params``,
     ``decode_cache``): each binary product runs on this rank's block of
     its weight (``linear.rbmm_placed``), attention on this rank's heads
@@ -134,7 +143,101 @@ class _OnMesh:
         self.skip = (0,) if sharding.rows_split(mesh, batch) else ()
 
     def params(self, p: Params) -> Params:
-        return tree.map(lambda t: sharding.placement_of(t).whole(t), p)
+        """Every leaf of ``p`` gathered whole."""
+        return tree.map(_gathered, p)
+
+    def prefill_split(self, lengths, blocks) -> Optional[sharding.Split]:
+        """The split of a mesh prefill along "model"
+        (``sharding.prefill_split``), one for every stream of ``lengths``
+        positions (an encoder-decoder's memory and tokens), where every
+        one of ``blocks`` ``splits_prefill`` and every length divides into
+        whole-word blocks; None: the whole route.  Every rank decides
+        alike, from the shapes alone."""
+        if not all(blk.splits_prefill for blk in blocks):
+            return None
+        splits = [sharding.prefill_split(self.mesh, n) for n in lengths]
+        return None if None in splits else splits[0]
+
+    def vocab_blocks(self, top: Params, rows: int, n: int, d: int,
+                     dtype: torch.dtype) -> bool:
+        """Do the embedding and the head (``top``'s placed "embed" and, if
+        untied, "head") run on vocabulary blocks, rather than on the
+        tables gathered whole?  Where the collectives move fewer bytes, as
+        the census counts them (an all-gather by its result, a
+        reduce-scatter by its input): the lookup's ``rows`` x ``n`` x
+        ``d`` rows reduce-scattered onto the sequence's blocks and the
+        final stream all-gathered, both in ``dtype`` (the compute dtype),
+        against the tables whole.  Only tables split along "model" alone
+        on their vocabulary can."""
+        if self.mesh.shape.get("model", 1) == 1:
+            return False
+        tables = [(top["embed"]["embedding"], 0)]
+        if "head" in top:
+            tables.append((top["head"]["kernel"], 1))
+        stream_bytes = 2 * rows * n * d * torch.empty(
+            (), dtype=dtype).element_size()
+        whole = 0
+        for t, dim in tables:
+            pl = sharding.placement_of(t)
+            if pl.splits != [(("model",), dim)]:
+                return False
+            whole += math.prod(pl.shape) * t.element_size()
+        return stream_bytes < whole
+
+    def embed_block(self, embed: nn.Embedding, table: Params,
+                    tokens: torch.Tensor, n: int, prefix: int,
+                    split: sharding.Split, blocks: bool,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """The embedding rows, cast to ``dtype``, of this rank's token
+        positions of a stream of ``n`` positions whose first ``prefix``
+        hold no token (a frontend's): (B, hi - max(lo, prefix), d) for its
+        block [lo, hi).  On vocabulary ``blocks``: every position's rows
+        of this rank's block, zeros elsewhere and at the prefix, cast and
+        reduce-scattered onto the sequence's blocks (exact: one term of
+        each sum is not zero); else the rows of its tokens of ``table``
+        gathered whole."""
+        lo, hi = sharding.held(n, split)
+        if not blocks:
+            ids = tokens[:, max(lo - prefix, 0):max(hi - prefix, 0)]
+            return embed.apply(table, ids).to(dtype)
+        rows = embed.block_rows(table, tokens).to(dtype)
+        if prefix:
+            rows = torch.cat([rows.new_zeros(
+                (rows.shape[0], prefix, rows.shape[2])), rows], 1)
+        rows = self.mesh.reduce_scatter(rows, "model", 1)
+        return rows[:, max(prefix - lo, 0):]
+
+    def logits(self, model, top: Params, x: torch.Tensor,
+               blocks: bool) -> torch.Tensor:
+        """``model``'s logits of this rank's block of the final stream ``x``
+        (B, S_held, d), placed: on whole tables (``top`` gathered) its
+        positions' (B, S_held, V); on vocabulary ``blocks`` (``top``'s
+        head, or the embedding where it is tied, placed) the normed blocks
+        all-gathered along the sequence and the rank's block of the padded
+        vocabulary at every position (B, S, V_pad / m), float32."""
+        if not blocks:
+            return self.place(model._logits(top, x), 1)
+        x = self.mesh.all_gather(
+            model._norm().apply(top["final_norm"], x), "model", 1)
+        if "head" not in top:
+            lg = model._embed().attend(top["embed"], x, gather=False)
+        else:
+            lg = model._head().apply(top["head"], x, gather=False)
+        return self.place(lg, 2)
+
+    def place(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """``t``, this rank's block of a face's output, marked with its
+        placement: its rows over the data axes where the batch's are
+        split, ``dim`` (if any) over "model"."""
+        shape, entries = list(t.shape), [None] * t.dim()
+        if self.skip:
+            entries[0] = sharding.data_axes(self.mesh)
+            shape[0] *= self.mesh.data_size
+        if dim is not None:
+            entries[dim] = "model"
+            shape[dim] *= self.mesh.shape.get("model", 1)
+        return sharding.place(t, self.mesh.placement(sharding.P(*entries),
+                                                     shape))
 
     @staticmethod
     def decode_params(p: Params) -> Params:
@@ -173,6 +276,11 @@ class _OnMesh:
             for t, pl, w in back:
                 t.copy_(pl.block(w, self.skip))
         return out, put_back
+
+
+def _gathered(t: torch.Tensor) -> torch.Tensor:
+    """A placed leaf gathered whole (``_OnMesh.params``)."""
+    return sharding.placement_of(t).whole(t)
 
 
 # (path, a freshly drawn part) -> what to hold of it
@@ -494,23 +602,66 @@ class LMModel:
         lie on ``device`` (CUDA by default; pass ``device="cpu"`` for the
         plain versions); the inputs are moved there.  On a ``mesh``
         (``launch.mesh``): the params, tokens and frontend embeddings are
-        this rank's placed blocks, the logits this rank's rows (see
-        ``_OnMesh``); ``device`` is the mesh's."""
+        this rank's placed blocks (``device`` is the mesh's); the logits
+        come back as this rank's placed block (``sharding.placement_of``;
+        ``Placement.whole`` puts them together): its rows' block of the
+        F + S positions (B_r, (F + S) / m, V), or, on vocabulary blocks,
+        its rows' block of the padded vocabulary at every position (B_r,
+        F + S, V_pad / m), whose whole's first V columns are the logits;
+        a stack computed whole (see ``_OnMesh``) gives its rows' (B_r, F +
+        S, V)."""
         if mesh is not None:
             on = _OnMesh(mesh, tokens)
-            top = on.params({k: v for k, v in dparams.items()
-                             if k != "blocks"})
+            top = {k: v for k, v in dparams.items() if k != "blocks"}
+            n = self.cfg.frontend_tokens + tokens.shape[1]
+            split = on.prefill_split([n], self._blocks())
+            if split is not None:
+                return self._prefill_split(on, top, dparams["blocks"],
+                                           tokens, frontend_embeds, split)
+            top = on.params(top)
             with on.context():
                 x = self._embed_tokens(top, tokens, frontend_embeds)
                 for blk, bp in zip(self._blocks(), dparams["blocks"]):
                     x, _ = blk.deploy_prefill(on.params(bp), x)
-                return self._logits(top, x)
+                return on.place(self._logits(top, x), None)
         dev = _on_device(dparams, device)
         x = self._embed_tokens(dparams, torch.as_tensor(tokens, device=dev),
                                frontend_embeds)
         for blk, bp in zip(self._blocks(), dparams["blocks"]):
             x, _ = blk.deploy_prefill(bp, x)
         return self._logits(dparams, x)
+
+    def _prefill_split(self, on: _OnMesh, top: Params, layers: List[Params],
+                       tokens: torch.Tensor, frontend_embeds,
+                       split: sharding.Split) -> torch.Tensor:
+        """``prefill_logits`` on a mesh, split along "model" by the
+        sequence (``_OnMesh``): this rank's block [lo, hi) of the F + S
+        positions from the embedding (and the frontend's projection,
+        computed whole and cut), every block on it at its positions, the
+        final norm, then the head on its rows or its vocabulary block."""
+        cfg, f = self.cfg, self.cfg.frontend_tokens
+        n = f + tokens.shape[1]
+        lo, hi = sharding.held(n, split)
+        cdt = compute_dtype(cfg)
+        blocks = on.vocab_blocks(top, tokens.shape[0], n, cfg.d_model, cdt)
+        # the tables stay placed on the blocks' route; the rest is gathered
+        top = on.params(top) if not blocks else dict(top, **on.params(
+            {k: v for k, v in top.items() if k not in ("embed", "head")}))
+        x = self._scale(on.embed_block(self._embed(), top["embed"], tokens,
+                                       n, f, split, blocks, cdt))
+        if f and lo < f:
+            fe = self._frontend().apply(
+                top["frontend"], torch.as_tensor(frontend_embeds).to(x.dtype))
+            dt = torch.promote_types(fe.dtype, x.dtype)
+            x = torch.cat([fe[:, lo:min(hi, f)].to(dt), x.to(dt)], dim=1)
+        elif f:
+            x = x.to(torch.promote_types(x.dtype, top["frontend"][
+                "kernel"].dtype))
+        positions = torch.arange(lo, hi, device=x.device)[None, :]
+        for blk, bp in zip(self._blocks(), layers):
+            x, _ = blk.deploy_prefill(on.params(bp), x, positions=positions,
+                                      split=split)
+        return on.logits(self, top, x, blocks)
 
     def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,
                            max_len: int = 0,
@@ -854,7 +1005,10 @@ class EncDecModel:
 
     def _embed_tokens(self, params: Params,
                       tokens: torch.Tensor) -> torch.Tensor:
-        x = self._embed().apply(params["embed"], tokens)
+        return self._scale(self._embed().apply(params["embed"], tokens))
+
+    def _scale(self, x: torch.Tensor) -> torch.Tensor:
+        """x in ``compute_dtype`` times sqrt(d) (rounded to it)."""
         x = x.to(compute_dtype(self.cfg))
         return x * _sqrt_rounded(self.cfg.d_model, x.dtype)
 
@@ -862,6 +1016,23 @@ class EncDecModel:
         x = self._norm().apply(params["final_norm"], x)
         return self._head().apply(params["head"],
                                   x)[..., :self.cfg.vocab_size]
+
+    def _encode_split(self, dparams: Params, frontend_embeds: torch.Tensor,
+                      on: _OnMesh, split: sharding.Split) -> torch.Tensor:
+        """``encode`` on a split prefill: the frontend's projection
+        computed whole and cut to this rank's block of the S_enc frames,
+        the encoder's blocks on it at its positions, ``enc_norm``: this
+        rank's block of the memory."""
+        x = self._frontend().apply(on.params(dparams["frontend"]),
+                                   frontend_embeds)
+        lo, hi = sharding.held(x.shape[1], split)
+        x = x[:, lo:hi]
+        positions = torch.arange(lo, hi, device=x.device)[None, :]
+        blk = self._enc_block()
+        for lp in dparams["encoder"]:
+            x, _ = blk.deploy_prefill(on.params(lp), x, positions=positions,
+                                      split=split)
+        return self._norm().apply(on.params(dparams["enc_norm"]), x)
 
     def _decoder(self, dparams: Params, tokens: torch.Tensor,
                  frontend_embeds, cache_size: int = 0,
@@ -880,19 +1051,54 @@ class EncDecModel:
             caches.append(cache)
         return x, caches
 
+    def _prefill_split(self, on: _OnMesh, dparams: Params,
+                       tokens: torch.Tensor, frontend_embeds: torch.Tensor,
+                       split: sharding.Split) -> torch.Tensor:
+        """``prefill_logits`` on a mesh, split along "model" by the
+        sequences (``_OnMesh``): this rank's block of the memory
+        (``_encode_split``), its block of the tokens' positions from the
+        embedding, every decoder block on it, then the head on its rows
+        or its vocabulary block."""
+        s = tokens.shape[1]
+        cdt = compute_dtype(self.cfg)
+        memory = self._encode_split(dparams, frontend_embeds, on, split)
+        top = {k: dparams[k] for k in ("embed", "final_norm", "head")}
+        blocks = on.vocab_blocks(top, tokens.shape[0], s, self.cfg.d_model,
+                                 cdt)
+        top = on.params(top) if not blocks else dict(
+            top, final_norm=on.params(top["final_norm"]))
+        x = self._scale(on.embed_block(self._embed(), top["embed"], tokens,
+                                       s, 0, split, blocks, cdt))
+        lo, hi = sharding.held(s, split)
+        positions = torch.arange(lo, hi, device=x.device)[None, :]
+        blk = self._dec_block()
+        for lp in dparams["decoder"]:
+            x, _ = blk.deploy_prefill(on.params(lp), x, positions=positions,
+                                      memory=memory, split=split)
+        return on.logits(self, top, x, blocks)
+
     def prefill_logits(self, dparams: Params, tokens, *, frontend_embeds,
                        device="cuda", mesh=None) -> torch.Tensor:
         """Deploy forward, no cache: tokens (B, S) and frontend_embeds (B,
         S_enc, ``frontend_dim``) -> logits (B, S, V).  ``dparams`` must
         already lie on ``device`` (CUDA by default; ``device="cpu"`` for
         the plain versions); the inputs are moved there.  On a ``mesh``
-        as ``LMModel.prefill_logits``."""
+        as ``LMModel.prefill_logits``: the encoder and the decoder split
+        along "model" by their sequences where both divide into
+        whole-word blocks, and the logits this rank's placed block."""
         if mesh is not None:
             on = _OnMesh(mesh, tokens)
+            split = on.prefill_split(
+                [frontend_embeds.shape[1], tokens.shape[1]],
+                [self._enc_block(), self._dec_block()])
+            if split is not None:
+                return self._prefill_split(on, dparams, tokens,
+                                           frontend_embeds, split)
             with on.context():
                 x, _ = self._decoder(dparams, tokens, frontend_embeds, on=on)
-                return self._logits(on.params(
-                    {k: dparams[k] for k in ("final_norm", "head")}), x)
+                return on.place(self._logits(on.params(
+                    {k: dparams[k] for k in ("final_norm", "head")}), x),
+                    None)
         dev = _on_device(dparams, device)
         x, _ = self._decoder(dparams, torch.as_tensor(tokens, device=dev),
                              frontend_embeds)

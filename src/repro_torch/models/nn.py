@@ -104,27 +104,36 @@ class Embedding:
 
     def apply(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
         """The table's rows of ``ids``.  On a mesh (the table this rank's
-        block of the vocabulary): a token whose id lies in the block takes
-        its row, any other zeros, and the float32 rows are summed over
-        "model" (exact: one term of each is not zero)."""
+        block of the vocabulary): ``block_rows`` summed over "model"
+        (exact: one term of each is not zero)."""
         table = params["embedding"]
-        d, lo, hi = sharding.placed_block(table, (0,))
-        if d is None:
+        if sharding.placed_block(table, (0,))[0] is None:
             return table[ids.long()]
+        return sharding.decode_split(table).mesh.all_reduce(
+            self.block_rows(params, ids), "model")
+
+    def block_rows(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        """The float32 rows of ``ids`` that this rank's vocabulary block
+        holds, zeros for every other id: the rank's term of the lookup,
+        which a sum over "model" completes (a mesh prefill
+        reduce-scatters it onto the sequence's blocks)."""
+        table = params["embedding"]
+        _, lo, hi = sharding.placed_block(table, (0,))
         local = ids.long() - lo
         inside = (local >= 0) & (local < hi - lo)
         rows = table[local.clamp(0, hi - lo - 1)]
-        rows = torch.where(inside[..., None], rows, 0.0)
-        return sharding.decode_split(table).mesh.all_reduce(rows, "model")
+        return torch.where(inside[..., None], rows, 0.0)
 
-    def attend(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def attend(self, params: Params, x: torch.Tensor,
+               gather: bool = True) -> torch.Tensor:
         """Tied-embedding logits (float32, like the JAX einsum of a
         compute-dtype x against the float32 table); on a mesh, this
-        rank's vocabulary block's, all-gathered along the vocabulary."""
+        rank's vocabulary block's, all-gathered along the vocabulary
+        (with ``gather`` False: the block's alone)."""
         table = params["embedding"]
         d, _, _ = sharding.placed_block(table, (0,))
         lg = torch.matmul(x.to(torch.float32), table.T)
-        if d is None:
+        if d is None or not gather:
             return lg
         return sharding.decode_split(table).mesh.all_gather(
             lg, "model", lg.dim() - 1)
@@ -154,19 +163,20 @@ class Dense:
             out["bias"] = P(ps[1]) if self.partition == "col" else P(None)
         return out
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Params, x: torch.Tensor,
+              gather: bool = True) -> torch.Tensor:
         """x @ kernel (+ bias) in the promoted dtype of x and the kernel,
         as the JAX einsum promotes (a bf16 x meets a float32 kernel in
         float32).  On a mesh (the kernel this rank's block of its output
         columns, the untied head's vocabulary): this rank's columns,
-        all-gathered along them."""
+        all-gathered along them (with ``gather`` False: its own alone)."""
         kernel = params["kernel"]
         d, _, _ = sharding.placed_block(kernel, (1,))
         dt = torch.promote_types(x.dtype, kernel.dtype)
         y = torch.matmul(x.to(dt), kernel.to(dt))
         if self.use_bias:
             y = y + params["bias"]
-        if d is None:
+        if d is None or not gather:
             return y
         return sharding.decode_split(kernel).mesh.all_gather(
             y, "model", y.dim() - 1)

@@ -62,6 +62,7 @@ must route and gather as the forward did.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import (Any, Callable, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -652,6 +653,80 @@ def join_bits(words: torch.Tensor, split: Split,
     vals = packing.unpack_bits(words, hi - lo).to(torch.uint8)
     every = gather_heads(vals, split, vals.dim() - 1, spans)
     return packing.pack_bits(every.bool())
+
+
+# ---------------------------------------------------------------------------
+# The deploy prefill on a mesh: each rank computes its block of the
+# sequence on whole 1-bit weights (gathered a block at a time), attention
+# on its query heads over the whole sequence; what crosses "model" is the
+# heads' packed bits (``to_heads``, then ``_rows_of`` of the context's
+# words), and the embedding's and the head's rows or vocabulary blocks.
+# ---------------------------------------------------------------------------
+
+
+def prefill_split(mesh, n: int) -> Optional[Split]:
+    """The split of a mesh prefill's stream of ``n`` positions along
+    "model": rank r holds positions [r n / m, (r + 1) n / m), where m
+    divides n into blocks of whole 32-bit words (V^T packs along a block
+    as along the whole sequence); any length on an axis of one.  None
+    where the blocks would not be whole words (the stream stays whole on
+    every rank)."""
+    m = mesh.shape.get("model", 1)
+    if m > 1 and (n % m or (n // m) % 32):
+        return None
+    return Split(mesh.index("model") if m > 1 else 0, m, mesh, True)
+
+
+def to_heads(parts: Sequence[Tuple[torch.Tensor, Sequence[Tuple[int, int]],
+                                   int]], split: Split
+             ) -> List[torch.Tensor]:
+    """Each (t, spans, seq_dim) of ``parts``: t (B, n, ...) packed words
+    of all n heads (dim 1) at this rank's block of the sequence (dim
+    ``seq_dim``) -> (B, hi - lo, ...), this rank's heads ``spans[index]``
+    = [lo, hi) at every position, the ranks' blocks put together along
+    ``seq_dim`` in rank order, contiguous (as the kernels take them).
+    One all-to-all over "model" carries every part: rank r is sent each
+    part's heads ``spans[r]`` (spans may overlap, a KV head read by query
+    heads on two ranks going to both, or be empty), padded to the widest
+    span.  On one rank (whose span is every head) each ``t`` itself."""
+    if split.width == 1:
+        return [t for t, _, _ in parts]
+    m, r = split.width, split.index
+    flat, shapes = [[] for _ in range(m)], []
+    for t, spans, _ in parts:
+        most = max(hi - lo for lo, hi in spans)
+        shape = (t.shape[0], most) + tuple(t.shape[2:])
+        for j, (lo, hi) in enumerate(spans):
+            p = t[:, lo:hi]
+            if hi - lo < most:
+                p = torch.cat([p, p.new_zeros((t.shape[0], most - hi + lo)
+                                              + tuple(t.shape[2:]))], 1)
+            flat[j].append(p.reshape(-1))
+        shapes.append(shape)
+    got = split.mesh.all_to_all(torch.stack([torch.cat(f) for f in flat]),
+                                "model")
+    out, at = [], 0
+    for (t, spans, seq_dim), shape in zip(parts, shapes):
+        size = math.prod(shape)
+        lo, hi = spans[r]
+        blk = got[:, at:at + size].reshape((m,) + shape)[:, :, :hi - lo]
+        at += size
+        whole = list(blk.shape[1:])
+        whole[seq_dim] *= m
+        out.append(blk.movedim(0, seq_dim).reshape(whole).contiguous())
+    return out
+
+
+def heads_to_rows(words: torch.Tensor, split: Split,
+                  spans: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``words`` (B, S, w): packed words of this rank's heads' span
+    ``spans[index]`` (in words; every rank's given, in order) at every
+    position -> (B, S_held, sum of the spans): every rank's words at this
+    rank's block of the sequence, in rank order (one all-to-all over
+    "model").  ``words`` itself on one rank."""
+    if split.width == 1:
+        return words
+    return _rows_of(words, split, spans)
 
 
 def gather_bool(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
