@@ -362,8 +362,24 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 the operands the split hands it (a rank's query heads cut
                 by KV group, a span starting inside one, the row table
                 sliced to them) equals its plain version, bitwise
-                (``[dryrun prefill kernels]``); the sweep ends with the
-                script
+                (``[dryrun prefill kernels]``); the MoE cells of
+                ``DRY_MOE`` against ``DRY_GATHERED`` (each rank routes and
+                runs its own positions): mixtral-8x22b's and
+                arctic-480b's prefill_32k arguments + temp a rank fall at
+                least 20x and 10.6x and fit, their ``rbmm_mxu`` work
+                falls at least 8x and their collective bytes stay within
+                1.05x; their train_4k arguments + temp fall at least 16x
+                and 8x, dense FLOPs at least 8x, collective bytes to at
+                most 0.5x and 0.25x; every ``step_time_s`` falls
+                (``[dryrun moe]``); on the NCCL (1, 1) mesh mixtral-8x22b
+                at full width, cut in depth, trains one step's gradient
+                and prefills bitwise as one device does (``[dryrun moe
+                mesh]``), each rank's MoE rows of one block of
+                mixtral-8x22b and arctic-480b on a simulated (1, 4) mesh
+                equal one device's rows bitwise (``[dryrun moe ranks]``),
+                and ``rbmm_mxu`` on expert groups' buffers equals its
+                plain version (``[dryrun moe kernels]``); the
+                sweep ends with the script
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero and prints no result.
@@ -3105,8 +3121,8 @@ class DropCounter:
         from repro_torch.models import ffn
         orig = self._orig = ffn.BinaryMoE._route
 
-        def route(moe, params, x2):
-            out = orig(moe, params, x2)
+        def route(moe, params, x2, *args):
+            out = orig(moe, params, x2, *args)
             if not torch.cuda.is_current_stream_capturing():
                 keep = out[3]
                 c = self.counts.setdefault(
@@ -4658,6 +4674,34 @@ DRY_PREFILL_COLL_HELD = {"smollm-135m": 189984768}
 # (``models.sharding.WHOLE_PARTS``): 513,802,240 of its 743,178,240 dense
 # FLOPs a rank, a 5.6x fall; held to that figure
 DRY_FLOPS_WHOLE = {"arctic-480b": 743178240}
+# the MoE cells whose rank computes only its share since the MoE routes a
+# rank's own positions (against ``DRY_GATHERED``, which no longer holds
+# them equal): (arguments + temp fall at least, collective bytes at most
+# this share of before, dense FLOPs fall at least, ``rbmm_mxu``'s
+# operations a rank before (the sweep of the tree whose MoE ran whole) or
+# None, ``step_time_s``
+# before); a prefill cell also fits (under ``DRY_FITS``) and its
+# ``rbmm_mxu`` work falls at least ``DRY_FALL`` times
+DRY_MOE = {
+    ("mixtral-8x22b", "prefill_32k"): (20, 1.05, None, 142509901099302912,
+                                       190.4530113194794),
+    ("arctic-480b", "prefill_32k"): (10.6, 1.05, None, 31727954207703040,
+                                     67.35805795654926),
+    ("mixtral-8x22b", "train_4k"): (16, 0.5, 8, None, 856.3986758478447),
+    ("arctic-480b", "train_4k"): (8, 0.25, 8, None, 294.3227925448024),
+}
+# phase 25's MoE checks on the NCCL (1, 1) mesh: mixtral at full width and
+# capacity factor ``MOE_DROP_CF`` (claims drop), one block a train step on
+# B x S tokens, two a prefill of B x S positions
+MOE_MESH_TRAIN = (1, 2, 64)
+MOE_MESH_PREFILL = (2, 2, 2048)
+# the simulated "model" width of ``dryrun_moe_ranks`` (each rank 1,024
+# rows of MOE_MESH_PREFILL's batch: one router block)
+MOE_RANKS = 4
+# rbmm_mxu on an expert group's buffer: (experts, rows, K, P) of mixtral's
+# w1 and arctic's w2 (a group of 18 at 7,168 outputs), rows cut so the
+# plain version ends in seconds
+MOE_MXU_SHAPES = ((8, 1024, 6144, 16384), (18, 512, 4864, 7168))
 
 
 def dryrun_start():
@@ -4896,6 +4940,7 @@ def dryrun_sweep(tag: str, sweep) -> None:
     dryrun_split(tag, recs)
     dryrun_decode(tag, recs)
     dryrun_prefill(tag, recs)
+    dryrun_moe(tag, recs)
     status = [r["status"] for r in recs]
     log(f"{tag} sweep: {len(recs)} cells, {status.count('OK')} OK, "
         f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, in "
@@ -4945,8 +4990,8 @@ def dryrun_decode(tag: str, recs) -> None:
     """The sweep's cells against ``DRY_GATHERED``: the decode and long_500k
     cells' falls (collective bytes, dense FLOPs, rbmm_int's word ops) and
     no memory grown; the train cells and the prefill cells but
-    ``DRY_PREFILL_SPLIT``'s equal; one ``[dryrun decode]`` line a decode
-    cell."""
+    ``DRY_PREFILL_SPLIT``'s and ``DRY_MOE``'s equal; one ``[dryrun
+    decode]`` line a decode cell."""
     tag = tag[:-1] + " decode]"
     gib, bad = 2**30, []
     got = {(r["arch"], r["shape"]): r for r in recs}
@@ -4959,8 +5004,9 @@ def dryrun_decode(tag: str, recs) -> None:
                int(r["flops"]), int(sum(r["collectives"].values())),
                int(sum(r["kernels"].get("rbmm_int", {}).get(
                    "ops", {}).values())))
-        if shape == "prefill_32k" and arch in DRY_PREFILL_SPLIT:
-            continue        # ``dryrun_prefill``'s
+        if (shape == "prefill_32k" and arch in DRY_PREFILL_SPLIT) or \
+                (arch, shape) in DRY_MOE:
+            continue        # ``dryrun_prefill``'s, ``dryrun_moe``'s
         if shape in ("train_4k", "prefill_32k"):
             if now != before:
                 bad.append(f"{arch} x {shape}: {before} -> {now}")
@@ -5033,6 +5079,252 @@ def dryrun_prefill(tag: str, recs) -> None:
                        f"{coll0} -> {coll}, step {step0} -> {step}")
     if bad:
         raise AssertionError(f"{tag} " + "; ".join(bad))
+
+
+def dryrun_moe(tag: str, recs) -> None:
+    """The sweep's cells of ``DRY_MOE`` against ``DRY_GATHERED``: the falls
+    of memory, dense FLOPs and ``rbmm_mxu``'s work, the prefill cells'
+    fit, the collectives' bound, ``step_time_s``; one ``[dryrun moe]``
+    line a cell."""
+    tag = tag[:-1] + " moe]"
+    gib, bad = 2**30, []
+    got = {(r["arch"], r["shape"]): r for r in recs}
+    for (arch, shape), (mem_fall, coll_share, flops_fall, mxu0,
+                        step0) in DRY_MOE.items():
+        r = got.get((arch, shape))
+        if r is None or r["status"] != "OK":
+            bad.append(f"{arch} x {shape}: no OK record")
+            continue
+        mem0, flops0, coll0, _ = DRY_GATHERED[(arch, shape)]
+        mem = r["argument_size_in_bytes"] + r["temp_size_in_bytes"]
+        coll = int(sum(r["collectives"].values()))
+        mxu = sum(r["kernels"].get("rbmm_mxu", {}).get("ops", {}).values())
+        step = r["roofline"]["step_time_s"]
+        log(f"{tag} {arch} x {shape}: arguments + temp {mem0 / gib:.2f} -> "
+            f"{mem / gib:.2f} GiB a rank ({mem0 / mem:.2f}x"
+            f"{', fits' if mem < DRY_FITS else ', over 74.5 GiB'}), dense "
+            f"FLOPs {flops0:.4g} -> {r['flops']:.4g} ("
+            f"{flops0 / r['flops']:.2f}x), rbmm_mxu ops "
+            + (f"{mxu0:.4g} -> {mxu:.4g} ({mxu0 / mxu:.2f}x)" if mxu0 else
+               f"{mxu:.4g}") +
+            f", collectives {coll0:.4g} -> {coll:.4g} B ({coll / coll0:.3f}x:"
+            f" " + ", ".join(f"{k} {v:.4g}" for k, v in
+                             r["collective_sites"].items()) +
+            f"), step_time_s {step0:.6g} -> {step:.6g} "
+            f"({r['roofline']['dominant']})")
+        ok = (mem_fall * mem <= mem0 and coll <= coll_share * coll0 and
+              step < step0)
+        if flops_fall:
+            ok &= flops_fall * r["flops"] <= flops0
+        if mxu0:
+            ok &= mem < DRY_FITS and DRY_FALL * mxu <= mxu0
+        if not ok:
+            bad.append(f"{arch} x {shape}: memory {mem0} -> {mem}, FLOPs "
+                       f"{flops0} -> {r['flops']}, rbmm_mxu {mxu0} -> {mxu},"
+                       f" collectives {coll0} -> {coll}, step {step0} -> "
+                       f"{step}")
+    if bad:
+        raise AssertionError(f"{tag} " + "; ".join(bad))
+
+
+def dryrun_moe_kernels(tag: str) -> int:
+    """``rbmm_mxu`` on expert groups' buffers (``MOE_MXU_SHAPES``: ±1
+    bf16 rows of a group's experts against their packed weights, one
+    batched call) on the card against its plain version, bitwise; returns
+    the launches."""
+    from repro_torch.kernels.rbmm_mxu import ops, ref
+    tag = tag[:-1] + " moe kernels]"
+    rng = np.random.default_rng(SEED)
+    before = ops.rbmm_mxu.launches
+    for e, rows, k, p in MOE_MXU_SHAPES:
+        a = _pm1(rng, (e, rows, k))
+        w = _words(rng, (e, p, (k + 31) // 32), k)
+        _same("rbmm_mxu", f"expert group ({e}, {rows}, {k}) x ({e}, {p}, "
+              f"{k})", ops.rbmm_mxu(a, w), ref.rbmm_mxu(a, w))
+    calls = ops.rbmm_mxu.launches - before
+    log(f"{tag} rbmm_mxu on expert groups' buffers " + ", ".join(
+        f"({e} experts, {rows} rows, K={k}, P={p})"
+        for e, rows, k, p in MOE_MXU_SHAPES) +
+        f": {calls} launches, each bitwise equal to its plain version")
+    return calls
+
+
+class _SimulatedRank:
+    """Rank r of a simulated (1, m) ("data", "model") mesh on one card:
+    its all-gather gives ``every`` (each rank's tensor, in rank order),
+    what the ranks of a real mesh would send."""
+
+    def __init__(self, m: int, r: int, every):
+        self.shape = {"data": 1, "model": m}
+        self.axis_names = ("data", "model")
+        self.data_size, self.data_index, self._r = 1, 0, r
+        self.every = every
+
+    def index(self, axis: str) -> int:
+        return self._r if axis == "model" else 0
+
+    def all_gather(self, x, axes, dim):
+        import torch
+        return torch.cat(list(self.every), dim)
+
+
+def dryrun_moe_ranks(tag: str) -> None:
+    """One block's MoE of mixtral-8x22b (capacity factor ``MOE_DROP_CF``)
+    and arctic-480b at full width on each rank's positions of a simulated
+    (1, ``MOE_RANKS``) mesh (``_SimulatedRank``: each rank's claims
+    gathered as a real mesh gathers them), on the card, against the
+    one-device MoE's rows of those positions, bitwise; then the float32
+    head's product on mixtral's vocabulary blocks against the whole
+    table's columns (logged: cuBLAS may take another kernel for a block's
+    width, which the mesh prefill's vocabulary blocks inherit)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding
+    from repro_torch.models.lm import build_model
+    tag = tag[:-1] + " moe ranks]"
+    m, (b, seq) = MOE_RANKS, MOE_MESH_PREFILL[1:]
+    blk_n = seq // m
+    for arch, cf in (("mixtral-8x22b", MOE_DROP_CF), ("arctic-480b", 0)):
+        cfg = get_config(arch).truncated(1)
+        if cf:
+            cfg = cfg.with_(moe=dc.replace(cfg.moe, capacity_factor=cf))
+        moe = build_model(cfg)._block()._ffn()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = moe.init_deploy(gen, "cuda")
+        x = torch.randn(b, seq, cfg.d_model, generator=gen,
+                        device="cuda").bfloat16()
+        with torch.inference_mode():
+            want = moe.apply_deploy(params, x)
+            _, idx = torch.sort(moe._probs(params, x.reshape(
+                -1, cfg.d_model)), dim=-1, descending=True, stable=True)
+            idx = idx[:, :moe.top_k].reshape(b, seq, moe.top_k)
+            mine = [idx[:, r * blk_n:(r + 1) * blk_n] for r in range(m)]
+            counts = [torch.nn.functional.one_hot(t, moe.num_experts).sum(
+                (1, 2)).to(torch.int32) for t in mine]
+            ids = [t.reshape(1, -1).to(torch.int32) for t in mine]
+            sent = ids if ids[0].numel() < counts[0].numel() else counts
+            same = []
+            for r in range(m):
+                split = sharding.Split(r, m, _SimulatedRank(m, r, sent),
+                                       True)
+                got = moe.apply_deploy(params, x[:, r * blk_n:(r + 1) *
+                                                  blk_n].contiguous(), split)
+                same.append(torch.equal(got, want[:, r * blk_n:(r + 1) *
+                                                  blk_n]))
+        log(f"{tag} {arch}, one block at full width{moe_text(cfg)}; B={b} x"
+            f" {seq} on {m} simulated ranks of {blk_n} positions: each "
+            f"rank's MoE rows bitwise equal to one device's {same}")
+        if not all(same):
+            raise AssertionError(f"{tag} {arch}: a rank's MoE rows differ "
+                                 f"from one device's")
+        del params, x, want
+    d, v = 6144, 32768
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(b, seq, d, generator=gen, device="cuda").bfloat16().float()
+    w = torch.randn(d, v, generator=gen, device="cuda") / d ** 0.5
+    full = torch.matmul(x, w)
+    blk = v // m
+    same = [torch.equal(full[..., r * blk:(r + 1) * blk], torch.matmul(
+        x, w[:, r * blk:(r + 1) * blk].contiguous())) for r in range(m)]
+    log(f"{tag} the float32 head's product (B={b} x {seq}, d={d}) on "
+        f"{m} vocabulary blocks of {blk} columns bitwise equal to the whole "
+        f"table's columns: {same} (not asserted: what the mesh prefill's "
+        f"vocabulary blocks inherit)")
+
+
+def dryrun_moe_mesh(tag: str, mesh) -> dict:
+    """mixtral-8x22b at full width on the one-rank NCCL (1, 1) mesh
+    against one device: the mesh trainer's gradient of one block
+    (``MOE_MESH_TRAIN``: the MoE's routing of the rank's positions, its
+    expert stack's leaves gathered as sign bits) and the mesh
+    ``prefill_logits`` of two blocks (``MOE_MESH_PREFILL``: the split
+    route, the MoE on the rank's positions, its experts in groups), each
+    bitwise equal to the one-device one.  Returns the counted launches
+    of the mesh runs."""
+    import gc
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tag = tag[:-1] + " moe mesh]"
+    layers, b, seq = MOE_MESH_TRAIN
+    cfg = get_config("mixtral-8x22b").truncated(layers)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                            capacity_factor=MOE_DROP_CF))
+    model = build_model(cfg)
+    stream = SyntheticStream(cfg, seq, b, seed=SEED)
+    opt = _optimizer(cfg, 1)
+    one = Trainer(model, opt, TrainerConfig(seed=SEED), graph=False)
+    meshed = Trainer(model, opt, TrainerConfig(seed=SEED), mesh=mesh)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    for path, t in tree.leaves_with_paths(params):
+        meshed.placement(path, t.shape)
+    batch = one.batch_on_device(stream.batch_at(0))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with DropCounter() as drops:
+            drops.label = "one device"
+            loss1, m1, g1 = one.loss_and_grads(params, batch)
+            drops.label = "the mesh"
+            kernels.reset_launch_counts()
+            loss2, m2, g2 = meshed.loss_and_grads(params, batch)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    train_equal = (torch.equal(loss1, loss2) and
+                   torch.equal(m1["moe_aux"], m2["moe_aux"]) and
+                   all(torch.equal(a, c) for a, c in zip(tree.leaves(g1),
+                                                         tree.leaves(g2))))
+    log(f"{tag} mixtral-8x22b at full width, {layers} block"
+        f"{moe_text(cfg)}; B={b} x {seq}: the mesh trainer's loss "
+        f"{float(loss2):.6f}, load-balance loss {float(m2['moe_aux']):.6f} "
+        f"and every gradient bitwise equal to one device's {train_equal}")
+    drops.log(tag)
+    if not train_equal:
+        raise AssertionError(f"{tag} the mesh train step differs from one "
+                             f"device's")
+    del params, g1, g2, one, meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, b, seq = MOE_MESH_PREFILL
+    cfg = get_config("mixtral-8x22b").truncated(layers)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                            capacity_factor=MOE_DROP_CF))
+    model = build_model(cfg)
+    dparams = model.init_deploy(torch.Generator(device="cuda").manual_seed(
+        SEED))
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, seq)).astype(np.int32), device="cuda")
+    placed = mesh_lib.shard_tree(mesh, model.deploy_specs(), dparams)
+    with torch.inference_mode():
+        want = model.prefill_logits(dparams, toks)
+        kernels.reset_launch_counts()
+        pl = mesh_lib.Placement(mesh, mesh_lib.P(mesh_lib.data_axes(mesh),
+                                                 None), toks.shape)
+        got = model.prefill_logits(placed, mesh_lib.place(toks.clone(), pl),
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+        for k, v in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        got = mesh_lib.placement_of(got).whole(got)[..., :want.shape[-1]]
+        prefill_equal = torch.equal(got, want)
+        finite = bool(torch.isfinite(want).all())
+    log(f"{tag} mixtral-8x22b at full width, {layers} blocks"
+        f"{moe_text(cfg)}; prefill B={b} x {seq}: the mesh prefill_logits "
+        f"(split route) bitwise equal to "
+        f"the one-device one {prefill_equal}, finite {finite}")
+    if not (prefill_equal and finite):
+        raise AssertionError(f"{tag} the mesh prefill differs from one "
+                             f"device's")
+    del dparams, placed, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def dryrun_split_kernels(tag: str) -> None:
@@ -5111,11 +5403,15 @@ def phase_dryrun(phase4_tokens) -> dict:
         del model, dparams
         free_card()
         dryrun_train(tag, mesh)
+        free_card()
+        moe = dryrun_moe_mesh(tag, mesh)
+        dryrun_moe_ranks(tag)
+        dryrun_moe_kernels(tag)
     finally:
         dist.destroy_process_group()
     dryrun_sweep(tag, sweep)
     log(f"{tag} phase 25 took {time.perf_counter() - t0:.1f} s")
-    return {k: counted[k] + deploy[k] for k in counted}
+    return {k: counted[k] + deploy[k] + moe.get(k, 0) for k in counted}
 
 
 _START = time.perf_counter()

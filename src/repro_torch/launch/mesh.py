@@ -36,8 +36,9 @@ The backward takes the gradient to this rank's block by one rule
 compute is split: a leaf gathered whole was applied by every rank to its
 own rows and heads only, so its gradient is summed over the data axes and
 "model"; a leaf gathered on exactly its own block along "model" (a range
-that is this rank's block for every rank) holds the whole gradient of
-that block already, and is summed over the data axes only.
+that is this rank's block for every rank: a head range, d_ff columns, an
+expert-parallel stack's experts) holds the whole gradient of that block
+already, and is summed over the data axes only.
 """
 from __future__ import annotations
 

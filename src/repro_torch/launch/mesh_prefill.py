@@ -8,22 +8,27 @@ batch (split along "model" by the sequence where the length allows:
 placement and compares.  Rank 0 prints one JSON line: the route (the dim
 of the logits split along "model": 1 the positions, 2 the vocabulary,
 null a stack computed whole), bitwise equality, the largest absolute
-difference, the greedy tokens' agreement, the collectives a rank ran, and
-with ``--iters`` the mesh and one-device prefills' times (CUDA events on
-the card, the wall on the CPU; the mesh's includes its collectives).
+difference, the greedy tokens' agreement, the collectives a rank ran, a
+MoE's routing (experts, top-k, capacity factor: ``--capacity-factor``
+sets a dropping one), and with ``--iters`` the mesh and one-device
+prefills' times (CUDA events on the card, the wall on the CPU; the
+mesh's includes its collectives).
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.mesh_prefill \\
       --arch qwen1.5-32b --layers 2 --model-parallel 4 --batch 2 \\
       --positions 1024
 
-runs one card a rank (nccl); ``--device cpu --smoke`` the smoke config on
+runs one card a rank (``--arch mixtral-8x22b --layers 2 --batch 2
+--positions 2048``: each of 4 ranks routes its 1,024 positions at the
+global batch's capacity and slots, its experts whole) (nccl); ``--device cpu --smoke`` the smoke config on
 gloo ranks.  ``--positions`` counts a frontend's patches (internvl2) and
 is an encoder-decoder's frame count too.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional, Sequence
@@ -50,6 +55,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--iters", type=int, default=0,
                    help="timed prefills of each kind after one warm-up")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--capacity-factor", type=float, default=0.0,
+                   help="a MoE's capacity factor (0: the config's)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -61,6 +68,9 @@ def _config(args):
         cfg = cfg.with_(num_layers=args.layers, **(
             {"num_encoder_layers": args.layers}
             if cfg.num_encoder_layers else {}))
+    if args.capacity_factor and cfg.moe.num_experts:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=args.capacity_factor))
     return cfg
 
 
@@ -126,6 +136,10 @@ def run(args) -> dict:
                "tokens_equal": bool(torch.equal(whole.argmax(-1),
                                                 want.argmax(-1))),
                "collectives": ran}
+        if cfg.moe.num_experts:
+            out["moe"] = {"experts": cfg.moe.num_experts,
+                          "top_k": cfg.moe.top_k,
+                          "capacity_factor": cfg.moe.capacity_factor}
         del whole, got
         if args.iters:
             out["mesh_ms"] = _timed(lambda: model.prefill_logits(

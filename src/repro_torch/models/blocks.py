@@ -220,12 +220,13 @@ class Block:
         ``split`` (``sharding.Split``): ``x`` and the result are this
         rank's block of the sequence (``memory`` whole); the norms run on
         its rows, the attention and a dense FFN split their compute along
-        "model" (``SPSAttention.qat``, ``BinaryFFN.apply``), and the
-        recurrent cells, the Mamba branch and a MoE compute whole on the
-        sequence gathered whole, each rank keeping its rows; a MoE's
-        load-balance loss, which every "model" rank computes whole, counts
-        1 / width on each.  ``params`` may hold ``sharding.Gathered``
-        leaves, gathered here (inside the caller's checkpoint)."""
+        "model" (``SPSAttention.qat``, ``BinaryFFN.apply``), a MoE routes
+        and runs this rank's positions (``BinaryMoE.apply``; its
+        load-balance loss is this rank's share), and the recurrent cells
+        and the Mamba branch compute whole on the sequence gathered whole,
+        each rank keeping its rows.  ``params`` may hold
+        ``sharding.Gathered`` leaves, gathered here (inside the caller's
+        checkpoint)."""
         if self.kind == "dec" and memory is None:
             raise ValueError("a 'dec' block's QAT face needs memory")
         if window is None and self.window:
@@ -258,20 +259,23 @@ class Block:
             x = x + c_out
         h2 = norm.apply(whole(params["norm2"]), x)
         if isinstance(parts["ffn"], BinaryMoE):
-            f_out, f_aux = whole_rows(parts["ffn"], params["ffn"], h2)
-            if split.width > 1:
-                f_aux = {k: v / split.width for k, v in f_aux.items()}
+            f_out, f_aux = parts["ffn"].apply(params["ffn"], h2, split=split)
             aux.update(f_aux)
         else:
             f_out = parts["ffn"].apply(params["ffn"], h2, split=split)
         return x + f_out, aux
 
-    def _ffn_residual(self, params: Params,
-                      x: torch.Tensor) -> torch.Tensor:
+    def _ffn_residual(self, params: Params, x: torch.Tensor,
+                      split: Optional[sharding.Split] = None
+                      ) -> torch.Tensor:
+        """x + the FFN of norm2(x); on a split prefill (``split``) a MoE
+        routes this rank's positions at the global batch's slots."""
         if not self._has_ffn:
             return x
-        return x + self._ffn().apply_deploy(
-            params["ffn"], self._norm().apply(params["norm2"], x))
+        ffn, h = self._ffn(), self._norm().apply(params["norm2"], x)
+        if isinstance(ffn, BinaryMoE):
+            return x + ffn.apply_deploy(params["ffn"], h, split)
+        return x + ffn.apply_deploy(params["ffn"], h)
 
     def _cross_residual(self, params: Params, x: torch.Tensor, mem,
                         split: Optional[sharding.Split] = None
@@ -285,9 +289,9 @@ class Block:
     @property
     def splits_prefill(self) -> bool:
         """Does a mesh prefill split this block along "model" by the
-        sequence (attention with a dense FFN: "attn" and "dec")?  The
-        recurrent kinds and a MoE compute whole on the sequence."""
-        return self.kind in ("attn", "dec") and not self.cfg.moe.num_experts
+        sequence (attention with a dense FFN or a MoE: "attn" and "dec")?
+        The recurrent kinds compute whole on the sequence."""
+        return self.kind in ("attn", "dec")
 
     def deploy_prefill(self, params: Params, x: torch.Tensor, *,
                        positions=None, cache_size: int = 0,
@@ -306,14 +310,15 @@ class Block:
         ``split`` (``sharding.prefill_split``; a block that
         ``splits_prefill``): ``x``, the result and a "dec" layer's
         ``memory`` are this rank's blocks of their sequences, ``x`` at
-        ``positions``; the norms and the FFN run on its rows, the
-        attention on its query heads (``SPSAttention.deploy_prefill``,
+        ``positions``; the norms and the FFN run on its rows (a MoE's
+        claims at the global batch's slots, ``BinaryMoE.apply_deploy``),
+        the attention on its query heads (``SPSAttention.deploy_prefill``,
         ``attend_memory``).  No cache."""
         if split is not None:
             if not self.splits_prefill or cache_size or seq_lens is not None:
                 raise ValueError(f"a split prefill runs attention blocks "
-                                 f"with a dense FFN and builds no cache "
-                                 f"(kind={self.kind!r})")
+                                 f"and builds no cache (kind="
+                                 f"{self.kind!r})")
             return self._prefill_split(params, x, positions, memory,
                                        split), {}
         if seq_lens is not None and self.kind == "dec":
@@ -364,7 +369,7 @@ class Block:
             mem = parts["cross"].build_memory_cache(params["cross"], memory,
                                                     split)
             x = self._cross_residual(params, x, mem, split)
-        return self._ffn_residual(params, x)
+        return self._ffn_residual(params, x, split)
 
     def deploy_prefill_chunk(self, params: Params, x: torch.Tensor,
                              cache: Dict[str, Any], *, start=None,

@@ -50,6 +50,11 @@ Params = Dict[str, Any]
 # (act, glu) pairs the port runs
 PORTED = (("silu", True), ("gelu", True), ("relu", False))
 
+# the rows of each block of the router's product (``BinaryMoE._probs``)
+ROUTER_ROWS = 1024
+# the budget of one intermediate of an expert group (``BinaryMoE.group``)
+GROUP_BYTES = 2 * 2**30
+
 
 def glu_act(act: str, u: torch.Tensor) -> torch.Tensor:
     """The GLU's activation of the float32 ``u``: SiLU, or GELU in its
@@ -213,7 +218,8 @@ class BinaryFFN:
               split: sharding.Split = sharding.WHOLE) -> torch.Tensor:
         """QAT forward: x (..., d) -> (..., d) in ``dtype``; an expert
         stack takes (E, C, d) and multiplies each expert's rows by its own
-        weights (a batched matmul), scaled by alpha_w (E, 1, P).
+        weights (a batched matmul), scaled by alpha_w (E, 1, P)
+        (``signs``, then ``apply_experts``).
 
         ``split`` (``sharding.Split``; a dense FFN on (B, S, d) only):
         ``x`` and the output are this rank's block of the sequence; the
@@ -225,9 +231,14 @@ class BinaryFFN:
         to the ranks whose positions they are (``sharding.to_rows``), and
         ``w2`` multiplies this rank's positions by its whole weight.
         ``params`` may hold ``sharding.Gathered`` leaves."""
-        if split.width > 1 and self.num_experts:
-            raise ValueError("an expert stack computes whole; only a dense"
-                             " FFN splits along \"model\"")
+        if self.num_experts:
+            if split.width > 1:
+                raise ValueError("an expert stack splits by expert "
+                                 "(apply_experts); only a dense FFN splits "
+                                 "its columns along \"model\"")
+            sc = self.scales(params)
+            return self.apply_experts(params, self.signs(params, x, sc),
+                                      scales=sc)
         spans = sharding.ranges(self.d_ff, split)
 
         def take(leaf, dim, signs=False):
@@ -238,20 +249,14 @@ class BinaryFFN:
                   if k in params else None for k in ("w1", "w3"))
         w2 = {"w_sign": sharding.whole(params["w2"]["w_latent"], True),
               "alpha_w": sharding.whole(params["w2"]["alpha_w"])}
-        act_alpha, act_beta, h_alpha, h_beta = (sharding.whole(params[k])
-                                                for k in ("act_alpha",
-                                                          "act_beta",
-                                                          "h_alpha",
-                                                          "h_beta"))
-        alpha = act_alpha.clamp_min(1e-6)
-        s_own = binarize.sign_ste(
-            (binarize.promote(x, alpha, act_beta) - act_beta) / alpha)
+        sc = self.scales(params)
+        act_alpha, h_alpha, h_beta = sc["act_alpha"], sc["h_alpha"], \
+            sc["h_beta"]
+        s_own = self.signs(params, x, sc)
         s_x = sharding.seq_gather(s_own.detach(), split, signs=True)
 
         def scale(wp, y, a_scale):
-            alpha_w = (wp["alpha_w"][:, None, :] if self.num_experts
-                       else wp["alpha_w"])
-            return y * alpha_w * a_scale
+            return y * wp["alpha_w"] * a_scale
 
         def cols(k, wp):
             return scale(wp, sharding.col_product(
@@ -267,6 +272,62 @@ class BinaryFFN:
         h_vals = sharding.to_rows(h_vals, split, spans, signed=False)
         return scale(w2, pm1_matmul(h_vals, w2["w_sign"], self.dtype),
                      h_alpha).to(self.dtype)
+
+    @staticmethod
+    def scales(params: Params) -> Params:
+        """The four activation scales, gathered whole (once a forward:
+        each gather of a placed leaf adds a reduction to the backward)."""
+        return {k: sharding.whole(params[k]) for k in
+                ("act_alpha", "act_beta", "h_alpha", "h_beta")}
+
+    def signs(self, params: Params, x: torch.Tensor,
+              scales: Optional[Params] = None) -> torch.Tensor:
+        """The QAT input binarization of ``x``: sign((x - act_beta) /
+        act_alpha) through the straight-through estimator (+-1 values);
+        the scales are shared by an expert stack's experts, so a token's
+        signs serve each expert it claims.  ``scales``: ``scales(params)``
+        where the caller has them."""
+        sc = scales or self.scales(params)
+        act_alpha, act_beta = sc["act_alpha"], sc["act_beta"]
+        alpha = act_alpha.clamp_min(1e-6)
+        return binarize.sign_ste(
+            (binarize.promote(x, alpha, act_beta) - act_beta) / alpha)
+
+    def apply_experts(self, params: Params, s: torch.Tensor,
+                      split: sharding.Split = sharding.WHOLE,
+                      scales: Optional[Params] = None) -> torch.Tensor:
+        """An expert stack's QAT face on +-1 input values ``s`` (E', C, d)
+        -> (E', C, d) in ``dtype``: each expert's rows times its +-1
+        weights (batched float32 products, ``pm1_matmul``), scaled by
+        alpha_w (E', 1, P) and the activation scale, the GLU, the hidden
+        layer's round STE, the down projection.  E' is every expert, or,
+        with ``split`` (an expert-parallel stack split along "model"),
+        this rank's block of them (``sharding.ranges``), whose leaves are
+        gathered over the data axes only (``sharding.columns``: the
+        gradient is this block's whole one).  ``params`` may hold
+        ``sharding.Gathered`` leaves; the weights travel as sign bits
+        (``scales`` as in ``signs``)."""
+        spans = sharding.ranges(self.num_experts, split)
+
+        def stack_leaf(leaf, signs=False):
+            return sharding.columns(leaf, 0, spans, split, signs)
+
+        sc = scales or self.scales(params)
+        act_alpha, h_alpha, h_beta = sc["act_alpha"], sc["h_alpha"], \
+            sc["h_beta"]
+
+        def proj(k, v, a_scale):
+            y = pm1_matmul(v, stack_leaf(params[k]["w_latent"], True),
+                           self.dtype)
+            return y * stack_leaf(params[k]["alpha_w"])[:, None, :] * a_scale
+
+        h = self._act_fn(proj("w1", s, act_alpha))
+        if self.glu:
+            h = h * proj("w3", s, act_alpha)
+        ha = h_alpha.clamp_min(1e-6)
+        h_vals = binarize.clip(binarize.round_ste((h - h_beta) / ha), 0.0,
+                               1.0)
+        return proj("w2", h_vals, h_alpha).to(self.dtype)
 
     def apply_deploy(self, params: Params, x: Optional[torch.Tensor] = None,
                      *, bits: Optional[torch.Tensor] = None,
@@ -515,79 +576,137 @@ class BinaryMoE:
         return int(max(1, math.ceil(
             n * self.top_k * self.capacity_factor / self.num_experts)))
 
+    def group(self, rows: int) -> int:
+        """The experts the deploy face runs at once on buffers of ``rows``
+        rows an expert: as many as keep the group's largest intermediate
+        (an int32 or float32 (group, rows, max(d_ff, d_model)) product)
+        within ``GROUP_BYTES``, at least one.  From the shapes alone, so
+        every rank runs as many groups."""
+        per = rows * max(self.d_ff, self.d_model) * 4
+        return max(1, min(self.num_experts, GROUP_BYTES // per))
+
     # -- dispatch ------------------------------------------------------------
 
     def _probs(self, params: Params, x2: torch.Tensor) -> torch.Tensor:
-        """The router's float32 softmax over experts, (N, E)."""
-        logits = self._router().apply(params["router"], x2.to(torch.float32))
+        """The router's float32 softmax over experts, (N, E).  Above
+        ``ROUTER_ROWS`` rows the product runs on blocks of exactly that
+        many rows (the last padded with zero rows), so a row's logits are
+        the sums a product of that shape gives it however many rows there
+        are: a mesh rank that routes its own positions picks the experts,
+        and the gates, one device picks for them (a library may block the
+        reduction by the row count)."""
+        dense = self._router()
+        x = x2.to(torch.float32)
+        n = x.shape[0]
+        if n <= ROUTER_ROWS:
+            logits = dense.apply(params["router"], x)
+        else:
+            if n % ROUTER_ROWS:
+                x = torch.cat([x, x.new_zeros((-n % ROUTER_ROWS,
+                                               x.shape[1]))])
+            logits = torch.cat([dense.apply(params["router"], t)
+                                for t in x.split(ROUTER_ROWS)])[:n]
         return torch.softmax(logits.to(torch.float32), dim=-1)
 
-    def _route(self, params: Params, x2: torch.Tensor
+    def _route(self, params: Params, x2: torch.Tensor,
+               split: sharding.Split = sharding.WHOLE, segments: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor, int]:
         """x2: (N, d) -> (gates (N, k) float32, expert idx (N, k), slot
         (N, k), keep (N, k), capacity).  Among equal probabilities the
         lowest expert index ranks first, as ``lax.top_k`` ranks them (a
-        stable descending sort; ``torch.topk`` promises no order).  With
-        the batch split over a mesh's data axis, ``x2`` holds this data
-        index's rows: the capacity counts the global batch's rows and the
-        slots follow the claims of the global batch in token order (the
-        choices of every data index gathered), as the JAX package routes
-        the global batch."""
-        n, e = x2.shape[0], self.num_experts
+        stable descending sort; ``torch.topk`` promises no order).
+
+        Where ``x2`` is the whole batch (one device), as the JAX package:
+        each claim's slot is its place among the claims on its expert in
+        token order, capacity C = ``capacity(N)``, keep = slot < C.  Where
+        the global batch's positions are shared over ranks
+        (``sharding.claim_shares``: the data axes of the context, and
+        "model" where ``split`` splits the sequence), ``x2`` holds this
+        rank's ``segments`` equal segments (one for each batch row, in row
+        order): C counts the global batch's rows, keep holds where the
+        claim's global slot (from every share's per-segment counts,
+        ``sharding.claim_offsets``) is below C, and slot is the claim's row
+        in this rank's buffer, its place among this rank's claims on its
+        expert; capacity is the buffer's rows, min(N, C).  A rank's claims
+        on an expert take increasing global slots, so the kept ones come
+        first, and they fit: top-k picks distinct experts."""
         probs = self._probs(params, x2)
         gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, idx = gates[:, :self.top_k], idx[:, :self.top_k]
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-        index, count = sharding.batch_split()
-        capacity = self.capacity(n * count)
-        # each (token, k) claim's position among the claims on its expert
-        flat = sharding.batch_gather(idx).reshape(-1)
-        onehot = (flat[:, None] == torch.arange(e, device=x2.device)).to(
+        return (gates, idx) + self._slots(idx, split, segments)
+
+    def _slots(self, idx: torch.Tensor, split: sharding.Split = sharding.WHOLE,
+               segments: int = 1) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """The claims ``idx`` (N, k) -> (slot, keep, capacity) as
+        ``_route`` gives them."""
+        n, e = idx.shape[0], self.num_experts
+        # each (token, k) claim's place among this rank's claims on its
+        # expert
+        flat = idx.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(e, device=idx.device)).to(
             torch.int32)
         pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
         slot = torch.gather(pos, 1, flat[:, None])[:, 0].reshape(
-            n * count, self.top_k)[index * n:(index + 1) * n]
-        return gates, idx, slot, slot < capacity, capacity
+            n, self.top_k)
+        _, axes, shares = sharding.claim_shares(split)
+        if not axes:
+            capacity = self.capacity(n)
+            return slot, slot < capacity, capacity
+        capacity = self.capacity(n * shares)
+        off = sharding.claim_offsets(
+            onehot.reshape(segments, -1, e).sum(1, dtype=torch.int32), split,
+            idx)
+        first = torch.gather(off, 1, idx.reshape(segments, -1))
+        keep = slot + first.reshape(n, self.top_k) < capacity
+        return slot, keep, min(n, capacity)
 
-    def _aux_loss(self, params: Params, x2: torch.Tensor) -> torch.Tensor:
+    def _aux_loss(self, params: Params, x2: torch.Tensor,
+                  split: sharding.Split = sharding.WHOLE) -> torch.Tensor:
         """Switch load-balance loss: E * sum over experts of (the share of
         rows whose first choice it is) * (its mean probability).  The
         router runs again, as in the JAX package, so the gradient is the
         sum over both uses; the argmax takes the first maximum, as
-        ``jnp.argmax``.  With the batch split over a mesh's data axis the
-        shares count the global batch's rows and each data index returns
-        its rows' part of the mean probability's term: the parts sum to
-        the global batch's loss."""
+        ``jnp.argmax``.  Where the batch's positions are shared over ranks
+        (as ``_route`` reads them) the first choices are counted over
+        every share and each rank returns its rows' part of the mean
+        probability's term: the parts sum to the global batch's loss.
+        Ranks of "model" that hold the same positions (a sequence
+        ``split`` keeps whole) each return a width's share of that."""
         probs = self._probs(params, x2)
         top1 = torch.argmax(probs, dim=-1)
         first = (top1[:, None] == torch.arange(
             self.num_experts, device=x2.device)).to(torch.float32)
-        if sharding.batch_split()[1] == 1:
-            return self.num_experts * torch.sum(first.mean(0) *
-                                                probs.mean(0))
-        n = sharding.batch_sum(torch.tensor(float(x2.shape[0]),
-                                            device=x2.device))
-        frac = sharding.batch_sum(first.sum(0)) / n
-        return self.num_experts * torch.sum(frac * probs.sum(0) / n)
+        mesh, axes, shares = sharding.claim_shares(split)
+        if not axes:
+            aux = self.num_experts * torch.sum(first.mean(0) *
+                                               probs.mean(0))
+        else:
+            n = float(x2.shape[0] * shares)
+            frac = mesh.all_reduce(first.sum(0), axes) / n
+            aux = self.num_experts * torch.sum(frac * probs.sum(0) / n)
+        if split.width > 1 and not split.seq:
+            aux = aux / split.width
+        return aux
 
     def _dispatch(self, x2: torch.Tensor, idx: torch.Tensor,
                   slot: torch.Tensor, keep: torch.Tensor,
-                  capacity: int) -> torch.Tensor:
+                  capacity: int, experts: int = 0) -> torch.Tensor:
         """Token rows (fp, or packed words) placed into (E, C, ...) expert
-        buffers: each kept claim writes its own (expert, slot) row once,
+        buffers (``experts`` of them where given, ``idx`` counted from the
+        first): each kept claim writes its own (expert, slot) row once,
         dropped claims the one trash row past the E * C real ones, which
         is cut off (the JAX package scatter-adds fp rows and scatter-maxes
         uint32 words onto zeros; the port's int32 words would lose bit 31
         to a max, and a placement gives both packages' values)."""
-        k = idx.shape[1]
-        trash = self.num_experts * capacity
+        k, e = idx.shape[1], experts or self.num_experts
+        trash = e * capacity
         dest = torch.where(keep, idx * capacity + slot, trash).reshape(-1)
         rows = x2.repeat_interleave(k, dim=0)
         buf = x2.new_zeros((trash + 1,) + tuple(x2.shape[1:]))
         buf.index_copy_(0, dest, rows)
-        return buf[:trash].view((self.num_experts, capacity) +
-                                tuple(x2.shape[1:]))
+        return buf[:trash].view((e, capacity) + tuple(x2.shape[1:]))
 
     @staticmethod
     def _sources(idx: torch.Tensor, slot: torch.Tensor,
@@ -614,6 +733,32 @@ class BinaryMoE:
         got = out_buf.reshape(-1, out_buf.shape[-1]).index_select(0, src)
         return self._weigh(got, gates, keep)
 
+    def _stack(self, ep: Params, key: str, rows: torch.Tensor,
+               gates: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
+               keep: torch.Tensor, cap: int) -> torch.Tensor:
+        """The deploy face of the whole expert stack ``ep`` on buffers of
+        ``cap`` rows an expert, dispatched from ``rows`` (fp rows or their
+        packed bits, ``key``), combined: (N, d) float32.  The experts run
+        ``group(cap)`` at a time, each group on its own claims' buffer;
+        each claim takes its output row from its expert's group, and the
+        gated sum runs once over them all (the same sums as one group)."""
+        experts, e = self._experts(), self.num_experts
+        g = self.group(cap)
+        src = self._sources(idx, slot, cap)
+        got = None
+        for g0 in range(0, e, g):
+            g1 = min(e, g0 + g)
+            inside = (idx >= g0) & (idx < g1)
+            buf = self._dispatch(rows, idx - g0, slot, keep & inside, cap,
+                                 g1 - g0)
+            out = experts.apply_deploy(_experts_of(ep, g0, g1),
+                                       **{key: buf})
+            part = out.reshape(-1, out.shape[-1]).index_select(
+                0, (src - g0 * cap).clamp(0, (g1 - g0) * cap - 1))
+            got = part if got is None else torch.where(
+                inside.reshape(-1, 1), part, got)
+        return self._weigh(got, gates, keep)
+
     def _claimed(self, ep: Params, key: str, buf: torch.Tensor,
                  src: torch.Tensor) -> torch.Tensor:
         """The expert stack's outputs (N * k, d) at the claims' buffer
@@ -633,49 +778,150 @@ class BinaryMoE:
         return sharding.decode_split(w1).mesh.all_reduce(
             got, "model").to(self.dtype)
 
+    def _exchanged(self, ep: Params, split: sharding.Split) -> bool:
+        """Does the QAT face send the claims to their experts' ranks: an
+        expert-parallel stack whose leaves lie split on their experts
+        along "model" (placed ``sharding.Gathered`` leaves), on a sequence
+        ``split`` splits?"""
+        pl = getattr(ep["w1"]["w_latent"], "placement", None)
+        return (self.expert_parallel and split.seq and split.width > 1 and
+                pl is not None and pl.dims.get("model") == 0)
+
+    def _expert_parallel(self, ep: Params, x2: torch.Tensor,
+                         gates: torch.Tensor, idx: torch.Tensor,
+                         keep: torch.Tensor,
+                         split: sharding.Split) -> torch.Tensor:
+        """The QAT face of an expert stack split by expert over "model"
+        (``_exchanged``), on this rank's rows ``x2`` (N, d) -> (N, d)
+        float32 combined.  The rows' signs are taken here; each kept claim
+        goes to its expert's rank as sign bits (``sharding.to_experts``:
+        rank j's share padded to the static bound min(k N, (E / m) min(N,
+        C)) rows), which places the claims it gets at rows of its own
+        experts' buffer ((E / m, min(m N, C), d): the data index's claims
+        on an expert, in the order they come) and runs its experts on it
+        (``BinaryFFN.apply_experts``, the leaves gathered over the data
+        axes only); each claim's float32 output row comes back
+        (``sharding.from_experts``) and the gates weigh it here.  The
+        gradients travel the other way."""
+        experts, e, k = self._experts(), self.num_experts, self.top_k
+        m, n, dev = split.width, x2.shape[0], x2.device
+        em = e // m
+        cap = self.capacity(n * sharding.claim_shares(split)[2])
+        bound = min(k * n, em * min(n, cap))
+        sc = experts.scales(ep)
+        s = experts.signs(ep, x2, sc)
+        # each kept claim's slot among those for its expert's rank
+        dest = (idx // em).reshape(-1)
+        kept = keep.reshape(-1)
+        to = ((dest[:, None] == torch.arange(m, device=dev)) &
+              kept[:, None]).to(torch.int32)
+        pos = torch.gather(torch.cumsum(to, 0, dtype=torch.int32) - 1, 1,
+                           dest[:, None])[:, 0]
+        slot = torch.where(kept, dest * bound + pos, m * bound).long()
+        src = torch.full((m * bound + 1,), n, dtype=torch.long,
+                         device=dev).index_copy_(
+            0, slot, torch.arange(n * k, device=dev) // k)[:-1]
+        tags = torch.full((m * bound + 1,), em, dtype=torch.int32,
+                          device=dev).index_copy_(
+            0, slot, (idx % em).reshape(-1).to(torch.int32))[:-1]
+        got, got_tags = sharding.to_experts(s, src, tags.reshape(m, bound),
+                                            split)
+        # the claims this rank's experts get, at rows of their buffer
+        rows = min(n * m, cap)
+        t = got_tags.reshape(-1).long()
+        onehot = (t[:, None] == torch.arange(em, device=dev)).to(torch.int32)
+        place = torch.gather(torch.cumsum(onehot, 0, dtype=torch.int32) - 1,
+                             1, t.clamp(max=em - 1)[:, None])[:, 0]
+        at = torch.where(t < em, t * rows + place, em * rows)
+        buf = got.new_zeros((em * rows + 1, got.shape[-1])).index_copy(
+            0, at, got.reshape(-1, got.shape[-1]))
+        out = experts.apply_experts(ep, buf[:em * rows].view(em, rows, -1),
+                                    split, sc)
+        back = sharding.from_experts(out.reshape(em * rows, -1), at, slot,
+                                     split)
+        return self._weigh(back, gates, keep)
+
     # -- faces ---------------------------------------------------------------
 
-    def apply(self, params: Params, x: torch.Tensor
+    @staticmethod
+    def _segments(x: torch.Tensor) -> int:
+        """The segments of a face's input (B, S, d): its batch rows (one
+        for rows (N, d))."""
+        return x.shape[0] if x.dim() == 3 else 1
+
+    def apply(self, params: Params, x: torch.Tensor,
+              split: sharding.Split = sharding.WHOLE
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """QAT forward: x (..., d) -> (y (..., d) in ``dtype``,
         {"moe_aux_loss": the load-balance loss}).  Capacity, top-k,
         dispatch and combine are the deploy face's; the experts run their
-        QAT face on the (E, C, d) buffer of fp rows."""
+        QAT face on the (E, C, d) buffer of fp rows.
+
+        ``split`` (``sharding.Split``; ``Block.qat``'s): ``x`` (B, S, d)
+        is this rank's block of the sequence, routed here (``_route``: its
+        own claims, at the global capacity and slots), and ``params`` may
+        hold ``sharding.Gathered`` leaves.  The experts run on this rank's
+        buffer with their +-1 weights gathered whole as sign bits, or, an
+        expert-parallel stack split over "model", on the experts' ranks
+        (``_expert_parallel``); a ``residual`` FFN takes the column split
+        of a dense FFN (``BinaryFFN.apply``)."""
         shape = x.shape
         x2 = x.reshape(-1, self.d_model)
-        gates, idx, slot, keep, cap = self._route(params, x2)
-        out_buf = self._experts().apply(
-            params["experts"], self._dispatch(x2, idx, slot, keep, cap))
-        y = self._combine(out_buf, gates, idx, slot, keep)
+        params = dict(params, router=sharding.materialize(params["router"]))
+        gates, idx, slot, keep, cap = self._route(params, x2, split,
+                                                  self._segments(x))
+        ep = params["experts"]
+        if self._exchanged(ep, split):
+            y = self._expert_parallel(ep, x2, gates, idx, keep, split)
+        else:
+            out_buf = self._experts().apply(
+                ep, self._dispatch(x2, idx, slot, keep, cap))
+            y = self._combine(out_buf, gates, idx, slot, keep)
         if self.dense_residual:
-            y = y + self._residual_ffn().apply(params["residual"], x2)
-        aux = {"moe_aux_loss": self._aux_loss(params, x2)}
+            y = y + self._residual_ffn().apply(
+                params["residual"], x, split=split).reshape(y.shape)
+        aux = {"moe_aux_loss": self._aux_loss(params, x2, split)}
         return y.reshape(shape).to(self.dtype), aux
 
-    def apply_deploy(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def apply_deploy(self, params: Params, x: torch.Tensor,
+                     split: Optional[sharding.Split] = None) -> torch.Tensor:
         """Deploy forward: route (the router whole), dispatch, the expert
-        stack on its buffers, the gated combine.  On a mesh (placed
+        stack on its buffers (``_stack``: whole weights, in groups of
+        experts), the gated combine.  On a split prefill (``split``,
+        ``sharding.prefill_split``; the params gathered whole) ``x`` (B,
+        S, d) holds this rank's block of the sequence, routed at the
+        global capacity and slots (``_route``).  On a mesh decode (placed
         params) only the claims' rows of the stack's outputs are kept
-        (``take``), and the stack runs on this rank's block: split on its
+        (``take``), the buffers keep the global batch's C rows an expert,
+        and the stack runs on this rank's block: split on its
         rows and words as a dense FFN (``BinaryFFN.apply_deploy``), or by
         expert (``expert_parallel``): this rank's experts' buffers run
         whole, each claim takes its expert's rank's row and zeros on the
         others, and the float32 rows are summed over "model" (exact: one
         term of each is not zero)."""
-        shape = x.shape
+        shape, split = x.shape, split or sharding.WHOLE
         x2 = x.reshape(-1, self.d_model)
-        gates, idx, slot, keep, cap = self._route(params, x2)
-        experts, ep = self._experts(), params["experts"]
+        gates, idx, slot, keep, cap = self._route(params, x2, split,
+                                                  self._segments(x))
+        ep = params["experts"]
         rows = (act_bits_packed(x2, ep["act_beta"]) if self.dispatch_bits
                 else x2)
-        buf = self._dispatch(rows, idx, slot, keep, cap)
         key = "bits" if self.dispatch_bits else "x"
         if getattr(ep["w1"]["w_packed"], "placement", None) is None:
-            y = self._combine(experts.apply_deploy(ep, **{key: buf}), gates,
-                              idx, slot, keep)
+            y = self._stack(ep, key, rows, gates, idx, slot, keep, cap)
         else:
+            # a decode step keeps its buffers of C rows an expert
+            cap = self.capacity(x2.shape[0] * sharding.claim_shares(split)[2])
+            buf = self._dispatch(rows, idx, slot, keep, cap)
             y = self._weigh(self._claimed(ep, key, buf, self._sources(
                 idx, slot, cap)), gates, keep)
         if self.dense_residual:
             y = y + self._residual_ffn().apply_deploy(params["residual"], x2)
         return y.reshape(shape).to(self.dtype)
+
+
+def _experts_of(ep: Params, e0: int, e1: int) -> Params:
+    """Experts [e0, e1) of an expert stack's deploy params (views; the
+    shared activation scales as they are)."""
+    return {k: tree.map(lambda t: t[e0:e1], v) if k in ("w1", "w2", "w3")
+            else v for k, v in ep.items()}

@@ -127,9 +127,11 @@ class _OnMesh:
     attention on the rank's query heads over the whole sequence
     (``SPSAttention.deploy_prefill(split=)``), the embedding and the head
     on whole tables or on vocabulary blocks, whichever moves fewer bytes
-    (``vocab_blocks``); a stack with a recurrent block or a MoE, or a
-    length "model" does not divide into whole-word blocks, runs every
-    block whole on every rank.  ``decode_step`` splits
+    (``vocab_blocks``), a MoE on the rank's positions at the global
+    batch's capacity and slots (``BinaryMoE.apply_deploy``, its experts
+    in groups); a stack with a recurrent block, or a length "model" does
+    not divide into whole-word blocks, runs every block whole on every
+    rank.  ``decode_step`` splits
     its compute as the specs place the state (``decode_params``,
     ``decode_cache``): each binary product runs on this rank's block of
     its weight (``linear.rbmm_placed``), attention on this rank's heads
@@ -248,7 +250,8 @@ class _OnMesh:
             else t for path, t in tree.leaves_with_paths(p)])
 
     def context(self):
-        """The MoE's routing over the global batch where rows are split."""
+        """The MoE's routing over the global batch where rows are split
+        (``BinaryMoE._route`` reads the data axes from it)."""
         if self.skip and self.mesh.data_size > 1:
             return sharding.activation_sharding(
                 self.mesh, sharding.data_axes(self.mesh))
@@ -658,9 +661,10 @@ class LMModel:
             x = x.to(torch.promote_types(x.dtype, top["frontend"][
                 "kernel"].dtype))
         positions = torch.arange(lo, hi, device=x.device)[None, :]
-        for blk, bp in zip(self._blocks(), layers):
-            x, _ = blk.deploy_prefill(on.params(bp), x, positions=positions,
-                                      split=split)
+        with on.context():
+            for blk, bp in zip(self._blocks(), layers):
+                x, _ = blk.deploy_prefill(on.params(bp), x,
+                                          positions=positions, split=split)
         return on.logits(self, top, x, blocks)
 
     def prefill_with_cache(self, dparams: Params, tokens: torch.Tensor, *,

@@ -23,9 +23,10 @@ stream of n positions):
     binary values then go to the ranks whose positions they are
     (``to_rows``: an all-to-all of packed bits), and ``wo`` and ``w2``
     multiply this rank's positions by their whole weights;
-  * what still computes whole (recurrent cells, the Mamba branch, the
-    MoE) runs on the gathered sequence and keeps this rank's rows
-    (``seq_local``).
+  * what still computes whole (recurrent cells, the Mamba branch) runs
+    on the gathered sequence and keeps this rank's rows (``seq_local``);
+    a MoE routes and runs this rank's positions (``claim_offsets``,
+    ``to_experts``, ``from_experts``).
 Each is an ``autograd.Function``: an all-gather's backward is a
 reduce-scatter, an all-to-all's the all-to-all back; the column products
 that read a gathered input (``col_product``: ``wq``/``wk``/``wv``,
@@ -39,10 +40,10 @@ the gradient's reduction).  At a "model" axis of one every one of them
 is the identity, and the code path is the one a single device runs.  What
 the port's model asks of the context on a data axis wider than one:
   * ``batch_sum`` — a count over the global batch (the loss's number of
-    valid labels, with ``seq=True`` over the ranks' sequence blocks too;
-    the MoE's first choices per expert);
-  * ``batch_gather`` — rows of every data index, in global row order (the
-    MoE's expert choices, for capacity slots in global token order);
+    valid labels, with ``seq=True`` over the ranks' sequence blocks too);
+  * ``claim_shares`` / ``claim_offsets`` — the shares of a MoE's batch and
+    its claims' global slots from every share's counts (in global token
+    order: the capacity and the slots of the global batch);
   * ``materialize`` / ``columns`` — a layer's params gathered whole, or on
     this rank's range, where the layer runs (``Gathered`` leaves: the
     port's just-in-time all-gather of FSDP-sharded params, which XLA
@@ -148,13 +149,6 @@ def _split_mesh():
     return ctx[0]
 
 
-def batch_split() -> Tuple[int, int]:
-    """(this rank's data index, the number of data indices) of the batch
-    split in force; (0, 1) outside one."""
-    mesh = _split_mesh()
-    return (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
-
-
 def batch_sum(t: torch.Tensor, seq: bool = False) -> torch.Tensor:
     """``t`` summed over the data indices (no gradient); with ``seq`` also
     over "model" where the compute is split along it, whose ranks count
@@ -165,14 +159,6 @@ def batch_sum(t: torch.Tensor, seq: bool = False) -> torch.Tensor:
     if not axes:
         return t
     return current()[0].all_reduce(t.detach().clone(), axes)
-
-
-def batch_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every data index's ``t`` concatenated on dim 0 in data order: the
-    global batch's rows (no gradient)."""
-    mesh = _split_mesh()
-    return t if mesh is None else mesh.all_gather(t.detach(), batch_axes(),
-                                                  0)
 
 
 # ---------------------------------------------------------------------------
@@ -744,3 +730,151 @@ def gather_bool(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     every = mesh.all_gather(t.to(torch.uint8).contiguous(), axes,
                             t.dim() - 1)
     return packing.pack_bits(every.bool())
+
+
+# ---------------------------------------------------------------------------
+# The MoE on a mesh: each rank routes its own positions.  A claim's slot on
+# its expert is its place among the global batch's claims on that expert in
+# token order (data index, batch row, block of the sequence, position, then
+# the k choices), which per-segment counts give (``claim_offsets``: a
+# segment is one batch row's block of the sequence).  Expert-parallel
+# stacks send their claims to the experts' ranks and back
+# (``to_experts``, ``from_experts``: all-to-alls along "model").
+# ---------------------------------------------------------------------------
+
+
+def claim_shares(split: Split = WHOLE) -> Tuple[Any, Tuple[str, ...], int]:
+    """(mesh, axes, shares) of a MoE's batch: the axes whose ranks hold
+    other shares of the global batch's positions (the data axes where the
+    context splits the batch, then "model" where ``split`` splits the
+    sequence), the mesh that runs their collectives, and how many shares
+    the global batch holds; (None, (), 1) on one device, or where every
+    rank holds the whole batch."""
+    mesh = _split_mesh()
+    axes = batch_axes() if mesh is not None else ()
+    shares = mesh.data_size if mesh is not None else 1
+    if split.seq and split.width > 1:
+        mesh, axes, shares = split.mesh, axes + ("model",), \
+            shares * split.width
+    return mesh, axes, shares
+
+
+def claim_offsets(counts: torch.Tensor, split: Split = WHOLE,
+                  idx: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
+    """``counts`` (b, E) int32: the claims on each expert of this rank's b
+    segments, in row order (``idx``: the claims' experts, b equal
+    segments of rows) -> (b, E) int32: the global slot of each segment's
+    first claim on each expert less the claims on it of this rank's
+    earlier segments (a claim's global slot is its place among this
+    rank's claims on its expert plus its segment's offset).  Every share's
+    counts are all-gathered over the axes of ``claim_shares`` (no
+    gradient), or its claims' experts where those are fewer numbers (a
+    decode step's one position a row; every rank decides alike, from the
+    shapes), and their exclusive cumsum taken in global token order.
+    None where this rank holds the whole batch (every offset 0)."""
+    mesh, axes, shares = claim_shares(split)
+    if not axes:
+        return None
+    b, e = counts.shape
+    m = split.width if "model" in axes else 1
+    if idx is not None and idx.numel() < counts.numel():
+        ids = mesh.all_gather(idx.reshape(1, -1).to(torch.int32), axes, 0)
+        every = torch.nn.functional.one_hot(
+            ids.reshape(shares * b, -1).long(), e).sum(1, dtype=torch.int32)
+    else:
+        every = mesh.all_gather(counts.contiguous(), axes, 0)
+    # (data, model, row) as gathered -> (data, row, model): token order
+    every = every.reshape(shares // m, m, b, e).transpose(1, 2).reshape(
+        -1, e)
+    first = torch.cumsum(every, 0, dtype=torch.int32) - every
+    i = mesh.data_index if _split_mesh() is not None else 0
+    mine = first.reshape(shares // m, b, m, e)[i, :, split.index if m > 1
+                                                 else 0]
+    return mine - (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+
+
+class _ToExperts(torch.autograd.Function):
+    """+-1 rows (n, d) -> the claims each rank of "model" is sent (m, c,
+    d) and their int32 tags (m, c): rank j gets the rows ``src`` (m * c,)
+    picks for it (n: a zero row, padding), as packed sign bits, one
+    all-to-all with the tags as one more word.  Backward: the float32
+    gradient of what each rank received sent back (an all-to-all) and
+    added onto the rows it came from."""
+
+    @staticmethod
+    def forward(ctx, s, src, tags, split):
+        ctx.split, ctx.n, ctx.dtype = split, s.shape[0], s.dtype
+        ctx.save_for_backward(src)
+        m, d = split.width, s.shape[1]
+        words = to_words(s, True)
+        words = torch.cat([words, words.new_zeros((1, words.shape[1]))])
+        sent = torch.cat([words.index_select(0, src).reshape(m, -1,
+                                                             words.shape[1]),
+                          tags[..., None]], -1)
+        got = split.mesh.all_to_all(sent.contiguous(), "model")
+        got_tags = got[..., -1].contiguous()
+        ctx.mark_non_differentiable(got_tags)
+        return from_words(got[..., :-1], d, True, s.dtype), got_tags
+
+    @staticmethod
+    def backward(ctx, g, _):
+        src, = ctx.saved_tensors
+        back = ctx.split.mesh.all_to_all(g.to(torch.float32).contiguous(),
+                                         "model")
+        out = back.new_zeros((ctx.n + 1, back.shape[-1])).index_add_(
+            0, src, back.reshape(-1, back.shape[-1]))
+        return out[:ctx.n].to(ctx.dtype), None, None, None
+
+
+def to_experts(s: torch.Tensor, src: torch.Tensor, tags: torch.Tensor,
+               split: Split) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``s`` (n, d): +-1 values of this rank's rows; ``src`` (m * c,): the
+    row each of the m * c slots carries to rank slot // c (n: none);
+    ``tags`` (m, c) int32, one a slot -> (the +-1 values every rank of
+    "model" sent this one (m, c, d), row j from rank j; their tags (m,
+    c)).  Differentiable in ``s``."""
+    return _ToExperts.apply(s, src, tags, split)
+
+
+class _FromExperts(torch.autograd.Function):
+    """Expert outputs (r, d) -> the claims' rows (q,) of what each rank of
+    "model" sent back, float32: ``rows`` (m * c,) picks each slot's output
+    row for the rank that sent the slot (r: a zero row), one all-to-all;
+    ``claims`` (q,) then picks each claim's slot (m * c: a zero row).
+    Backward: the claims' float32 gradient placed at their slots, sent
+    back, and added onto the output rows."""
+
+    @staticmethod
+    def forward(ctx, out, rows, claims, split):
+        ctx.split, ctx.r, ctx.dtype = split, out.shape[0], out.dtype
+        ctx.save_for_backward(rows, claims)
+        d = out.shape[1]
+        y = torch.cat([out.to(torch.float32), out.new_zeros((1, d),
+                                                            dtype=torch.float32)])
+        got = split.mesh.all_to_all(
+            y.index_select(0, rows).reshape(split.width, -1, d).contiguous(),
+            "model").reshape(-1, d)
+        got = torch.cat([got, got.new_zeros((1, d))])
+        return got.index_select(0, claims)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, claims = ctx.saved_tensors
+        m, d = ctx.split.width, g.shape[1]
+        slots = g.new_zeros((rows.shape[0] + 1, d)).index_add_(
+            0, claims, g.to(torch.float32))[:-1]
+        back = ctx.split.mesh.all_to_all(slots.reshape(m, -1, d).contiguous(),
+                                         "model").reshape(-1, d)
+        out = back.new_zeros((ctx.r + 1, d)).index_add_(0, rows, back)
+        return out[:ctx.r].to(ctx.dtype), None, None, None
+
+
+def from_experts(out: torch.Tensor, rows: torch.Tensor, claims: torch.Tensor,
+                 split: Split) -> torch.Tensor:
+    """``out`` (r, d): this rank's expert outputs; ``rows`` (m * c,): for
+    each slot of what rank slot // c sent (``to_experts``), its output row
+    (r: none); ``claims`` (q,): each of this rank's claims' slot in what
+    came back (m * c: none) -> (q, d) float32, each claim's expert output
+    (zeros for none).  Differentiable in ``out``."""
+    return _FromExperts.apply(out, rows, claims, split)

@@ -14,9 +14,11 @@ vocabulary blocks), gemma (local/global windows and the ``row`` threshold
 table, on vocabulary blocks), internvl2 (the frontend's patches among the
 positions), seamless (the encoder split too, cross-attention over the
 memory's KV heads) and bert (bidirectional, the blocked ReLU F1 through
-``rbmm_binary``).  A length that "model" does not divide into whole-word
-blocks, mixtral (a MoE) and hymba (the Mamba branch) run the whole route,
-bitwise too.  The positions <-> heads exchange round-trips exactly, and
+``rbmm_binary``) and mixtral (a MoE: each rank routes its positions at
+the global batch's capacity and slots; a MoE's whole route is
+``test_torch_dist_moe_split.py``'s).  A length that "model" does not
+divide into whole-word blocks and hymba (the Mamba branch) run the whole
+route, bitwise too.  The positions <-> heads exchange round-trips exactly, and
 every rank runs as many collectives.  The CLI that compares the two
 faces on a process group (``launch/mesh_prefill.py``) runs under
 torchrun.  smollm's mesh prefill at (1, 2)
@@ -49,8 +51,8 @@ PARITY_B = 2
 EXCHANGES = [(9, 3, 64), (5, 5, 32), (3, 1, 32)]
 SPLIT = ("smollm-135m", "granite-3-2b", "qwen1.5-32b", "qwen vocab blocks",
          "gemma row table", "internvl2-76b", "seamless-m4t-large-v2",
-         "bert-base-cobra")
-WHOLE = ("smollm whole length", "mixtral-8x22b", "hymba-1.5b")
+         "bert-base-cobra", "mixtral-8x22b")
+WHOLE = ("smollm whole length", "hymba-1.5b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,9 +123,9 @@ def test_vocabulary_blocks_where_the_tables_cost_more():
 
 @pytest.mark.parametrize("name", WHOLE)
 def test_whole_route_equals_one_device(name):
-    """A length 4 ranks would cut into blocks of 25 positions, a MoE and
-    the Mamba branch: every block whole on every rank, the logits this
-    rank's rows, bitwise."""
+    """A length 4 ranks would cut into blocks of 25 positions and the
+    Mamba branch: every block whole on every rank, the logits this rank's
+    rows, bitwise."""
     for shape, r, res in _cases(name):
         assert res["equal"], f"{name} at {shape}: rank {r}"
         assert res["model_dim"] is None

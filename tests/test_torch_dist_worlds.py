@@ -81,8 +81,8 @@ class Drops:
         self.dropped, orig = 0, ffn.BinaryMoE._route
         self._orig = orig
 
-        def route(moe, params, x2):
-            out = orig(moe, params, x2)
+        def route(moe, params, x2, *args):
+            out = orig(moe, params, x2, *args)
             self.dropped += int((~out[3]).sum())
             return out
         ffn.BinaryMoE._route = route

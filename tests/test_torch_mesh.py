@@ -210,8 +210,9 @@ def test_constrain_returns_x_in_and_out_of_a_context():
     with sharding.activation_sharding(mesh, ("data",)):
         assert sharding.constrain(x, "batch", "model") is x
         assert sharding.current() == (mesh, ("data",))
-        assert sharding.batch_split() == (0, 1)
-        assert sharding.batch_sum(x) is x and sharding.batch_gather(x) is x
+        assert sharding.claim_shares() == (None, (), 1)
+        assert sharding.batch_sum(x) is x
+        assert sharding.claim_offsets(x.int()) is None
         leaf = sharding.Gathered(x, lambda t: t * 2)
         assert torch.equal(sharding.materialize({"w": leaf})["w"], 2 * x)
     assert sharding.current() is None

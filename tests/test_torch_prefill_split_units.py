@@ -71,8 +71,8 @@ def test_the_split_rule_takes_whole_word_blocks():
 
 def test_the_blocks_a_prefill_splits():
     for arch, split in (("smollm-135m", True), ("gemma3-27b", True),
-                        ("bert-base-cobra", True), ("mixtral-8x22b", False),
-                        ("arctic-480b", False), ("hymba-1.5b", False),
+                        ("bert-base-cobra", True), ("mixtral-8x22b", True),
+                        ("arctic-480b", True), ("hymba-1.5b", False),
                         ("xlstm-350m", False)):
         cfg = base.get_smoke_config(arch)
         model = build_model(cfg)
@@ -187,7 +187,8 @@ def test_the_logits_carry_their_block():
     for arch, over, dim, vocab in (
             ("smollm-135m", {}, 1, 256),
             ("qwen1.5-32b", {"vocab_size": 4096}, 2, 4096),
-            ("internvl2-76b", {}, 1, 256), ("mixtral-8x22b", {}, None, 256)):
+            ("internvl2-76b", {}, 1, 256), ("mixtral-8x22b", {}, 1, 256),
+            ("hymba-1.5b", {}, None, 256)):
         _, lg = _prefill_trace(arch, (2, 4), **over)
         pl = mesh_lib.placement_of(lg)
         assert pl.dims.get("data") == 0 and pl.dims.get("model") == dim
